@@ -1,0 +1,195 @@
+"""Offset-addressable deterministic sampling over one loaded model
+(counterpart of ``fed_tgan_tpu/serve/engine.py:148-476``).
+
+Determinism contract: rows form a virtual stream addressed by
+``(seed, row_offset)``.  Step ``s`` (``batch_size`` rows) of stream
+``seed`` draws its noise, conditional vectors and Gumbel uniforms from a
+``torch.Generator`` on the model's device seeded from
+``(seed + key_offset, s)`` alone, so N rows fetched in K chunks are
+byte-identical to one N-row request.  The draws differ from the JAX
+package's (torch's generators are not JAX's), so the two streams agree
+in law, not in value; the tests inject the JAX draws through ``draws=``
+to compare values.
+
+A request is cut into chunks of ``max_chunk_steps`` steps plus a
+power-of-two tail (``_chunk_plan``, as in JAX).  A chunk runs the
+generator over fixed ``batch_size``-row blocks (one matrix-product shape
+whatever the chunk size, so a row never depends on its neighbours), then
+the activation kernel once over all the chunk's rows, then the layout
+decode, and copies the (rows, n_columns) result to the host.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from fed_tgan_torch.data.csvio import csv_bytes
+from fed_tgan_torch.data.decode import decode_columns
+from fed_tgan_torch.features.transformer import DiscreteColumn
+from fed_tgan_torch.ops.decode import decode_tables, layout_decode, tables_to
+from fed_tgan_torch.serve.registry import LoadedModel
+from fed_tgan_torch.train.steps import sample_step
+
+# draws(step) -> (z, cond_vec, u) numpy arrays for that step's rows
+Draws = Callable[[int], tuple]
+
+
+class ConditionError(ValueError):
+    """Unknown column / value for a conditional sampling request."""
+
+
+def _pow2(n: int) -> int:
+    b = 1
+    while b < n:
+        b <<= 1
+    return b
+
+
+def step_seed(stream: int, step: int) -> int:
+    """The 64-bit generator seed of one step of one stream."""
+    seq = np.random.SeedSequence([stream % 2**64, step])
+    return int(seq.generate_state(1, np.uint64)[0])
+
+
+class SamplingEngine:
+    """Deterministic sampling over one :class:`LoadedModel`, on the
+    device the model was loaded onto."""
+
+    def __init__(self, model: LoadedModel, max_chunk_steps: int = 128):
+        self.model = model
+        self.max_chunk_steps = max_chunk_steps
+        synth = model.synth
+        self.device = synth.device
+        self.spec, self.cfg = synth.spec, synth.cfg
+        self._tables = tables_to(decode_tables(synth.columns), self.device)
+        # one generator reseeded per step; the lock keeps two callers from
+        # interleaving reseeds
+        self._gen = torch.Generator(device=self.device)
+        self._lock = threading.Lock()
+
+    def _chunk_plan(self, first_step: int, total_steps: int):
+        """(start_step, n_steps) chunks covering ``total_steps`` from
+        ``first_step``: full ``max_chunk_steps`` blocks, then a power-of-two
+        tail."""
+        plan, start = [], first_step
+        end = first_step + total_steps
+        while start < end:
+            remaining = end - start
+            steps = (self.max_chunk_steps if remaining >= self.max_chunk_steps
+                     else min(_pow2(remaining), self.max_chunk_steps))
+            plan.append((start, steps))
+            start += steps
+        return plan
+
+    # -------------------------------------------------------------- draws
+
+    def _draw(self, stream: int, start: int, steps: int,
+              condition: Optional[int], draws: Optional[Draws]):
+        """(z, cond_vec, u) for ``steps`` steps from ``start``."""
+        B, emb, spec = self.cfg.batch_size, self.cfg.embedding_dim, self.spec
+        cond = self.model.synth.cond
+        zs, cs, us = [], [], []
+        for s in range(start, start + steps):
+            if draws is not None:
+                z, c, u = (None if a is None else torch.tensor(
+                    np.asarray(a), dtype=torch.float32, device=self.device)
+                    for a in draws(s))
+            else:
+                g = self._gen.manual_seed(step_seed(stream, s))
+                z = torch.randn((B, emb), generator=g, device=self.device)
+                c = None
+                if spec.n_discrete and condition is None:
+                    c = cond.sample_empirical(B, g)
+                u = torch.rand((B, spec.dim), generator=g, device=self.device)
+            if spec.n_discrete and condition is not None:
+                c = cond.onehot(torch.full((B,), condition, dtype=torch.long,
+                                           device=self.device))
+            zs.append(z)
+            cs.append(c)
+            us.append(u)
+        cond_vec = torch.cat(cs) if spec.n_discrete else None
+        return torch.cat(zs), cond_vec, torch.cat(us)
+
+    # ----------------------------------------------------------- sampling
+
+    def resolve_condition(self, column: str, value) -> int:
+        """(column name, raw category value) -> conditional-vector position."""
+        meta = self.model.meta
+        columns = self.model.synth.columns
+        names = list(meta.column_names)
+        if len(names) != len(columns):
+            raise ConditionError(
+                f"conditional sampling unsupported: encoded layout has "
+                f"{len(columns)} columns but the meta {len(names)}")
+        if column not in names:
+            raise ConditionError(f"unknown column {column!r} (have {names})")
+        idx = names.index(column)
+        tcol = columns[idx]
+        if not isinstance(tcol, DiscreteColumn):
+            raise ConditionError(
+                f"column {column!r} is continuous; conditional sampling "
+                "fixes a DISCRETE column to one of its options")
+        cats = list(meta.categorical_columns)
+        if column not in cats:
+            raise ConditionError(f"column {column!r} has no encoder")
+        enc = self.model.encoders[cats.index(column)]
+        try:
+            code = int(enc.transform([value])[0])
+        except ValueError:
+            try:  # HTTP query params arrive as strings; retry coerced
+                code = int(enc.transform([str(value)])[0])
+            except ValueError as exc:
+                raise ConditionError(str(exc)) from None
+        slots = np.flatnonzero(np.asarray(tcol.codes) == code)
+        if not len(slots):
+            raise ConditionError(
+                f"value {value!r} of column {column!r} never occurred in "
+                "training data (no generator slot)")
+        # every softmax segment is one transformer column, in column order
+        return int(self.spec.cond_offsets[idx]) + int(slots[0])
+
+    def _chunks(self, n: int, seed: int, offset: int,
+                condition: Optional[int], draws: Optional[Draws], decode: bool):
+        if n <= 0:
+            raise ValueError(f"n={n}: need at least one row")
+        if offset < 0:
+            raise ValueError(f"offset={offset}: must be >= 0")
+        B = self.cfg.batch_size
+        first_step, skip = divmod(offset, B)
+        total_steps = -(-(skip + n) // B)
+        stream = seed + self.model.synth.key_offset
+        out = []
+        for start, steps in self._chunk_plan(first_step, total_steps):
+            with self._lock:
+                z, c, u = self._draw(stream, start, steps, condition, draws)
+            enc = sample_step(self.model.synth.generator, self.spec, z, c, u,
+                              block_rows=B)
+            res = layout_decode(enc, self._tables) if decode else enc
+            out.append(res.cpu().numpy())
+        return np.concatenate(out, axis=0)[skip:skip + n]
+
+    def sample_encoded(self, n: int, seed: int = 0, offset: int = 0,
+                       condition: Optional[int] = None,
+                       draws: Optional[Draws] = None) -> np.ndarray:
+        """Rows [offset, offset + n) of stream ``seed`` as activated
+        encoded rows (n, spec.dim) float32.  ``draws`` (tests only)
+        replaces the generator draws of each step."""
+        return self._chunks(n, seed, offset, condition, draws, decode=False)
+
+    def sample_decoded(self, n: int, seed: int = 0, offset: int = 0,
+                       condition: Optional[int] = None,
+                       draws: Optional[Draws] = None) -> np.ndarray:
+        """The same rows as the numeric (n, n_columns) float32 matrix."""
+        return self._chunks(n, seed, offset, condition, draws, decode=True)
+
+    def sample_csv_bytes(self, n: int, seed: int = 0, offset: int = 0,
+                         condition: Optional[int] = None, header: bool = True,
+                         draws: Optional[Draws] = None) -> bytes:
+        """The same rows as CSV bytes (header line optional)."""
+        mat = self.sample_decoded(n, seed, offset, condition, draws)
+        cols = decode_columns(mat, self.model.meta, self.model.encoders)
+        return csv_bytes(cols, header=header)
