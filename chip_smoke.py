@@ -5,25 +5,42 @@
 
 Phases, each fatal on failure:
 
-1. build the fused activation kernel (``fed_tgan_torch/csrc/activate.cu``)
-   with nvcc for sm_90a;
-2. hold the kernel against its plain PyTorch version on the card at the
-   serving shapes (500 and 64,000 rows of the 282-wide Intrusion layout,
-   the 8,000-row chunk of phase 4, 5 rows, and a distant-dim underflow
-   case) within atol 1e-5, and time both with CUDA events;
-3. build a full-width Intrusion-shaped artifact with random weights from
-   ``--seed`` (embedding 128, generator (256, 256), batch 500);
-4. serve it over HTTP on localhost on the card and answer: N rows
-   unconditional (several times), the same rows in 3 offset-contiguous
-   chunks (must be byte-identical), one conditional request and
-   ``/healthz``; every status 200, every row count right, every number
-   finite; the kernel's launch count must rise during this phase;
-5. hold the card's output against the CPU's on the same injected draws;
-6. time the stages of one request (draws, generator, activation, decode
-   and copy to the host, CSV) one by one.
+1. build the fused activation kernels (``fed_tgan_torch/csrc/activate.cu``:
+   K1 forward, K2 backward) with nvcc for sm_90a;
+2. hold K1 against its plain PyTorch version on the card at the serving
+   and training shapes (500 and 64,000 rows of the 282-wide Intrusion
+   layout, the 8,000-row chunk of phase 4, 5 rows, and a distant-dim
+   underflow case) within atol 1e-5, and time both with CUDA events;
+3. the same for K2 (5, 500, 8,000 and 64,000 rows, a 70-wide segment, and
+   ``out`` from K1 on the underflow case), then the gradient of
+   ``sum(w * activation(x))`` through K1 + K2 against autograd through the
+   plain forward;
+4. serving, slice 1's main path: build a full-width Intrusion-shaped
+   artifact with random weights from ``--seed`` (embedding 128, generator
+   (256, 256), batch 500), serve it over HTTP on localhost on the card and
+   answer N rows unconditional (several times), the same rows in 3
+   offset-contiguous chunks (must be byte-identical), one conditional
+   request and ``/healthz``; every status 200, every row count right,
+   every number finite; K1 must launch; then the card's output against
+   the CPU's on the same injected draws, and the stages of one request
+   (draws, generator, activation, decode and copy to the host, CSV);
+5. training, slice 2's main path: the standalone CTGAN at full width
+   (``TrainConfig()`` defaults, pac 10) on a 10,000-row Intrusion-shaped
+   table for 2 epochs of 20 steps: finite losses, weights moved, K1
+   launched ``epochs * steps * (d_steps + 1)`` times and K2
+   ``epochs * steps`` times;
+6. one train step on the card against the same step on the CPU, from
+   identical weights and injected draws;
+7. the trained model saved as an artifact, opened on the card and sampled
+   one-shot and in 3 offset chunks (byte-identical), known codes only;
+8. the stages of one train step (draws, D step, G forward, G backward
+   with K2, Adam on G) one by one, then 20 steps back to back, then 20
+   steps under ``torch.profiler`` for the card's busy time per step.
 
-Prints the card's name and power limit beside every number, one JSON
-line with the kernel's numbers, and last
+Prints the card's name and power limit beside every number, a JSON line
+with the training numbers, the card's line, a JSON line with the kernels'
+numbers (one entry per kernel and path: K1 serving, K1 training, K2
+training), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no result line, when CUDA is not available.
 """
@@ -50,26 +67,45 @@ import torch
 
 from fed_tgan_torch.data.csvio import csv_bytes
 from fed_tgan_torch.data.decode import decode_columns
-from fed_tgan_torch.features.transformer import output_info
+from fed_tgan_torch.features.transformer import DiscreteColumn, output_info
+from fed_tgan_torch.interop import params_to_jax_layout
 from fed_tgan_torch.ops import activate_cuda
-from fed_tgan_torch.ops.activate_cuda import fused_apply_activate
+from fed_tgan_torch.ops.activate_cuda import (
+    fused_activate_bwd,
+    fused_apply_activate,
+)
 from fed_tgan_torch.ops.decode import layout_decode
-from fed_tgan_torch.ops.segments import SegmentSpec, apply_activate
-from fed_tgan_torch.serve.demo import build_random_artifact, intrusion_layout
+from fed_tgan_torch.ops.segments import (
+    SegmentSpec,
+    apply_activate,
+    apply_activate_bwd,
+)
+from fed_tgan_torch.serve.demo import (
+    build_random_artifact,
+    intrusion_layout,
+    intrusion_like_table,
+    write_artifact,
+)
 from fed_tgan_torch.serve.engine import SamplingEngine
 from fed_tgan_torch.serve.registry import open_model
 from fed_tgan_torch.serve.service import SamplingService
+from fed_tgan_torch.train import steps
+from fed_tgan_torch.train.sampler import CondSampler, RowSampler
+from fed_tgan_torch.train.standalone import StandaloneSynthesizer
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ATOL = 1e-5
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, dense float32 (non-tensor) rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
-# per element: the kernel reads x and u and writes out (4 bytes each), and
-# does about 10 float operations (2 logs, 1 exp, add, scale, max, subtract,
-# sum, divide, select)
+# per element K1 reads x and u and writes out (4 bytes each) and does about
+# 10 float operations (2 logs, 1 exp, add, scale, max, subtract, sum,
+# divide, select); K2 reads dy and out and writes dx and does about 5
+# (multiply-add into the segment sum, subtract, multiply, divide)
 BYTES_PER_ELEM = 12
-OPS_PER_ELEM = 10
+OPS_PER_ELEM = {"K1": 10, "K2": 5}
+TRAIN_ROWS = 10_000  # about the reference's Intrusion_test.csv (10,098 rows)
+TRAIN_EPOCHS = 2
 
 
 def gpu_line() -> str:
@@ -94,24 +130,29 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(rows: int, dim: int) -> tuple[float, str]:
+def bound_ms(rows: int, dim: int, kernel: str = "K1") -> tuple[float, str]:
     t_bytes = BYTES_PER_ELEM * rows * dim / PEAK_BYTES_PER_S * 1e3
-    t_ops = OPS_PER_ELEM * rows * dim / PEAK_F32_FLOPS * 1e3
+    t_ops = OPS_PER_ELEM[kernel] * rows * dim / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernel(spec: SegmentSpec, card: str) -> list[dict]:
+SIZES = (("rows500", 500), ("rows8000", 8000), ("rows64000", 64000),
+         ("rows5", 5))
+
+
+def check_kernel(spec: SegmentSpec, card: str, sizes=SIZES,
+                 underflow: bool = True) -> list[dict]:
     """Phase 2: the kernel against the plain version at each shape."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
-    for name, rows in (("rows500", 500), ("rows8000", 8000),
-                       ("rows64000", 64000), ("rows5", 5)):
+    for name, rows in sizes:
         x = torch.randn((rows, spec.dim), generator=gen, device="cuda") * 2.0
         cases.append((name, x))
-    x = torch.zeros((8, spec.dim), device="cuda")
-    x[:, 0] = 50.0  # a huge tanh pre-activation
-    x[:, 1] = 30.0  # one hot logit in the next softmax segment
-    cases.append(("underflow", x))
+    if underflow:
+        x = torch.zeros((8, spec.dim), device="cuda")
+        x[:, 0] = 50.0  # a huge tanh pre-activation
+        x[:, 1] = 30.0  # one hot logit in the next softmax segment
+        cases.append(("underflow", x))
     results = []
     for name, x in cases:
         rows = x.shape[0]
@@ -135,6 +176,309 @@ def check_kernel(spec: SegmentSpec, card: str) -> list[dict]:
     return results
 
 
+def check_bwd_kernel(spec: SegmentSpec, card: str, sizes=SIZES,
+                     extra: bool = True) -> list[dict]:
+    """Phase 3: K2 against its plain version at each shape (with
+    ``extra``: a 70-wide segment and ``out`` from K1 on the underflow
+    case), then the gradient through K1 + K2 against autograd through the
+    plain forward."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = []
+    for name, rows in sizes:
+        x = torch.randn((rows, spec.dim), generator=gen, device="cuda") * 2.0
+        cases.append((name, spec, x))
+    if extra:
+        wide = SegmentSpec.from_output_info(
+            [(1, "tanh"), (70, "softmax"), (1, "tanh"), (3, "softmax")])
+        cases.append(("wide70", wide, torch.randn((16, wide.dim), generator=gen,
+                                                  device="cuda") * 2.0))
+        x = torch.zeros((8, spec.dim), device="cuda")
+        x[:, 0] = 50.0
+        x[:, 1] = 30.0
+        cases.append(("underflow", spec, x))
+    results = []
+    for name, sp, x in cases:
+        rows = x.shape[0]
+        u = torch.rand(x.shape, generator=gen, device="cuda")
+        out = fused_apply_activate(x, sp, u)
+        dy = torch.randn(x.shape, generator=gen, device="cuda")
+        got = fused_activate_bwd(dy, out, sp)
+        want = apply_activate_bwd(dy, out, sp)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        iters = 20 if rows >= 64000 else 200
+        ms = cuda_ms(lambda: fused_activate_bwd(dy, out, sp), iters)
+        plain = cuda_ms(lambda: apply_activate_bwd(dy, out, sp), iters)
+        bound, bound_by = bound_ms(rows, sp.dim, "K2")
+        print(f"K2 {name}: ({rows}, {sp.dim}) max_abs_err {err!r} "
+              f"(atol {ATOL}) kernel {ms!r} ms plain {plain!r} ms bound "
+              f"{bound!r} ms ({bound_by})  [{card}]", flush=True)
+        if not err <= ATOL:
+            raise AssertionError(f"K2 {name}: max_abs_err {err} > {ATOL}")
+        results.append({"shape": [rows, sp.dim], "case": name,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                        "bound_ms": bound, "bound_by": bound_by})
+
+    # the gradient of sum(w * activation(x)) through the autograd Function
+    x = torch.randn((500, spec.dim), generator=gen, device="cuda") * 2.0
+    u = torch.rand(x.shape, generator=gen, device="cuda")
+    w = torch.randn(x.shape, generator=gen, device="cuda")
+    k1, k2 = fused_apply_activate.launches, fused_activate_bwd.launches
+    xg = x.clone().requires_grad_(True)
+    (w * fused_apply_activate(xg, spec, u)).sum().backward()
+    xp = x.clone().requires_grad_(True)
+    (w * apply_activate(xp, spec, u)).sum().backward()
+    torch.cuda.synchronize()
+    if (fused_apply_activate.launches - k1, fused_activate_bwd.launches - k2) \
+            != (1, 1):
+        raise AssertionError("the autograd path did not launch K1 and K2 once")
+    err = (xg.grad - xp.grad).abs().max().item()
+    print(f"K1+K2 autograd: d/dx sum(w * act(x)) at (500, {spec.dim}) vs "
+          f"autograd through the plain forward: max_abs_err {err!r} "
+          f"(atol {ATOL})  [{card}]", flush=True)
+    if not err <= ATOL:
+        raise AssertionError(f"activation gradient error {err} > {ATOL}")
+    results.append({"shape": [500, spec.dim], "case": "autograd",
+                    "max_abs_err": err})
+    return results
+
+
+def train_phase(seed: int, card: str):
+    """Phase 5: the standalone trainer at full width on the card."""
+    rows = TRAIN_ROWS
+    matrix, cat_idx, meta, encoders = intrusion_like_table(rows, seed)
+    cfg = steps.TrainConfig()
+    synth = StandaloneSynthesizer(cfg, seed=seed, device="cuda")
+    fused_apply_activate.launches = 0
+    fused_activate_bwd.launches = 0
+    synth.fit(matrix, cat_idx, epochs=TRAIN_EPOCHS)
+    launches = {"K1": fused_apply_activate.launches,
+                "K2": fused_activate_bwd.launches}
+    steps_per_epoch = rows // cfg.batch_size
+    total = TRAIN_EPOCHS * steps_per_epoch
+    want = {"K1": total * (cfg.d_steps + 1), "K2": total}
+    m = synth.metrics
+    epoch_ms = [t * 1e3 / steps_per_epoch for t in synth.timings["epoch_s"]]
+    print(f"train: {rows} x {matrix.shape[1]} table -> layout width "
+          f"{synth.spec.dim} (conditional {synth.spec.n_opt}), "
+          f"{TRAIN_EPOCHS} epochs x {steps_per_epoch} steps of "
+          f"{cfg.batch_size} rows; BGM fit {synth.timings['bgm_fit_s']!r} s; "
+          f"ms/step by epoch {epoch_ms!r}; last loss_d {m['loss_d']!r} pen "
+          f"{m['pen']!r} loss_g {m['loss_g']!r}; launches {launches} "
+          f"(expected {want})  [{card}]", flush=True)
+    if not all(math.isfinite(v) for v in m.values()):
+        raise AssertionError(f"non-finite training losses {m}")
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != {want}")
+    fresh = steps.init_models(synth.spec, cfg, seed, "cpu")
+    for name, a, b in (("generator", fresh.generator, synth.models.generator),
+                       ("discriminator", fresh.discriminator,
+                        synth.models.discriminator)):
+        if all(torch.equal(p, q.cpu()) for p, q in
+               zip(a.parameters(), b.parameters())):
+            raise AssertionError(f"the {name}'s weights did not move")
+    return synth, meta, encoders, {
+        "rows": rows, "dim": synth.spec.dim, "n_opt": synth.spec.n_opt,
+        "epochs": TRAIN_EPOCHS, "steps_per_epoch": steps_per_epoch,
+        "bgm_fit_s": synth.timings["bgm_fit_s"], "ms_per_step": epoch_ms[-1],
+        "ms_per_step_by_epoch": epoch_ms, "launches": launches, "losses": m}
+
+
+def _close(name, a, b, atol, rtol, skip=None) -> tuple[float, int]:
+    """Assert ``a`` close to ``b`` outside ``skip``; returns the worst
+    excess ``|a - b| - rtol |b|`` and the number of skipped entries."""
+    keep = np.ones(a.shape, dtype=bool) if skip is None else ~skip
+    diff = np.abs(a - b)[keep]
+    if diff.size and not (diff <= atol + rtol * np.abs(b[keep])).all():
+        raise AssertionError(f"{name}: card vs CPU max abs diff "
+                             f"{diff.max()} (atol {atol}, rtol {rtol})")
+    return float(diff.max()) if diff.size else 0.0, int((~keep).sum())
+
+
+def step_reference_phase(synth, seed: int, card: str) -> dict:
+    """Phase 6: one train step on the card against the CPU, from the same
+    initial weights and the same injected draws."""
+    train = synth.train_data.cpu().numpy()
+    spec, cfg = synth.spec, synth.cfg
+    draws = steps.draw_step(torch.Generator().manual_seed(seed + 2),
+                            steps.init_models(spec, cfg, seed + 1, "cpu"))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        models = steps.init_models(spec, cfg, seed + 1, dev)
+        met = steps.train_step(
+            models, torch.as_tensor(train, device=dev),
+            CondSampler.from_data(train, spec, dev),
+            RowSampler.from_data(train, spec, dev), draws.to(dev))
+        runs[dev] = ({k: float(v) for k, v in met.items()},
+                     params_to_jax_layout(models),
+                     params_to_jax_layout(models, of=lambda p: p.grad))
+    (met_c, par_c, grad_c), (met_h, par_h, grad_h) = runs["cuda"], runs["cpu"]
+    for k in met_h:
+        if not math.isclose(met_c[k], met_h[k], rel_tol=1e-4, abs_tol=1e-6):
+            raise AssertionError(f"{k}: card {met_c[k]} vs CPU {met_h[k]}")
+    flat = lambda tree: [np.asarray(x) for x in _leaves(tree)]
+    grad_err, par_err, skipped = 0.0, 0.0, 0
+    for part in ("params_g", "params_d"):
+        for gc, gh, pc, ph in zip(flat(grad_c[part]), flat(grad_h[part]),
+                                  flat(par_c[part]), flat(par_h[part])):
+            grad_err = max(grad_err, _close("gradient", gc, gh, 1e-5, 1e-3)[0])
+            # Adam's first update is g / (|g| + 1e-8): a gradient below
+            # 1e-6 may take the other sign on the other device
+            err, n = _close("parameter", pc, ph, 1e-6, 0.0,
+                            skip=np.abs(gh) < 1e-6)
+            par_err, skipped = max(par_err, err), skipped + n
+    print(f"train step: card vs CPU from the same weights and draws: losses "
+          f"{met_c} vs {met_h} (rtol 1e-4); gradients max abs diff "
+          f"{grad_err!r} (atol 1e-5 + rtol 1e-3); parameters max abs diff "
+          f"{par_err!r} (atol 1e-6) with {skipped} tiny-gradient entries set "
+          f"aside  [{card}]", flush=True)
+    return {"losses_card": met_c, "losses_cpu": met_h, "grad_max_diff":
+            grad_err, "param_max_diff": par_err, "tiny_grad_entries": skipped}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def serve_trained_phase(synth, meta, encoders, rows: int, seed: int,
+                        card: str) -> None:
+    """Phase 7: the trained model as an artifact, sampled on the card."""
+    build_root = os.path.join(REPO, "fed_tgan_torch", "_build")
+    os.makedirs(build_root, exist_ok=True)
+    art = tempfile.mkdtemp(prefix="chip_smoke_trained_", dir=build_root)
+    try:
+        write_artifact(art, synth.to_saved(), meta, encoders)
+        engine = SamplingEngine(open_model(art, device="cuda"))
+        one = engine.sample_csv_bytes(rows, seed=seed)
+        parts, done = [], 0
+        for i, n in enumerate((rows // 3, rows // 3, rows - 2 * (rows // 3))):
+            parts.append(engine.sample_csv_bytes(n, seed=seed, offset=done,
+                                                 header=i == 0))
+            done += n
+        if b"".join(parts) != one:
+            raise AssertionError("trained model: chunked bytes differ")
+        mat = engine.sample_decoded(rows, seed=seed)
+        for j, col in enumerate(engine.model.synth.columns):
+            if isinstance(col, DiscreteColumn):
+                if not np.isin(mat[:, j], col.codes).all():
+                    raise AssertionError(f"column {col.name}: unknown code")
+            elif not np.isfinite(mat[:, j]).all():
+                raise AssertionError(f"column {col.name}: non-finite value")
+    finally:
+        shutil.rmtree(art, ignore_errors=True)
+    print(f"serve trained: {rows} rows one-shot == 3 offset chunks "
+          "(byte-identical); categorical columns hold known codes only, "
+          f"continuous ones finite  [{card}]", flush=True)
+
+
+def train_stage_breakdown(synth, seed: int, card: str,
+                          repeats: int = 5) -> dict:
+    """Phase 8: where one train step's time goes, stage by stage (host
+    clock, the device synchronised at every boundary), medians over
+    ``repeats`` after one warm-up; then ``ms_per_step``, 20 steps back to
+    back with one synchronisation."""
+    models = steps.init_models(synth.spec, synth.cfg, seed, "cuda")
+    data, cond, rows = synth.train_data, synth.cond, synth.rows
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    times: dict = {k: [] for k in ("draws", "d_step", "g_forward",
+                                   "g_backward", "adam_g")}
+
+    def tick(name, t0):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        times[name].append(t1 - t0)
+        return t1
+
+    for _ in range(repeats + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        draws = steps.draw_step(gen, models)
+        t = tick("draws", t)
+        for d in draws.d:
+            steps.d_update(models, data, cond, rows, d)
+        t = tick("d_step", t)
+        loss = steps.g_loss(models, cond, draws.g)
+        t = tick("g_forward", t)
+        params = list(models.generator.parameters())
+        for p, g in zip(params, torch.autograd.grad(loss, params)):
+            p.grad = g
+        t = tick("g_backward", t)
+        models.opt_g.step()
+        models.sched_g.step()
+        tick("adam_g", t)
+    ms = {k: statistics.median(v[1:]) * 1e3 for k, v in times.items()}
+    total = sum(ms.values())
+    n = 20
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        steps.train_step(models, data, cond, rows, steps.draw_step(gen, models))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / n
+    print(f"stages of one train step (batch {synth.cfg.batch_size}, layout "
+          f"{synth.spec.dim}), median ms: " + ", ".join(
+              f"{k} {v!r} ({100 * v / total:.1f}%)" for k, v in ms.items())
+          + f"; {n} steps back to back: {step_ms!r} ms/step  [{card}]",
+          flush=True)
+    device = device_profile(
+        lambda: steps.train_step(models, data, cond, rows,
+                                 steps.draw_step(gen, models)), n)
+    if device.get("busy_ms_per_step") is not None:
+        device["busy_share"] = device["busy_ms_per_step"] / step_ms
+    print(f"train step on the device ({n} steps under torch.profiler): "
+          f"{json.dumps(device)}; busy share of the unprofiled "
+          f"{step_ms!r} ms/step  [{card}]", flush=True)
+    return {"stages_ms": ms, "ms_per_step_steady": step_ms,
+            "device": device}
+
+
+def device_profile(fn, n: int) -> dict:
+    """Device work of ``n`` calls of ``fn`` from a ``torch.profiler``
+    trace: kernels and copies per call, their summed device time per call
+    (one stream, so the sum is the busy time; annotation ranges left out),
+    and the five kernels that take the most of it.  ``busy_ms_per_step``
+    is None when the trace holds no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as exc:  # the profiler itself, not the step
+        return {"busy_ms_per_step": None, "error": str(exc)[:200]}
+    per_name: dict = {}
+    for e in prof.events():
+        # a record_function range (such as Optimizer.step) also shows on
+        # the device timeline, spanning kernels that are counted anyway
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            us = e.time_range.elapsed_us()
+            cnt, tot = per_name.get(e.name, (0, 0.0))
+            per_name[e.name] = (cnt + 1, tot + us)
+    if not per_name:
+        return {"busy_ms_per_step": None}
+    busy_us = sum(t for _, t in per_name.values())
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:5]
+    return {
+        "busy_ms_per_step": busy_us / 1e3 / n,
+        "device_ops_per_step": sum(c for c, _ in per_name.values()) / n,
+        "top": [{"name": k[:80], "per_step": c / n, "ms_per_step": t / 1e3 / n}
+                for k, (c, t) in top],
+    }
+
+
 def fetch(url: str) -> tuple[int, bytes, float]:
     t0 = time.perf_counter()
     with urllib.request.urlopen(url, timeout=300) as resp:
@@ -153,10 +497,9 @@ def check_csv(blob: bytes, rows: int, header: bool, numeric: list) -> None:
                 raise AssertionError(f"non-finite value in row {line}")
 
 
-def serve_phase(art: str, rows: int, seed: int, card: str,
-                device: str = "cuda") -> dict:
-    """Phase 4: the HTTP service on ``device``."""
-    model = open_model(art, device=device)
+def serve_phase(art: str, rows: int, seed: int, card: str) -> dict:
+    """Phase 4: the HTTP service on the card."""
+    model = open_model(art, device="cuda")
     names = model.meta.column_names
     numeric = [i for i, n in enumerate(names)
                if n in model.meta.continuous_columns]
@@ -188,7 +531,7 @@ def serve_phase(art: str, rows: int, seed: int, card: str,
         status, body, _ = fetch(f"{service.url}/healthz")
         health = json.loads(body)
         assert status == 200 and health["status"] == "ok", health
-        assert health["device"].startswith(device), health
+        assert health["device"].startswith("cuda"), health
     finally:
         service.shutdown()
     p50 = statistics.median(latencies)
@@ -244,10 +587,10 @@ def stage_breakdown(art: str, rows: int, seed: int, card: str,
     return ms
 
 
-def reference_phase(art: str, seed: int, card: str,
-                    device: str = "cuda") -> None:
-    """Phase 5: ``device`` vs CPU on the same injected draws (2 steps)."""
-    gpu = SamplingEngine(open_model(art, device=device))
+def reference_phase(art: str, seed: int, card: str) -> None:
+    """Serving on the card vs the CPU on the same injected draws (2
+    steps)."""
+    gpu = SamplingEngine(open_model(art, device="cuda"))
     cpu = SamplingEngine(open_model(art, device="cpu"))
     cfg, spec = gpu.cfg, gpu.spec
     cond = cpu.model.synth.cond
@@ -308,6 +651,7 @@ def main(argv=None) -> int:
     _, _, columns = intrusion_layout(np.random.default_rng(args.seed))
     spec = SegmentSpec.from_output_info(output_info(columns))
     shapes = check_kernel(spec, card)
+    bwd_shapes = check_bwd_kernel(spec, card)
 
     build_root = os.path.join(REPO, "fed_tgan_torch", "_build")
     os.makedirs(build_root, exist_ok=True)
@@ -315,33 +659,61 @@ def main(argv=None) -> int:
     try:
         build_random_artifact(art, seed=args.seed)
         fused_apply_activate.launches = 0
+        fused_activate_bwd.launches = 0
         serving = serve_phase(art, args.rows, args.seed, card)
-        launches = fused_apply_activate.launches
-        print(f"K1 launches during serving: {launches}  [{card}]", flush=True)
-        if launches <= 0:
+        serve_launches = fused_apply_activate.launches
+        serve_k2 = fused_activate_bwd.launches
+        print(f"K1 launches during serving: {serve_launches} (K2: "
+              f"{serve_k2})  [{card}]", flush=True)
+        if serve_launches <= 0:
             raise AssertionError("the served path never launched K1")
         reference_phase(art, args.seed, card)
         serving["stages_ms"] = stage_breakdown(art, args.rows, args.seed, card)
     finally:
         shutil.rmtree(art, ignore_errors=True)
 
-    main_shape = next(s for s in shapes if s["case"] == "rows8000")
-    kernel = {
-        "name": "fused_gumbel_activation_fwd",
-        "route": "cuda",
-        "source": "fed_tgan_torch/csrc/activate.cu",
-        "replaces": "fed_tgan_tpu/ops/activate_pallas.py:81",
-        "launches": launches,
-        "max_abs_err": max(s["max_abs_err"] for s in shapes),
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": None,  # no single PyTorch call is a segmented Gumbel-softmax
-        "shapes": shapes,
-    }
+    synth, meta, encoders, training = train_phase(args.seed, card)
+    # both kernels again at the shape training gave them: (batch, the
+    # fitted layout's width)
+    train_size = (("train", synth.cfg.batch_size),)
+    shapes += check_kernel(synth.spec, card, train_size, underflow=False)
+    bwd_shapes += check_bwd_kernel(synth.spec, card, train_size, extra=False)
+    training["card_vs_cpu"] = step_reference_phase(synth, args.seed, card)
+    serve_trained_phase(synth, meta, encoders, args.rows, args.seed, card)
+    training.update(train_stage_breakdown(synth, args.seed, card))
+
+    def entry(name, replaces, path, results, main_case, launches):
+        """One kernel on one path: its time and bound at the shape that
+        path gives it, and its launches during that path's run."""
+        main = next(r for r in results if r["case"] == main_case)
+        return {
+            "name": name, "route": "cuda",
+            "source": "fed_tgan_torch/csrc/activate.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in results),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            # no single PyTorch call computes a segmented Gumbel-softmax
+            # or its gradient
+            "library_ms": None, "path": path, "shape": main["shape"],
+            "shapes": results,
+        }
+
+    fwd, bwd = ("fed_tgan_tpu/ops/activate_pallas.py:81",
+                "fed_tgan_tpu/ops/activate_pallas.py:102")
+    kernels = [
+        # K1 on slice 1's serving path keeps the name, shape (the 8,000-row
+        # chunk) and launch count it has had since that slice
+        entry("fused_gumbel_activation_fwd", fwd, "serving", shapes,
+              "rows8000", serve_launches),
+        entry("fused_gumbel_activation_fwd_train", fwd, "training", shapes,
+              "train", training["launches"]["K1"]),
+        entry("fused_gumbel_activation_bwd", bwd, "training", bwd_shapes,
+              "train", training["launches"]["K2"]),
+    ]
+    print(json.dumps({"training": training}))
     print(card)
-    print(json.dumps({"kernels": [kernel], "serving": serving}))
+    print(json.dumps({"kernels": kernels, "serving": serving}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of fed_tgan_tpu, slice 1: the serving path.
+"""PyTorch + CUDA port of fed_tgan_tpu: the serving path (slice 1) and the
+standalone CTGAN trainer (slice 2).
 
 Importing the package pins float32 matrix products and convolutions to
 full float32 (TF32 off) on CUDA, so results on the card compare with the

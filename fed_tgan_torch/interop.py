@@ -1,8 +1,12 @@
 """Conversion from the JAX package's artifacts and pytrees to the port.
 
-- :func:`generator_from_jax` and :func:`cond_from_jax` turn the JAX
-  generator parameters / BatchNorm state and conditional-sampler tables
-  (numpy or jax arrays) into the port's modules;
+- :func:`generator_from_jax`, :func:`discriminator_from_jax` and
+  :func:`cond_from_jax` turn the JAX generator parameters / BatchNorm
+  state, discriminator parameters and conditional-sampler tables (numpy or
+  jax arrays) into the port's modules; :func:`bundle_from_jax` makes a
+  trainable :class:`~fed_tgan_torch.train.steps.Models` from a JAX
+  ``ModelBundle``, and :func:`params_to_jax_layout` maps the port's
+  weights back to the JAX pytree layout;
 - :func:`convert_jax_artifact` reads a JAX ``--save-model`` artifact
   (``synthesizer/host.pkl`` + ``arrays.npz``, meta JSON, encoder pickle)
   and writes the port's own format (:mod:`fed_tgan_torch.runtime.checkpoint`).
@@ -23,8 +27,9 @@ import shutil
 import numpy as np
 import torch
 
+from fed_tgan_torch.device import resolve_device
 from fed_tgan_torch.features.transformer import ContinuousColumn, DiscreteColumn
-from fed_tgan_torch.models.ctgan import Generator
+from fed_tgan_torch.models.ctgan import Discriminator, Generator
 from fed_tgan_torch.ops.segments import SegmentSpec
 from fed_tgan_torch.runtime.checkpoint import (
     SYNTH_DIR,
@@ -33,6 +38,7 @@ from fed_tgan_torch.runtime.checkpoint import (
     save_synthesizer,
 )
 from fed_tgan_torch.train.sampler import CondSampler
+from fed_tgan_torch.train.steps import Models, TrainConfig
 
 
 def _t(a) -> torch.Tensor:
@@ -61,11 +67,58 @@ def generator_from_jax(params_g: dict, state_g: dict) -> Generator:
     return gen.eval()
 
 
+def discriminator_from_jax(params_d: dict, pac: int) -> Discriminator:
+    """A :class:`Discriminator` (CPU) carrying JAX discriminator weights;
+    the input width is the first layer's fan-in over ``pac``."""
+    layers, out = params_d["layers"], params_d["out"]
+    fan_in = np.shape(layers[0]["w"] if layers else out["w"])[0]
+    dis = Discriminator(fan_in // pac, [np.shape(l["w"])[1] for l in layers],
+                        pac)
+    with torch.no_grad():
+        for mod, p in zip([*dis.layers, dis.out], [*layers, out]):
+            mod.weight.copy_(_t(p["w"]).T)
+            mod.bias.copy_(_t(p["b"]))
+    return dis
+
+
+def bundle_from_jax(models, spec: SegmentSpec, cfg: TrainConfig,
+                    device="cuda") -> Models:
+    """Train-mode generator and discriminator with a JAX ``ModelBundle``'s
+    weights and BatchNorm state, and fresh optimizers, on ``device``."""
+    gen = generator_from_jax(models.params_g, models.state_g)
+    dis = discriminator_from_jax(models.params_d, cfg.pac)
+    device = resolve_device(device)
+    return Models.build(gen.to(device), dis.to(device), spec, cfg)
+
+
+def params_to_jax_layout(models: Models, of=None) -> dict:
+    """``{"params_g", "state_g", "params_d"}`` as numpy copies in the JAX
+    package's pytree layout (Linear ``w`` as (fan_in, fan_out)).  ``of``
+    maps each parameter to the tensor reported in its place (default: the
+    parameter itself), e.g. its Adam moment, so a test compares any
+    per-parameter quantity leaf by leaf."""
+    of = of or (lambda p: p)
+    arr = lambda p: of(p).detach().cpu().numpy().copy()
+    lin = lambda m: {"w": arr(m.weight).T, "b": arr(m.bias)}
+    G, D = models.generator, models.discriminator
+    return {
+        "params_g": {
+            "blocks": [{"fc": lin(b.fc), "bn_scale": arr(b.bn.weight),
+                        "bn_bias": arr(b.bn.bias)} for b in G.blocks],
+            "out": lin(G.out)},
+        "state_g": {"blocks": [
+            {"mean": b.bn.running_mean.cpu().numpy().copy(),
+             "var": b.bn.running_var.cpu().numpy().copy()}
+            for b in G.blocks]},
+        "params_d": {"layers": [lin(l) for l in D.layers], "out": lin(D.out)},
+    }
+
+
 def cond_from_jax(cond, spec: SegmentSpec) -> CondSampler:
-    """The port's sampler over a JAX ``CondSampler``'s tables (anything
-    with ``p_train`` and ``p_empirical``)."""
+    """The port's sampler, on the CPU, over a JAX ``CondSampler``'s
+    tables (anything with ``p_train`` and ``p_empirical``)."""
     return CondSampler.from_tables(np.asarray(cond.p_train),
-                                   np.asarray(cond.p_empirical), spec)
+                                   np.asarray(cond.p_empirical), spec, "cpu")
 
 
 # ----------------------------------------------------------- artifact read
@@ -185,7 +238,7 @@ def convert_jax_artifact(src_dir: str, dst_dir: str) -> str:
             data, len(cfg.gen_dims))
     synth = SavedSynthesizer(
         generator_from_jax(params_g, state_g),
-        CondSampler.from_tables(p_train, p_emp, spec),
+        CondSampler.from_tables(p_train, p_emp, spec, "cpu"),
         _columns_from_transformer(host["transformer"]), cfg,
         key_offset=host.get("key_offset", 17))
 

@@ -1,13 +1,18 @@
-"""The fused activation kernel (``csrc/activate.cu``) and its wrapper.
+"""The fused activation kernels (``csrc/activate.cu``) and their wrappers.
 
-``fused_apply_activate(x, spec, u)`` is the port of
-``fed_tgan_tpu/ops/activate_pallas.py:182``: tanh on tanh segments,
-Gumbel-softmax (tau=0.2, per-segment max stabilised) on softmax segments,
-Gumbel noise built from the explicit uniforms ``u``.
+- ``fused_apply_activate(x, spec, u)`` (K1) is the port of
+  ``fed_tgan_tpu/ops/activate_pallas.py:182``: tanh on tanh segments,
+  Gumbel-softmax (tau=0.2, per-segment max stabilised) on softmax
+  segments, Gumbel noise built from the explicit uniforms ``u``.  When
+  ``x`` requires a gradient it runs through :class:`ActivateFunction`,
+  whose backward is K2.
+- ``fused_activate_bwd(dy, out, spec)`` (K2) is the analytic backward
+  (``activate_pallas.py:102``), from the forward output alone.
 
-Routing: a tensor on the CPU takes the plain version,
-:func:`fed_tgan_torch.ops.segments.apply_activate`; a CUDA tensor always
-launches the kernel or raises.  The kernel is compiled from the source in
+Routing: a tensor on the CPU takes the plain version
+(:func:`fed_tgan_torch.ops.segments.apply_activate` /
+``apply_activate_bwd``); a CUDA tensor always launches the kernel or
+raises.  The kernel is compiled from the source in
 this package with ``nvcc`` for ``sm_90a`` at first use, into
 ``fed_tgan_torch/_build/``, and loaded with ``ctypes``.
 """
@@ -25,7 +30,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from fed_tgan_torch.ops.segments import SegmentSpec, apply_activate
+from torch.autograd.function import once_differentiable
+
+from fed_tgan_torch.ops.segments import (
+    SegmentSpec,
+    apply_activate,
+    apply_activate_bwd,
+)
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "activate.cu"
@@ -69,6 +80,9 @@ def _library() -> ctypes.CDLL:
     lib.fed_tgan_activate_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
                                           i32, ptr]
     lib.fed_tgan_activate_fwd.restype = i32
+    lib.fed_tgan_activate_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                          i32, ptr]
+    lib.fed_tgan_activate_bwd.restype = i32
     lib.fed_tgan_cuda_error_string.argtypes = [i32]
     lib.fed_tgan_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -91,40 +105,101 @@ def _device_tables(spec: SegmentSpec, device: torch.device):
             torch.as_tensor(is_tanh, device=device))
 
 
+def _check_rows(name: str, spec: SegmentSpec, a: torch.Tensor,
+                b: torch.Tensor) -> None:
+    """What both kernels take: two float32, contiguous (N, spec.dim) CUDA
+    tensors on one device."""
+    if a.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {a.device}")
+    if b.device != a.device:
+        raise ValueError(f"{name}: operands on {a.device} and {b.device}")
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {a.dtype}, {b.dtype}")
+    if a.dim() != 2 or a.shape[1] != spec.dim or b.shape != a.shape:
+        raise ValueError(f"{name}: expected operands of shape (N, {spec.dim}),"
+                         f" got {tuple(a.shape)} and {tuple(b.shape)}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{name}: operands must be contiguous")
+
+
+def _launch(fn_name: str, a: torch.Tensor, b: torch.Tensor,
+            spec: SegmentSpec) -> torch.Tensor:
+    """Run ``fn_name`` of the library on ``a`` and ``b`` into a new tensor,
+    on the current stream of their device; raises if the launch fails."""
+    out = torch.empty_like(a)
+    if a.shape[0] == 0:
+        return out
+    lib = _library()
+    seg_start, seg_is_tanh = _device_tables(spec, a.device)
+    with torch.cuda.device(a.device):
+        err = getattr(lib, fn_name)(
+            a.data_ptr(), b.data_ptr(), seg_start.data_ptr(),
+            seg_is_tanh.data_ptr(), out.data_ptr(), a.shape[0], spec.dim,
+            spec.n_segments, torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        msg = lib.fed_tgan_cuda_error_string(err).decode()
+        raise RuntimeError(f"{fn_name} launch failed: {msg} ({err})")
+    return out
+
+
+def _activate(x: torch.Tensor, spec: SegmentSpec,
+              u: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return apply_activate(x, spec, u)
+    _check_rows("fused_apply_activate", spec, x, u)
+    out = _launch("fed_tgan_activate_fwd", x, u, spec)
+    fused_apply_activate.launches += 1
+    return out
+
+
+class ActivateFunction(torch.autograd.Function):
+    """The activation with K2 as its backward.  First order only: the
+    gradient penalty never differentiates through the activation (the D
+    step detaches the fake batch), so K2 needs no derivative of its own.
+    The uniforms ``u`` never require a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, spec, u):
+        out = _activate(x, spec, u)
+        ctx.spec = spec
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        (out,) = ctx.saved_tensors
+        return fused_activate_bwd(dy.contiguous(), out, ctx.spec), None, None
+
+
 def fused_apply_activate(x: torch.Tensor, spec: SegmentSpec,
                          u: torch.Tensor) -> torch.Tensor:
     """Activation of the raw generator output ``x`` (N, spec.dim) with the
     Gumbel uniforms ``u`` (N, spec.dim); returns a new (N, spec.dim)
     float32 tensor.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel (one launch, counted in ``launches``) or raise."""
-    if x.device.type == "cpu":
-        return apply_activate(x, spec, u)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_apply_activate: unsupported device {x.device}")
-    if u.device != x.device:
-        raise ValueError(f"x on {x.device} but u on {u.device}")
-    if x.dtype != torch.float32 or u.dtype != torch.float32:
-        raise TypeError(f"expected float32 x and u, got {x.dtype}, {u.dtype}")
-    if x.dim() != 2 or x.shape[1] != spec.dim or u.shape != x.shape:
-        raise ValueError(f"expected x and u of shape (N, {spec.dim}), got "
-                         f"{tuple(x.shape)} and {tuple(u.shape)}")
-    if not (x.is_contiguous() and u.is_contiguous()):
-        raise ValueError("x and u must be contiguous")
-    out = torch.empty_like(x)
-    if x.shape[0] == 0:
-        return out
-    lib = _library()
-    seg_start, seg_is_tanh = _device_tables(spec, x.device)
-    with torch.cuda.device(x.device):
-        err = lib.fed_tgan_activate_fwd(
-            x.data_ptr(), u.data_ptr(), seg_start.data_ptr(),
-            seg_is_tanh.data_ptr(), out.data_ptr(), x.shape[0], spec.dim,
-            spec.n_segments, torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        msg = lib.fed_tgan_cuda_error_string(err).decode()
-        raise RuntimeError(f"activate kernel launch failed: {msg} ({err})")
-    fused_apply_activate.launches += 1
-    return out
+    launch K1 (one launch, counted in ``launches``) or raise.  When ``x``
+    requires a gradient the result's backward is K2
+    (:class:`ActivateFunction`)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return ActivateFunction.apply(x, spec, u)
+    return _activate(x, spec, u)
 
 
 fused_apply_activate.launches = 0
+
+
+def fused_activate_bwd(dy: torch.Tensor, out: torch.Tensor,
+                       spec: SegmentSpec) -> torch.Tensor:
+    """The activation's gradient with respect to ``x`` from the upstream
+    gradient ``dy`` and the forward output ``out`` (both (N, spec.dim)
+    float32).  CPU tensors take the plain version; CUDA tensors launch K2
+    (one launch, counted in ``launches``) or raise."""
+    if dy.device.type == "cpu":
+        return apply_activate_bwd(dy, out, spec)
+    _check_rows("fused_activate_bwd", spec, dy, out)
+    dx = _launch("fed_tgan_activate_bwd", dy, out, spec)
+    fused_activate_bwd.launches += 1
+    return dx
+
+
+fused_activate_bwd.launches = 0

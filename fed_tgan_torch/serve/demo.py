@@ -1,6 +1,11 @@
-"""A full-width Intrusion-shaped artifact with random weights.
+"""Intrusion-shaped demo data: a random-weight artifact and a training table.
 
-The layout is what the JAX package's ``ModeNormalizer(backend="sklearn",
+- :func:`build_random_artifact` writes a full-width Intrusion-shaped
+  artifact with random weights.
+- :func:`intrusion_like_table` makes an Intrusion-shaped numeric training
+  table, with its meta and encoders, without pandas.
+
+The artifact's layout is what the JAX package's ``ModeNormalizer(backend="sklearn",
 seed=0)`` fits to the Intrusion-shaped stand-in table of
 ``tests/test_workloads.py::_intrusion_like(4000, seed=0)`` (the reference
 Intrusion dataset's 42 columns, 22 continuous and 20 categorical): 282
@@ -95,11 +100,80 @@ def intrusion_layout(rng: np.random.Generator):
     return meta, encoders, columns
 
 
+_VOCAB = {
+    "protocol_type": ("tcp", "udp", "icmp"),
+    "service": ("http", "smtp", "ftp", "dns"),
+    "flag": ("SF", "S0", "REJ"),
+    "class": ("normal", "anomaly"),
+}
+
+
+def intrusion_like_table(n: int = 400, seed: int = 0):
+    """``(matrix, categorical_idx, meta, encoders)`` of an Intrusion-shaped
+    table of ``n`` rows: the reference Intrusion dataset's 42 columns (22
+    continuous, 20 categorical) drawn as ``tests/test_workloads.py::
+    _intrusion_like(n, seed)`` draws them, then prepared as the JAX ingest
+    prepares a table: ``log(x + 1)`` on the non-negative columns, each
+    categorical column label-encoded (sorted classes) with its categories
+    listed in frequency order in the meta.  ``matrix`` (n, 42) float64
+    holds the encoder codes of the categorical columns."""
+    rng = np.random.default_rng(seed)
+    nonneg = INTRUSION_META["non_negative_cols"]
+    cols, metas, encoders, cat_idx = [], [], [], []
+    for i, (name, spec) in enumerate(INTRUSION_COLUMNS):
+        if not isinstance(spec, int):
+            values = _VOCAB.get(name, _BINARY)
+            p = None if name in _VOCAB else [0.9, 0.1]
+            raw = rng.choice(values, n, p=p)
+            enc = CategoryEncoder.fit(raw)
+            codes = enc.transform(raw)
+            uniq, counts = np.unique(raw, return_counts=True)
+            i2s = uniq[np.argsort(-counts, kind="stable")].tolist()
+            metas.append(ColumnMeta(name, "categorical", i, i2s=i2s))
+            encoders.append(enc)
+            cat_idx.append(i)
+            cols.append(codes.astype(np.float64))
+            continue
+        if name in ("src_bytes", "dst_bytes", "duration"):
+            x = np.exp(rng.normal(4.0, 2.0, n)).round(0)
+        elif name.endswith("_rate"):
+            x = rng.uniform(0.0, 1.0, n).round(2)
+        else:  # count-style columns
+            x = rng.integers(0, 256, n).astype(float)
+        if name in nonneg:
+            x = np.log(x + 1.0)
+        metas.append(ColumnMeta(name, "continuous", i, min=float(x.min()),
+                                max=float(x.max())))
+        cols.append(x)
+    meta = TableMeta(
+        columns=metas, name=INTRUSION_META["name"],
+        problem_type=INTRUSION_META["problem_type"],
+        target=INTRUSION_META["target"],
+        integer_columns=list(INTRUSION_META["integer_info"]),
+        non_negative_columns=list(nonneg))
+    return np.stack(cols, axis=1), cat_idx, meta, encoders
+
+
+def write_artifact(out_dir: str, synth: SavedSynthesizer, meta: TableMeta,
+                   encoders) -> str:
+    """Write ``synth`` with its meta and encoders as a port artifact under
+    ``out_dir/models``; returns ``out_dir``.  Meta and encoders first, the
+    synthesizer last (the registry's freshness order)."""
+    models = os.path.join(out_dir, "models")
+    os.makedirs(models, exist_ok=True)
+    meta.dump_json(os.path.join(models, f"{meta.name}.json"))
+    with open(os.path.join(models, f"label_encoders_{meta.name}.json"),
+              "w") as f:
+        json.dump([{"column_name": name, **enc.to_dict()} for name, enc in
+                   zip(meta.categorical_columns, encoders)], f)
+    save_synthesizer(synth, os.path.join(models, SYNTH_DIR))
+    return out_dir
+
+
 def build_random_artifact(out_dir: str, seed: int = 0,
                           cfg: TrainConfig = TrainConfig()) -> str:
     """Write a random-weight Intrusion-shaped port artifact under
-    ``out_dir/models``; returns ``out_dir``.  Meta and encoders first,
-    the synthesizer last (the registry's freshness order)."""
+    ``out_dir/models``; returns ``out_dir``."""
     rng = np.random.default_rng(seed)
     meta, encoders, columns = intrusion_layout(rng)
     spec = SegmentSpec.from_output_info(output_info(columns))
@@ -118,15 +192,6 @@ def build_random_artifact(out_dir: str, seed: int = 0,
     counts = np.zeros((spec.n_discrete, max_size))
     for c, size in enumerate(spec.cond_sizes):
         counts[c, :size] = rng.integers(1, 1000, size)
-    cond = CondSampler.from_counts(counts, spec)
+    cond = CondSampler.from_counts(counts, spec, "cpu")
     synth = SavedSynthesizer(generator, cond, columns, cfg, key_offset=17)
-
-    models = os.path.join(out_dir, "models")
-    os.makedirs(models, exist_ok=True)
-    meta.dump_json(os.path.join(models, f"{meta.name}.json"))
-    with open(os.path.join(models, f"label_encoders_{meta.name}.json"),
-              "w") as f:
-        json.dump([{"column_name": name, **enc.to_dict()} for name, enc in
-                   zip(meta.categorical_columns, encoders)], f)
-    save_synthesizer(synth, os.path.join(models, SYNTH_DIR))
-    return out_dir
+    return write_artifact(out_dir, synth, meta, encoders)

@@ -1,4 +1,4 @@
-"""Tests of the port that need a CUDA card: the hand-written kernel has
+"""Tests of the port that need a CUDA card: the hand-written kernels have
 no CPU mode.  Without a card every test here skips.
 
 This file imports neither jax nor the JAX package, so it also runs where
@@ -12,11 +12,21 @@ import pytest
 import torch
 
 from fed_tgan_torch.features.transformer import output_info
-from fed_tgan_torch.ops.activate_cuda import fused_apply_activate
-from fed_tgan_torch.ops.segments import SegmentSpec, apply_activate
+from fed_tgan_torch.ops.activate_cuda import (
+    fused_activate_bwd,
+    fused_apply_activate,
+)
+from fed_tgan_torch.ops.segments import (
+    SegmentSpec,
+    apply_activate,
+    apply_activate_bwd,
+)
 from fed_tgan_torch.serve.demo import build_random_artifact, intrusion_layout
 from fed_tgan_torch.serve.engine import SamplingEngine
 from fed_tgan_torch.serve.registry import open_model
+from fed_tgan_torch.train import steps
+from fed_tgan_torch.train.sampler import CondSampler, RowSampler
+from fed_tgan_torch.train.standalone import StandaloneSynthesizer
 
 pytestmark = pytest.mark.gpu
 
@@ -100,3 +110,106 @@ def test_engine_on_card_chunked_equals_one_shot(cuda, tmp_path):
              engine.sample_csv_bytes(850, seed=4, offset=450, header=False)]
     assert b"".join(parts) == one
     assert engine.sample_csv_bytes(1300, seed=4) == one
+
+
+@pytest.mark.parametrize("rows", [1, 5, 500, 4096])
+def test_bwd_kernel_matches_plain(cuda, rows):
+    spec = _spec()
+    g = torch.Generator(device=cuda).manual_seed(rows + 7)
+    x = torch.randn((rows, spec.dim), generator=g, device=cuda) * 2.0
+    out = fused_apply_activate(x, spec, torch.rand(x.shape, generator=g,
+                                                   device=cuda))
+    dy = torch.randn(x.shape, generator=g, device=cuda)
+    before = fused_activate_bwd.launches
+    got = fused_activate_bwd(dy, out, spec)
+    torch.cuda.synchronize()
+    assert fused_activate_bwd.launches == before + 1
+    assert (got - apply_activate_bwd(dy, out, spec)).abs().max().item() <= ATOL
+
+
+def test_bwd_kernel_wide_segment_and_large_dim(cuda):
+    for info in ([(1, "tanh"), (70, "softmax"), (1, "tanh"), (3, "softmax")],
+                 [(1, "tanh"), (7000, "softmax"), (999, "softmax")]):
+        spec = _spec(info)
+        g = torch.Generator(device=cuda).manual_seed(2)
+        x = torch.randn((33, spec.dim), generator=g, device=cuda)
+        out = fused_apply_activate(x, spec, torch.rand(x.shape, generator=g,
+                                                       device=cuda))
+        dy = torch.randn(x.shape, generator=g, device=cuda)
+        got = fused_activate_bwd(dy, out, spec)
+        want = apply_activate_bwd(dy, out, spec)
+        assert (got - want).abs().max().item() <= ATOL
+
+
+def test_activation_gradient_through_both_kernels(cuda):
+    """d/dx sum(w * act(x)): K1 forward + K2 backward against autograd
+    through the plain forward."""
+    spec = _spec()
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((300, spec.dim), generator=g, device=cuda) * 2.0
+    u = torch.rand(x.shape, generator=g, device=cuda)
+    w = torch.randn(x.shape, generator=g, device=cuda)
+    k1, k2 = fused_apply_activate.launches, fused_activate_bwd.launches
+    xk = x.clone().requires_grad_(True)
+    (w * fused_apply_activate(xk, spec, u)).sum().backward()
+    xp = x.clone().requires_grad_(True)
+    (w * apply_activate(xp, spec, u)).sum().backward()
+    assert (fused_apply_activate.launches, fused_activate_bwd.launches) == (
+        k1 + 1, k2 + 1)
+    assert (xk.grad - xp.grad).abs().max().item() <= ATOL
+
+
+def test_bwd_wrapper_rejects_bad_inputs(cuda):
+    spec = _spec()
+    dy = torch.randn((4, spec.dim), device=cuda)
+    out = torch.rand((4, spec.dim), device=cuda)
+    with pytest.raises(TypeError):
+        fused_activate_bwd(dy.double(), out.double(), spec)
+    with pytest.raises(ValueError):
+        fused_activate_bwd(dy[:, :-1], out[:, :-1], spec)
+    with pytest.raises(ValueError):
+        fused_activate_bwd(dy, out.cpu(), spec)
+    with pytest.raises(ValueError):
+        fused_activate_bwd(torch.randn((spec.dim, 4), device=cuda).T, out,
+                           spec)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One small train step on the card and on the CPU from the same
+    weights and draws."""
+    info = [(1, "tanh"), (3, "softmax"), (4, "softmax"), (2, "softmax")]
+    spec = _spec(info)
+    cfg = steps.TrainConfig(embedding_dim=16, gen_dims=(32, 32),
+                            dis_dims=(32, 32), batch_size=40)
+    rng = np.random.default_rng(0)
+    data = np.zeros((120, spec.dim), dtype=np.float32)
+    data[:, 0] = rng.uniform(-0.9, 0.9, 120)
+    for start, size in ((1, 3), (4, 4), (8, 2)):
+        data[np.arange(120), start + rng.integers(0, size, 120)] = 1.0
+    draws = steps.draw_step(torch.Generator().manual_seed(1),
+                            steps.init_models(spec, cfg, 0, "cpu"))
+    mets = []
+    for dev in (cuda, torch.device("cpu")):
+        models = steps.init_models(spec, cfg, 0, dev)
+        mets.append(steps.train_step(
+            models, torch.as_tensor(data, device=dev),
+            CondSampler.from_data(data, spec, dev),
+            RowSampler.from_data(data, spec, dev), draws.to(dev)))
+    for k in mets[1]:
+        assert float(mets[0][k]) == pytest.approx(float(mets[1][k]), rel=1e-4)
+
+
+def test_standalone_trains_and_samples_on_card(cuda):
+    rng = np.random.default_rng(11)
+    n = 1200
+    cont = rng.normal(0, 1, n)
+    cat = rng.choice([0, 1, 2], n, p=[0.7, 0.2, 0.1]).astype(float)
+    cfg = steps.TrainConfig(embedding_dim=16, gen_dims=(32, 32),
+                            dis_dims=(32, 32), batch_size=100)
+    k2 = fused_activate_bwd.launches
+    synth = StandaloneSynthesizer(cfg, seed=0, device="cuda").fit(
+        np.stack([cont, cat], axis=1), categorical_idx=[1], epochs=1)
+    assert fused_activate_bwd.launches == k2 + 12
+    out = synth.sample(300, seed=1)
+    assert out.shape == (300, 2) and np.isfinite(out).all()
+    assert set(np.unique(out[:, 1])) <= {0.0, 1.0, 2.0}
