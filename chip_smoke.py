@@ -2,17 +2,24 @@
 """Smoke run of the PyTorch port (``fed_tgan_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--seed S] [--rows N]
+    python3 chip_smoke.py --ab TREE
 
 Phases, each fatal on failure:
 
 1. build the fused activation kernels (``fed_tgan_torch/csrc/activate.cu``:
    K1 forward, K2 backward) with nvcc for sm_90a;
-2. hold K1 against its plain PyTorch version on the card at the serving
-   and training shapes (500 and 64,000 rows of the 282-wide Intrusion
-   layout, the 8,000-row chunk of phase 4, 5 rows, and a distant-dim
-   underflow case) within atol 1e-5, and time both with CUDA events;
-3. the same for K2 (5, 500, 8,000 and 64,000 rows, a 70-wide segment, and
-   ``out`` from K1 on the underflow case), then the gradient of
+2. hold K1 against its plain PyTorch version on the card within atol 1e-5
+   at 1, 5, 500, 8,000 (the chunk of phase 4) and 64,000 rows of the
+   282-wide Intrusion layout, a distant-dim underflow case, a 70-wide
+   segment at 64,000 rows, the widest rows the kernels take (3 rows of
+   29,056 dims, which run unstaged), operands at a 4-byte-aligned base,
+   and 4 stacked clients of 500 rows (one launch bit-identical to four); at
+   each shape time the kernel with CUDA events (back-to-back launches:
+   the slower of host and device), its device time per launch from a
+   ``torch.profiler`` trace filtered by the kernel's name, and the host's
+   microseconds per call, beside the plain version and the bound, with
+   the launch plan (rows per tile, blocks, shared memory);
+3. the same for K2 (``out`` from K1), then the gradient of
    ``sum(w * activation(x))`` through K1 + K2 against autograd through the
    plain forward;
 4. serving, slice 1's main path: build a full-width Intrusion-shaped
@@ -35,7 +42,14 @@ Phases, each fatal on failure:
    one-shot and in 3 offset chunks (byte-identical), known codes only;
 8. the stages of one train step (draws, D step, G forward, G backward
    with K2, Adam on G) one by one, then 20 steps back to back, then 20
-   steps under ``torch.profiler`` for the card's busy time per step.
+   steps under ``torch.profiler`` for the card's busy time per step and
+   K1's and K2's share of it.
+
+``--ab TREE`` runs none of the phases: it builds the kernels of the
+``fed_tgan_torch`` package under TREE (for example a ``git archive`` of an
+earlier commit) and times them against this tree's in turns (other, this,
+this, other) at the training batch, the serving chunk, a 128-step chunk
+and the 70-wide segment, and prints one ``{"ab": ...}`` line.
 
 Prints the card's name and power limit beside every number, a JSON line
 with the training numbers, the card's line, a JSON line with the kernels'
@@ -67,7 +81,11 @@ import torch
 
 from fed_tgan_torch.data.csvio import csv_bytes
 from fed_tgan_torch.data.decode import decode_columns
-from fed_tgan_torch.features.transformer import DiscreteColumn, output_info
+from fed_tgan_torch.features.transformer import (
+    DiscreteColumn,
+    ModeNormalizer,
+    output_info,
+)
 from fed_tgan_torch.interop import params_to_jax_layout
 from fed_tgan_torch.ops import activate_cuda
 from fed_tgan_torch.ops.activate_cuda import (
@@ -137,87 +155,161 @@ def bound_ms(rows: int, dim: int, kernel: str = "K1") -> tuple[float, str]:
 
 
 SIZES = (("rows500", 500), ("rows8000", 8000), ("rows64000", 64000),
-         ("rows5", 5))
+         ("rows5", 5), ("rows1", 1))
+KERNEL_NAMES = {"K1": "activate_fwd_kernel", "K2": "activate_bwd_kernel"}
+WIDE70 = [(1, "tanh"), (70, "softmax"), (1, "tanh"), (3, "softmax")]
+# the widest rows the kernels take: one row of both operands fills a block
+WIDEST = [(1, "tanh"), (activate_cuda.SMEM_BLOCK // 8 - 71, "softmax"),
+          (70, "softmax")]
+CLIENTS, CLIENT_ROWS = 4, 500  # the stacked-client rows of the federated round
 
 
-def check_kernel(spec: SegmentSpec, card: str, sizes=SIZES,
-                 underflow: bool = True) -> list[dict]:
-    """Phase 2: the kernel against the plain version at each shape."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = []
-    for name, rows in sizes:
-        x = torch.randn((rows, spec.dim), generator=gen, device="cuda") * 2.0
-        cases.append((name, x))
-    if underflow:
+def host_us(fn, n: int = 200) -> float:
+    """Host time of one call of ``fn`` in microseconds, from ``n`` calls
+    back to back with no synchronisation: the card's queue holds them all,
+    so the host never waits for the device."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def kernel_device_ms(fn, kernel: str, n: int = 50):
+    """Per-launch device time of the kernel ``kernel`` ("K1"/"K2") over
+    ``n`` calls of ``fn``, from a ``torch.profiler`` trace filtered by the
+    kernel's name; None when the trace holds no such kernel."""
+    fn()
+    torch.cuda.synchronize()
+    try:
+        per_name = device_events(fn, n)
+    except RuntimeError:
+        return None
+    hits = [v for k, v in per_name.items() if KERNEL_NAMES[kernel] in k]
+    if not hits:
+        return None
+    return sum(t for _, t in hits) / sum(c for c, _ in hits) / 1e3
+
+
+def kernel_times(kernel: str, fn, rows: int) -> dict:
+    """Times of one kernel call ``fn``: CUDA events over back-to-back
+    calls (``ms``: the slower of host and device), the profiler's
+    per-launch device time (``device_ms``) and the host's time per call
+    (``host_us``)."""
+    iters = 20 if rows >= 64000 else 200
+    return {"ms": cuda_ms(fn, iters), "device_ms": kernel_device_ms(fn, kernel),
+            "host_us": host_us(fn)}
+
+
+def measure(kernel: str, fn, plain, rows: int, dim: int) -> dict:
+    """:func:`kernel_times` beside the plain version's time and the
+    bound."""
+    bound, bound_by = bound_ms(rows, dim, kernel)
+    return {**kernel_times(kernel, fn, rows),
+            "plain_ms": cuda_ms(plain, 20 if rows >= 64000 else 200),
+            "bound_ms": bound, "bound_by": bound_by}
+
+
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose base is 4 bytes past a 16-byte
+    boundary (a view at storage offset 1)."""
+    st = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    st[1:].copy_(t.flatten())
+    return st[1:].view_as(t)
+
+
+def _cases(spec: SegmentSpec, gen, sizes, extra: bool) -> list:
+    """(name, spec, x) for each shape; with ``extra`` also a distant-dim
+    underflow case, the 70-wide segment at 64,000 rows, the widest rows,
+    a misaligned base and the stacked clients of one round."""
+    randn = lambda rows, sp=spec: torch.randn(
+        (rows, sp.dim), generator=gen, device="cuda") * 2.0
+    cases = [(name, spec, randn(rows)) for name, rows in sizes]
+    if extra:
         x = torch.zeros((8, spec.dim), device="cuda")
         x[:, 0] = 50.0  # a huge tanh pre-activation
         x[:, 1] = 30.0  # one hot logit in the next softmax segment
-        cases.append(("underflow", x))
+        wide = SegmentSpec.from_output_info(WIDE70)
+        widest = SegmentSpec.from_output_info(WIDEST)
+        cases += [("underflow", spec, x), ("wide70", wide, randn(64000, wide)),
+                  ("widest", widest, randn(3, widest)),
+                  ("misaligned", spec, randn(500)),
+                  ("stacked", spec, randn(CLIENTS * CLIENT_ROWS))]
+    return cases
+
+
+def _stacked_equal(fn, *args) -> None:
+    """One launch over the stacked clients' rows is bit-identical to one
+    launch per client."""
+    whole = fn(*args)
+    parts = [fn(*(a[i * CLIENT_ROWS:(i + 1) * CLIENT_ROWS] for a in args))
+             for i in range(CLIENTS)]
+    if not torch.equal(whole, torch.cat(parts)):
+        raise AssertionError("stacked launch differs from per-client launches")
+
+
+def _report(kernel, name, rows, spec, err, times, plan, card) -> dict:
+    print(f"{kernel} {name}: ({rows}, {spec.dim}) max_abs_err {err!r} (atol "
+          f"{ATOL}) kernel {times['ms']!r} ms, device {times['device_ms']!r} "
+          f"ms, host {times['host_us']!r} us; plain {times['plain_ms']!r} ms; "
+          f"bound {times['bound_ms']!r} ms ({times['bound_by']}); plan "
+          f"{plan}  [{card}]", flush=True)
+    if not err <= ATOL:
+        raise AssertionError(f"{kernel} {name}: max_abs_err {err} > {ATOL}")
+    return {"shape": [rows, spec.dim], "case": name, "max_abs_err": err,
+            **times, "plan": plan}
+
+
+def check_kernel(spec: SegmentSpec, card: str, sizes=SIZES,
+                 extra: bool = True) -> list[dict]:
+    """Phase 2: K1 against its plain version at each shape."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
-    for name, x in cases:
+    for name, sp, x in _cases(spec, gen, sizes, extra):
         rows = x.shape[0]
         u = torch.rand(x.shape, generator=gen, device="cuda")
-        got = fused_apply_activate(x, spec, u)
-        want = apply_activate(x, spec, u)
+        if name == "misaligned":
+            x, u = misaligned(x), misaligned(u)
+        if name == "stacked":
+            _stacked_equal(lambda a, b: fused_apply_activate(a, sp, b), x, u)
+        got = fused_apply_activate(x, sp, u)
+        want = apply_activate(x, sp, u)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        iters = 20 if rows >= 64000 else 200
-        ms = cuda_ms(lambda: fused_apply_activate(x, spec, u), iters)
-        plain = cuda_ms(lambda: apply_activate(x, spec, u), iters)
-        bound, bound_by = bound_ms(rows, spec.dim)
-        print(f"K1 {name}: ({rows}, {spec.dim}) max_abs_err {err!r} "
-              f"(atol {ATOL}) kernel {ms!r} ms plain {plain!r} ms bound "
-              f"{bound!r} ms ({bound_by})  [{card}]", flush=True)
-        if not err <= ATOL:
-            raise AssertionError(f"K1 {name}: max_abs_err {err} > {ATOL}")
-        results.append({"shape": [rows, spec.dim], "case": name,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                        "bound_ms": bound, "bound_by": bound_by})
+        times = measure("K1", lambda: fused_apply_activate(x, sp, u),
+                        lambda: apply_activate(x, sp, u), rows, sp.dim)
+        plan = activate_cuda.plan_for(x, sp).as_dict()
+        results.append(_report("K1", name, rows, sp, err, times, plan, card))
     return results
 
 
 def check_bwd_kernel(spec: SegmentSpec, card: str, sizes=SIZES,
                      extra: bool = True) -> list[dict]:
-    """Phase 3: K2 against its plain version at each shape (with
-    ``extra``: a 70-wide segment and ``out`` from K1 on the underflow
-    case), then the gradient through K1 + K2 against autograd through the
+    """Phase 3: K2 against its plain version at each shape (``out`` from
+    K1), then the gradient through K1 + K2 against autograd through the
     plain forward."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = []
-    for name, rows in sizes:
-        x = torch.randn((rows, spec.dim), generator=gen, device="cuda") * 2.0
-        cases.append((name, spec, x))
-    if extra:
-        wide = SegmentSpec.from_output_info(
-            [(1, "tanh"), (70, "softmax"), (1, "tanh"), (3, "softmax")])
-        cases.append(("wide70", wide, torch.randn((16, wide.dim), generator=gen,
-                                                  device="cuda") * 2.0))
-        x = torch.zeros((8, spec.dim), device="cuda")
-        x[:, 0] = 50.0
-        x[:, 1] = 30.0
-        cases.append(("underflow", spec, x))
     results = []
-    for name, sp, x in cases:
+    for name, sp, x in _cases(spec, gen, sizes, extra):
         rows = x.shape[0]
         u = torch.rand(x.shape, generator=gen, device="cuda")
         out = fused_apply_activate(x, sp, u)
         dy = torch.randn(x.shape, generator=gen, device="cuda")
+        if name == "misaligned":
+            dy, out = misaligned(dy), misaligned(out)
+        if name == "stacked":
+            _stacked_equal(lambda a, b: fused_activate_bwd(a, b, sp), dy, out)
         got = fused_activate_bwd(dy, out, sp)
         want = apply_activate_bwd(dy, out, sp)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        iters = 20 if rows >= 64000 else 200
-        ms = cuda_ms(lambda: fused_activate_bwd(dy, out, sp), iters)
-        plain = cuda_ms(lambda: apply_activate_bwd(dy, out, sp), iters)
-        bound, bound_by = bound_ms(rows, sp.dim, "K2")
-        print(f"K2 {name}: ({rows}, {sp.dim}) max_abs_err {err!r} "
-              f"(atol {ATOL}) kernel {ms!r} ms plain {plain!r} ms bound "
-              f"{bound!r} ms ({bound_by})  [{card}]", flush=True)
-        if not err <= ATOL:
-            raise AssertionError(f"K2 {name}: max_abs_err {err} > {ATOL}")
-        results.append({"shape": [rows, sp.dim], "case": name,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                        "bound_ms": bound, "bound_by": bound_by})
+        times = measure("K2", lambda: fused_activate_bwd(dy, out, sp),
+                        lambda: apply_activate_bwd(dy, out, sp), rows, sp.dim)
+        plan = activate_cuda.plan_for(dy, sp).as_dict()
+        results.append(_report("K2", name, rows, sp, err, times, plan, card))
 
     # the gradient of sum(w * activation(x)) through the autograd Function
     x = torch.randn((500, spec.dim), generator=gen, device="cuda") * 2.0
@@ -240,6 +332,84 @@ def check_bwd_kernel(spec: SegmentSpec, card: str, sizes=SIZES,
         raise AssertionError(f"activation gradient error {err} > {ATOL}")
     results.append({"shape": [500, spec.dim], "case": "autograd",
                     "max_abs_err": err})
+    return results
+
+
+def load_parent(root: str):
+    """Another tree's ``fed_tgan_torch/ops/activate_cuda.py`` (its own
+    kernel source and build directory) as a module of its own; it shares
+    this tree's plain versions and ``SegmentSpec``."""
+    import importlib.util
+
+    path = os.path.join(root, "fed_tgan_torch", "ops", "activate_cuda.py")
+    mod_spec = importlib.util.spec_from_file_location("parent_activate_cuda",
+                                                      path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    return mod
+
+
+def main_shapes(seed: int) -> list:
+    """(name, spec, rows) of the main path's kernel shapes: the training
+    batch (500 rows of the layout the trainer fits to the training table),
+    the serving chunk (8,000), a 128-step chunk (64,000) and the 70-wide
+    segment at 64,000 rows."""
+    matrix, cat_idx, _, _ = intrusion_like_table(TRAIN_ROWS, seed)
+    train_spec = SegmentSpec.from_output_info(
+        ModeNormalizer(device="cuda").fit(matrix, cat_idx).output_info)
+    _, _, columns = intrusion_layout(np.random.default_rng(seed))
+    spec = SegmentSpec.from_output_info(output_info(columns))
+    return [("train", train_spec, 500), ("rows8000", spec, 8000),
+            ("rows64000", spec, 64000),
+            ("wide70", SegmentSpec.from_output_info(WIDE70), 64000)]
+
+
+def _operands(sp: SegmentSpec, rows: int, gen) -> tuple:
+    x = torch.randn((rows, sp.dim), generator=gen, device="cuda") * 2.0
+    u = torch.rand(x.shape, generator=gen, device="cuda")
+    dy = torch.randn(x.shape, generator=gen, device="cuda")
+    return x, u, dy, apply_activate(x, sp, u)
+
+
+def ab_phase(parent_root: str, shapes: list, card: str) -> list[dict]:
+    """The other tree's K1 and K2 against this tree's on the same inputs,
+    in turns (other, this, this, other), at ``shapes``."""
+    parent = load_parent(parent_root)
+    t0 = time.perf_counter()
+    parent.build()
+    print(f"built the other tree's kernels in {time.perf_counter() - t0!r} s"
+          f"  [{card}]", flush=True)
+    sides = {"parent": (parent.fused_apply_activate, parent.fused_activate_bwd),
+             "change": (fused_apply_activate, fused_activate_bwd)}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    results = []
+    for name, sp, rows in shapes:
+        x, u, dy, out = _operands(sp, rows, gen)
+        for kernel in ("K1", "K2"):
+            want = out if kernel == "K1" else apply_activate_bwd(dy, out, sp)
+            runs = []
+            for side in ("parent", "change", "change", "parent"):
+                fwd, bwd = sides[side]
+                fn = ((lambda: fwd(x, sp, u)) if kernel == "K1"
+                      else (lambda: bwd(dy, out, sp)))
+                err = (fn() - want).abs().max().item()
+                if not err <= ATOL:
+                    raise AssertionError(f"{side} {kernel} {name}: max_abs_err"
+                                         f" {err} > {ATOL}")
+                runs.append({"side": side, "max_abs_err": err,
+                             **kernel_times(kernel, fn, rows)})
+            bound, bound_by = bound_ms(rows, sp.dim, kernel)
+            entry = {"kernel": kernel, "case": name, "shape": [rows, sp.dim],
+                     "bound_ms": bound, "bound_by": bound_by, "runs": runs}
+            for side in ("parent", "change"):
+                mine = [r for r in runs if r["side"] == side]
+                entry[side] = {k: statistics.mean(r[k] for r in mine)
+                               if all(r[k] is not None for r in mine) else None
+                               for k in ("ms", "device_ms", "host_us")}
+            print(f"A/B {kernel} {name} ({rows}, {sp.dim}): other tree "
+                  f"{entry['parent']}, this tree {entry['change']}; bound "
+                  f"{bound!r} ms  [{card}]", flush=True)
+            results.append(entry)
     return results
 
 
@@ -439,43 +609,58 @@ def train_stage_breakdown(synth, seed: int, card: str,
             "device": device}
 
 
-def device_profile(fn, n: int) -> dict:
-    """Device work of ``n`` calls of ``fn`` from a ``torch.profiler``
-    trace: kernels and copies per call, their summed device time per call
-    (one stream, so the sum is the busy time; annotation ranges left out),
-    and the five kernels that take the most of it.  ``busy_ms_per_step``
-    is None when the trace holds no device events."""
+def device_events(fn, n: int) -> dict:
+    """Name -> (count, summed microseconds) of the device events of ``n``
+    calls of ``fn`` in a ``torch.profiler`` trace.  A record_function
+    range (such as Optimizer.step) also shows on the device timeline,
+    spanning kernels that are counted anyway, so annotation ranges are
+    left out.  Raises the profiler's own RuntimeError."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    per_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            cnt, tot = per_name.get(e.name, (0, 0.0))
+            per_name[e.name] = (cnt + 1, tot + e.time_range.elapsed_us())
+    return per_name
+
+
+def device_profile(fn, n: int) -> dict:
+    """Device work of ``n`` calls of ``fn``: kernels and copies per call,
+    their summed device time per call (one stream, so the sum is the busy
+    time), the five kernels that take the most of it, and K1's and K2's
+    time per call and share of the busy time.  ``busy_ms_per_step`` is
+    None when the trace holds no device events."""
     fn()
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
+        per_name = device_events(fn, n)
     except RuntimeError as exc:  # the profiler itself, not the step
         return {"busy_ms_per_step": None, "error": str(exc)[:200]}
-    per_name: dict = {}
-    for e in prof.events():
-        # a record_function range (such as Optimizer.step) also shows on
-        # the device timeline, spanning kernels that are counted anyway
-        if e.device_type == DeviceType.CUDA and not getattr(
-                e, "is_user_annotation", False):
-            us = e.time_range.elapsed_us()
-            cnt, tot = per_name.get(e.name, (0, 0.0))
-            per_name[e.name] = (cnt + 1, tot + us)
     if not per_name:
         return {"busy_ms_per_step": None}
     busy_us = sum(t for _, t in per_name.values())
     top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:5]
+    activation = {}
+    for kernel, name in KERNEL_NAMES.items():
+        hits = [v for k, v in per_name.items() if name in k]
+        us = sum(t for _, t in hits)
+        activation[kernel] = {
+            "per_step": sum(c for c, _ in hits) / n,
+            "ms_per_step": us / 1e3 / n, "share_of_busy": us / busy_us}
     return {
         "busy_ms_per_step": busy_us / 1e3 / n,
         "device_ops_per_step": sum(c for c, _ in per_name.values()) / n,
         "top": [{"name": k[:80], "per_step": c / n, "ms_per_step": t / 1e3 / n}
                 for k, (c, t) in top],
+        "activation": activation,
     }
 
 
@@ -632,6 +817,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=5000)
+    ap.add_argument("--ab", metavar="TREE",
+                    help="instead of the phases: time the kernels of the "
+                    "fed_tgan_torch package under TREE against this one's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -647,6 +835,15 @@ def main(argv=None) -> int:
     for line in log.splitlines():
         if "ptxas" in line:
             print(f"  {line.strip()}")
+
+    if args.ab:
+        print(json.dumps({"ab": ab_phase(args.ab, main_shapes(args.seed),
+                                         card)}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     _, _, columns = intrusion_layout(np.random.default_rng(args.seed))
     spec = SegmentSpec.from_output_info(output_info(columns))
@@ -676,7 +873,7 @@ def main(argv=None) -> int:
     # both kernels again at the shape training gave them: (batch, the
     # fitted layout's width)
     train_size = (("train", synth.cfg.batch_size),)
-    shapes += check_kernel(synth.spec, card, train_size, underflow=False)
+    shapes += check_kernel(synth.spec, card, train_size, extra=False)
     bwd_shapes += check_bwd_kernel(synth.spec, card, train_size, extra=False)
     training["card_vs_cpu"] = step_reference_phase(synth, args.seed, card)
     serve_trained_phase(synth, meta, encoders, args.rows, args.seed, card)
@@ -693,6 +890,8 @@ def main(argv=None) -> int:
             "max_abs_err": max(r["max_abs_err"] for r in results),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "device_ms": main["device_ms"], "host_us": main["host_us"],
+            "plan": main["plan"],
             # no single PyTorch call computes a segmented Gumbel-softmax
             # or its gradient
             "library_ms": None, "path": path, "shape": main["shape"],

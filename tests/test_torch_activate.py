@@ -17,8 +17,14 @@ from fed_tgan_tpu.ops.activate_pallas import fused_apply_activate as pallas_acti
 from fed_tgan_tpu.ops.segments import SegmentSpec as JaxSpec
 from fed_tgan_tpu.ops.segments import apply_activate_xla
 from fed_tgan_torch.ops.activate_cuda import (
+    SMEM_BLOCK,
+    TANH_BIT,
+    dim_codes,
+    dim_tables,
     fused_apply_activate,
+    launch_plan,
     segment_tables,
+    smem_bytes,
 )
 from fed_tgan_torch.ops.segments import SegmentSpec, apply_activate
 from fed_tgan_torch.serve.demo import intrusion_layout
@@ -109,3 +115,92 @@ def test_kernel_segment_tables(specs):
     np.testing.assert_array_equal(start, [0, 1, 4, 5, 10, 12])
     np.testing.assert_array_equal(is_tanh, [1, 0, 1, 0, 0])
     assert start.dtype == np.int32 and is_tanh.dtype == np.uint8
+
+
+def _intrusion_spec():
+    _, _, columns = intrusion_layout(np.random.default_rng(0))
+    info = output_info(columns)
+    return SegmentSpec.from_output_info(info), JaxSpec.from_output_info(info)
+
+
+def test_kernel_dim_tables_match_jax_spec():
+    """The per-dim tables the kernels stage are the JAX SegmentSpec's
+    ``segment_ids`` and ``is_tanh_dim`` on the Intrusion layout, and the
+    packed code carries both."""
+    spec, jspec = _intrusion_spec()
+    seg, tanh = dim_tables(spec)
+    assert seg.dtype == np.uint16 and tanh.dtype == np.uint8
+    np.testing.assert_array_equal(seg, jspec.segment_ids)
+    np.testing.assert_array_equal(tanh.astype(bool), jspec.is_tanh_dim)
+    codes = dim_codes(spec)
+    np.testing.assert_array_equal(codes & (TANH_BIT - 1), jspec.segment_ids)
+    np.testing.assert_array_equal((codes & TANH_BIT) != 0, jspec.is_tanh_dim)
+
+
+@pytest.mark.parametrize("dim,n_segments", [(282, 64), (285, 65), (75, 4)])
+def test_launch_plan_covers_every_sm_at_training_rows(dim, n_segments):
+    """At the training batch (500 rows) every one of the H100's 132 SMs
+    gets a tile of a few rows, and the block stays within 227 KB."""
+    plan = launch_plan(500, dim, n_segments, sms=132)
+    assert plan.tiles >= 132 and plan.staged
+    assert plan.rows_per_tile > 1  # a few rows per block, not one
+    assert plan.rows_per_tile * plan.tiles >= 500
+    assert plan.rows_per_tile * (plan.tiles - 1) < 500
+    assert plan.smem_bytes <= SMEM_BLOCK
+
+
+@pytest.mark.parametrize("rows", [1, 5, 500, 8000, 64000])
+def test_launch_plan_one_block_per_tile_within_shared_memory(rows):
+    spec, _ = _intrusion_spec()
+    plan = launch_plan(rows, spec.dim, spec.n_segments, sms=132)
+    assert plan.smem_bytes <= SMEM_BLOCK
+    assert plan.smem_bytes == smem_bytes(plan.rows_per_tile, spec.dim,
+                                         spec.n_segments)
+    assert plan.staged and plan.tiles == -(-rows // plan.rows_per_tile)
+    assert 1 <= plan.blocks_per_sm <= 8
+    if rows >= 8000:  # at least one full wave of resident blocks
+        assert plan.rows_per_tile > 1
+        assert plan.tiles >= 132 * plan.blocks_per_sm
+
+
+def _largest_dim(fits):
+    lo, hi = 1, 1 << 16
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+def _plan_or_none(rows, dim, n_segments):
+    try:
+        return launch_plan(rows, dim, n_segments)
+    except ValueError:
+        return None
+
+
+def test_launch_plan_raises_beyond_the_supported_dim():
+    """Rows up to 29,056 floats, one row of both operands in a block's
+    227 KB, are taken; one more raises."""
+    lo = _largest_dim(lambda d: _plan_or_none(2, d, 3) is not None)
+    assert lo == SMEM_BLOCK // 8 == 29056
+    assert launch_plan(2, lo, 3).smem_bytes <= SMEM_BLOCK
+    with pytest.raises(ValueError):
+        launch_plan(2, lo + 1, 3)
+    with pytest.raises(ValueError):
+        launch_plan(0, 282, 64)
+
+
+@pytest.mark.parametrize("n_segments", [3, 300])
+def test_launch_plan_runs_rows_too_wide_to_stage_unstaged(n_segments):
+    """Past the widest row that fits staged beside its tables, each block
+    takes one row unstaged, with the (row, segment) results alone in shared
+    memory; that fits even for 29,056 segments of one dim."""
+    widest = _largest_dim(lambda d: (p := _plan_or_none(
+        2, d, n_segments)) is not None and p.staged)
+    assert 8000 < widest < 29056  # the wide card test's 8,000 stages
+    for dim in (widest + 1, 29056):
+        plan = launch_plan(5, dim, n_segments)
+        assert not plan.staged and plan.rows_per_tile == 1 and plan.tiles == 5
+        assert plan.smem_bytes == smem_bytes(1, dim, n_segments, staged=False)
+        assert plan.blocks_per_sm >= 1
+    assert launch_plan(1, 29056, 29056).smem_bytes == SMEM_BLOCK

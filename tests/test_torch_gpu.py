@@ -15,6 +15,8 @@ from fed_tgan_torch.features.transformer import output_info
 from fed_tgan_torch.ops.activate_cuda import (
     fused_activate_bwd,
     fused_apply_activate,
+    launch_plan,
+    plan_for,
 )
 from fed_tgan_torch.ops.segments import (
     SegmentSpec,
@@ -172,6 +174,131 @@ def test_bwd_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         fused_activate_bwd(torch.randn((spec.dim, 4), device=cuda).T, out,
                            spec)
+
+
+def _both(spec, x, u, dy):
+    """K1 on (x, u), then K2 on (dy, K1's output); each against its plain
+    version."""
+    out = fused_apply_activate(x, spec, u)
+    dx = fused_activate_bwd(dy, out, spec)
+    torch.cuda.synchronize()
+    assert (out - apply_activate(x, spec, u)).abs().max().item() <= ATOL
+    assert (dx - apply_activate_bwd(dy, out, spec)).abs().max().item() <= ATOL
+    return out, dx
+
+
+def _inputs(spec, rows, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn((rows, spec.dim), generator=g, device=device) * 2.0,
+            torch.rand((rows, spec.dim), generator=g, device=device),
+            torch.randn((rows, spec.dim), generator=g, device=device))
+
+
+@pytest.mark.parametrize("rows", [7, 131, 3001, 8002, 64001])
+def test_kernels_at_tile_edges(cuda, rows):
+    """Fewer rows than SMs, and row counts that leave the last tile
+    short."""
+    spec = _spec()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = plan_for(torch.empty((rows, spec.dim), device=cuda), spec)
+    assert rows < sms or (plan.rows_per_tile > 1
+                          and rows % plan.rows_per_tile)
+    _both(spec, *_inputs(spec, rows, rows, cuda))
+
+
+def _misaligned(t):
+    st = torch.empty(t.numel() + 1, device=t.device)
+    st[1:].copy_(t.flatten())
+    view = st[1:].view_as(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("rows", [1, 5, 500])
+def test_kernels_on_a_misaligned_base(cuda, rows):
+    """Operands whose base is only 4-byte aligned (a contiguous view at
+    storage offset 1): the copies split on other element boundaries."""
+    spec = _spec()
+    x, u, dy = _inputs(spec, rows, 5, cuda)
+    out, dx = _both(spec, *(_misaligned(t) for t in (x, u, dy)))
+    aligned_out = fused_apply_activate(x, spec, u)
+    assert torch.equal(out, aligned_out)
+    assert torch.equal(dx, fused_activate_bwd(dy, aligned_out, spec))
+
+
+def _largest_dim(sms, staged):
+    """The largest D that launch_plan takes (``staged``: that it stages)
+    for rows of 3 segments."""
+    def fits(dim):
+        try:
+            plan = launch_plan(2, dim, 3, sms)
+        except ValueError:
+            return False
+        return plan.staged or not staged
+
+    lo, hi = 1, 1 << 16
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+def test_kernels_at_dim_one_and_the_largest_dim(cuda):
+    """D = 1; the widest rows that stage; D = 29,056, the widest the kernels
+    take (one row of both operands fills a block), which runs unstaged."""
+    for info in ([(1, "tanh")], [(1, "softmax")]):
+        spec = _spec(info)
+        _both(spec, *_inputs(spec, 300, 6, cuda))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    widest = _largest_dim(sms, staged=False)
+    assert widest == 29056
+    for dim in (_largest_dim(sms, staged=True), widest):
+        spec = _spec([(1, "tanh"), (dim - 71, "softmax"), (70, "softmax")])
+        x, u, dy = _inputs(spec, 3, 7, cuda)
+        assert plan_for(x, spec).staged == (dim < widest)
+        _both(spec, x, u, dy)
+    wider = _spec([(1, "tanh"), (widest - 70, "softmax"), (70, "softmax")])
+    xw, uw, _ = _inputs(wider, 2, 8, cuda)
+    with pytest.raises(ValueError):
+        fused_apply_activate(xw, wider, uw)
+
+
+def test_stacked_clients_equal_separate_launches(cuda):
+    """The stacked rows of 4 clients x 500 (the federated round) in one
+    launch are bit-identical to one launch per client: a row's result does
+    not depend on its position in a tile (the kernel-level twin of
+    tests/test_pallas_activate.py's vmap case)."""
+    spec = _spec()
+    x, u, dy = _inputs(spec, 4 * 500, 9, cuda)
+    out, dx = _both(spec, x, u, dy)
+    parts = [slice(i * 500, (i + 1) * 500) for i in range(4)]
+    outs = [fused_apply_activate(x[p], spec, u[p]) for p in parts]
+    assert torch.equal(out, torch.cat(outs))
+    assert torch.equal(dx, torch.cat([fused_activate_bwd(dy[p], o, spec)
+                                      for p, o in zip(parts, outs)]))
+
+
+def test_both_kernels_replay_in_a_cuda_graph(cuda):
+    """K1 then K2 captured once and replayed on new inputs give what eager
+    launches give: no allocation, synchronisation or host copy inside."""
+    spec = _spec()
+    x, u, dy = _inputs(spec, 500, 10, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fused_activate_bwd(dy, fused_apply_activate(x, spec, u), spec)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_apply_activate(x, spec, u)
+        dx = fused_activate_bwd(dy, out, spec)
+    for seed in (11, 12):
+        for static, fresh in zip((x, u, dy), _inputs(spec, 500, seed, cuda)):
+            static.copy_(fresh)
+        graph.replay()
+        want_out, want_dx = _both(spec, x, u, dy)
+        assert torch.equal(out, want_out) and torch.equal(dx, want_dx)
 
 
 def test_train_step_on_card_matches_cpu(cuda):
