@@ -43,7 +43,24 @@ Phases, each fatal on failure:
 8. the stages of one train step (draws, D step, G forward, G backward
    with K2, Adam on G) one by one, then 20 steps back to back, then 20
    steps under ``torch.profiler`` for the card's busy time per step and
-   K1's and K2's share of it.
+   K1's and K2's share of it;
+9. the federated round, slice 3's main path, at its target configuration
+   (a 20,000-row raw Intrusion-shaped CSV, 4 IID clients, ``TrainConfig()``
+   defaults, the gated weighted aggregator, a 40,000-row packed8 snapshot
+   after every round): ``python -m fed_tgan_torch --mode fedavg`` as a
+   process of its own for 3 rounds with ``--eval --save-model`` (exit 0,
+   3 snapshots of 40,000 rows with the right header), then ``serve``
+   answers one request from the saved artifact;
+10. the same configuration in this process: init phases, 3 rounds with a
+   snapshot each (K1 launched ``sum(steps) * (d_steps + 1) + chunks`` and
+   K2 ``sum(steps)`` times a round, exactly), seconds per round split
+   into local steps, aggregation and snapshot, the writer thread's CSV
+   time and what it costs the next round, then one round and its
+   snapshot under ``torch.profiler`` (busy ms, K1/K2 share);
+11. one round on the card against the same round on the CPU (injected
+   draws), then a round with client 1's update scaled x1e3, quarantined
+   on both devices; then K1 and K2 against their plain versions at the
+   federated shapes.
 
 ``--ab TREE`` runs none of the phases: it builds the kernels of the
 ``fed_tgan_torch`` package under TREE (for example a ``git archive`` of an
@@ -52,9 +69,9 @@ this, other) at the training batch, the serving chunk, a 128-step chunk
 and the 70-wide segment, and prints one ``{"ab": ...}`` line.
 
 Prints the card's name and power limit beside every number, a JSON line
-with the training numbers, the card's line, a JSON line with the kernels'
-numbers (one entry per kernel and path: K1 serving, K1 training, K2
-training), and last
+with the training numbers, one with the federated round's, the card's
+line, a JSON line with the kernels' numbers (one entry per kernel and
+path: K1 serving, K1 and K2 training, K1 and K2 federated), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no result line, when CUDA is not available.
 """
@@ -79,13 +96,21 @@ import urllib.request
 import numpy as np
 import torch
 
-from fed_tgan_torch.data.csvio import csv_bytes
+from fed_tgan_torch.data.csvio import csv_bytes, read_csv
 from fed_tgan_torch.data.decode import decode_columns
+from fed_tgan_torch.data.ingest import TablePreprocessor
+from fed_tgan_torch.data.sharding import shard_table
+from fed_tgan_torch.datasets import (
+    INTRUSION_SELECTED,
+    PRESETS,
+    preprocessor_kwargs,
+)
 from fed_tgan_torch.features.transformer import (
     DiscreteColumn,
     ModeNormalizer,
     output_info,
 )
+from fed_tgan_torch.federation.init import federated_initialize
 from fed_tgan_torch.interop import params_to_jax_layout
 from fed_tgan_torch.ops import activate_cuda
 from fed_tgan_torch.ops.activate_cuda import (
@@ -103,12 +128,15 @@ from fed_tgan_torch.serve.demo import (
     intrusion_layout,
     intrusion_like_table,
     write_artifact,
+    write_intrusion_csv,
 )
 from fed_tgan_torch.serve.engine import SamplingEngine
 from fed_tgan_torch.serve.registry import open_model
 from fed_tgan_torch.serve.service import SamplingService
 from fed_tgan_torch.train import steps
+from fed_tgan_torch.train.federated import FederatedTrainer
 from fed_tgan_torch.train.sampler import CondSampler, RowSampler
+from fed_tgan_torch.train.snapshots import SnapshotWriter, result_path_fn
 from fed_tgan_torch.train.standalone import StandaloneSynthesizer
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -124,6 +152,10 @@ BYTES_PER_ELEM = 12
 OPS_PER_ELEM = {"K1": 10, "K2": 5}
 TRAIN_ROWS = 10_000  # about the reference's Intrusion_test.csv (10,098 rows)
 TRAIN_EPOCHS = 2
+# the federated round's target configuration: 4 IID clients of an
+# Intrusion-shaped table, TrainConfig() defaults, a 40,000-row snapshot
+# (the reference's) after every round
+FED_ROWS, FED_CLIENTS, FED_EPOCHS, SNAPSHOT_ROWS = 20_000, 4, 3, 40_000
 
 
 def gpu_line() -> str:
@@ -460,8 +492,10 @@ def _close(name, a, b, atol, rtol, skip=None) -> tuple[float, int]:
     keep = np.ones(a.shape, dtype=bool) if skip is None else ~skip
     diff = np.abs(a - b)[keep]
     if diff.size and not (diff <= atol + rtol * np.abs(b[keep])).all():
+        j = np.argmax(diff - rtol * np.abs(b[keep]))
         raise AssertionError(f"{name}: card vs CPU max abs diff "
-                             f"{diff.max()} (atol {atol}, rtol {rtol})")
+                             f"{diff.max()} (atol {atol}, rtol {rtol}); worst "
+                             f"entry {a[keep][j]!r} vs {b[keep][j]!r}")
     return float(diff.max()) if diff.size else 0.0, int((~keep).sum())
 
 
@@ -662,6 +696,249 @@ def device_profile(fn, n: int) -> dict:
                 for k, (c, t) in top],
         "activation": activation,
     }
+
+
+def _fed_init(csv_path: str, n_clients: int, seed: int, device: str):
+    """The federated init of the target configuration: the raw CSV
+    sharded IID over ``n_clients``, the Intrusion preset."""
+    kw = preprocessor_kwargs(PRESETS["intrusion"])
+    shards = shard_table(read_csv(csv_path), n_clients, "iid", seed=seed)
+    clients = [TablePreprocessor(table=t, name="Intrusion", **kw)
+               for t in shards]
+    return federated_initialize(clients, seed=seed, device=device)
+
+
+def fed_cli_phase(root: str, seed: int, card: str) -> dict:
+    """The training CLI as a user runs it, in a process of its own, on
+    the card: 3 rounds, a 40,000-row snapshot after each, the evaluation
+    and the artifact; then ``serve`` answers one request from that
+    artifact."""
+    out = os.path.join(root, "cli_out")
+    cmd = [sys.executable, "-m", "fed_tgan_torch", "--mode", "fedavg",
+           "--datapath", os.path.join(root, "intrusion.csv"),
+           "--dataset", "intrusion", "--n-clients", str(FED_CLIENTS),
+           "-epochs", str(FED_EPOCHS), "--sample-every", "1",
+           "--sample-rows", str(SNAPSHOT_ROWS), "--eval", "--save-model",
+           "--out-dir", out, "--seed", str(seed)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"federated CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    result = os.path.join(out, "Intrusion_result")
+    names = sorted(os.listdir(result))
+    want = [f"Intrusion_synthesis_epoch_{e}.csv" for e in range(FED_EPOCHS)]
+    if names != want:
+        raise AssertionError(f"snapshots {names} != {want}")
+    for name in names:
+        with open(os.path.join(result, name)) as f:
+            header = f.readline().strip().split(",")
+            n = sum(1 for _ in f)
+        if header != list(INTRUSION_SELECTED) or n != SNAPSHOT_ROWS:
+            raise AssertionError(f"{name}: {len(header)} columns, {n} rows")
+    final = [line for line in proc.stdout.splitlines()
+             if line.startswith("final Avg_JSD=")]
+    if not final:
+        raise AssertionError("the CLI printed no final Avg_JSD/Avg_WD")
+    jsd, wd = (float(v.split("=")[1]) for v in final[0].split()[1:3])
+    if not (math.isfinite(jsd) and math.isfinite(wd)):
+        raise AssertionError(f"non-finite evaluation {final[0]}")
+    model = open_model(out, device="cuda")
+    service = SamplingService(model).start()
+    try:
+        status, body, _ = fetch(f"{service.url}/sample?rows=1000&seed={seed}")
+    finally:
+        service.shutdown()
+    if status != 200:
+        raise AssertionError(f"serve answered {status}")
+    check_csv(body, 1000, True,
+              [i for i, c in enumerate(model.meta.column_names)
+               if c in model.meta.continuous_columns])
+    print(f"federated CLI: {FED_CLIENTS} clients x {FED_ROWS // FED_CLIENTS} "
+          f"rows, {FED_EPOCHS} rounds, {SNAPSHOT_ROWS}-row snapshots "
+          f"{names}: exit 0 in {wall!r} s; {final[0]}; serve answered 1000 "
+          f"rows from the saved artifact  [{card}]", flush=True)
+    return {"wall_s": wall, "avg_jsd": jsd, "avg_wd": wd,
+            "stdout_tail": proc.stdout.splitlines()[-6:]}
+
+
+def fed_round_phase(root: str, seed: int, card: str) -> dict:
+    """The target configuration in this process: init phases, then
+    ``FED_EPOCHS`` rounds with a snapshot after each (the main path,
+    K1/K2 launches counted and checked exactly), then rounds without a
+    snapshot (what the writer thread costs the next round's dispatch),
+    then one round under ``torch.profiler``."""
+    t0 = time.perf_counter()
+    init = _fed_init(os.path.join(root, "intrusion.csv"), FED_CLIENTS, seed,
+                     "cuda")
+    init_s = time.perf_counter() - t0
+    cfg = steps.TrainConfig()
+    trainer = FederatedTrainer(init, cfg, seed=seed, device="cuda")
+    path_fn = result_path_fn(os.path.join(root, "round_out"), "Intrusion")
+    writer = SnapshotWriter(init.global_meta, init.encoders, path_fn,
+                            rows=SNAPSHOT_ROWS, seed=seed)
+    sum_steps = int(trainer.steps.sum())
+    # K1 launches once per chunk of a snapshot
+    chunks = len(trainer._sampler()._chunk_plan(
+        0, -(-SNAPSHOT_ROWS // cfg.batch_size)))
+    fused_apply_activate.launches = 0
+    fused_activate_bwd.launches = 0
+    with writer:
+        trainer.fit(FED_EPOCHS, sample_hook=writer)
+    launches = {"K1": fused_apply_activate.launches,
+                "K2": fused_activate_bwd.launches}
+    per_round = {"K1": sum_steps * (cfg.d_steps + 1) + chunks,
+                 "K2": sum_steps}
+    want = {k: FED_EPOCHS * v for k, v in per_round.items()}
+    if launches != want:
+        raise AssertionError(f"federated launches {launches} != {want}")
+    for e in range(FED_EPOCHS):
+        with open(path_fn(e)) as f:
+            if sum(1 for _ in f) != SNAPSHOT_ROWS + 1:
+                raise AssertionError(f"snapshot {e}: wrong row count")
+    if not np.isfinite(trainer.last_metrics).all():
+        raise AssertionError(f"non-finite round metrics "
+                             f"{trainer.last_metrics}")
+    with_snap = list(trainer.round_split["local_steps"])
+    trainer.fit(FED_EPOCHS)  # no snapshot: no writer thread beside it
+    quiet = trainer.round_split["local_steps"][FED_EPOCHS:]
+    split = {k: v[:FED_EPOCHS] for k, v in trainer.round_split.items()}
+    rounds_s = trainer.epoch_times[:FED_EPOCHS]
+    snapshot_s = trainer.phase_times["distribution"][:FED_EPOCHS]
+    e = trainer.completed_epochs
+    device = device_profile(
+        lambda: (trainer.run_round(e),
+                 trainer.sample_parts(SNAPSHOT_ROWS, seed=seed)), 1)
+    report = {
+        "config": {"rows": FED_ROWS, "clients": FED_CLIENTS,
+                   "rows_per_client": init.rows_per_client,
+                   "steps_per_round": trainer.steps.tolist(),
+                   "dim": trainer.spec.dim, "n_opt": trainer.spec.n_opt,
+                   "snapshot_rows": SNAPSHOT_ROWS, "batch": cfg.batch_size},
+        "init_s": init_s, "init_phases_s": {**init.timings,
+                                            **trainer.timings},
+        "weights": init.weights.tolist(),
+        "round_s": rounds_s, "local_steps_s": split["local_steps"],
+        "aggregate_s": split["aggregate"],
+        "snapshot_device_and_copy_s": snapshot_s,
+        "snapshot_host_csv_s": writer.write_s,
+        "local_steps_s_next_to_writer": with_snap[1:],
+        "local_steps_s_no_writer": quiet,
+        "launches": launches, "launches_per_round": per_round,
+        "device_one_round": device,
+    }
+    print(f"federated round: {FED_CLIENTS} clients, steps {trainer.steps}"
+          f" per round, layout {trainer.spec.dim}; init {init_s!r} s "
+          f"({init.timings}); s/round {rounds_s!r} = local steps "
+          f"{split['local_steps']!r} + aggregation {split['aggregate']!r} + "
+          f"snapshot {snapshot_s!r} (device + copy; host CSV on the writer "
+          f"thread {writer.write_s!r}); local steps next to the writer "
+          f"{with_snap[1:]!r} vs without {quiet!r}; launches {launches} "
+          f"(expected {want})  [{card}]", flush=True)
+    print(f"federated round on the device (torch.profiler, one round and "
+          f"its snapshot's device work): "
+          f"{json.dumps(device)}  [{card}]", flush=True)
+    return trainer, report
+
+
+def fed_reference_phase(root: str, seed: int, card: str) -> dict:
+    """One round on the card against the same round on the CPU (the same
+    initial weights and injected draws, 4 clients x 1,000 rows at full
+    width, 2 steps each), then a round where client 1's update is scaled
+    x1e3 after its local steps.
+
+    - Round 1: every client's aggregated parameters and BatchNorm state.
+      All but at most 1% of the entries within slice 2's atol 1e-5 + rtol
+      1e-3, and every parameter within ``2 * 1.2 * lr`` per local step: an
+      Adam step at these betas is at most ~1.2 lr, and an entry whose
+      gradient is near zero (a BatchNorm shift summed over 500 rows, a
+      dropped-out unit) may step the other way on the other device.  The
+      count outside, per part, is printed.
+    - Round 2: client 1 quarantined on both devices, and on both the
+      aggregate moved by at most ``4 * lr`` per local step from round 1's
+      (the scaled update would move it by ~1e3 x an Adam step).  The
+      card-vs-CPU distance of round 2 is printed."""
+    path = write_intrusion_csv(os.path.join(root, "ref.csv"), 4000, seed + 1)
+    init = _fed_init(path, FED_CLIENTS, seed, "cpu")
+    cfg = steps.TrainConfig()
+    spec = SegmentSpec.from_output_info(init.output_info)
+    ref = steps.init_models(spec, cfg, seed + 1, "cpu")
+    draws = {}
+
+    def draw(e, i, s):
+        if (e, i, s) not in draws:
+            gen = torch.Generator().manual_seed(1000 * e + 10 * i + s)
+            draws[(e, i, s)] = steps.draw_step(gen, ref)
+        return draws[(e, i, s)]
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        models = [steps.init_models(spec, cfg, seed + 1, dev)
+                  for _ in range(FED_CLIENTS)]
+        tr = FederatedTrainer(init, cfg, seed=seed, device=dev,
+                              models=models, draws=draw)
+        tr.fit(1)
+        first = [params_to_jax_layout(m) for m in tr.models]
+        q0 = tr.last_quarantined.tolist()
+        tr.fit(1, update_fault=("scale", 1, 1000.0))
+        runs[dev] = (first, q0, [params_to_jax_layout(m) for m in tr.models],
+                     tr.last_quarantined.tolist())
+    n_steps = int(tr.steps[0])
+    if list(tr.steps) != [2] * FED_CLIENTS:
+        raise AssertionError(f"steps {tr.steps}")
+    (c1, cq0, c2, cq1), (h1, hq0, h2, hq1) = runs["cuda"], runs["cpu"]
+    flip = 2 * 1.2 * cfg.lr * n_steps
+    stats = {}
+    for part in ("params_g", "params_d", "state_g"):
+        n = out = 0
+        worst = (0.0, None)
+        for a, b in zip(c1, h1):
+            for k, (x, y) in enumerate(zip(_leaves(a[part]),
+                                           _leaves(b[part]))):
+                x, y = np.asarray(x), np.asarray(y)
+                d = np.abs(x - y)
+                n, out = n + d.size, out + int(
+                    (d > 1e-5 + 1e-3 * np.abs(y)).sum())
+                if d.max() > worst[0]:
+                    j = int(d.argmax())
+                    worst = (float(d.max()), f"leaf {k} {x.shape}: "
+                             f"{x.flat[j]!r} vs {y.flat[j]!r}")
+        stats[part] = {"entries": n, "outside": out, "max_abs_diff": worst[0],
+                       "worst": worst[1]}
+    moved, round2 = {}, 0.0
+    for dev, (r1, _, r2, _) in runs.items():
+        moved[dev] = max(
+            float(np.abs(np.asarray(x) - np.asarray(y)).max())
+            for a, b in zip(r1, r2) for part in ("params_g", "params_d")
+            for x, y in zip(_leaves(a[part]), _leaves(b[part])))
+    for a, b in zip(c2, h2):
+        for part in ("params_g", "params_d", "state_g"):
+            for x, y in zip(_leaves(a[part]), _leaves(b[part])):
+                round2 = max(round2, float(np.abs(np.asarray(x)
+                                                  - np.asarray(y)).max()))
+    print(f"federated reference: one round card vs CPU (4 clients x 1,000 "
+          f"rows, 2 steps each, full width, injected draws): {stats} "
+          f"(atol 1e-5 + rtol 1e-3 for all but 1%, parameters within "
+          f"{flip!r}); then client 1 scaled x1e3: quarantined {cq1} on the "
+          f"card, {hq1} on the CPU; the aggregate moved at most {moved} "
+          f"(bound {4 * cfg.lr * n_steps!r}); round 2 card vs CPU max abs "
+          f"diff {round2!r}  [{card}]", flush=True)
+    for part, st in stats.items():
+        if st["outside"] > 0.01 * st["entries"] or (
+                part != "state_g" and st["max_abs_diff"] > flip):
+            raise AssertionError(f"round 1 {part}: card vs CPU {st}")
+    if cq0 != hq0 or any(cq0):
+        raise AssertionError(f"clean round quarantined {cq0} / {hq0}")
+    if cq1 != hq1 or cq1 != [False, True, False, False]:
+        raise AssertionError(f"scaled client: card {cq1}, CPU {hq1}")
+    if max(moved.values()) > 4 * cfg.lr * n_steps:
+        raise AssertionError(f"the round with the scaled client moved the "
+                             f"aggregate by {moved}")
+    return {"round1": stats, "quarantined_card": cq1,
+            "quarantined_cpu": hq1, "round2_moved": moved,
+            "round2_max_abs_diff": round2}
 
 
 def fetch(url: str) -> tuple[int, bytes, float]:
@@ -879,6 +1156,27 @@ def main(argv=None) -> int:
     serve_trained_phase(synth, meta, encoders, args.rows, args.seed, card)
     training.update(train_stage_breakdown(synth, args.seed, card))
 
+    fed_root = tempfile.mkdtemp(prefix="chip_smoke_fed_", dir=build_root)
+    try:
+        write_intrusion_csv(os.path.join(fed_root, "intrusion.csv"),
+                            FED_ROWS, args.seed)
+        federated = {"cli": fed_cli_phase(fed_root, args.seed, card)}
+        trainer, federated["round"] = fed_round_phase(fed_root, args.seed,
+                                                      card)
+        federated["card_vs_cpu"] = fed_reference_phase(fed_root, args.seed,
+                                                       card)
+    finally:
+        shutil.rmtree(fed_root, ignore_errors=True)
+    # both kernels at the shapes the federated round gives them: a client
+    # step (batch, the federation's layout) and a snapshot chunk
+    B = trainer.cfg.batch_size
+    shapes += check_kernel(trainer.spec, card,
+                           (("fed", B), ("fed_snapshot", 128 * B)),
+                           extra=False)
+    bwd_shapes += check_bwd_kernel(trainer.spec, card, (("fed", B),),
+                                   extra=False)
+    fed_launches = federated["round"]["launches"]
+
     def entry(name, replaces, path, results, main_case, launches):
         """One kernel on one path: its time and bound at the shape that
         path gives it, and its launches during that path's run."""
@@ -909,8 +1207,14 @@ def main(argv=None) -> int:
               "train", training["launches"]["K1"]),
         entry("fused_gumbel_activation_bwd", bwd, "training", bwd_shapes,
               "train", training["launches"]["K2"]),
+        # slice 3's federated round: every client's steps and the snapshots
+        entry("fused_gumbel_activation_fwd_federated", fwd, "federated",
+              shapes, "fed", fed_launches["K1"]),
+        entry("fused_gumbel_activation_bwd_federated", bwd, "federated",
+              bwd_shapes, "fed", fed_launches["K2"]),
     ]
     print(json.dumps({"training": training}))
+    print(json.dumps({"federated": federated}))
     print(card)
     print(json.dumps({"kernels": kernels, "serving": serving}))
     print(json.dumps({"ok": True, "device": {

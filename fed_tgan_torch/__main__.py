@@ -1,8 +1,10 @@
-"""``python -m fed_tgan_torch``: serving entry points of the port.
+"""``python -m fed_tgan_torch``: entry points of the port.
 
 - ``python -m fed_tgan_torch serve ART [--port P] [--device cuda|cpu]``
 - ``python -m fed_tgan_torch --sample-from ART --sample-rows N --seed S
   --out FILE [--device cuda|cpu]``
+- ``python -m fed_tgan_torch --mode fedavg|standalone ...``: training
+  (:mod:`fed_tgan_torch.cli`, the JAX CLI's flags).
 """
 
 from __future__ import annotations
@@ -48,7 +50,12 @@ def main(argv=None) -> int:
         from fed_tgan_torch.serve.service import serve_main
 
         return serve_main(argv[1:])
-    return sample_main(argv)
+    if any(a == "--sample-from" or a.startswith("--sample-from=")
+           for a in argv):
+        return sample_main(argv)
+    from fed_tgan_torch.cli import main as train_main
+
+    return train_main(argv)
 
 
 if __name__ == "__main__":

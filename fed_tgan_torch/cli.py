@@ -1,0 +1,355 @@
+"""The training CLI of the port
+(counterpart of ``fed_tgan_tpu/cli.py:743-1013`` and ``_run_training``,
+``:1125-1402``, restricted to what is ported).
+
+    python -m fed_tgan_torch --mode fedavg --datapath T.csv --dataset intrusion
+        --n-clients 4 -epochs 3 --sample-every 1 --sample-rows 40000
+        --eval --save-model --out-dir OUT [--device cuda|cpu]
+
+takes the JAX CLI's flags (without ``--backend`` / ``--n-virtual-devices``;
+``--device`` picks the card, the default, or the CPU) and writes its
+layout:
+
+- ``<out>/<name>_result/<name>_synthesis_epoch_<e>.csv`` per snapshot
+  round (``<name>_synthesis_standalone.csv`` in ``--mode standalone``);
+- ``<out>/timestamp_experiment.csv`` and ``timing_phases.csv``;
+- ``<out>/models/<name>.json`` (harmonized meta),
+  ``label_encoders_<name>.json`` and, with ``--save-model``, the port
+  artifact ``synthesizer_torch/`` that ``serve`` loads.
+
+A flag of a feature not ported yet exits with code 2 and names the ROADMAP
+item it waits for.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+
+# flag -> (argparse keywords, ROADMAP item); a value other than the
+# default is refused with exit code 2
+NOT_PORTED = {
+    "--monitor-every": (dict(type=int, default=0), "A.11"),
+    "--save-every": (dict(type=int, default=0), "A.14"),
+    "--ckpt-dir": (dict(type=str, default=None), "A.14"),
+    "--ckpt-keep": (dict(type=int, default=1), "A.14"),
+    "--resume": (dict(action="store_true"), "A.14"),
+    "--watchdog": (dict(action="store_true"), "A.14"),
+    "--faults": (dict(type=str, default=None), "A.14"),
+    "--precision": (dict(type=str, default="f32"), "A.15"),
+    "--similarity": (dict(type=str, default="exact"), "A.16"),
+    "--init-cache": (dict(type=str, default=None), "A.16"),
+    "--elastic-capacity": (dict(type=int, default=0), "A.16"),
+    "--cohort": (dict(type=int, default=0), "A.17"),
+    "--population": (dict(type=int, default=None), "A.17"),
+    "--aggregation": (dict(type=str, default="sync"), "A.17"),
+    "--ema-decay": (dict(type=float, default=0.0), "A.17"),
+    "--rounds-per-program": (dict(type=int, default=1), "A.17"),
+    "--rank": (dict(type=int, default=None), "A.18"),
+    "--world_size": (dict(type=int, default=None), "A.18"),
+    "--ip": (dict(type=str, default=None), "A.18"),
+    "--port": (dict(type=int, default=None), "A.18"),
+    "--date-format": (dict(type=str, nargs="*", default=None), "A.19"),
+    "--obs-port": (dict(type=int, default=None), "A.20"),
+    "--journal": (dict(type=str, default=None), "A.20"),
+    "--profile-dir": (dict(type=str, default=None), "A.20"),
+    "--sanitize": (dict(action="store_true"), "A.20"),
+    "--snapshot-format": (dict(type=str, default=None), "A.21"),
+}
+NOT_PORTED_MODES = {"mdgan": "A.17"}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m fed_tgan_torch",
+                                description=__doc__.split("\n\n")[0])
+    p.add_argument("-datapath", "--datapath", type=str,
+                   default="data/raw/Intrusion_train.csv")
+    p.add_argument("--client-data", type=str, nargs="*", default=None,
+                   help="per-client CSVs; overrides --datapath sharding")
+    p.add_argument("--dataset", type=str, default="intrusion",
+                   help="schema preset: intrusion|adult|covertype|custom")
+    p.add_argument("-selected_variables", "--selected", type=str, nargs="*",
+                   default=None)
+    p.add_argument("-categorical_list", "--categorical", type=str, nargs="*",
+                   default=None, dest="categorical")
+    p.add_argument("-nonnegative_list", "--non-negative", type=str,
+                   nargs="*", default=None, dest="non_negative")
+    p.add_argument("-target_column", "--target-column", type=str,
+                   default=None, dest="target_column")
+    p.add_argument("-problem_type", "--problem-type", type=str, default=None,
+                   dest="problem_type")
+    p.add_argument("-name", "--name", type=str, default=None)
+    p.add_argument("-epochs", "--epochs", type=int, default=10)
+    p.add_argument("--n-clients", type=int, default=None)
+    p.add_argument("--shard-strategy", type=str, default="iid",
+                   choices=["iid", "contiguous", "label_sorted", "dirichlet"])
+    p.add_argument("--alpha", type=float, default=0.5, help="dirichlet skew")
+    p.add_argument("--allow-zero-step-clients", action="store_true")
+    p.add_argument("--uniform", action="store_true",
+                   help="uniform FedAvg instead of similarity-weighted")
+    p.add_argument("--mode", type=str, default="fedavg",
+                   choices=["fedavg", "mdgan", "standalone"])
+    p.add_argument("--bgm-backend", type=str, default="jax",
+                   choices=["sklearn", "jax"],
+                   help="jax (default): the batched variational fit, here "
+                        "in torch on the device; sklearn is not ported")
+    p.add_argument("--batch-size", type=int, default=500)
+    p.add_argument("--embedding-dim", type=int, default=128)
+    p.add_argument("--lr-schedule", choices=["constant", "cosine", "linear"],
+                   default="constant")
+    p.add_argument("--sample-rows", type=int, default=40000)
+    p.add_argument("--sample-every", type=int, default=1,
+                   help="rounds between snapshots; 0 = only at the end")
+    p.add_argument("--decode", choices=["exact", "packed16", "packed8"],
+                   default=None, help="snapshot layout (default packed8)")
+    p.add_argument("--out-dir", type=str, default=".")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--min-clients", type=int, default=None)
+    p.add_argument("--aggregator", type=str, default="weighted",
+                   choices=["weighted", "clipped", "trimmed", "median"])
+    p.add_argument("--no-update-gate", action="store_true")
+    p.add_argument("--gate-norm-factor", type=float, default=10.0)
+    p.add_argument("--update-clip", type=float, default=3.0)
+    p.add_argument("--trim-ratio", type=float, default=0.2)
+    p.add_argument("--quarantine-strikes", type=int, default=3)
+    p.add_argument("--save-model", action="store_true",
+                   help="write the port artifact to <out>/models")
+    p.add_argument("--eval", action="store_true",
+                   help="Avg_JSD/Avg_WD of the last snapshot against the "
+                        "training data")
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    for flag, (kw, item) in NOT_PORTED.items():
+        p.add_argument(flag, **kw, help=f"not ported yet (ROADMAP {item})")
+    return p
+
+
+def _refused(args, parser) -> str | None:
+    """The first flag of a feature not ported yet, as a message."""
+    if args.mode in NOT_PORTED_MODES:
+        return (f"--mode {args.mode} is not ported yet (ROADMAP "
+                f"{NOT_PORTED_MODES[args.mode]})")
+    if args.bgm_backend == "sklearn":
+        return "--bgm-backend sklearn: sklearn is not part of the port"
+    for flag, (kw, item) in NOT_PORTED.items():
+        dest = flag.lstrip("-").replace("-", "_")
+        if getattr(args, dest) != parser.get_default(dest):
+            return f"{flag} is not ported yet (ROADMAP {item})"
+    return None
+
+
+def _dataset_kwargs(args):
+    """``(run name, TablePreprocessor kwargs)``; ``(None, None)`` for an
+    unknown preset."""
+    from fed_tgan_torch.datasets import PRESETS, preprocessor_kwargs
+
+    if args.dataset == "custom":
+        kwargs = dict(
+            categorical_columns=args.categorical or [],
+            non_negative_columns=args.non_negative or [],
+            target_column=args.target_column or "",
+            problem_type=args.problem_type or "",
+            selected_columns=args.selected or None)
+        name = args.name or os.path.basename(args.datapath).rsplit(".", 1)[0]
+        return name, kwargs
+    if args.dataset not in PRESETS:
+        print(f"unknown dataset preset {args.dataset!r}; use "
+              f"{sorted(PRESETS)} or 'custom'")
+        return None, None
+    preset = PRESETS[args.dataset]
+    kwargs = preprocessor_kwargs(preset)
+    for flag, kw in (("categorical", "categorical_columns"),
+                     ("non_negative", "non_negative_columns"),
+                     ("target_column", "target_column"),
+                     ("problem_type", "problem_type")):
+        if getattr(args, flag) is not None:
+            kwargs[kw] = getattr(args, flag)
+    if args.selected is not None:
+        kwargs["selected_columns"] = args.selected or None
+    return args.name or preset.name, kwargs
+
+
+def _write_meta(models_dir: str, name: str, meta, encoders) -> None:
+    """The harmonized meta and the encoders (the port's JSON format)."""
+    import json
+
+    os.makedirs(models_dir, exist_ok=True)
+    meta.dump_json(os.path.join(models_dir, f"{name}.json"))
+    with open(os.path.join(models_dir, f"label_encoders_{name}.json"),
+              "w") as f:
+        json.dump([{"column_name": c, **e.to_dict()} for c, e in
+                   zip(meta.categorical_columns, encoders)], f)
+
+
+def _save_model(out_dir: str, name: str, synth, meta, encoders) -> None:
+    from fed_tgan_torch.runtime.checkpoint import SYNTH_DIR, save_synthesizer
+
+    models_dir = os.path.join(out_dir, "models")
+    _write_meta(models_dir, name, meta, encoders)  # synthesizer last
+    save_synthesizer(synth, os.path.join(models_dir, SYNTH_DIR))
+
+
+def _evaluate(real_tables: list, fake: dict, categorical) -> None:
+    from fed_tgan_torch.eval.similarity import statistical_similarity
+
+    real = {c: np.concatenate([t[c] for t in real_tables]) for c in fake}
+    avg_jsd, avg_wd, _ = statistical_similarity(real, fake, categorical)
+    print(f"final Avg_JSD={avg_jsd:.4f} Avg_WD={avg_wd:.4f}")
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.batch_size <= 0 or args.batch_size % 10:
+        parser.error(f"--batch-size {args.batch_size}: must be a positive "
+                     "multiple of pac=10 (the discriminator packs rows in "
+                     "groups of 10)")
+    refused = _refused(args, parser)
+    if refused:
+        print(f"error: {refused}", file=sys.stderr)
+        return 2
+
+    from fed_tgan_torch.data.csvio import read_csv
+    from fed_tgan_torch.data.sharding import shard_table
+    from fed_tgan_torch.device import resolve_device
+    from fed_tgan_torch.train.steps import TrainConfig, lr_decay_horizon
+
+    device = resolve_device(args.device)
+    name, kwargs = _dataset_kwargs(args)
+    if name is None:
+        return 2
+    t_init = time.time()
+    if args.client_data:
+        tables = [read_csv(p) for p in args.client_data]
+    else:
+        table = read_csv(args.datapath)
+        if args.mode == "standalone":
+            tables = [table]
+        else:
+            label = kwargs.get("target_column") or None
+            tables = shard_table(
+                table, args.n_clients or 1, args.shard_strategy,
+                label_column=(label if args.shard_strategy in
+                              ("label_sorted", "dirichlet") else None),
+                alpha=args.alpha, seed=args.seed)
+    selected = kwargs.pop("selected_columns", None)
+    columns = list(selected) if selected else list(tables[0])
+    for i, t in enumerate(tables):
+        missing = [c for c in columns if c not in t]
+        if missing:
+            print(f"client {i}: input is missing columns {missing}")
+            return 2
+    cfg = TrainConfig(
+        batch_size=args.batch_size, embedding_dim=args.embedding_dim,
+        lr_schedule=args.lr_schedule,
+        lr_decay_steps=lr_decay_horizon(
+            args.lr_schedule, args.epochs,
+            max(len(next(iter(t.values()))) for t in tables),
+            args.batch_size),
+        allow_zero_step_clients=args.allow_zero_step_clients,
+        aggregator=args.aggregator, update_gate=not args.no_update_gate,
+        gate_norm_factor=args.gate_norm_factor,
+        update_clip=args.update_clip, trim_ratio=args.trim_ratio)
+    if args.mode == "standalone":
+        return _run_standalone(args, name, kwargs, tables, columns, cfg,
+                               device)
+    return _run_federated(args, name, kwargs, tables, columns, cfg, device,
+                          t_init)
+
+
+def _run_standalone(args, name, kwargs, tables, columns, cfg, device) -> int:
+    """One participant, local mixtures, no federation
+    (``fed_tgan_tpu/cli.py:1047-1122``)."""
+    from fed_tgan_torch.data.csvio import write_csv
+    from fed_tgan_torch.data.decode import decode_columns
+    from fed_tgan_torch.data.ingest import TablePreprocessor
+    from fed_tgan_torch.federation.init import harmonize_categories
+    from fed_tgan_torch.train.standalone import StandaloneSynthesizer
+
+    table = {c: np.concatenate([t[c] for t in tables]) for c in columns}
+    pre = TablePreprocessor(table=table, name=name, selected_columns=columns,
+                            **kwargs)
+    meta_dict, encoders, _ = harmonize_categories([pre.local_meta()])
+    matrix, cat_idx, ord_idx = pre.encode(encoders)
+    synth = StandaloneSynthesizer(cfg, seed=args.seed, device=device)
+    t0 = time.time()
+    synth.fit(matrix, cat_idx, ord_idx, epochs=args.epochs)
+    if not args.quiet:
+        print(f"standalone fit: {args.epochs} epochs in "
+              f"{time.time() - t0:.1f}s")
+    meta = pre.global_table_meta(meta_dict)
+    result_dir = os.path.join(args.out_dir, f"{name}_result")
+    os.makedirs(result_dir, exist_ok=True)
+    raw = decode_columns(synth.sample(args.sample_rows, seed=args.seed),
+                         meta, encoders)
+    out_csv = os.path.join(result_dir, f"{name}_synthesis_standalone.csv")
+    write_csv(raw, out_csv)
+    if not args.quiet:
+        print(f"wrote {args.sample_rows} rows to {out_csv}")
+    if args.save_model:
+        _save_model(args.out_dir, name, synth.to_saved(), meta, encoders)
+    if args.eval:
+        _evaluate([table], raw, kwargs["categorical_columns"])
+    return 0
+
+
+def _run_federated(args, name, kwargs, tables, columns, cfg, device,
+                   t_init) -> int:
+    from fed_tgan_torch.data.csvio import read_csv
+    from fed_tgan_torch.data.ingest import TablePreprocessor
+    from fed_tgan_torch.federation.init import federated_initialize
+    from fed_tgan_torch.train.federated import FederatedTrainer
+    from fed_tgan_torch.train.snapshots import SnapshotWriter, result_path_fn
+
+    clients = [TablePreprocessor(table=t, name=name, selected_columns=columns,
+                                 **kwargs) for t in tables]
+    if not args.quiet:
+        print(f"{len(clients)} clients, rows per shard: "
+              f"{[c.n_rows for c in clients]}")
+    init = federated_initialize(clients, seed=args.seed,
+                                weighted=not args.uniform, device=device)
+    trainer = FederatedTrainer(init, cfg, seed=args.seed,
+                               min_clients=args.min_clients or 1,
+                               quarantine_strikes=args.quarantine_strikes,
+                               device=device, decode=args.decode)
+    if not args.quiet:
+        phases = ", ".join(f"{k} {v:.3f}s" for k, v in
+                           {**init.timings, **trainer.timings}.items())
+        print(f"init done in {time.time() - t_init:.1f}s ({phases}); "
+              f"aggregation weights: {np.round(init.weights, 4).tolist()}")
+
+    _write_meta(os.path.join(args.out_dir, "models"), name, init.global_meta,
+                init.encoders)
+    path_fn = result_path_fn(args.out_dir, name)
+    snapshot = SnapshotWriter(init.global_meta, init.encoders, path_fn,
+                              rows=args.sample_rows, seed=args.seed)
+
+    def due(e: int) -> bool:
+        return bool(args.sample_every) and e % args.sample_every == 0
+
+    with snapshot:
+        trainer.fit(args.epochs, log_every=0 if args.quiet else
+                    max(1, args.epochs // 10), sample_hook=snapshot,
+                    hook_epochs=[e for e in range(args.epochs) if due(e)])
+        last_epoch = trainer.completed_epochs - 1
+        if not args.sample_every and last_epoch >= 0:
+            snapshot(last_epoch, trainer)
+    if args.save_model:
+        _save_model(args.out_dir, name, trainer.to_saved(), init.global_meta,
+                    init.encoders)
+    trainer.write_timing(args.out_dir)
+    if args.eval and last_epoch >= 0:
+        last = ((last_epoch // args.sample_every) * args.sample_every
+                if args.sample_every else last_epoch)
+        _evaluate(tables, read_csv(path_fn(last)),
+                  kwargs["categorical_columns"])
+    if not args.quiet:
+        total = sum(trainer.epoch_times)
+        n = max(len(trainer.epoch_times), 1)
+        print(f"{len(trainer.epoch_times)} rounds in {total:.1f}s "
+              f"({total / n:.3f}s/round)")
+    return 0

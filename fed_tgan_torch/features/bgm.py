@@ -90,6 +90,15 @@ class ColumnGMM:
         p = np.exp(wlp)
         return p / p.sum(axis=1, keepdims=True)
 
+    def sample(self, n: int, rng: np.random.Generator) -> np.ndarray:
+        """``n`` draws from the mixture: a component by its weight, then
+        a normal.  The same ``rng`` calls as the JAX package's
+        ``ColumnGMM.sample`` (``fed_tgan_tpu/features/bgm.py:96``), so a
+        generator in the same state gives the same draws."""
+        comp = rng.choice(self.n_components, size=n,
+                          p=self.weights / self.weights.sum())
+        return rng.normal(self.means[comp], self.stds[comp])
+
 
 def _fit_batch(x: torch.Tensor, mask: torch.Tensor, n_components: int,
                max_iter: int, reg_covar: float, wc_prior: float):

@@ -114,9 +114,44 @@ class ModeNormalizer:
             else:
                 self.columns.append(ContinuousColumn(
                     name, gmm.means[gmm.active], gmm.stds[gmm.active]))
+        self._finalize()
+        return self
+
+    def refit_with_global(self, global_meta, encoders: Sequence,
+                          gmms: Sequence) -> "ModeNormalizer":
+        """Install the federation's global models (JAX
+        ``refit_with_global``, ``transformer.py:121``): a categorical
+        column's slots follow the harmonized ``i2s`` order mapped through
+        its global encoder, a continuous column takes the pooled global
+        mixture ``gmms[j]``; every client then shares one layout."""
+        self.columns, self.gmms = [], []
+        enc = iter(encoders)
+        for j, cmeta in enumerate(global_meta.columns):
+            if cmeta.is_continuous:
+                gmm = gmms[j]
+                if gmm is None:
+                    raise ValueError(f"no global mixture for column "
+                                     f"{cmeta.name!r}")
+                self.gmms.append(gmm)
+                self.columns.append(ContinuousColumn(
+                    cmeta.name, gmm.means[gmm.active], gmm.stds[gmm.active]))
+            else:
+                codes = next(enc).transform([str(v) for v in cmeta.i2s])
+                self.gmms.append(None)
+                self.columns.append(DiscreteColumn(cmeta.name, codes))
+        self._finalize()
+        return self
+
+    def _finalize(self) -> None:
         self.output_info = output_info(self.columns)
         self.output_dim = sum(size for size, _ in self.output_info)
-        return self
+
+    @property
+    def column_gmms(self) -> list:
+        """Per column its ``ColumnGMM`` (None for a discrete column): what
+        a client sends the federation's init (JAX ``column_gmms``,
+        ``transformer.py:233``)."""
+        return list(self.gmms)
 
     def transform(self, data: np.ndarray,
                   rng: Optional[np.random.Generator] = None) -> np.ndarray:

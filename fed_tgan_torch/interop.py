@@ -23,12 +23,21 @@ import json
 import os
 import pickle
 import shutil
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from fed_tgan_torch.data.encoders import CategoryEncoder
+from fed_tgan_torch.data.schema import TableMeta
 from fed_tgan_torch.device import resolve_device
-from fed_tgan_torch.features.transformer import ContinuousColumn, DiscreteColumn
+from fed_tgan_torch.features.bgm import ColumnGMM
+from fed_tgan_torch.features.transformer import (
+    ContinuousColumn,
+    DiscreteColumn,
+    ModeNormalizer,
+)
+from fed_tgan_torch.federation.init import FederatedInit
 from fed_tgan_torch.models.ctgan import Discriminator, Generator
 from fed_tgan_torch.ops.segments import SegmentSpec
 from fed_tgan_torch.runtime.checkpoint import (
@@ -89,6 +98,79 @@ def bundle_from_jax(models, spec: SegmentSpec, cfg: TrainConfig,
     dis = discriminator_from_jax(models.params_d, cfg.pac)
     device = resolve_device(device)
     return Models.build(gen.to(device), dis.to(device), spec, cfg)
+
+
+def _index(tree, i: int):
+    """Slice ``i`` of the leading axis of every array in a nested
+    dict/list pytree."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_index(v, i) for v in tree]
+    return np.asarray(tree)[i]
+
+
+def client_models_from_jax(stacked, spec: SegmentSpec, cfg: TrainConfig,
+                           device="cuda") -> list:
+    """Per-client :class:`Models` from a JAX ``ModelBundle`` whose leaves
+    carry a leading client axis (``FederatedTrainer.models``), each with
+    fresh optimizers, on ``device``."""
+    n = np.shape(stacked.params_g["out"]["b"])[0]
+    return [bundle_from_jax(SimpleNamespace(
+        params_g=_index(stacked.params_g, i),
+        state_g=_index(stacked.state_g, i),
+        params_d=_index(stacked.params_d, i)), spec, cfg, device)
+        for i in range(n)]
+
+
+def gmm_from_jax(gmm) -> ColumnGMM:
+    """The port's mixture from a JAX ``ColumnGMM`` fitted by its
+    variational (jax) backend, which carries the posterior parameters
+    ``predict_proba`` needs."""
+    if getattr(gmm, "mean_precision", None) is None:
+        raise ValueError("a JAX mixture without its variational posterior "
+                         "(the sklearn backend) has no port counterpart")
+    f = lambda name: np.asarray(getattr(gmm, name), dtype=np.float64)
+    return ColumnGMM(means=f("means"), stds=f("stds"), weights=f("weights"),
+                     active=np.asarray(gmm.active, dtype=bool),
+                     mean_precision=f("mean_precision"), dof=f("dof"),
+                     stick_a=f("stick_a"), stick_b=f("stick_b"))
+
+
+def transformer_from_jax(tf) -> ModeNormalizer:
+    """The port's ``ModeNormalizer`` with a JAX normalizer's columns."""
+    out = ModeNormalizer(device="cpu")
+    out.columns, out.gmms = [], []
+    for col in tf.columns:
+        if hasattr(col, "gmm"):
+            gmm = gmm_from_jax(col.gmm)
+            out.gmms.append(gmm)
+            out.columns.append(ContinuousColumn(
+                col.name, gmm.means[gmm.active], gmm.stds[gmm.active]))
+        else:
+            out.gmms.append(None)
+            out.columns.append(DiscreteColumn(col.name, np.asarray(col.codes)))
+    out._finalize()
+    return out
+
+
+def federated_init_from_jax(init) -> FederatedInit:
+    """The port's :class:`FederatedInit` from a JAX one: meta, encoders,
+    per-client transformers with their mixtures, encoded matrices,
+    weights and similarity scores."""
+    opt = lambda a: None if a is None else np.asarray(a)
+    return FederatedInit(
+        global_meta=TableMeta.from_json_dict(init.global_meta.to_json_dict()),
+        encoders=[CategoryEncoder(classes_=np.asarray(e.classes_,
+                                                      dtype=object))
+                  for e in init.encoders],
+        transformers=[transformer_from_jax(tf) for tf in init.transformers],
+        client_matrices=[np.asarray(m, dtype=np.float32)
+                         for m in init.client_matrices],
+        weights=np.asarray(init.weights), jsd=np.asarray(init.jsd),
+        wd=np.asarray(init.wd),
+        rows_per_client=[int(r) for r in init.rows_per_client],
+        jsd_raw=opt(init.jsd_raw), wd_raw=opt(init.wd_raw))
 
 
 def params_to_jax_layout(models: Models, of=None) -> dict:

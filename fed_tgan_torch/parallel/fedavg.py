@@ -1,0 +1,158 @@
+"""Weighted federated averaging and the Byzantine-robust aggregators over a
+stacked client axis on one device
+(counterpart of ``fed_tgan_tpu/parallel/fedavg.py:39-56, 129-312``).
+
+Where the JAX package reduces over a ``clients`` mesh axis with ``psum``
+and ``all_gather``, here every leaf carries the clients on its leading
+axis, ``(n_clients, ...)``, and the reductions run over that axis on the
+device.  ``prev`` is the global pre-round state, one tensor per leaf
+without the client axis.
+
+- :func:`weighted_average`: ``sum_i w_i * leaf_i`` in float32.
+- :func:`robust_aggregate`: the update gate (non-finite deltas and a
+  two-sided median-based norm outlier test), the survivors' renormalized
+  weights, then one of ``weighted | clipped | trimmed | median``.  When
+  every live client passes the gate, the effective weights are the
+  original ones, so ``weighted`` equals :func:`weighted_average` bit for
+  bit on a clean round.
+
+Medians average the two middle values and skip NaN, as ``jnp.nanmedian``
+does (``torch.median`` would return the lower one).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+EPS = 1e-12
+AGGREGATORS = ("weighted", "clipped", "trimmed", "median")
+
+
+def agg_leaves(models) -> list[torch.Tensor]:
+    """The tensors one client contributes to the aggregate, in the JAX
+    package's leaf order of ``(params_g, params_d, state_g)``: per
+    generator block its BatchNorm bias and scale, then its Linear bias and
+    weight; the generator's output Linear; the discriminator's layers and
+    output (bias, weight); per generator block its BatchNorm running mean
+    and variance.  ``num_batches_tracked`` is not part of it."""
+    G, D = models.generator, models.discriminator
+    out = []
+    for b in G.blocks:
+        out += [b.bn.bias, b.bn.weight, b.fc.bias, b.fc.weight]
+    out += [G.out.bias, G.out.weight]
+    for layer in D.layers:
+        out += [layer.bias, layer.weight]
+    out += [D.out.bias, D.out.weight]
+    for b in G.blocks:
+        out += [b.bn.running_mean, b.bn.running_var]
+    return out
+
+
+def _expand(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return mask.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def nanmedian(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The median over ``dim`` of the non-NaN entries, the mean of the two
+    middle ones for an even count; NaN where every entry is NaN."""
+    nan = torch.isnan(x)
+    m = (~nan).sum(dim, keepdim=True)
+    srt = torch.sort(torch.where(nan, torch.inf, x), dim=dim).values
+    lo = srt.gather(dim, torch.clamp((m - 1) // 2, min=0))
+    hi = srt.gather(dim, torch.clamp(m // 2, max=x.shape[dim] - 1))
+    med = (lo + hi) * 0.5
+    return torch.where(m > 0, med, torch.nan).squeeze(dim)
+
+
+def weighted_average(stacks: Sequence[torch.Tensor],
+                     weights: torch.Tensor) -> list[torch.Tensor]:
+    """``sum_i w_i * leaf_i`` over the leading client axis of each leaf,
+    in float32."""
+    w = weights.to(torch.float32)
+    return [torch.tensordot(w, s.to(torch.float32), dims=1).to(s.dtype)
+            for s in stacks]
+
+
+def delta_norms(prev: Sequence[torch.Tensor], new: Sequence[torch.Tensor]):
+    """``(finite, norm)`` per client over all leaves: whether its delta is
+    finite everywhere, and the L2 norm of its finite entries, summed leaf
+    by leaf in float32."""
+    n = new[0].shape[0]
+    finite = torch.ones(n, dtype=torch.bool, device=new[0].device)
+    sumsq = torch.zeros(n, dtype=torch.float32, device=new[0].device)
+    for p, x in zip(prev, new):
+        d = (x.to(torch.float32) - p.to(torch.float32)[None]).reshape(n, -1)
+        ok = torch.isfinite(d)
+        finite = finite & ok.all(dim=1)
+        sumsq = sumsq + torch.where(ok, d, 0.0).square().sum(dim=1)
+    return finite, torch.sqrt(sumsq)
+
+
+def robust_aggregate(prev: Sequence[torch.Tensor],
+                     new: Sequence[torch.Tensor], weights: torch.Tensor,
+                     steps: torch.Tensor, aggregator: str = "weighted",
+                     update_gate: bool = True, gate_norm_factor: float = 10.0,
+                     update_clip: float = 3.0, trim_ratio: float = 0.2):
+    """Gate and aggregate stacked client leaves; returns ``(agg,
+    quarantined)``: the global leaves and the (n_clients,) bool mask of
+    live clients the gate rejected.  ``weights`` (n_clients,) is 0 for a
+    dropped client; ``steps`` (n_clients,) counts each client's local
+    steps this round (a zero-step client ships a zero delta and is never
+    a norm outlier).  All of it stays on the device."""
+    if aggregator not in AGGREGATORS:
+        raise ValueError(f"unknown aggregator {aggregator!r}; "
+                         "expected weighted|clipped|trimmed|median")
+    finite, norm = delta_norms(prev, new)
+    w = weights.to(device=norm.device, dtype=torch.float32)
+    steps = steps.to(norm.device)
+    alive, trained = w > 0, steps > 0
+    if update_gate:
+        consider = alive & finite & trained
+        med = nanmedian(torch.where(consider, norm, torch.nan))
+        med_ok = torch.isfinite(med) & (med > 0)
+        bad = med_ok & trained & ((norm > gate_norm_factor * med)
+                                  | (norm * gate_norm_factor < med))
+        valid = alive & finite & ~bad
+    else:
+        med = nanmedian(torch.where(alive & finite, norm, torch.nan))
+        valid = alive & finite
+    all_valid = (valid == alive).all()
+    wz = torch.where(valid, w, 0.0)
+    s = wz.sum()
+    any_valid = s > 0
+    w_eff = torch.where(all_valid, w, wz / torch.clamp(s, min=EPS))
+    # invalid clients contribute the (finite) previous values: NaN * 0 is
+    # NaN, so they are replaced before any weighted arithmetic
+    san = [torch.where(_expand(valid, x), x, p[None]) for p, x in
+           zip(prev, new)]
+
+    if aggregator == "weighted":
+        agg = weighted_average(san, w_eff)
+    elif aggregator == "clipped":
+        safe_med = torch.where(torch.isfinite(med) & (med > 0), med, 1.0)
+        scale = torch.clamp(update_clip * safe_med / torch.clamp(norm, min=EPS),
+                            max=1.0)
+        cw = w_eff * scale
+        agg = [(p.to(torch.float32) + torch.tensordot(
+            cw, x.to(torch.float32) - p.to(torch.float32)[None], dims=1)
+               ).to(x.dtype) for p, x in zip(prev, san)]
+    elif aggregator == "trimmed":
+        m = valid.sum()
+        t = torch.minimum(torch.floor(trim_ratio * m.to(torch.float32))
+                          .to(m.dtype), torch.clamp((m - 1) // 2, min=0))
+        agg = []
+        for x in san:
+            g = torch.where(_expand(valid, x), x.to(torch.float32), torch.inf)
+            g = torch.sort(g, dim=0).values
+            idx = _expand(torch.arange(x.shape[0], device=x.device), x)
+            keep = (idx >= t) & (idx < m - t)
+            total = torch.where(keep, g, 0.0).sum(dim=0)
+            agg.append((total / torch.clamp(m - 2 * t, min=1)).to(x.dtype))
+    else:
+        agg = [nanmedian(torch.where(_expand(valid, x), x.to(torch.float32),
+                                     torch.nan)).to(x.dtype) for x in san]
+    # a gate that rejected everyone keeps the previous global state
+    agg = [torch.where(any_valid, a, p.to(a.dtype)) for a, p in zip(agg, prev)]
+    return agg, alive & ~valid

@@ -3,7 +3,8 @@
 - :func:`build_random_artifact` writes a full-width Intrusion-shaped
   artifact with random weights.
 - :func:`intrusion_like_table` makes an Intrusion-shaped numeric training
-  table, with its meta and encoders, without pandas.
+  table, with its meta and encoders, without pandas;
+  :func:`write_intrusion_csv` writes the same raw table as a CSV file.
 
 The artifact's layout is what the JAX package's ``ModeNormalizer(backend="sklearn",
 seed=0)`` fits to the Intrusion-shaped stand-in table of
@@ -24,6 +25,7 @@ import os
 import numpy as np
 import torch
 
+from fed_tgan_torch.data.csvio import csv_bytes
 from fed_tgan_torch.data.encoders import CategoryEncoder
 from fed_tgan_torch.data.schema import ColumnMeta, TableMeta
 from fed_tgan_torch.features.transformer import (
@@ -108,23 +110,51 @@ _VOCAB = {
 }
 
 
-def intrusion_like_table(n: int = 400, seed: int = 0):
-    """``(matrix, categorical_idx, meta, encoders)`` of an Intrusion-shaped
-    table of ``n`` rows: the reference Intrusion dataset's 42 columns (22
-    continuous, 20 categorical) drawn as ``tests/test_workloads.py::
-    _intrusion_like(n, seed)`` draws them, then prepared as the JAX ingest
-    prepares a table: ``log(x + 1)`` on the non-negative columns, each
-    categorical column label-encoded (sorted classes) with its categories
-    listed in frequency order in the meta.  ``matrix`` (n, 42) float64
-    holds the encoder codes of the categorical columns."""
+def intrusion_like_raw(n: int = 400, seed: int = 0) -> dict:
+    """``{column: raw values}`` of an Intrusion-shaped table of ``n`` rows:
+    the reference Intrusion dataset's 42 columns (22 continuous, 20
+    categorical) drawn as ``tests/test_workloads.py::_intrusion_like(n,
+    seed)`` draws them; categories as strings, numbers as float64."""
     rng = np.random.default_rng(seed)
-    nonneg = INTRUSION_META["non_negative_cols"]
-    cols, metas, encoders, cat_idx = [], [], [], []
-    for i, (name, spec) in enumerate(INTRUSION_COLUMNS):
+    out = {}
+    for name, spec in INTRUSION_COLUMNS:
         if not isinstance(spec, int):
             values = _VOCAB.get(name, _BINARY)
             p = None if name in _VOCAB else [0.9, 0.1]
-            raw = rng.choice(values, n, p=p)
+            out[name] = rng.choice(values, n, p=p)
+        elif name in ("src_bytes", "dst_bytes", "duration"):
+            out[name] = np.exp(rng.normal(4.0, 2.0, n)).round(0)
+        elif name.endswith("_rate"):
+            out[name] = rng.uniform(0.0, 1.0, n).round(2)
+        else:  # count-style columns
+            out[name] = rng.integers(0, 256, n).astype(float)
+    return out
+
+
+def write_intrusion_csv(path: str, n: int = 400, seed: int = 0) -> str:
+    """:func:`intrusion_like_raw` as a raw CSV file (integral numbers
+    written as integers, as a real export holds them); returns ``path``."""
+    cols = {}
+    for name, v in intrusion_like_raw(n, seed).items():
+        if v.dtype.kind == "f" and np.array_equal(v, np.round(v)):
+            v = v.astype(np.int64)
+        cols[name] = v
+    with open(path, "wb") as f:
+        f.write(csv_bytes(cols))
+    return path
+
+
+def intrusion_like_table(n: int = 400, seed: int = 0):
+    """``(matrix, categorical_idx, meta, encoders)`` of
+    :func:`intrusion_like_raw` prepared as the JAX ingest prepares a
+    table: ``log(x + 1)`` on the non-negative columns, each categorical
+    column label-encoded (sorted classes) with its categories listed in
+    frequency order in the meta.  ``matrix`` (n, 42) float64 holds the
+    encoder codes of the categorical columns."""
+    nonneg = INTRUSION_META["non_negative_cols"]
+    cols, metas, encoders, cat_idx = [], [], [], []
+    for i, (name, raw) in enumerate(intrusion_like_raw(n, seed).items()):
+        if raw.dtype.kind != "f":
             enc = CategoryEncoder.fit(raw)
             codes = enc.transform(raw)
             uniq, counts = np.unique(raw, return_counts=True)
@@ -134,12 +164,7 @@ def intrusion_like_table(n: int = 400, seed: int = 0):
             cat_idx.append(i)
             cols.append(codes.astype(np.float64))
             continue
-        if name in ("src_bytes", "dst_bytes", "duration"):
-            x = np.exp(rng.normal(4.0, 2.0, n)).round(0)
-        elif name.endswith("_rate"):
-            x = rng.uniform(0.0, 1.0, n).round(2)
-        else:  # count-style columns
-            x = rng.integers(0, 256, n).astype(float)
+        x = raw
         if name in nonneg:
             x = np.log(x + 1.0)
         metas.append(ColumnMeta(name, "continuous", i, min=float(x.min()),

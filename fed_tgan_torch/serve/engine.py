@@ -153,7 +153,11 @@ class SamplingEngine:
         return int(self.spec.cond_offsets[idx]) + int(slots[0])
 
     def _chunks(self, n: int, seed: int, offset: int,
-                condition: Optional[int], draws: Optional[Draws], decode: bool):
+                condition: Optional[int], draws: Optional[Draws], post):
+        """Rows [offset, offset + n) of stream ``seed``, each chunk's
+        activated rows passed through ``post`` (a tensor, or a dict of
+        tensors) and copied to the host; returns the rows' array (or dict
+        of arrays)."""
         if n <= 0:
             raise ValueError(f"n={n}: need at least one row")
         if offset < 0:
@@ -166,10 +170,13 @@ class SamplingEngine:
         for start, steps in self._chunk_plan(first_step, total_steps):
             with self._lock:
                 z, c, u = self._draw(stream, start, steps, condition, draws)
-            enc = sample_step(self.model.synth.generator, self.spec, z, c, u,
-                              block_rows=B)
-            res = layout_decode(enc, self._tables) if decode else enc
-            out.append(res.cpu().numpy())
+            res = post(sample_step(self.model.synth.generator, self.spec, z,
+                                   c, u, block_rows=B))
+            out.append({k: v.cpu().numpy() for k, v in res.items()}
+                       if isinstance(res, dict) else res.cpu().numpy())
+        if isinstance(out[0], dict):
+            return {k: np.concatenate([o[k] for o in out])[skip:skip + n]
+                    for k in out[0]}
         return np.concatenate(out, axis=0)[skip:skip + n]
 
     def sample_encoded(self, n: int, seed: int = 0, offset: int = 0,
@@ -178,13 +185,22 @@ class SamplingEngine:
         """Rows [offset, offset + n) of stream ``seed`` as activated
         encoded rows (n, spec.dim) float32.  ``draws`` (tests only)
         replaces the generator draws of each step."""
-        return self._chunks(n, seed, offset, condition, draws, decode=False)
+        return self._chunks(n, seed, offset, condition, draws,
+                            lambda enc: enc)
 
     def sample_decoded(self, n: int, seed: int = 0, offset: int = 0,
                        condition: Optional[int] = None,
                        draws: Optional[Draws] = None) -> np.ndarray:
         """The same rows as the numeric (n, n_columns) float32 matrix."""
-        return self._chunks(n, seed, offset, condition, draws, decode=True)
+        return self._chunks(n, seed, offset, condition, draws,
+                            lambda enc: layout_decode(enc, self._tables))
+
+    def sample_parts(self, n: int, decode, seed: int = 0, offset: int = 0,
+                     draws: Optional[Draws] = None) -> dict:
+        """The same rows through a snapshot decode
+        (``ops.decode.SnapshotDecode``): its dict of host arrays, which
+        ``decode.assemble`` turns into column values."""
+        return self._chunks(n, seed, offset, None, draws, decode.decode)
 
     def sample_csv_bytes(self, n: int, seed: int = 0, offset: int = 0,
                          condition: Optional[int] = None, header: bool = True,

@@ -1,0 +1,403 @@
+"""The federated trainer: every client stacked on one device
+(counterpart of ``fed_tgan_tpu/train/federated.py:102-135, 166-458,
+1123-1190, 1256-1600, 1604-1669``).
+
+A round, as the JAX program computes it:
+
+- each live client runs its own ``len(shard) // batch_size`` train steps
+  (the slice-2 :func:`~fed_tgan_torch.train.steps.train_step`, K1 and K2
+  inside) on its shard, with its own optimizers and its own device
+  ``torch.Generator``; a client with no step reports zero metrics;
+- the clients' ``(params_g, params_d, state_g)`` leaves are stacked and
+  gated + aggregated on the device
+  (:func:`~fed_tgan_torch.parallel.fedavg.robust_aggregate`, or plain
+  :func:`weighted_average` when nothing robust can trigger);
+- the aggregate is written into every client's parameters and BatchNorm
+  buffers in place.  Adam moments and learning-rate schedules stay per
+  client across rounds: the JAX program replicates parameters, never
+  optimizer state (``federated.py:409-413``);
+- the round's metrics and the gate's quarantine mask come to the host in
+  one copy; clients the gate rejects ``quarantine_strikes`` times are
+  dropped (down to ``min_clients``) and the weights renormalized.
+
+Snapshots sample the aggregated generator through the slice-1
+``SamplingEngine`` with the JAX trainer's sampling-key offset 29, decoded
+by the packed8 layout unless another is asked for.
+
+Not ported yet, each rejected with the ROADMAP item it waits for: cohort
+sampling, buffered aggregation and EMA (A.17), bf16 (A.15); elastic
+capacity, several rounds per program and fault plans are CLI-level and
+refused there.
+"""
+
+from __future__ import annotations
+
+import copy
+import csv
+import logging
+import os
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from fed_tgan_torch.device import resolve_device
+from fed_tgan_torch.federation.init import FederatedInit, renormalize_weights
+from fed_tgan_torch.models.ctgan import Generator
+from fed_tgan_torch.ops.decode import select_snapshot_decode
+from fed_tgan_torch.ops.segments import SegmentSpec
+from fed_tgan_torch.parallel.fedavg import (
+    agg_leaves,
+    robust_aggregate,
+    weighted_average,
+)
+from fed_tgan_torch.runtime.checkpoint import SavedSynthesizer
+from fed_tgan_torch.serve.engine import SamplingEngine, step_seed
+from fed_tgan_torch.serve.registry import LoadedModel
+from fed_tgan_torch.train.sampler import CondSampler, RowSampler
+from fed_tgan_torch.train.steps import (
+    Models,
+    StepDraws,
+    TrainConfig,
+    draw_step,
+    init_models,
+    require_trainable,
+    train_step,
+)
+
+KEY_OFFSET = 29  # the JAX trainer's sampling stream offset
+METRICS = ("loss_d", "pen", "loss_g")
+log = logging.getLogger("fed_tgan_torch.train")
+
+# (round, client, step) -> that step's draws; tests inject JAX draws here
+Draws = Callable[[int, int, int], StepDraws]
+
+
+def require_federated(cfg: TrainConfig) -> None:
+    """The federated options this port runs (see the module docstring)."""
+    if cfg.precision != "f32":
+        raise NotImplementedError(
+            f"precision={cfg.precision!r}: only f32 is ported (ROADMAP A.15)")
+    for name, off, item in (("cohort", 0, "A.17"), ("aggregation", "sync",
+                                                     "A.17"),
+                            ("ema_decay", 0.0, "A.17")):
+        if getattr(cfg, name) != off:
+            raise NotImplementedError(
+                f"{name}={getattr(cfg, name)!r} is not ported yet "
+                f"(ROADMAP {item})")
+    require_trainable(cfg)
+
+
+class FederatedTrainer:
+    """Federated training from a finished :class:`FederatedInit`, on
+    ``device`` (the card unless the caller asks for the CPU).
+
+    ``models`` (tests) replaces the initial per-client models, which are
+    otherwise one ``init_models(spec, cfg, seed)`` copied to every client;
+    ``draws`` (tests) replaces every step's draws."""
+
+    def __init__(self, init: FederatedInit, config: Optional[TrainConfig] = None,
+                 seed: int = 0, min_clients: int = 1,
+                 quarantine_strikes: int = 3, device="cuda",
+                 decode: str = "packed8", models: Optional[list] = None,
+                 draws: Optional[Draws] = None):
+        self.init = init
+        self.cfg = config or TrainConfig()
+        require_federated(self.cfg)
+        self.device = resolve_device(device)
+        self.seed = seed
+        self.min_clients = min_clients
+        self.quarantine_strikes = quarantine_strikes
+        self.draws = draws
+        self.n_clients = len(init.client_matrices)
+        self.spec = SegmentSpec.from_output_info(init.output_info)
+
+        t0 = time.perf_counter()
+        mats = [np.asarray(m, dtype=np.float32) for m in init.client_matrices]
+        self.steps = np.asarray([len(m) // self.cfg.batch_size for m in mats],
+                                dtype=np.int64)
+        if (self.steps == 0).any() and not self.cfg.allow_zero_step_clients:
+            small = [i for i, s in enumerate(self.steps) if s == 0]
+            raise ValueError(
+                f"clients {small} hold fewer than batch_size="
+                f"{self.cfg.batch_size} rows (reference behavior: they would "
+                "train 0 steps); rebalance shards, shrink the batch, or opt "
+                "in with TrainConfig(allow_zero_step_clients=True)")
+        dev = self.device
+        self.data = [torch.as_tensor(m, device=dev) for m in mats]
+        self.conds = [CondSampler.from_data(m, self.spec, dev) for m in mats]
+        self.rows = [RowSampler.from_data(m, self.spec, dev) for m in mats]
+        # generation draws from the pooled empirical frequencies
+        self.server_cond = CondSampler.from_data(np.concatenate(mats),
+                                                 self.spec, dev)
+        self.timings = {"shard_packing": time.perf_counter() - t0}
+
+        if models is None:
+            one = init_models(self.spec, self.cfg, seed, dev)
+            models = [one] + [
+                Models.build(copy.deepcopy(one.generator),
+                             copy.deepcopy(one.discriminator), self.spec,
+                             self.cfg) for _ in range(self.n_clients - 1)]
+        if len(models) != self.n_clients:
+            raise ValueError(f"{len(models)} models for {self.n_clients} "
+                             "clients")
+        self.models = models
+        self._leaves = [agg_leaves(m) for m in models]
+        self.gens = [torch.Generator(device=dev).manual_seed(
+            step_seed(seed, i)) for i in range(self.n_clients)]
+        self.weights = np.asarray(init.weights, dtype=np.float32)
+        self._strikes = np.zeros(self.n_clients, dtype=np.int64)
+        self.dropped_clients: set[int] = set()
+
+        self.columns = init.transformers[0].columns
+        self.decode = select_snapshot_decode(self.columns, decode)
+        self._engine: Optional[SamplingEngine] = None
+        self.epoch_times: list[float] = []
+        self.phase_times = {"train_aggregate": [], "distribution": []}
+        self.round_split = {"local_steps": [], "aggregate": []}
+        self.completed_epochs = 0
+        self.last_metrics: Optional[np.ndarray] = None
+        self.last_quarantined: Optional[np.ndarray] = None
+
+    # ---------------------------------------------------------- the round
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _local_steps(self, e: int) -> list:
+        """Every client's steps of round ``e``; per client its last
+        step's metrics as a (3,) tensor (zeros without a step)."""
+        out = []
+        for i, models in enumerate(self.models):
+            met = None
+            for s in range(int(self.steps[i])):
+                draws = (self.draws(e, i, s).to(self.device) if self.draws
+                         else draw_step(self.gens[i], models))
+                met = train_step(models, self.data[i], self.conds[i],
+                                 self.rows[i], draws)
+            out.append(torch.stack([met[k] for k in METRICS]) if met
+                       else torch.zeros(len(METRICS), device=self.device))
+        return out
+
+    @torch.no_grad()
+    def _aggregate(self, prev: list, update_fault=None):
+        """Gate and aggregate the clients' leaves against ``prev``, write
+        the result into every client; returns the quarantine mask."""
+        new = [torch.stack(leaf) for leaf in zip(*self._leaves)]
+        if update_fault is not None:
+            new = corrupt_updates(prev, new, update_fault)
+        w = torch.as_tensor(self.weights, device=self.device)
+        cfg = self.cfg
+        if cfg.update_gate or cfg.aggregator != "weighted" or update_fault:
+            agg, quar = robust_aggregate(
+                prev, new, w, torch.as_tensor(self.steps, device=self.device),
+                aggregator=cfg.aggregator, update_gate=cfg.update_gate,
+                gate_norm_factor=cfg.gate_norm_factor,
+                update_clip=cfg.update_clip, trim_ratio=cfg.trim_ratio)
+        else:
+            agg = weighted_average(new, w)
+            quar = torch.zeros(self.n_clients, dtype=torch.bool,
+                               device=self.device)
+        for leaves in self._leaves:
+            for x, a in zip(leaves, agg):
+                x.copy_(a)
+        return quar
+
+    def run_round(self, e: int, update_fault=None):
+        """One round: local steps, aggregation; returns ``(metrics
+        (n_clients, 3), quarantined (n_clients,) bool)`` on the host and
+        records the local / aggregate split (the device synchronised
+        between them)."""
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            prev = [x.detach().clone() for x in self._leaves[0]]
+        metrics = self._local_steps(e)
+        self._sync()
+        t1 = time.perf_counter()
+        quar = self._aggregate(prev, update_fault)
+        host = torch.cat([torch.stack(metrics).flatten(),
+                          quar.to(torch.float32)]).cpu().numpy()
+        t2 = time.perf_counter()
+        self.round_split["local_steps"].append(t1 - t0)
+        self.round_split["aggregate"].append(t2 - t1)
+        n = self.n_clients
+        self.last_metrics = host[:n * len(METRICS)].reshape(n, len(METRICS))
+        self.last_quarantined = host[n * len(METRICS):] > 0.5
+        return self.last_metrics, self.last_quarantined
+
+    def _strike(self, q: np.ndarray, metrics: np.ndarray, e: int) -> None:
+        """Count the gate's strikes and evict repeat offenders."""
+        if not q.any():
+            return
+        self._strikes += q.astype(np.int64)
+        for idx in np.flatnonzero(q):
+            tripped = ("nonfinite" if not np.isfinite(metrics[idx]).all()
+                       else "norm_outlier")
+            log.warning("update gate quarantined client %d in round %d "
+                        "(%s; strikes %d/%d)", idx, e, tripped,
+                        self._strikes[idx], self.quarantine_strikes)
+        for idx in np.flatnonzero(self._strikes >= self.quarantine_strikes):
+            if int(idx) not in self.dropped_clients:
+                self.drop_client(int(idx), f"quarantined {self._strikes[idx]} "
+                                 f"rounds (strike limit "
+                                 f"{self.quarantine_strikes})")
+
+    @staticmethod
+    def _warn_nonfinite(metrics: np.ndarray, q: np.ndarray, e: int) -> None:
+        """Warn of non-finite losses of a client the gate did not contain."""
+        for j, name in enumerate(METRICS):
+            if not (np.isfinite(metrics[:, j]) | q).all():
+                print(f"WARNING: non-finite {name} at round {e}: training "
+                      "has diverged (lower the learning rate)")
+                return
+
+    def fit(self, epochs: int, log_every: int = 0, sample_hook=None,
+            hook_epochs=None, update_fault=None) -> "FederatedTrainer":
+        """Run ``epochs`` rounds; ``sample_hook(epoch, self)`` after each
+        round (or only the rounds in ``hook_epochs``).  ``update_fault``
+        ``(kind, client, factor)`` corrupts that client's update after its
+        local steps in every round of this call: ``"nan"``, ``"scale"``
+        (``prev + factor * delta``) or ``"stuck"`` (the pre-round values),
+        as the JAX package's fault plans do."""
+        e = self.completed_epochs
+        end = e + epochs
+        if sample_hook is None:
+            firing = set()
+        elif hook_epochs is None:
+            firing = set(range(e, end))
+        else:
+            firing = {x for x in hook_epochs if e <= x < end}
+        while e < end:
+            t0 = time.perf_counter()
+            metrics, q = self.run_round(e, update_fault)
+            self._warn_nonfinite(metrics, q, e)
+            self._strike(q, metrics, e)
+            t_round = time.perf_counter() - t0
+            self.phase_times["train_aggregate"].append(t_round)
+            self.phase_times["distribution"].append(0.0)
+            self.epoch_times.append(t_round)
+            self.completed_epochs += 1
+            if e in firing:
+                t1 = time.perf_counter()
+                sample_hook(e, self)
+                t_hook = time.perf_counter() - t1
+                self.phase_times["distribution"][-1] = t_hook
+                self.epoch_times[-1] = t_round + t_hook
+            if log_every and e % log_every == 0:
+                m = metrics.mean(axis=0)
+                print(f"round {e}: loss_d={m[0]:.3f} pen={m[1]:.3f} "
+                      f"loss_g={m[2]:.3f} ({self.epoch_times[-1]:.3f}s/round)")
+            e += 1
+        return self
+
+    # ---------------------------------------------------------- membership
+
+    def drop_client(self, idx: int, reason: str = "") -> None:
+        """Drop client ``idx`` from every later round: its steps go to 0
+        and the weights renormalize over the survivors.  Raises
+        ``RuntimeError`` below ``min_clients`` survivors."""
+        if not 0 <= idx < self.n_clients:
+            raise IndexError(f"client index {idx} out of range")
+        if idx in self.dropped_clients:
+            return
+        survivors = self.n_clients - len(self.dropped_clients) - 1
+        if survivors < self.min_clients:
+            raise RuntimeError(
+                f"aborting: dropping client {idx} leaves {survivors} live "
+                f"clients, below min_clients={self.min_clients}")
+        self.dropped_clients.add(idx)
+        alive = self._alive()
+        self.weights = renormalize_weights(self.weights, alive)
+        self.steps = np.where(alive, self.steps, 0)
+        log.warning("dropped client %d%s; weights renormalized over %d "
+                    "survivors", idx, f" ({reason})" if reason else "",
+                    survivors)
+
+    def update_weights(self, weights: np.ndarray) -> None:
+        """Install new similarity weights; dropped clients stay at 0 and
+        the survivors renormalize."""
+        w = np.asarray(weights, dtype=np.float32)
+        if w.shape != self.weights.shape:
+            raise ValueError(f"weights shape {w.shape} does not match the "
+                             f"population {self.weights.shape}")
+        self.weights = renormalize_weights(w, self._alive())
+
+    def _alive(self) -> np.ndarray:
+        alive = np.ones(self.n_clients, dtype=bool)
+        alive[list(self.dropped_clients)] = False
+        return alive
+
+    # ------------------------------------------------------------ sampling
+
+    def _sampler(self) -> SamplingEngine:
+        """The engine over the aggregated generator (client 0's copy,
+        refreshed on every call; all clients hold the aggregate)."""
+        if self._engine is None:
+            cfg = self.cfg
+            gen = Generator(cfg.embedding_dim + self.spec.n_opt,
+                            cfg.gen_dims, self.spec.dim).to(self.device)
+            synth = SavedSynthesizer(gen, self.server_cond, self.columns, cfg,
+                                     key_offset=KEY_OFFSET)
+            self._engine = SamplingEngine(LoadedModel(
+                model_id="in-memory", synth=synth, meta=self.init.global_meta,
+                encoders=tuple(self.init.encoders), artifact=None))
+        gen = self._engine.model.synth.generator
+        gen.load_state_dict(self.models[0].generator.state_dict())
+        return self._engine
+
+    def sample_encoded(self, n: int, seed: int = 0) -> np.ndarray:
+        """``n`` activated rows of stream ``seed`` (encoded layout)."""
+        return self._sampler().sample_encoded(n, seed=seed)
+
+    def sample_parts(self, n: int, seed: int = 0) -> dict:
+        """``n`` rows of stream ``seed`` in the snapshot decode's packed
+        parts (host arrays)."""
+        return self._sampler().sample_parts(n, self.decode, seed=seed)
+
+    def sample(self, n: int, seed: int = 0) -> np.ndarray:
+        """``n`` decoded rows: numeric values, categorical codes."""
+        return self.decode.assemble(self.sample_parts(n, seed))
+
+    def to_saved(self) -> SavedSynthesizer:
+        """The aggregated model as a sampling artifact."""
+        return SavedSynthesizer(copy.deepcopy(self.models[0].generator),
+                                self.server_cond, self.columns, self.cfg,
+                                key_offset=KEY_OFFSET)
+
+    def write_timing(self, out_dir: str = ".") -> None:
+        """``timestamp_experiment.csv`` (one wall-clock value per round)
+        and ``timing_phases.csv`` (epoch, train_aggregate_s,
+        distribution_s, total_s), the reference's layout."""
+        with open(os.path.join(out_dir, "timestamp_experiment.csv"),
+                  "w") as f:
+            csv.writer(f).writerows([[t] for t in self.epoch_times])
+        with open(os.path.join(out_dir, "timing_phases.csv"), "w") as f:
+            w = csv.writer(f)
+            w.writerow(["epoch", "train_aggregate_s", "distribution_s",
+                        "total_s"])
+            for i, t in enumerate(self.epoch_times):
+                w.writerow([i, self.phase_times["train_aggregate"][i],
+                            self.phase_times["distribution"][i], t])
+
+
+def corrupt_updates(prev: list, new: list, fault) -> list:
+    """``fault = (kind, client, factor)`` applied to that client's stacked
+    leaves: ``nan`` fills them with NaN, ``scale`` gives ``prev + factor *
+    (new - prev)``, ``stuck`` the pre-round values
+    (``fed_tgan_tpu/train/federated.py:286-307``)."""
+    kind, idx, factor = fault
+    if kind not in ("nan", "scale", "stuck"):
+        raise ValueError(f"unknown update fault {kind!r}")
+    out = []
+    for p, x in zip(prev, new):
+        x = x.clone()
+        if kind == "nan":
+            x[idx] = torch.nan
+        elif kind == "scale":
+            x[idx] = p + factor * (x[idx] - p)
+        else:
+            x[idx] = p
+        out.append(x)
+    return out

@@ -103,6 +103,16 @@ def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
                      "(constant | cosine | linear)")
 
 
+def lr_decay_horizon(lr_schedule: str, epochs: int, max_shard_rows: int,
+                     batch_size: int) -> int:
+    """A decaying schedule's horizon in optimizer steps: the largest
+    client's step count at the last epoch (``steps.py:117``); 0 for the
+    constant schedule."""
+    if lr_schedule == "constant":
+        return 0
+    return epochs * max(1, max_shard_rows // batch_size)
+
+
 def make_optimizers(cfg: TrainConfig, generator: Generator,
                     discriminator: Discriminator):
     """``(opt_g, opt_d, sched_g, sched_d)``: torch Adam, betas (beta1,

@@ -68,7 +68,10 @@ def test_port_package_lists_every_slice_module():
                  "ops.decode", "models.ctgan", "models.losses",
                  "train.sampler", "train.steps", "train.standalone",
                  "runtime.checkpoint", "serve.registry", "serve.engine",
-                 "serve.service", "serve.demo", "__main__"):
+                 "serve.service", "serve.demo", "__main__", "cli",
+                 "datasets", "data.ingest", "data.sharding",
+                 "federation.init", "parallel.fedavg", "train.federated",
+                 "train.snapshots", "eval.similarity"):
         assert f"fed_tgan_torch.{name}" in mods
 
 
@@ -96,6 +99,37 @@ def test_trainer_runs_with_jax_sklearn_and_pandas_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_federated_cli_runs_with_jax_sklearn_and_pandas_blocked(tmp_path):
+    """``python -m fed_tgan_torch --mode fedavg`` for one round on the CPU
+    in a fresh interpreter where jax, the JAX package, pandas, pyarrow and
+    sklearn cannot be imported: CSV ingest, init, the round, a snapshot,
+    the artifact and the evaluation need none of them."""
+    data = str(tmp_path / "intr.csv")
+    argv = ["--mode", "fedavg", "--datapath", data, "--dataset", "intrusion",
+            "--n-clients", "2", "-epochs", "1", "--sample-rows", "60",
+            "--batch-size", "40", "--embedding-dim", "8", "--eval",
+            "--save-model", "--out-dir", str(tmp_path / "out"), "--quiet",
+            "--device", "cpu"]
+    code = (
+        "import sys, runpy\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from fed_tgan_torch.serve.demo import write_intrusion_csv\n"
+        f"write_intrusion_csv({data!r}, 160, 0)\n"
+        f"sys.argv = ['fed_tgan_torch'] + {argv!r}\n"
+        "runpy.run_module('fed_tgan_torch', run_name='__main__')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "final Avg_JSD=" in proc.stdout
+    snap = tmp_path / "out" / "Intrusion_result" / "Intrusion_synthesis_epoch_0.csv"
+    assert open(snap).read().count("\n") == 61
+    assert (tmp_path / "out" / "models" / "synthesizer_torch").is_dir()
 
 
 def test_resolve_device_never_falls_back():
@@ -141,6 +175,34 @@ def test_trainer_builders_default_to_the_card(name):
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()
+
+
+def test_federated_entry_points_default_to_the_card():
+    """Federated init, the federated trainer and the training CLI run on
+    the card unless the caller names the CPU: without CUDA, they raise."""
+    import numpy as np
+
+    from fed_tgan_torch import cli
+    from fed_tgan_torch.data.ingest import TablePreprocessor
+    from fed_tgan_torch.federation.init import federated_initialize
+    from fed_tgan_torch.train.federated import FederatedTrainer
+    from fed_tgan_torch.train.steps import TrainConfig
+
+    table = {"x": np.arange(40.0),
+             "c": np.array(["a", "b"] * 20, dtype=object)}
+    pre = TablePreprocessor(table=table, categorical_columns=["c"])
+    init = federated_initialize([pre], device="cpu")
+    cfg = TrainConfig(embedding_dim=4, gen_dims=(8,), dis_dims=(8,),
+                      batch_size=10, pac=5)
+    if torch.cuda.is_available():
+        assert FederatedTrainer(init, cfg).data[0].is_cuda
+        assert federated_initialize([pre]).weights.shape == (1,)
+        return
+    for call in (lambda: federated_initialize([pre]),
+                 lambda: FederatedTrainer(init, cfg),
+                 lambda: cli.main(["--datapath", "none.csv"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
 
 
 def test_tf32_is_off():
