@@ -60,7 +60,18 @@ Phases, each fatal on failure:
 11. one round on the card against the same round on the CPU (injected
    draws), then a round with client 1's update scaled x1e3, quarantined
    on both devices; then K1 and K2 against their plain versions at the
-   federated shapes.
+   federated shapes;
+12. durable rounds at the same configuration (``fed_durability_phase``),
+   the similarity monitor reading 10,000 rows after every round: two runs
+   from one seed bit-equal; save, load and resume bit-equal to the
+   uninterrupted run; a save torn by ``crash_checkpoint`` leaves the
+   earlier generation, which resumes; the watchdog rolls back twice
+   (the newest generation poisoned) and re-anneals; the durable CLI
+   (``--monitor-every 1 --save-every 1 --ckpt-keep 2 --watchdog``, then
+   ``--resume``) in processes of its own from the start of phase 11, its
+   resumed rounds equal to the same rounds replayed here; K1 and K2 launches per monitored round
+   exact; then the monitor's probe, save, load and seconds per round
+   timed, and K1 held against its plain version at the probe's shape.
 
 ``--ab TREE`` runs none of the phases: it builds the kernels of the
 ``fed_tgan_torch`` package under TREE (for example a ``git archive`` of an
@@ -69,9 +80,10 @@ this, other) at the training batch, the serving chunk, a 128-step chunk
 and the 70-wide segment, and prints one ``{"ab": ...}`` line.
 
 Prints the card's name and power limit beside every number, a JSON line
-with the training numbers, one with the federated round's, the card's
-line, a JSON line with the kernels' numbers (one entry per kernel and
-path: K1 serving, K1 and K2 training, K1 and K2 federated), and last
+with the training numbers, one with the federated round's, one with the
+durable round's, the card's line, a JSON line with the kernels' numbers
+(one entry per kernel and path: K1 serving, K1 and K2 training, K1 and K2
+federated, K1 in the similarity monitor), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no result line, when CUDA is not available.
 """
@@ -80,6 +92,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import dataclasses
 import io
 import json
 import math
@@ -89,6 +102,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.parse
 import urllib.request
@@ -122,6 +136,7 @@ from fed_tgan_torch.ops.segments import (
     SegmentSpec,
     apply_activate,
     apply_activate_bwd,
+    cond_tables,
 )
 from fed_tgan_torch.serve.demo import (
     build_random_artifact,
@@ -132,12 +147,26 @@ from fed_tgan_torch.serve.demo import (
 )
 from fed_tgan_torch.serve.engine import SamplingEngine
 from fed_tgan_torch.serve.registry import open_model
+from fed_tgan_torch.runtime.checkpoint import (
+    find_resumable,
+    list_resumable,
+    load_federated,
+    save_federated,
+)
 from fed_tgan_torch.serve.service import SamplingService
+from fed_tgan_torch.testing.faults import FaultInjected, FaultPlan, install_plan
 from fed_tgan_torch.train import steps
 from fed_tgan_torch.train.federated import FederatedTrainer
+from fed_tgan_torch.train.monitor import SimilarityMonitor
 from fed_tgan_torch.train.sampler import CondSampler, RowSampler
 from fed_tgan_torch.train.snapshots import SnapshotWriter, result_path_fn
 from fed_tgan_torch.train.standalone import StandaloneSynthesizer
+from fed_tgan_torch.train.watchdog import (
+    TrainingWatchdog,
+    WatchdogAlarm,
+    WatchdogConfig,
+    fit_with_watchdog,
+)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ATOL = 1e-5
@@ -156,6 +185,9 @@ TRAIN_EPOCHS = 2
 # Intrusion-shaped table, TrainConfig() defaults, a 40,000-row snapshot
 # (the reference's) after every round
 FED_ROWS, FED_CLIENTS, FED_EPOCHS, SNAPSHOT_ROWS = 20_000, 4, 3, 40_000
+# the durable round: the similarity monitor at the JAX default of 10,000
+# rows every round, 3 rounds per run (cut from 4 to keep the script's time)
+MONITOR_ROWS, DUR_ROUNDS = 10_000, 3
 
 
 def gpu_line() -> str:
@@ -941,6 +973,415 @@ def fed_reference_phase(root: str, seed: int, card: str) -> dict:
             "round2_max_abs_diff": round2}
 
 
+def _trainer_state(tr) -> list:
+    """Every tensor a resumed run depends on, copied: each client's
+    parameters and buffers, Adam steps and moments, and generator state."""
+    out = []
+    for i, m in enumerate(tr.models):
+        out += list(m.generator.state_dict().values())
+        out += list(m.discriminator.state_dict().values())
+        for opt in (m.opt_g, m.opt_d):
+            for p in opt.param_groups[0]["params"]:
+                out += [opt.state[p][k] for k in ("step", "exp_avg",
+                                                  "exp_avg_sq")]
+        out.append(tr.gens[i].get_state())
+    return [t.detach().clone() for t in out]
+
+
+def _require_equal(what: str, a: list, b: list) -> None:
+    bad = [k for k, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
+    if len(a) != len(b) or bad:
+        raise AssertionError(f"{what}: {len(bad)} of {len(a)} tensors differ "
+                             f"(first at {bad[:5]})")
+
+
+class DurableCLI:
+    """The durable CLI as a user runs it, in processes of its own started
+    from a thread: 3 monitored, checkpointed rounds under the watchdog,
+    then, once :meth:`resume` is called, ``--resume`` to 5 rounds.
+    ``first_done`` is set when the first process has ended.  The round-3
+    checkpoint is copied aside before the resume, so the rounds resumed
+    can be replayed in this process.  ``stop()`` kills a process still
+    running."""
+
+    def __init__(self, root: str, seed: int):
+        self.root, self.out = root, {}
+        self.work = os.path.join(root, "cli_durable")
+        self._cmd = [
+            sys.executable, "-m", "fed_tgan_torch", "--mode", "fedavg",
+            "--datapath", os.path.join(root, "intrusion.csv"), "--dataset",
+            "intrusion", "--n-clients", str(FED_CLIENTS), "--monitor-every",
+            "1", "--save-every", "1", "--ckpt-keep", "2", "--watchdog",
+            "--eval", "--out-dir", self.work, "--seed", str(seed)]
+        self._proc = None
+        self._stopped = False
+        self.first_done = threading.Event()
+        self._resume = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            ok = self._process("first", ["--epochs", "3"])
+            if ok:
+                shutil.copytree(os.path.join(self.work, "checkpoint"),
+                                os.path.join(self.root, "cli_round3"))
+        finally:
+            self.first_done.set()
+        self._resume.wait()
+        if ok and not self._stopped:
+            self._process("resume", ["--resume", "--epochs", "5"])
+
+    def _process(self, key: str, extra: list) -> bool:
+        t0 = time.perf_counter()
+        self._proc = subprocess.Popen(
+            self._cmd + extra, cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            stdout, stderr = self._proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            self._proc.kill()
+            stdout, stderr = self._proc.communicate()
+        self.out[key] = {"rc": self._proc.returncode, "stdout": stdout,
+                         "stderr": stderr[-3000:],
+                         "wall_s": time.perf_counter() - t0,
+                         "end": time.perf_counter()}
+        return self._proc.returncode == 0
+
+    def resume(self) -> None:
+        self._resume.set()
+
+    def join(self) -> dict:
+        self._thread.join()
+        return self.out
+
+    def stop(self) -> None:
+        self._stopped = True
+        self._resume.set()
+        if self._proc is not None and self._proc.poll() is None:
+            self._proc.kill()
+        self._thread.join()
+
+
+def _check_cli(root: str, cli: dict, card: str) -> dict:
+    """Part 5's checks: both exit 0, 5 monitor rows, two generations, and
+    the resumed process's round 5 equal to the same two rounds replayed
+    here from the first process's round-3 checkpoint."""
+    for key in ("first", "resume"):
+        if key not in cli or cli[key]["rc"]:
+            got = cli.get(key, {})
+            raise AssertionError(f"durable CLI ({key}) exited "
+                                 f"{got.get('rc')}: {got.get('stderr')}")
+    work = os.path.join(root, "cli_durable")
+    with open(os.path.join(work, "monitor_similarity.csv"), newline="") as f:
+        rows = list(csv.reader(f))
+    if rows[0] != ["Epoch_No.", "Avg_JSD", "Avg_WD"] or \
+            [r[0] for r in rows[1:]] != [str(e) for e in range(5)]:
+        raise AssertionError(f"monitor CSV rows {rows}")
+    ckpt = os.path.join(work, "checkpoint")
+    if list_resumable(ckpt) != [ckpt, ckpt + ".1"] or \
+            os.path.exists(ckpt + ".2"):
+        raise AssertionError(f"checkpoint generations {list_resumable(ckpt)}")
+    if "at round 3" not in cli["resume"]["stdout"]:
+        raise AssertionError("the resumed CLI did not start at round 3")
+    final = [line for line in cli["resume"]["stdout"].splitlines()
+             if line.startswith("final Avg_JSD=")]
+    if not final:
+        raise AssertionError("the resumed CLI printed no evaluation")
+    done = load_federated(ckpt, device="cuda")
+    replay = load_federated(os.path.join(root, "cli_round3"), device="cuda")
+    replay.fit(2)
+    if done.completed_epochs != 5 or replay.completed_epochs != 5:
+        raise AssertionError("the resumed CLI did not reach round 5")
+    _require_equal("CLI resumed process vs replay here", _trainer_state(done),
+                   _trainer_state(replay))
+    report = {"first_wall_s": cli["first"]["wall_s"],
+              "resume_wall_s": cli["resume"]["wall_s"],
+              "monitor_rows": [[float(v) for v in r[1:]] for r in rows[1:]],
+              "final": final[0],
+              # where each process's time went, in its own words
+              "timing_lines": {key: [
+                  line for line in cli[key]["stdout"].splitlines()
+                  if line.startswith(("init done", "resumed from"))
+                  or "rounds in" in line] for key in ("first", "resume")}}
+    print(f"durable CLI: --epochs 3 --monitor-every 1 --save-every 1 "
+          f"--ckpt-keep 2 --watchdog --eval exit 0 in "
+          f"{report['first_wall_s']!r} s, then --resume --epochs 5 exit 0 in "
+          f"{report['resume_wall_s']!r} s; monitor CSV rounds 0-4 "
+          f"{report['monitor_rows']!r}; generations {list_resumable(ckpt)}; "
+          f"the resumed process's round 5 == 2 rounds replayed here from its "
+          f"round-3 checkpoint (torch.equal); {final[0]}; "
+          f"{json.dumps(report['timing_lines'])}  [{card}]",
+          flush=True)
+    return report
+
+
+def cond_sum_probe(spec: SegmentSpec, rows: int, card: str,
+                   reps: int = 20) -> dict:
+    """``cond_loss``'s per-column sums on the card with nothing else
+    varying: ``index_add`` (float atomics) and the 0/1 membership product
+    ``cond_loss`` uses, each ``reps`` times on the same (rows, n_opt)
+    inputs, forward and backward through ``log`` as the loss takes them.
+    Counts the distinct bit patterns of the sums and of the inputs'
+    gradient, and times one forward and backward of each."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tables = cond_tables(spec, torch.device("cuda"))
+    x = torch.randn((rows, spec.n_opt), generator=gen, device="cuda")
+    w = torch.randn((rows, spec.n_discrete), generator=gen, device="cuda")
+    col_ids = tables["cond_column_ids"]
+    variants = {
+        "index_add": lambda v: v.new_zeros((rows, spec.n_discrete)).index_add(
+            1, col_ids, v),
+        "product": lambda v: v @ tables["member"],
+    }
+    report = {}
+    for name, fn in variants.items():
+        def once():
+            v = x.clone().requires_grad_(True)
+            sums = fn(torch.exp(v))
+            (torch.log(sums) * w).sum().backward()
+            return sums.detach(), v.grad
+
+        sums, grads = set(), set()
+        for _ in range(reps):
+            a, g = once()
+            sums.add(a.cpu().numpy().tobytes())
+            grads.add(g.cpu().numpy().tobytes())
+        report[name] = {"distinct_sums": len(sums),
+                        "distinct_grads": len(grads),
+                        "fwd_bwd_ms": cuda_ms(once, 50)}
+    print(f"cond_loss column sums at ({rows}, {spec.n_opt}) -> "
+          f"{spec.n_discrete} columns, {reps} runs on the same inputs: "
+          f"{json.dumps(report)}  [{card}]", flush=True)
+    if report["product"]["distinct_sums"] != 1 or \
+            report["product"]["distinct_grads"] != 1:
+        raise AssertionError("the 0/1 product's column sums vary between "
+                             "runs")
+    return report
+
+
+def fed_durability_phase(init, root: str, seed: int, card: str,
+                         cli_run: DurableCLI) -> dict:
+    """Durable federated rounds at the target configuration (the init of
+    ``fed_round_phase``, ``TrainConfig()``, the similarity monitor at
+    10,000 rows after every round), while ``cli_run`` runs the durable
+    CLI in processes of its own.
+
+    0. ``cond_loss``'s column sums, ``index_add`` against the 0/1
+       product (:func:`cond_sum_probe`).
+    1. Determinism: two runs of ``DUR_ROUNDS`` monitored rounds from one
+       seed are bit-equal (every parameter, buffer, Adam moment and
+       generator state, and every monitor read); K1/K2 launches per
+       monitored round exact.
+    2. Resume: the second run saved after rounds 1 and 2; its newest
+       generation loaded into a fresh trainer and run to ``DUR_ROUNDS``
+       equals the uninterrupted run, monitor reads from round 2 included.
+    3. Crash-safe save: ``crash_checkpoint:save=2`` (keep 2) tears the
+       second save; the first generation loads and resumes to the end.
+    4. Watchdog: the gate off, client 1's update scaled x1e6 after the
+       training of the round before the last (``scale_update:factor=1e6,
+       rank=1,round=2,until=2`` for 3 rounds): an alarm in the last round,
+       a rollback to the poisoned newest generation, an alarm again, a
+       rollback to the older one, the learning rate halved each time,
+       ``DUR_ROUNDS`` rounds done (the CPU test's prediction).
+    5. The CLI (see ``DurableCLI``).
+    6. Timings: the monitor probe per read and its device time; save and
+       load; seconds per round with and without the monitor and a save."""
+    cfg = steps.TrainConfig()
+    csv_path = os.path.join(root, "intrusion.csv")
+    monitor = SimilarityMonitor(init.global_meta, init.encoders,
+                                read_csv(csv_path), n_rows=MONITOR_ROWS,
+                                seed=seed, device="cuda")
+    monitor_k1 = []
+
+    def monitored(reads, ckpt=None, keep=1):
+        def hook(e, tr):
+            k1 = fused_apply_activate.launches
+            reads.append(monitor.evaluate(tr, seed=seed + e))
+            monitor_k1.append(fused_apply_activate.launches - k1)
+            if ckpt is not None:
+                save_federated(tr, ckpt, run_name="Intrusion", keep=keep)
+        return hook
+
+    # 1. determinism, with launch counts over the first run
+    reads_a, reads_b = [], []
+    run_a = FederatedTrainer(init, cfg, seed=seed, device="cuda")
+    column_sums = cond_sum_probe(run_a.spec, cfg.batch_size, card)
+    sum_steps = int(run_a.steps.sum())
+    fused_apply_activate.launches = 0
+    fused_activate_bwd.launches = 0
+    run_a.fit(DUR_ROUNDS, sample_hook=monitored(reads_a))
+    launches = {"K1": fused_apply_activate.launches,
+                "K2": fused_activate_bwd.launches}
+    per_round = {"K1": sum_steps * (cfg.d_steps + 1) + 1, "K2": sum_steps}
+    want = {k: DUR_ROUNDS * v for k, v in per_round.items()}
+    if launches != want or monitor_k1 != [1] * DUR_ROUNDS:
+        raise AssertionError(f"durable launches {launches} (monitor "
+                             f"{monitor_k1}) != {want}")
+    monitor_launches = sum(monitor_k1)
+    ckpt = os.path.join(root, "dur_ckpt")
+    run_b = FederatedTrainer(init, cfg, seed=seed, device="cuda")
+    run_b.fit(2, sample_hook=monitored(reads_b, ckpt, keep=2))
+    run_b.fit(DUR_ROUNDS - 2, sample_hook=monitored(reads_b))
+    state_a = _trainer_state(run_a)
+    _require_equal("two runs from one seed", state_a, _trainer_state(run_b))
+    if reads_a != reads_b:
+        raise AssertionError(f"monitor reads differ: {reads_a} vs {reads_b}")
+    # 2. resume from the round-2 generation
+    src = find_resumable(ckpt)
+    run_c = load_federated(src, device="cuda")
+    reads_c = []
+    run_c.fit(DUR_ROUNDS - 2, sample_hook=monitored(reads_c))
+    if run_c.completed_epochs != DUR_ROUNDS:
+        raise AssertionError(f"resumed to round {run_c.completed_epochs}")
+    _require_equal("resumed vs uninterrupted", _trainer_state(run_c), state_a)
+    if reads_c != reads_a[2:]:
+        raise AssertionError(f"resumed monitor reads {reads_c} vs "
+                             f"{reads_a[2:]}")
+    print(f"durability: {DUR_ROUNDS} monitored rounds twice from seed {seed} "
+          f"bit-equal ({len(state_a)} tensors, {DUR_ROUNDS} monitor reads); "
+          f"2 rounds + save + load + {DUR_ROUNDS - 2} == {DUR_ROUNDS} "
+          f"uninterrupted, reads from round 2 equal; Avg_JSD by round "
+          f"{[r['avg_jsd'] for r in reads_a]!r}, Avg_WD "
+          f"{[r['avg_wd'] for r in reads_a]!r}; launches {launches} "
+          f"(expected {want}: per round {sum_steps} steps x "
+          f"{cfg.d_steps + 1} K1 + 1 monitor K1 at ({MONITOR_ROWS}, "
+          f"{run_a.spec.dim}))  [{card}]", flush=True)
+
+    # 3. a crash in the second save
+    crash = os.path.join(root, "crash_ckpt")
+    install_plan(FaultPlan.parse("crash_checkpoint:save=2"))
+    try:
+        save_federated(run_c, crash, run_name="Intrusion", keep=2)
+        run_c.fit(1)
+        try:
+            save_federated(run_c, crash, run_name="Intrusion", keep=2)
+        except FaultInjected:
+            pass
+        else:
+            raise AssertionError("the second save did not crash")
+    finally:
+        install_plan(None)
+    torn = [e for e in os.listdir(root) if e.startswith("crash_ckpt.tmp-")]
+    if find_resumable(crash) != crash or not torn:
+        raise AssertionError(f"after the crash: {find_resumable(crash)}, "
+                             f"stages {torn}")
+    run_d = load_federated(crash, device="cuda")
+    if run_d.completed_epochs != DUR_ROUNDS:
+        raise AssertionError(f"crash left round {run_d.completed_epochs}")
+    run_d.fit(1)
+    _require_equal("resumed after the crash", _trainer_state(run_d),
+                   _trainer_state(run_c))
+    print(f"crash-safe save: crash_checkpoint:save=2 tore save 2 (stage "
+          f"{torn} left), find_resumable -> round {DUR_ROUNDS}, resumed to "
+          f"round {run_d.completed_epochs} == the uncrashed run  [{card}]",
+          flush=True)
+
+    # 4. the watchdog
+    wd_cfg = dataclasses.replace(cfg, update_gate=False)
+    wd_ckpt = os.path.join(root, "wd_ckpt")
+    wd = TrainingWatchdog(WatchdogConfig(loss_threshold=50.0,
+                                         max_rollbacks=2))
+    alarms, restored, done = [], [], []
+    health = wd.health_cb
+
+    def timed_health(e, metrics):
+        try:
+            health(e, metrics)
+        except WatchdogAlarm:
+            alarms.append((e, time.perf_counter()))
+            raise
+
+    wd.health_cb = timed_health
+
+    def saver(e, tr):
+        done.append((e, time.perf_counter()))
+        save_federated(tr, wd_ckpt, run_name="Intrusion", keep=2)
+
+    def on_rollback(tr):
+        restored.append(tr.completed_epochs)
+        install_plan(None)
+
+    run_w = FederatedTrainer(init, wd_cfg, seed=seed, device="cuda")
+    last = DUR_ROUNDS - 1
+    install_plan(FaultPlan.parse(f"scale_update:factor=1e6,rank=1,"
+                                 f"round={last},until={last}"))
+    try:
+        run_w = fit_with_watchdog(run_w, DUR_ROUNDS, wd, wd_ckpt,
+                                  fit_kwargs=dict(sample_hook=saver),
+                                  on_rollback=on_rollback)
+    finally:
+        install_plan(None)
+    rollback_s = [next(t for e, t in done if t > ta) - ta for _, ta in alarms]
+    print(f"watchdog: alarms at rounds {[e for e, _ in alarms]}, restored "
+          f"generations at rounds {restored}, {wd.rollbacks} rollbacks, "
+          f"final lr {run_w.cfg.lr!r} (from {cfg.lr!r}), "
+          f"{run_w.completed_epochs} rounds done; alarm to the next finished "
+          f"round {rollback_s!r} s  [{card}]", flush=True)
+    if (wd.rollbacks, restored, run_w.completed_epochs, [e for e, _ in alarms]
+            ) != (2, [last, last - 1], DUR_ROUNDS, [last, last]) or \
+            not math.isclose(run_w.cfg.lr, cfg.lr / 4):
+        raise AssertionError("the watchdog did not roll back as the CPU "
+                             "test predicts")
+    if not all(torch.isfinite(p).all() for m in run_w.models
+               for p in m.generator.parameters()):
+        raise AssertionError("non-finite generator after the rollbacks")
+
+    # 5. the CLI, in its own processes since before this phase
+    cli = cli_run.join()
+    cli_report = _check_cli(root, cli, card)
+    overlap = cli.get("resume", {}).get("end", 0.0) > alarms[-1][1]
+
+    # 6. timings, the CLI finished
+    probe_ms = []
+    for k in range(5):
+        t0 = time.perf_counter()
+        monitor.evaluate(run_a, seed=seed + 100 + k)
+        probe_ms.append((time.perf_counter() - t0) * 1e3)
+    probe_device = device_profile(lambda: monitor.evaluate(run_a, seed=seed),
+                                  3)
+    tpath = os.path.join(root, "timed_ckpt")
+    save_s, load_s = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_federated(run_a, tpath)
+        save_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        load_federated(tpath, device="cuda")
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t0)
+    mb = sum(os.path.getsize(os.path.join(tpath, f))
+             for f in os.listdir(tpath)) / 1e6
+    n0 = len(run_a.epoch_times)
+    run_a.fit(2)
+    plain = run_a.epoch_times[n0:]
+    run_a.fit(2, sample_hook=monitored([], tpath))
+    hooked = run_a.epoch_times[n0 + 2:]
+    timings = {"monitor_probe_ms": probe_ms, "monitor_device": probe_device,
+               "save_s": save_s, "load_s": load_s, "checkpoint_mb": mb,
+               "s_per_round_plain": plain,
+               "s_per_round_monitor_and_save": hooked,
+               "rollback_s": rollback_s,
+               "cli_running_during_watchdog": overlap}
+    print(f"durability timings: monitor probe {probe_ms!r} ms per read "
+          f"({MONITOR_ROWS} rows), device {json.dumps(probe_device)}; "
+          f"save_federated {save_s!r} s for {mb!r} MB; load_federated "
+          f"{load_s!r} s; s/round {plain!r} plain vs {hooked!r} with the "
+          f"monitor and a save; rollback {rollback_s!r} s (the CLI "
+          f"{'still' if overlap else 'no longer'} running)  [{card}]",
+          flush=True)
+    return {"launches": launches, "launches_per_round": per_round,
+            "monitor_launches": monitor_launches,
+            "reads": [{k: r[k] for k in ("avg_jsd", "avg_wd")}
+                      for r in reads_a],
+            "watchdog": {"alarm_rounds": [e for e, _ in alarms],
+                         "restored": restored, "rollbacks": wd.rollbacks,
+                         "final_lr": run_w.cfg.lr},
+            "cli": cli_report, "timings": timings,
+            "cond_column_sums": column_sums}
+
+
 def fetch(url: str) -> tuple[int, bytes, float]:
     t0 = time.perf_counter()
     with urllib.request.urlopen(url, timeout=300) as resp:
@@ -1070,6 +1511,27 @@ def reference_phase(art: str, seed: int, card: str) -> None:
     enc_g = gpu.sample_encoded(n, seed=seed, draws=draws)
     enc_c = cpu.sample_encoded(n, seed=seed, draws=draws)
     err = float(np.abs(enc_g - enc_c).max())
+
+    # where a difference comes from: the generator's logits on the two
+    # devices, and K1 against its plain version on the same logits
+    def logits(engine):
+        z, c, u = engine._draw(seed + engine.model.synth.key_offset, 0, 2,
+                               None, draws)
+        with torch.no_grad():
+            return torch.cat([engine.model.synth.generator(b) for b in
+                              torch.cat([z, c], 1).split(cfg.batch_size)]), u
+
+    raw_g, _ = logits(gpu)
+    raw_c, u_c = logits(cpu)
+    raw_err = float((raw_g.cpu() - raw_c).abs().max())
+    k1_err = float((fused_apply_activate(raw_c.cuda(), spec, u_c.cuda()).cpu()
+                    - apply_activate(raw_c, spec, u_c)).abs().max())
+    print(f"reference: generator logits card vs CPU max_abs_err {raw_err!r}; "
+          f"K1 vs plain on the CPU's logits {k1_err!r}; matmul TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}, float32 matmul precision "
+          f"{torch.get_float32_matmul_precision()!r}, TF32 override "
+          f"{os.environ.get('TORCH_ALLOW_TF32_CUBLAS_OVERRIDE')!r}  [{card}]",
+          flush=True)
     dec_g = gpu.sample_decoded(n, seed=seed, draws=draws)
     dec_c = cpu.sample_decoded(n, seed=seed, draws=draws)
     # a row whose softmax segment has two outputs within 1e-3 may take the
@@ -1087,7 +1549,18 @@ def reference_phase(art: str, seed: int, card: str) -> None:
           f"{int((~near).sum())} rows ({int(near.sum())} near-tie rows "
           f"excluded)  [{card}]", flush=True)
     if not err <= 1e-4:
-        raise AssertionError(f"card vs CPU encoded error {err} > 1e-4")
+        # say where, and whether the card gives the same rows again
+        r, c = np.unravel_index(np.abs(enc_g - enc_c).argmax(), enc_g.shape)
+        again = gpu.sample_encoded(n, seed=seed, draws=draws)
+        raise AssertionError(
+            f"card vs CPU encoded error {err} > 1e-4 at row {r}, dim {c} "
+            f"({'tanh' if spec.is_tanh_dim[c] else 'softmax'}, segment "
+            f"{spec.segment_ids[c]}, near-tie row {bool(near[r])}): card "
+            f"{enc_g[r, c]!r} vs CPU {enc_c[r, c]!r}, logits "
+            f"{float(raw_g[r, c])!r} vs {float(raw_c[r, c])!r}, u "
+            f"{float(u_c[r, c])!r}; the card again: error "
+            f"{float(np.abs(again - enc_c).max())!r} vs the CPU, "
+            f"{float(np.abs(again - enc_g).max())!r} vs its first rows")
 
 
 def main(argv=None) -> int:
@@ -1104,6 +1577,13 @@ def main(argv=None) -> int:
     card = gpu_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
+    wall = {}  # phase -> wall seconds since the previous mark
+    last_mark = [time.perf_counter()]
+
+    def mark(phase: str) -> None:
+        now = time.perf_counter()
+        wall[phase] = now - last_mark[0]
+        last_mark[0] = now
 
     t0 = time.perf_counter()
     lib, log = activate_cuda.build()
@@ -1126,6 +1606,7 @@ def main(argv=None) -> int:
     spec = SegmentSpec.from_output_info(output_info(columns))
     shapes = check_kernel(spec, card)
     bwd_shapes = check_bwd_kernel(spec, card)
+    mark("build_and_kernel_checks")
 
     build_root = os.path.join(REPO, "fed_tgan_torch", "_build")
     os.makedirs(build_root, exist_ok=True)
@@ -1145,6 +1626,7 @@ def main(argv=None) -> int:
         serving["stages_ms"] = stage_breakdown(art, args.rows, args.seed, card)
     finally:
         shutil.rmtree(art, ignore_errors=True)
+    mark("serving")
 
     synth, meta, encoders, training = train_phase(args.seed, card)
     # both kernels again at the shape training gave them: (batch, the
@@ -1155,17 +1637,33 @@ def main(argv=None) -> int:
     training["card_vs_cpu"] = step_reference_phase(synth, args.seed, card)
     serve_trained_phase(synth, meta, encoders, args.rows, args.seed, card)
     training.update(train_stage_breakdown(synth, args.seed, card))
+    mark("training")
 
     fed_root = tempfile.mkdtemp(prefix="chip_smoke_fed_", dir=build_root)
+    cli_run = None
     try:
         write_intrusion_csv(os.path.join(fed_root, "intrusion.csv"),
                             FED_ROWS, args.seed)
+        # the durable CLI's first process runs beside the federated CLI's,
+        # which is timed only as a whole; nothing else runs beside the
+        # timed round, and the resume runs beside the phases after it
+        cli_run = DurableCLI(fed_root, args.seed)
         federated = {"cli": fed_cli_phase(fed_root, args.seed, card)}
+        cli_run.first_done.wait()
+        mark("federated_cli_beside_durable_cli")
         trainer, federated["round"] = fed_round_phase(fed_root, args.seed,
                                                       card)
+        mark("federated_round")
+        cli_run.resume()
         federated["card_vs_cpu"] = fed_reference_phase(fed_root, args.seed,
                                                        card)
+        mark("federated_reference")
+        durability = fed_durability_phase(trainer.init, fed_root, args.seed,
+                                          card, cli_run)
+        mark("durability")
     finally:
+        if cli_run is not None:
+            cli_run.stop()
         shutil.rmtree(fed_root, ignore_errors=True)
     # both kernels at the shapes the federated round gives them: a client
     # step (batch, the federation's layout) and a snapshot chunk
@@ -1175,7 +1673,13 @@ def main(argv=None) -> int:
                            extra=False)
     bwd_shapes += check_bwd_kernel(trainer.spec, card, (("fed", B),),
                                    extra=False)
+    # K1 at the similarity monitor's probe: one launch over its rows
+    shapes += check_kernel(trainer.spec, card,
+                           (("fed_monitor", MONITOR_ROWS),), extra=False)
     fed_launches = federated["round"]["launches"]
+    mark("federated_kernel_checks")
+    print(f"wall seconds by phase {json.dumps(wall)}, "
+          f"{sum(wall.values())!r} in all  [{card}]", flush=True)
 
     def entry(name, replaces, path, results, main_case, launches):
         """One kernel on one path: its time and bound at the shape that
@@ -1212,9 +1716,13 @@ def main(argv=None) -> int:
               shapes, "fed", fed_launches["K1"]),
         entry("fused_gumbel_activation_bwd_federated", bwd, "federated",
               bwd_shapes, "fed", fed_launches["K2"]),
+        # slice 4's durable round: the similarity monitor's probe
+        entry("fused_gumbel_activation_fwd_monitor", fwd, "federated monitor",
+              shapes, "fed_monitor", durability["monitor_launches"]),
     ]
     print(json.dumps({"training": training}))
     print(json.dumps({"federated": federated}))
+    print(json.dumps({"durability": durability}))
     print(card)
     print(json.dumps({"kernels": kernels, "serving": serving}))
     print(json.dumps({"ok": True, "device": {

@@ -15,10 +15,19 @@ layout:
 - ``<out>/timestamp_experiment.csv`` and ``timing_phases.csv``;
 - ``<out>/models/<name>.json`` (harmonized meta),
   ``label_encoders_<name>.json`` and, with ``--save-model``, the port
-  artifact ``synthesizer_torch/`` that ``serve`` loads.
+  artifact ``synthesizer_torch/`` that ``serve`` loads;
+- with ``--monitor-every K``, ``<out>/monitor_similarity.csv`` (appended
+  to on ``--resume``);
+- with ``--save-every K``, crash-safe training checkpoints in
+  ``--ckpt-dir`` (default ``<out>/checkpoint``), ``--ckpt-keep``
+  generations rotated to ``<dir>.1`` ...; ``--resume`` continues the
+  newest valid one, ``--epochs`` counting total rounds;
+- ``--watchdog`` rolls back to the last good checkpoint on a loss
+  explosion or a similarity regression; ``--faults SPEC`` installs a
+  fault plan (``fed_tgan_torch.testing.faults``).
 
-A flag of a feature not ported yet exits with code 2 and names the ROADMAP
-item it waits for.
+A flag of a feature not ported yet, or a fault kind the port does not act
+on, exits with code 2 and names the ROADMAP item it waits for.
 """
 
 from __future__ import annotations
@@ -33,13 +42,6 @@ import numpy as np
 # flag -> (argparse keywords, ROADMAP item); a value other than the
 # default is refused with exit code 2
 NOT_PORTED = {
-    "--monitor-every": (dict(type=int, default=0), "A.11"),
-    "--save-every": (dict(type=int, default=0), "A.14"),
-    "--ckpt-dir": (dict(type=str, default=None), "A.14"),
-    "--ckpt-keep": (dict(type=int, default=1), "A.14"),
-    "--resume": (dict(action="store_true"), "A.14"),
-    "--watchdog": (dict(action="store_true"), "A.14"),
-    "--faults": (dict(type=str, default=None), "A.14"),
     "--precision": (dict(type=str, default="f32"), "A.15"),
     "--similarity": (dict(type=str, default="exact"), "A.16"),
     "--init-cache": (dict(type=str, default=None), "A.16"),
@@ -121,6 +123,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval", action="store_true",
                    help="Avg_JSD/Avg_WD of the last snapshot against the "
                         "training data")
+    p.add_argument("--monitor-every", type=int, default=0,
+                   help="rounds between on-device Avg_JSD/Avg_WD probes "
+                        "(0 = off); written to <out>/monitor_similarity.csv")
+    p.add_argument("--save-every", type=int, default=0,
+                   help="rounds between full-resume checkpoints; 0 = none")
+    p.add_argument("--ckpt-dir", type=str, default=None,
+                   help="checkpoint directory (default <out>/checkpoint)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from --ckpt-dir; --epochs counts total rounds")
+    p.add_argument("--ckpt-keep", type=int, default=1,
+                   help="checkpoint generations to retain (<dir>, <dir>.1, "
+                        "...); --resume picks the newest valid one")
+    p.add_argument("--watchdog", action="store_true",
+                   help="on a loss explosion/NaN or a sustained similarity "
+                        "regression, roll back to the last good checkpoint "
+                        "(--save-every), re-anneal the lr, retry "
+                        "--watchdog-max-rollbacks times, then abort")
+    p.add_argument("--watchdog-loss-threshold", type=float, default=100.0,
+                   help="|loss| above this counts as an explosion")
+    p.add_argument("--watchdog-similarity-factor", type=float, default=2.0,
+                   help="monitor reads worse than this factor x the best "
+                        "Avg_JSD count as regression (needs --monitor-every)")
+    p.add_argument("--watchdog-patience", type=int, default=3,
+                   help="consecutive regressed monitor reads before alarm")
+    p.add_argument("--watchdog-max-rollbacks", type=int, default=2,
+                   help="rollbacks before the run aborts")
+    p.add_argument("--watchdog-lr-reanneal", type=float, default=0.5,
+                   help="learning-rate multiplier applied on each rollback")
+    p.add_argument("--faults", type=str, default=None, metavar="SPEC",
+                   help="fault-injection plan, e.g. 'kill_client:rank=3,"
+                        "round=2;crash_checkpoint:save=2' (also read from "
+                        "FED_TGAN_TORCH_FAULTS)")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     for flag, (kw, item) in NOT_PORTED.items():
@@ -208,7 +242,7 @@ def main(argv=None) -> int:
         parser.error(f"--batch-size {args.batch_size}: must be a positive "
                      "multiple of pac=10 (the discriminator packs rows in "
                      "groups of 10)")
-    refused = _refused(args, parser)
+    refused = _refused(args, parser) or _install_faults(args.faults)
     if refused:
         print(f"error: {refused}", file=sys.stderr)
         return 2
@@ -222,6 +256,13 @@ def main(argv=None) -> int:
     name, kwargs = _dataset_kwargs(args)
     if name is None:
         return 2
+    ckpt_dir = args.ckpt_dir or os.path.join(args.out_dir, "checkpoint")
+    if args.resume:
+        if args.mode != "fedavg":
+            print("error: --resume continues a --mode fedavg checkpoint",
+                  file=sys.stderr)
+            return 2
+        return _resume(args, name, kwargs, ckpt_dir, device)
     t_init = time.time()
     if args.client_data:
         tables = [read_csv(p) for p in args.client_data]
@@ -258,7 +299,47 @@ def main(argv=None) -> int:
         return _run_standalone(args, name, kwargs, tables, columns, cfg,
                                device)
     return _run_federated(args, name, kwargs, tables, columns, cfg, device,
-                          t_init)
+                          t_init, ckpt_dir)
+
+
+def _install_faults(spec) -> str | None:
+    """Install the ``--faults`` plan (and export it); the refusal message
+    of a spec that does not parse or names a kind not ported yet."""
+    if not spec:
+        return None
+    from fed_tgan_torch.testing.faults import ENV_VAR, FaultPlan, install_plan
+
+    try:
+        install_plan(FaultPlan.parse(spec))
+    except (ValueError, NotImplementedError) as exc:
+        return f"--faults: {exc}"
+    os.environ[ENV_VAR] = spec
+    return None
+
+
+def _resume(args, name, kwargs, ckpt_dir, device) -> int:
+    """``--resume``: the newest valid checkpoint generation under
+    ``ckpt_dir``; its run name wins over the flags
+    (``fed_tgan_tpu/cli.py:862-901``)."""
+    from fed_tgan_torch.data.csvio import read_csv
+    from fed_tgan_torch.runtime.checkpoint import find_resumable, load_federated
+
+    src = find_resumable(ckpt_dir) or ckpt_dir
+    trainer = load_federated(src, device=device)
+    init = trainer.init
+    name = trainer.run_name or name
+    kwargs["categorical_columns"] = init.global_meta.categorical_columns
+    tables = None
+    if args.eval:
+        try:
+            tables = [read_csv(p) for p in
+                      (args.client_data or [args.datapath])]
+        except OSError as exc:
+            print(f"--eval skipped: cannot reload training data ({exc}); "
+                  "pass --datapath/--client-data to evaluate a resumed run")
+    if not args.quiet:
+        print(f"resumed from {src} at round {trainer.completed_epochs}")
+    return _run_training(args, name, kwargs, trainer, init, tables, ckpt_dir)
 
 
 def _run_standalone(args, name, kwargs, tables, columns, cfg, device) -> int:
@@ -298,12 +379,10 @@ def _run_standalone(args, name, kwargs, tables, columns, cfg, device) -> int:
 
 
 def _run_federated(args, name, kwargs, tables, columns, cfg, device,
-                   t_init) -> int:
-    from fed_tgan_torch.data.csvio import read_csv
+                   t_init, ckpt_dir) -> int:
     from fed_tgan_torch.data.ingest import TablePreprocessor
     from fed_tgan_torch.federation.init import federated_initialize
     from fed_tgan_torch.train.federated import FederatedTrainer
-    from fed_tgan_torch.train.snapshots import SnapshotWriter, result_path_fn
 
     clients = [TablePreprocessor(table=t, name=name, selected_columns=columns,
                                  **kwargs) for t in tables]
@@ -321,28 +400,100 @@ def _run_federated(args, name, kwargs, tables, columns, cfg, device,
                            {**init.timings, **trainer.timings}.items())
         print(f"init done in {time.time() - t_init:.1f}s ({phases}); "
               f"aggregation weights: {np.round(init.weights, 4).tolist()}")
+    return _run_training(args, name, kwargs, trainer, init, tables, ckpt_dir)
+
+
+def _run_training(args, name, kwargs, trainer, init, tables,
+                  ckpt_dir) -> int:
+    """The rounds and what follows them (``fed_tgan_tpu/cli.py:1125-1402``):
+    per round the hook runs snapshot -> monitor -> watchdog read ->
+    checkpoint, so a round the watchdog rejects is never saved.
+    ``tables`` (the training data) is None on a resumed run without
+    ``--eval``, which then runs no monitor and no evaluation."""
+    from fed_tgan_torch.data.csvio import read_csv
+    from fed_tgan_torch.runtime.checkpoint import save_federated
+    from fed_tgan_torch.train.monitor import MonitorLog, SimilarityMonitor
+    from fed_tgan_torch.train.snapshots import SnapshotWriter, result_path_fn
+    from fed_tgan_torch.train.watchdog import (
+        TrainingWatchdog,
+        WatchdogConfig,
+        fit_with_watchdog,
+    )
 
     _write_meta(os.path.join(args.out_dir, "models"), name, init.global_meta,
                 init.encoders)
     path_fn = result_path_fn(args.out_dir, name)
     snapshot = SnapshotWriter(init.global_meta, init.encoders, path_fn,
                               rows=args.sample_rows, seed=args.seed)
+    mon_log = MonitorLog(os.path.join(args.out_dir, "monitor_similarity.csv"))
+    monitor = None
+    if args.monitor_every:
+        if tables is None:
+            print("note: --monitor-every needs the training data (resumed run "
+                  "without a readable --datapath); ignoring")
+        else:
+            real = {c: np.concatenate([t[c] for t in tables])
+                    for c in tables[0]}
+            monitor = SimilarityMonitor(init.global_meta, init.encoders, real,
+                                        seed=args.seed, device=trainer.device)
+    watchdog = None
+    if args.watchdog:
+        watchdog = TrainingWatchdog(WatchdogConfig(
+            loss_threshold=args.watchdog_loss_threshold,
+            similarity_factor=args.watchdog_similarity_factor,
+            similarity_patience=args.watchdog_patience,
+            max_rollbacks=args.watchdog_max_rollbacks,
+            lr_reanneal=args.watchdog_lr_reanneal))
+        if not args.save_every:
+            print("note: --watchdog without --save-every has no "
+                  "checkpoint to roll back to; an alarm aborts cleanly")
 
-    def due(e: int) -> bool:
+    def snapshot_due(e: int) -> bool:
         return bool(args.sample_every) and e % args.sample_every == 0
 
-    with snapshot:
-        trainer.fit(args.epochs, log_every=0 if args.quiet else
-                    max(1, args.epochs // 10), sample_hook=snapshot,
-                    hook_epochs=[e for e in range(args.epochs) if due(e)])
+    def save_due(e: int) -> bool:
+        return bool(args.save_every) and (e + 1) % args.save_every == 0
+
+    def mon_due(e: int) -> bool:
+        return monitor is not None and e % args.monitor_every == 0
+
+    def hook(e, tr):
+        if snapshot_due(e):
+            snapshot(e, tr)
+        if mon_due(e):
+            m = monitor.evaluate(tr, seed=args.seed + e)
+            mon_log.append(e, m["avg_jsd"], m["avg_wd"])
+            if not args.quiet:
+                print(f"round {e}: Avg_JSD={m['avg_jsd']:.4f} "
+                      f"Avg_WD={m['avg_wd']:.4f} (on-device monitor)")
+            if watchdog is not None:  # before the save: never persist it
+                watchdog.observe_similarity(e, m["avg_jsd"])
+        if save_due(e):
+            save_federated(tr, ckpt_dir, run_name=name, keep=args.ckpt_keep)
+
+    # --epochs is the total round budget; a resumed run does the rest
+    start = trainer.completed_epochs
+    remaining = max(0, args.epochs - start)
+    due = [e for e in range(start, start + remaining)
+           if snapshot_due(e) or save_due(e) or mon_due(e)]
+    fit_kwargs = dict(log_every=0 if args.quiet else max(1, remaining // 10),
+                      sample_hook=hook if due else None, hook_epochs=due)
+    with mon_log, snapshot:
+        if watchdog is not None:
+            trainer = fit_with_watchdog(trainer, remaining, watchdog,
+                                        ckpt_dir, fit_kwargs=fit_kwargs)
+        else:
+            trainer.fit(remaining, **fit_kwargs)
         last_epoch = trainer.completed_epochs - 1
         if not args.sample_every and last_epoch >= 0:
             snapshot(last_epoch, trainer)
+    if args.save_every and trainer.completed_epochs % args.save_every:
+        save_federated(trainer, ckpt_dir, run_name=name, keep=args.ckpt_keep)
     if args.save_model:
         _save_model(args.out_dir, name, trainer.to_saved(), init.global_meta,
                     init.encoders)
     trainer.write_timing(args.out_dir)
-    if args.eval and last_epoch >= 0:
+    if args.eval and tables is not None and last_epoch >= 0:
         last = ((last_epoch // args.sample_every) * args.sample_every
                 if args.sample_every else last_epoch)
         _evaluate(tables, read_csv(path_fn(last)),

@@ -9,7 +9,9 @@
   weights back to the JAX pytree layout;
 - :func:`convert_jax_artifact` reads a JAX ``--save-model`` artifact
   (``synthesizer/host.pkl`` + ``arrays.npz``, meta JSON, encoder pickle)
-  and writes the port's own format (:mod:`fed_tgan_torch.runtime.checkpoint`).
+  and writes the port's own format (:mod:`fed_tgan_torch.runtime.checkpoint`);
+- :func:`convert_jax_checkpoint` turns a JAX ``save_federated`` training
+  checkpoint into the port's, so a run trained in JAX resumes on the card.
 
 The JAX package is never imported: ``host.pkl`` is read with an
 unpickler that maps every ``fed_tgan_tpu.*`` and ``sklearn.*`` global to
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from fed_tgan_torch.data.encoders import CategoryEncoder
-from fed_tgan_torch.data.schema import TableMeta
+from fed_tgan_torch.data.schema import ColumnMeta, TableMeta
 from fed_tgan_torch.device import resolve_device
 from fed_tgan_torch.features.bgm import ColumnGMM
 from fed_tgan_torch.features.transformer import (
@@ -44,10 +46,11 @@ from fed_tgan_torch.runtime.checkpoint import (
     SYNTH_DIR,
     SavedSynthesizer,
     config_from_dict,
+    restore_optimizer,
     save_synthesizer,
 )
 from fed_tgan_torch.train.sampler import CondSampler
-from fed_tgan_torch.train.steps import Models, TrainConfig
+from fed_tgan_torch.train.steps import Models, TrainConfig, lr_factor
 
 
 def _t(a) -> torch.Tensor:
@@ -335,4 +338,147 @@ def convert_jax_artifact(src_dir: str, dst_dir: str) -> str:
     with open(os.path.join(models, f"label_encoders_{name}.json"), "w") as f:
         json.dump(encoders, f)
     save_synthesizer(synth, os.path.join(models, SYNTH_DIR))
+    return dst_dir
+
+
+# ---------------------------------------------------------- checkpoints
+
+
+def _namespace(obj):
+    """A pickled JAX object as plain attributes: stand-ins become
+    namespaces of their state, a pickled ``TableMeta`` becomes the
+    port's."""
+    if isinstance(obj, _StandIn):
+        st = {k: _namespace(v) for k, v in _state(obj).items()}
+        if obj.origin.endswith(".ColumnMeta"):
+            return ColumnMeta(**st)
+        if obj.origin.endswith(".TableMeta"):
+            return TableMeta(**st)
+        return SimpleNamespace(**st)
+    if isinstance(obj, (list, tuple)):
+        return [_namespace(v) for v in obj]
+    if isinstance(obj, dict):
+        return {k: _namespace(v) for k, v in obj.items()}
+    return obj
+
+
+def _bundle_from_leaves(leaves, n_blocks: int, n_layers: int,
+                        scheduled: bool) -> SimpleNamespace:
+    """A JAX ``ModelBundle`` from its flattened leaves: ``params_g``,
+    ``state_g``, ``params_d`` (sorted dict keys), then per optimizer the
+    Adam ``count``, ``mu`` and ``nu`` trees and, for a decaying schedule,
+    the schedule's own count."""
+    it = iter(leaves)
+    take = lambda: next(it)
+
+    def gen_tree():
+        blocks = []
+        for _ in range(n_blocks):
+            bn_bias, bn_scale, fc_b, fc_w = take(), take(), take(), take()
+            blocks.append({"bn_bias": bn_bias, "bn_scale": bn_scale,
+                           "fc": {"b": fc_b, "w": fc_w}})
+        out_b, out_w = take(), take()
+        return {"blocks": blocks, "out": {"b": out_b, "w": out_w}}
+
+    def dis_tree():
+        layers = []
+        for _ in range(n_layers):
+            b, w = take(), take()
+            layers.append({"b": b, "w": w})
+        out_b, out_w = take(), take()
+        return {"layers": layers, "out": {"b": out_b, "w": out_w}}
+
+    def adam(tree):
+        count, mu, nu = take(), tree(), tree()
+        if scheduled:
+            take()  # the schedule's count, equal to Adam's
+        return count, mu, nu
+
+    params_g = gen_tree()
+    state_g = {"blocks": [{"mean": take(), "var": take()}
+                          for _ in range(n_blocks)]}
+    params_d = dis_tree()
+    opt_g, opt_d = adam(gen_tree), adam(dis_tree)
+    if next(it, None) is not None:
+        raise ValueError("the checkpoint holds more leaves than a "
+                         "ModelBundle of this config")
+    return SimpleNamespace(params_g=params_g, state_g=state_g,
+                           params_d=params_d, opt_g=opt_g, opt_d=opt_d)
+
+
+def _load_adam(models: Models, bundle: SimpleNamespace, i: int,
+               cfg: TrainConfig) -> None:
+    """Client ``i``'s optax Adam states (``count``, ``mu``, ``nu``) into
+    its torch optimizers (``step``, ``exp_avg``, ``exp_avg_sq``) and LR
+    schedules.  The moments are laid out through the same converters as
+    the weights (a Linear's ``w`` transposed)."""
+    state_g = _index(bundle.state_g, i)
+    for opt, sched, (count, mu, nu), as_module in (
+            (models.opt_g, models.sched_g, bundle.opt_g,
+             lambda t: generator_from_jax(t, state_g)),
+            (models.opt_d, models.sched_d, bundle.opt_d,
+             lambda t: discriminator_from_jax(t, cfg.pac))):
+        n = int(np.asarray(count)[i])
+        params = opt.param_groups[0]["params"]
+        state = {}
+        if n:
+            mus = list(as_module(_index(mu, i)).parameters())
+            nus = list(as_module(_index(nu, i)).parameters())
+            state = {k: {"step": torch.tensor(float(n)),
+                         "exp_avg": m.detach().clone(),
+                         "exp_avg_sq": v.detach().clone()}
+                     for k, (m, v) in enumerate(zip(mus, nus))}
+        if len(state) not in (0, len(params)):
+            raise ValueError("Adam moments do not match the parameters")
+        restore_optimizer(opt, sched, state, cfg.lr * lr_factor(cfg)(n), n)
+
+
+def convert_jax_checkpoint(src_dir: str, dst_dir: str) -> str:
+    """Convert the JAX ``save_federated`` checkpoint in ``src_dir`` into a
+    port checkpoint in ``dst_dir`` (:func:`~fed_tgan_torch.runtime.
+    checkpoint.load_federated` loads it); returns ``dst_dir``.
+
+    Carried over: the ``FederatedInit``; every client's parameters and
+    BatchNorm state (:func:`client_models_from_jax`); its optax Adam
+    ``mu`` / ``nu`` / ``count`` as torch's ``exp_avg`` / ``exp_avg_sq`` /
+    ``step``, with the LR schedule at that count; the weights, quarantine
+    strikes, dropped clients, round counter and round times.  Not carried
+    over: the JAX key chain.  A threefry key has no torch counterpart, so
+    each client's ``torch.Generator`` starts from ``step_seed(seed,
+    client)`` as in a fresh port trainer, and the resumed run draws other
+    numbers than the JAX run would have.  EMA and elastic checkpoints are
+    refused (not ported)."""
+    from fed_tgan_torch.runtime.checkpoint import save_federated
+    from fed_tgan_torch.train.federated import FederatedTrainer
+
+    host = _unpickle(os.path.join(src_dir, "host.pkl"))
+    if host.get("kind") != "federated":
+        raise ValueError(f"{src_dir} is not a JAX federated checkpoint")
+    if host.get("ema") or host.get("capacity"):
+        raise NotImplementedError("EMA (ROADMAP A.17) and elastic (A.16) "
+                                  "checkpoints are not ported yet")
+    cfg = config_from_dict(_state(host["cfg"]))
+    init = federated_init_from_jax(_namespace(host["init"]))
+    spec = SegmentSpec.from_output_info(init.output_info)
+    with np.load(os.path.join(src_dir, "arrays.npz")) as data:
+        n = sum(1 for k in data.files if k.startswith("leaf_"))
+        bundle = _bundle_from_leaves(
+            [data[f"leaf_{i:05d}"] for i in range(n)], len(cfg.gen_dims),
+            len(cfg.dis_dims), cfg.lr_schedule != "constant")
+    trainer = FederatedTrainer(
+        init, cfg, seed=host["seed"], device="cpu",
+        models=client_models_from_jax(bundle, spec, cfg, "cpu"))
+    for i, models in enumerate(trainer.models):
+        _load_adam(models, bundle, i, cfg)
+    trainer.weights = np.asarray(host["weights"], dtype=np.float32)
+    trainer._strikes = np.asarray(host["strikes"], dtype=np.int64)
+    trainer.dropped_clients = {int(i) for i in host.get("dropped_clients")
+                               or ()}
+    trainer.steps = np.where(trainer._alive(), trainer.steps, 0)
+    trainer.completed_epochs = int(host["completed_epochs"])
+    trainer.epoch_times = [float(t) for t in host["epoch_times"]]
+    for k, v in (host.get("phase_times") or {}).items():
+        if k in trainer.phase_times:
+            trainer.phase_times[k] = [float(t) for t in v]
+    save_federated(trainer, dst_dir, run_name=host.get("run_name"))
     return dst_dir

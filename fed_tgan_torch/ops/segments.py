@@ -134,11 +134,17 @@ def apply_activate_bwd(dy: torch.Tensor, out: torch.Tensor,
 @functools.lru_cache(maxsize=64)
 def cond_tables(spec: SegmentSpec, device: torch.device) -> dict:
     """The conditional view's index arrays as int64 tensors on ``device``
-    (``discrete_dims``, ``cond_column_ids``, ``cond_offsets``), copied to
-    the device once per (spec, device), not on every training step."""
-    return {name: torch.as_tensor(getattr(spec, name), dtype=torch.long,
-                                  device=device)
-            for name in ("discrete_dims", "cond_column_ids", "cond_offsets")}
+    (``discrete_dims``, ``cond_column_ids``, ``cond_offsets``), and
+    ``member``: the (n_opt, n_discrete) float32 0/1 matrix of which
+    conditional column each position belongs to; copied to the device once
+    per (spec, device), not on every training step."""
+    out = {name: torch.as_tensor(getattr(spec, name), dtype=torch.long,
+                                 device=device)
+           for name in ("discrete_dims", "cond_column_ids", "cond_offsets")}
+    member = np.zeros((spec.n_opt, spec.n_discrete), dtype=np.float32)
+    member[np.arange(spec.n_opt), spec.cond_column_ids] = 1.0
+    out["member"] = torch.as_tensor(member, device=device)
+    return out
 
 
 def _column_max(logits: torch.Tensor, col_ids: torch.Tensor,
@@ -165,7 +171,11 @@ def cond_loss(data: torch.Tensor, spec: SegmentSpec, cond_vec: torch.Tensor,
     logits = data[:, dims]  # (batch, n_opt)
     m = _column_max(logits.detach(), col_ids, spec.n_discrete)
     shifted = logits - m[:, col_ids]
-    zeros = torch.zeros((data.shape[0], spec.n_discrete), device=data.device)
-    lse = torch.log(zeros.index_add(1, col_ids, torch.exp(shifted))) + m
-    target = zeros.index_add(1, col_ids, logits * cond_vec)
+    # each column's sum is a product with the 0/1 membership matrix: a
+    # fixed order of additions on the card, in the forward pass and in its
+    # backward (index_add would add with float atomics, which CUDA does
+    # not order, and bit-exact resume needs the same bits every run)
+    member = tables["member"]
+    lse = torch.log(torch.exp(shifted) @ member) + m
+    target = (logits * cond_vec) @ member
     return ((lse - target) * mask).sum() / data.shape[0]

@@ -13,6 +13,26 @@ beside the directory.  Counterpart of the JAX ``save_synthesizer`` /
 ``load_synthesizer`` (``fed_tgan_tpu/runtime/checkpoint.py:398-498``),
 whose ``host.pkl`` + ``arrays.npz`` artifacts :mod:`fed_tgan_torch.interop`
 converts into this format.
+
+Federated training checkpoints (:func:`save_federated` /
+:func:`load_federated`, counterpart of
+``fed_tgan_tpu/runtime/checkpoint.py:64-395``) are pickle-free too:
+
+- ``host.json``: format version, the ``TrainConfig``, seed, round counter,
+  round times, weights, quarantine strikes, dropped clients, ``run_name``,
+  the trainer's options, and the ``FederatedInit``'s meta, encoders and
+  column layout;
+- ``arrays.npz``: the ``FederatedInit``'s arrays (client matrices,
+  mixtures, scores) and per client its generator and discriminator
+  ``state_dict`` (BatchNorm running statistics included), both Adam
+  states, and the state of its ``torch.Generator``.
+
+A loaded trainer continues bit for bit where the saved one stood.  Saves
+are crash-safe: staged in a sibling temp directory, every file fsynced,
+then a ``COMPLETE`` marker, then published by atomic renames that rotate
+the previous checkpoints to ``<path>.1`` ... ``<path>.K-1``; a crash at any
+point leaves the newest earlier checkpoint loadable, and
+:func:`find_resumable` finds it.
 """
 
 from __future__ import annotations
@@ -20,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import logging
 import os
 import shutil
 
@@ -34,6 +55,7 @@ from fed_tgan_torch.features.transformer import (
 )
 from fed_tgan_torch.models.ctgan import Generator
 from fed_tgan_torch.ops.segments import SegmentSpec
+from fed_tgan_torch.testing.faults import FaultInjected, active_plan
 from fed_tgan_torch.train.sampler import CondSampler
 from fed_tgan_torch.train.steps import TrainConfig, require_f32
 
@@ -41,6 +63,14 @@ SYNTH_DIR = "synthesizer_torch"
 FORMAT_VERSION = 1
 _CONFIG = "config.json"
 _WEIGHTS = "weights.npz"
+FEDERATED_VERSION = 1
+_HOST = "host.json"
+_ARRAYS = "arrays.npz"
+_MARKER = "COMPLETE"
+_GMM_FIELDS = ("means", "stds", "weights", "active", "mean_precision", "dof",
+               "stick_a", "stick_b")
+
+log = logging.getLogger("fed_tgan_torch.checkpoint")
 
 
 class SavedSynthesizer:
@@ -155,3 +185,318 @@ def checkpoint_fingerprint(path: str) -> str:
             for chunk in iter(lambda: f.read(1 << 20), b""):
                 h.update(chunk)
     return h.hexdigest()[:12]
+
+
+# ------------------------------------------------------ crash-safe writes
+
+
+def _fsync_file(f) -> None:
+    f.flush()
+    os.fsync(f.fileno())
+
+
+def _fsync_dir(path: str) -> None:
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _stage_dir(path: str) -> str:
+    """A fresh sibling temp directory to stage a save in; stages left by
+    earlier crashed writers are swept (one writer per path)."""
+    parent = os.path.dirname(os.path.abspath(path))
+    os.makedirs(parent, exist_ok=True)
+    base = os.path.basename(path)
+    for entry in os.listdir(parent):
+        if entry.startswith(f"{base}.tmp-"):
+            shutil.rmtree(os.path.join(parent, entry), ignore_errors=True)
+    tmp = f"{path}.tmp-{os.getpid()}"
+    os.makedirs(tmp)
+    return tmp
+
+
+def _seal_dir(tmp: str) -> None:
+    """Marker, then a directory fsync: after this ``tmp`` is a valid
+    checkpoint."""
+    with open(os.path.join(tmp, _MARKER), "wb") as f:
+        _fsync_file(f)
+    _fsync_dir(tmp)
+
+
+def _publish_dir(tmp: str, path: str, keep: int) -> None:
+    """Atomically publish the sealed ``tmp`` as ``path``, rotating the
+    previous checkpoint into ``path.1`` ... ``path.{keep-1}``.  The oldest
+    generation passes through ``path.{keep}`` and is removed once the new
+    one is in place (the JAX package leaves it there until the next
+    save, so it holds keep + 1 generations between saves)."""
+    keep = max(1, int(keep))
+    doomed = f"{path}.{keep}"
+    if os.path.isdir(doomed):
+        shutil.rmtree(doomed)
+    for i in range(keep - 1, 0, -1):
+        src = f"{path}.{i}"
+        if os.path.isdir(src):
+            os.replace(src, f"{path}.{i + 1}")
+    if os.path.isdir(path):
+        os.replace(path, f"{path}.1")
+    os.replace(tmp, path)
+    _fsync_dir(os.path.dirname(os.path.abspath(path)))
+    if os.path.isdir(doomed):
+        shutil.rmtree(doomed)
+
+
+def _is_valid_checkpoint(path: str) -> bool:
+    """Both payload files present and readable.  The ``COMPLETE`` marker
+    is not required, as in the JAX package."""
+    try:
+        with open(os.path.join(path, _HOST)) as f:
+            json.load(f)
+        with np.load(os.path.join(path, _ARRAYS)) as data:
+            _ = data.files
+        return True
+    except Exception:
+        return False
+
+
+def list_resumable(path: str, max_rotations: int = 8) -> list[str]:
+    """Every valid checkpoint generation at ``path``, newest first: the
+    primary, then the rotation slots ``path.1`` ...  The watchdog walks
+    this list when the newest generation holds already-poisoned state."""
+    candidates = [path] + [f"{path}.{i}" for i in range(1, max_rotations + 1)]
+    return [c for c in candidates
+            if os.path.isdir(c) and _is_valid_checkpoint(c)]
+
+
+def find_resumable(path: str, max_rotations: int = 8) -> str | None:
+    """The newest valid checkpoint at ``path`` or its rotation slots (a
+    crash can leave the primary slot torn while an older one is intact);
+    None when nothing loadable exists."""
+    gens = list_resumable(path, max_rotations)
+    if gens and gens[0] != path:
+        log.warning("checkpoint: primary %s unusable, resuming from %s",
+                    path, gens[0])
+    return gens[0] if gens else None
+
+
+def _fault_hook(path: str) -> None:
+    """The mid-write fault-injection point (nothing without a plan)."""
+    plan = active_plan()
+    if plan is not None:
+        plan.on_checkpoint_write(path)
+
+
+# ------------------------------------------------------------- federated
+
+
+def _init_parts(init) -> tuple[dict, dict]:
+    """A ``FederatedInit`` as (JSON-able dict, arrays)."""
+    host = {
+        "global_meta": init.global_meta.to_json_dict(),
+        "encoders": [e.to_dict() for e in init.encoders],
+        "columns": [[[c.name, "cont" if isinstance(c, ContinuousColumn)
+                      else "disc"] for c in tf.columns]
+                    for tf in init.transformers],
+        "rows_per_client": [int(r) for r in init.rows_per_client],
+        "timings": {k: float(v) for k, v in init.timings.items()},
+    }
+    arrays = {f"init.matrix_{i:03d}": np.asarray(m, dtype=np.float32)
+              for i, m in enumerate(init.client_matrices)}
+    for name in ("weights", "jsd", "wd", "jsd_raw", "wd_raw"):
+        if getattr(init, name) is not None:
+            arrays[f"init.{name}"] = np.asarray(getattr(init, name))
+    for i, tf in enumerate(init.transformers):
+        for j, (col, gmm) in enumerate(zip(tf.columns, tf.gmms)):
+            key = f"init.tf_{i:03d}.col_{j:05d}"
+            if gmm is None:
+                arrays[f"{key}.codes"] = np.asarray(col.codes)
+            else:
+                for field in _GMM_FIELDS:
+                    arrays[f"{key}.{field}"] = np.asarray(getattr(gmm, field))
+    return host, arrays
+
+
+def _init_from(host: dict, data):
+    """The ``FederatedInit`` of :func:`_init_parts` output."""
+    from fed_tgan_torch.data.encoders import CategoryEncoder
+    from fed_tgan_torch.data.schema import TableMeta
+    from fed_tgan_torch.features.bgm import ColumnGMM
+    from fed_tgan_torch.features.transformer import ModeNormalizer
+    from fed_tgan_torch.federation.init import FederatedInit
+
+    transformers = []
+    for i, cols in enumerate(host["columns"]):
+        tf = ModeNormalizer(device="cpu")
+        for j, (name, kind) in enumerate(cols):
+            key = f"init.tf_{i:03d}.col_{j:05d}"
+            if kind == "disc":
+                tf.gmms.append(None)
+                tf.columns.append(DiscreteColumn(name, data[f"{key}.codes"]))
+                continue
+            gmm = ColumnGMM(**{f: data[f"{key}.{f}"] for f in _GMM_FIELDS})
+            tf.gmms.append(gmm)
+            tf.columns.append(ContinuousColumn(
+                name, gmm.means[gmm.active], gmm.stds[gmm.active]))
+        tf._finalize()
+        transformers.append(tf)
+    opt = lambda k: data[k] if k in data.files else None
+    return FederatedInit(
+        global_meta=TableMeta.from_json_dict(host["global_meta"]),
+        encoders=[CategoryEncoder.from_dict(e) for e in host["encoders"]],
+        transformers=transformers,
+        client_matrices=[data[f"init.matrix_{i:03d}"]
+                         for i in range(len(transformers))],
+        weights=data["init.weights"], jsd=data["init.jsd"],
+        wd=data["init.wd"], rows_per_client=list(host["rows_per_client"]),
+        jsd_raw=opt("init.jsd_raw"), wd_raw=opt("init.wd_raw"),
+        timings=dict(host["timings"]))
+
+
+def _optimizers(models):
+    return (("opt_g", models.opt_g, models.sched_g),
+            ("opt_d", models.opt_d, models.sched_d))
+
+
+def restore_optimizer(opt, sched, state: dict, lr: float, step: int) -> None:
+    """Install Adam ``state`` (parameter index -> ``step``, ``exp_avg``,
+    ``exp_avg_sq`` tensors) into ``opt``, and put its schedule after
+    ``step`` updates at learning rate ``lr``."""
+    opt.load_state_dict({"state": state,
+                         "param_groups": opt.state_dict()["param_groups"]})
+    opt.param_groups[0]["lr"] = lr
+    sched.last_epoch, sched._step_count, sched._last_lr = step, step + 1, [lr]
+
+
+def save_federated(trainer, path: str, run_name: str | None = None,
+                   keep: int = 1) -> None:
+    """Write a full-resume checkpoint of a port ``FederatedTrainer`` to
+    the directory ``path``; ``run_name`` (the run's output identity) rides
+    along.  Crash-safe (see the module docstring); ``keep`` > 1 retains
+    the previous K-1 checkpoints as ``path.1`` ..."""
+    init_host, arrays = _init_parts(trainer.init)
+    n_done = len(trainer.epoch_times)
+    clients = []
+    for i, models in enumerate(trainer.models):
+        pre = f"client_{i:03d}"
+        for part, mod in (("generator", models.generator),
+                          ("discriminator", models.discriminator)):
+            for k, v in mod.state_dict().items():
+                arrays[f"{pre}.{part}.{k}"] = v.detach().cpu().numpy()
+        entry = {"rng_device": trainer.gens[i].device.type}
+        for part, opt, sched in _optimizers(models):
+            for idx, st in opt.state_dict()["state"].items():
+                for k, v in st.items():
+                    arrays[f"{pre}.{part}.{idx}.{k}"] = v.detach().cpu().numpy()
+            entry[part] = {"lr": opt.param_groups[0]["lr"],
+                           "sched_step": sched.last_epoch}
+        arrays[f"{pre}.rng"] = trainer.gens[i].get_state().numpy()
+        clients.append(entry)
+    host = {
+        "version": FEDERATED_VERSION,
+        "kind": "federated_torch",
+        "cfg": config_to_dict(trainer.cfg),
+        "seed": trainer.seed,
+        "min_clients": trainer.min_clients,
+        "quarantine_strikes": trainer.quarantine_strikes,
+        "decode": trainer.decode.mode,
+        "completed_epochs": trainer.completed_epochs,
+        "epoch_times": list(trainer.epoch_times),
+        # a save inside the hook sees the round's train phase but not its
+        # total: keep only completed rounds
+        "phase_times": {k: list(v)[:n_done]
+                        for k, v in trainer.phase_times.items()},
+        "weights": [float(w) for w in trainer.weights],
+        "strikes": [int(s) for s in trainer._strikes],
+        "dropped_clients": sorted(int(i) for i in trainer.dropped_clients),
+        "run_name": run_name,
+        "clients": clients,
+        "init": init_host,
+    }
+    tmp = _stage_dir(path)
+    try:
+        with open(os.path.join(tmp, _HOST), "w") as f:
+            json.dump(host, f)
+            _fsync_file(f)
+        _fault_hook(path)  # a simulated crash: tmp is partial, path untouched
+        with open(os.path.join(tmp, _ARRAYS), "wb") as f:
+            np.savez(f, **arrays)
+            _fsync_file(f)
+        _seal_dir(tmp)
+    except BaseException as exc:
+        # an injected fault stands for a hard crash: its partial stage
+        # stays on disk, as kill -9 would leave it
+        if not isinstance(exc, FaultInjected):
+            shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    _publish_dir(tmp, path, keep)
+
+
+def load_federated(path: str, device="cuda"):
+    """A ``FederatedTrainer`` on ``device`` rebuilt from
+    :func:`save_federated` output: the trainer is constructed from the
+    checkpointed ``FederatedInit`` and options, then every client's
+    weights, BatchNorm state, Adam state, learning-rate schedule and
+    generator state, the round counter and the membership are restored.
+
+    A checkpoint loads on either device.  A ``torch.Generator``'s state
+    belongs to its device type, so on the other type each client's
+    generator is reseeded from ``(seed, client, round)``: the run goes on,
+    with other draws."""
+    from fed_tgan_torch.serve.engine import step_seed
+    from fed_tgan_torch.train.federated import FederatedTrainer
+
+    device = resolve_device(device)
+    with open(os.path.join(path, _HOST)) as f:
+        host = json.load(f)
+    if host.get("kind") != "federated_torch":
+        raise ValueError(f"{path} is not a port federated checkpoint")
+    if host["version"] > FEDERATED_VERSION:
+        raise ValueError(f"checkpoint version {host['version']} is newer "
+                         f"than supported {FEDERATED_VERSION}")
+    with np.load(os.path.join(path, _ARRAYS)) as data:
+        trainer = FederatedTrainer(
+            _init_from(host["init"], data), config_from_dict(host["cfg"]),
+            seed=host["seed"], min_clients=host["min_clients"],
+            quarantine_strikes=host["quarantine_strikes"], device=device,
+            decode=host["decode"])
+        done = host["completed_epochs"]
+        for i, (models, entry) in enumerate(zip(trainer.models,
+                                                host["clients"])):
+            pre = f"client_{i:03d}"
+            for part, mod in (("generator", models.generator),
+                              ("discriminator", models.discriminator)):
+                mod.load_state_dict({
+                    k: torch.as_tensor(data[f"{pre}.{part}.{k}"])
+                    for k in mod.state_dict()})
+            for part, opt, sched in _optimizers(models):
+                state = {}
+                for idx in range(len(opt.param_groups[0]["params"])):
+                    keys = [k for k in ("step", "exp_avg", "exp_avg_sq")
+                            if f"{pre}.{part}.{idx}.{k}" in data.files]
+                    if keys:
+                        state[idx] = {k: torch.as_tensor(
+                            data[f"{pre}.{part}.{idx}.{k}"]) for k in keys}
+                restore_optimizer(opt, sched, state, entry[part]["lr"],
+                                  entry[part]["sched_step"])
+            if entry["rng_device"] == device.type:
+                trainer.gens[i].set_state(torch.as_tensor(data[f"{pre}.rng"]))
+            else:
+                log.warning("client %d: generator state saved on %s, loaded "
+                            "on %s; reseeded", i, entry["rng_device"],
+                            device.type)
+                trainer.gens[i].manual_seed(
+                    step_seed(step_seed(trainer.seed, i), done))
+    trainer.completed_epochs = done
+    trainer.epoch_times = list(host["epoch_times"])
+    for k, v in host["phase_times"].items():
+        trainer.phase_times[k] = list(v)
+    trainer.weights = np.asarray(host["weights"], dtype=np.float32)
+    trainer._strikes = np.asarray(host["strikes"], dtype=np.int64)
+    trainer.dropped_clients = set(host["dropped_clients"])
+    trainer.steps = np.where(trainer._alive(), trainer.steps, 0)
+    trainer.run_name = host["run_name"]
+    return trainer

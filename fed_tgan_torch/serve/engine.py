@@ -71,16 +71,18 @@ class SamplingEngine:
         self._gen = torch.Generator(device=self.device)
         self._lock = threading.Lock()
 
-    def _chunk_plan(self, first_step: int, total_steps: int):
+    def _chunk_plan(self, first_step: int, total_steps: int,
+                    pow2_tail: bool = True):
         """(start_step, n_steps) chunks covering ``total_steps`` from
         ``first_step``: full ``max_chunk_steps`` blocks, then a power-of-two
-        tail."""
+        tail, or without ``pow2_tail`` exactly the steps still due."""
         plan, start = [], first_step
         end = first_step + total_steps
         while start < end:
             remaining = end - start
             steps = (self.max_chunk_steps if remaining >= self.max_chunk_steps
-                     else min(_pow2(remaining), self.max_chunk_steps))
+                     else min(_pow2(remaining) if pow2_tail else remaining,
+                              self.max_chunk_steps))
             plan.append((start, steps))
             start += steps
         return plan
@@ -153,11 +155,15 @@ class SamplingEngine:
         return int(self.spec.cond_offsets[idx]) + int(slots[0])
 
     def _chunks(self, n: int, seed: int, offset: int,
-                condition: Optional[int], draws: Optional[Draws], post):
-        """Rows [offset, offset + n) of stream ``seed``, each chunk's
-        activated rows passed through ``post`` (a tensor, or a dict of
-        tensors) and copied to the host; returns the rows' array (or dict
-        of arrays)."""
+                condition: Optional[int], draws: Optional[Draws], post,
+                key_offset: Optional[int] = None, to_host: bool = True):
+        """Rows [offset, offset + n) of stream ``seed + key_offset`` (the
+        model's offset by default), each chunk's activated rows passed
+        through ``post`` (a tensor, or a dict of tensors) and copied to the
+        host; returns the rows' array (or dict of arrays).  With
+        ``to_host=False`` the rows stay on the device, and the last chunk
+        is exactly the steps still due: nothing is copied, so no
+        power-of-two tail pads it (a row does not depend on its chunk)."""
         if n <= 0:
             raise ValueError(f"n={n}: need at least one row")
         if offset < 0:
@@ -165,19 +171,25 @@ class SamplingEngine:
         B = self.cfg.batch_size
         first_step, skip = divmod(offset, B)
         total_steps = -(-(skip + n) // B)
-        stream = seed + self.model.synth.key_offset
+        if key_offset is None:
+            key_offset = self.model.synth.key_offset
         out = []
-        for start, steps in self._chunk_plan(first_step, total_steps):
+        for start, steps in self._chunk_plan(first_step, total_steps,
+                                             pow2_tail=to_host):
             with self._lock:
-                z, c, u = self._draw(stream, start, steps, condition, draws)
+                z, c, u = self._draw(seed + key_offset, start, steps,
+                                     condition, draws)
             res = post(sample_step(self.model.synth.generator, self.spec, z,
                                    c, u, block_rows=B))
-            out.append({k: v.cpu().numpy() for k, v in res.items()}
+            if to_host:
+                res = ({k: v.cpu().numpy() for k, v in res.items()}
                        if isinstance(res, dict) else res.cpu().numpy())
+            out.append(res)
+        cat = np.concatenate if to_host else torch.cat
         if isinstance(out[0], dict):
-            return {k: np.concatenate([o[k] for o in out])[skip:skip + n]
+            return {k: cat([o[k] for o in out])[skip:skip + n]
                     for k in out[0]}
-        return np.concatenate(out, axis=0)[skip:skip + n]
+        return cat(out)[skip:skip + n]
 
     def sample_encoded(self, n: int, seed: int = 0, offset: int = 0,
                        condition: Optional[int] = None,
@@ -201,6 +213,14 @@ class SamplingEngine:
         (``ops.decode.SnapshotDecode``): its dict of host arrays, which
         ``decode.assemble`` turns into column values."""
         return self._chunks(n, seed, offset, None, draws, decode.decode)
+
+    def decoded_on_device(self, n: int, seed: int,
+                          key_offset: int) -> torch.Tensor:
+        """Rows [0, n) of stream ``seed + key_offset`` as
+        :meth:`sample_decoded`'s numeric layout, left on the device."""
+        return self._chunks(n, seed, 0, None, None,
+                            lambda enc: layout_decode(enc, self._tables),
+                            key_offset=key_offset, to_host=False)
 
     def sample_csv_bytes(self, n: int, seed: int = 0, offset: int = 0,
                          condition: Optional[int] = None, header: bool = True,

@@ -1,0 +1,250 @@
+"""Deterministic fault injection (counterpart of
+``fed_tgan_tpu/testing/faults.py:99-476``).
+
+A :class:`FaultPlan` parses the JAX package's spec grammar: ``;``-separated
+faults, ``,``-separated ``key=value`` arguments, every kind of
+:attr:`FaultPlan.VALID_KINDS`.  An unknown kind fails fast.  The port acts
+on five kinds:
+
+- ``kill_client:rank=R,round=E`` — client ``R`` (1-based) is dropped at
+  the start of round ``E`` (1-based), once;
+- ``crash_checkpoint:save=N`` — the ``N``-th ``save_federated`` call
+  raises :class:`FaultInjected` after ``host.json`` is staged and before
+  the publish, as a crash mid-write would;
+- ``nan_update`` / ``scale_update`` / ``stuck_update`` with
+  ``rank=R[,round=E][,until=U]`` (``scale_update:F`` reads the factor
+  positionally) — client ``R`` ships all-NaN parameters, ``prev + F *
+  delta``, or its pre-round parameters after its local steps in every
+  round of the window [E, U] (U=0: forever).
+
+The other kinds parse, but a plan holding one is refused by
+:func:`install_plan` and :func:`active_plan` (:func:`require_ported`), so
+none parses and then quietly does nothing: the transport faults wait for
+ROADMAP A.18, the cache and churn faults for A.16, stragglers for A.17
+and the snapshot degrade for A.19.
+
+Plans come from the ``--faults`` CLI flag or the
+``FED_TGAN_TORCH_FAULTS`` environment variable.  The trainer and the
+checkpoint writer consult :func:`active_plan`, which is None unless a plan
+was installed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import threading
+from typing import Optional
+
+log = logging.getLogger("fed_tgan_torch.faults")
+
+ENV_VAR = "FED_TGAN_TORCH_FAULTS"
+
+# kind -> the ROADMAP item the port waits for before it can act on it
+NOT_PORTED_KINDS = {
+    "delay_msg": "A.18", "sever_conn": "A.18",
+    "corrupt_cache": "A.16", "join": "A.16", "leave": "A.16",
+    "drift": "A.16", "straggle": "A.17", "degrade_snapshot": "A.19",
+}
+
+
+class FaultInjected(RuntimeError):
+    """Raised at an injection point that simulates an in-process crash."""
+
+
+@dataclasses.dataclass
+class FaultPlan:
+    """Parsed fault spec; the counters are per process and thread-safe.
+    The fields are the JAX package's, with its defaults."""
+
+    kill_rank: int = 0          # 0 = no kill fault
+    kill_round: int = 0
+    delay_ms: int = 0
+    sever_rank: int = 0         # 0 = no sever fault
+    sever_after: int = 0
+    crash_save: int = 0         # 0 = no checkpoint-crash fault
+    update_kind: str = ""       # "" = no update fault; nan | scale | stuck
+    update_rank: int = 0        # 1-based client rank shipping bad updates
+    update_factor: float = 1.0  # delta scale for kind == "scale"
+    update_round: int = 1       # first faulty round (1-based)
+    update_until: int = 0       # last faulty round (0 = forever)
+    straggle_rank: int = 0
+    straggle_delay: int = 1
+    straggle_round: int = 1
+    straggle_until: int = 0
+    corrupt_cache_nth: int = 0
+    degrade_factor: float = 0.0
+    degrade_nth: int = 1
+    joins: list = dataclasses.field(default_factory=list)   # [(round, count)]
+    leaves: list = dataclasses.field(default_factory=list)  # [(round, client)]
+    drifts: list = dataclasses.field(default_factory=list)  # [(round, client, shift)]
+
+    VALID_KINDS = ("corrupt_cache", "crash_checkpoint", "degrade_snapshot",
+                   "delay_msg", "drift", "join", "kill_client", "leave",
+                   "nan_update", "scale_update", "sever_conn", "straggle",
+                   "stuck_update")
+
+    def __post_init__(self) -> None:
+        self._lock = threading.Lock()
+        self._save_calls = 0
+        self._killed = False
+        self.kinds: list[str] = []  # the kinds of the parsed spec, in order
+
+    @classmethod
+    def parse(cls, spec: str) -> "FaultPlan":
+        plan = cls()
+        for part in filter(None, (p.strip() for p in spec.split(";"))):
+            name, _, argstr = part.partition(":")
+            if name not in cls.VALID_KINDS:
+                # before the arguments: a typo'd kind with a positional
+                # factor must name the real problem
+                raise ValueError(
+                    f"unknown fault {name!r} in spec {spec!r}; valid "
+                    f"kinds: {', '.join(cls.VALID_KINDS)}")
+            plan.kinds.append(name)
+            args = {}
+            for kv in filter(None, (a.strip() for a in argstr.split(","))):
+                k, eq, v = kv.partition("=")
+                if not eq and name in ("scale_update", "degrade_snapshot"):
+                    args["factor"] = float(k)  # scale_update:100
+                    continue
+                k = k.strip()
+                args[k] = float(v) if k in ("factor", "shift") else int(v)
+            _apply(plan, name, args, spec)
+        return plan
+
+    # -- injection points -----------------------------------------------
+
+    def should_kill(self, rank: int, round_1based: int) -> bool:
+        """True exactly once, for client ``rank`` at ``round_1based``."""
+        if self.kill_rank != rank or round_1based < self.kill_round:
+            return False
+        with self._lock:
+            if self._killed:
+                return False
+            self._killed = True
+            return True
+
+    def on_checkpoint_write(self, path: str) -> None:
+        """Called mid-``save_federated`` after part of the state is on
+        disk; raises on the ``crash_save``-th call."""
+        if self.crash_save <= 0:
+            return
+        with self._lock:
+            self._save_calls += 1
+            fire = self._save_calls == self.crash_save
+        if fire:
+            log.warning("FAULT: crashing checkpoint save #%d mid-write (%s)",
+                        self.crash_save, path)
+            raise FaultInjected(f"checkpoint save crashed mid-write: {path}")
+
+
+def _need(spec: str, name: str, args: dict, keys, example: str) -> None:
+    missing = [k for k in keys if k not in args]
+    if missing:
+        raise ValueError(f"{name} needs {' and '.join(missing)} in spec "
+                         f"{spec!r} ({example})")
+
+
+def _apply(plan: FaultPlan, name: str, args: dict, spec: str) -> None:
+    """One parsed fault's arguments into ``plan`` (the JAX dispatch)."""
+    if name == "kill_client":
+        plan.kill_rank, plan.kill_round = args["rank"], args["round"]
+    elif name == "delay_msg":
+        plan.delay_ms = args["ms"]
+    elif name == "sever_conn":
+        plan.sever_rank, plan.sever_after = args["rank"], args["after"]
+    elif name == "crash_checkpoint":
+        plan.crash_save = args.get("save", 1)
+    elif name == "corrupt_cache":
+        plan.corrupt_cache_nth = int(args.get("nth", 1))
+    elif name == "degrade_snapshot":
+        _need(spec, name, args, ("factor",),
+              "degrade_snapshot:100 or degrade_snapshot:factor=100")
+        plan.degrade_factor = float(args["factor"])
+        plan.degrade_nth = int(args.get("nth", 1))
+    elif name == "join":
+        _need(spec, name, args, ("round",), "join:round=5 or "
+              "join:round=5,count=2")
+        plan.joins.append((int(args["round"]),
+                           max(1, int(args.get("count", 1)))))
+    elif name == "leave":
+        _need(spec, name, args, ("client", "round"), "leave:client=2,round=8")
+        plan.leaves.append((int(args["round"]), int(args["client"])))
+    elif name == "drift":
+        _need(spec, name, args, ("client", "round"),
+              "drift:client=1,round=10,shift=2.0")
+        plan.drifts.append((int(args["round"]), int(args["client"]),
+                            float(args.get("shift", 1.0))))
+    elif name == "straggle":
+        plan.straggle_rank = int(args["rank"])
+        plan.straggle_delay = max(1, int(args.get("delay", 1)))
+        plan.straggle_round = int(args.get("round", 1))
+        plan.straggle_until = int(args.get("until", 0))
+    else:  # nan_update | scale_update | stuck_update
+        plan.update_kind = name.split("_", 1)[0]
+        plan.update_rank = int(args.get("rank", 1))
+        plan.update_factor = float(args.get("factor", 1.0))
+        plan.update_round = int(args.get("round", 1))
+        plan.update_until = int(args.get("until", 0))
+
+
+def require_ported(plan: Optional[FaultPlan]) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item of the first
+    kind in ``plan`` the port does not act on yet."""
+    for kind in getattr(plan, "kinds", ()):
+        if kind in NOT_PORTED_KINDS:
+            raise NotImplementedError(
+                f"fault kind {kind!r} is not ported yet (ROADMAP "
+                f"{NOT_PORTED_KINDS[kind]})")
+
+
+def update_fault_window(
+    plan: Optional[FaultPlan], e0: int, size: int
+) -> tuple[Optional[tuple[str, int, float]], int]:
+    """The update fault of a chunk of ``size`` rounds from the 0-based
+    round ``e0``: ``(fault, clipped_size)``, ``fault = (kind, client_idx0,
+    factor)`` when every round of the clipped chunk lies in the fault's
+    window, else None; the chunk is clipped at the window's edges.  The
+    port's trainer asks one round at a time."""
+    if plan is None or not plan.update_kind:
+        return None, size
+    lo = plan.update_round - 1
+    hi = plan.update_until - 1 if plan.update_until else None
+    for edge in sorted(x for x in (lo, (hi + 1) if hi is not None else None)
+                       if x is not None and e0 < x < e0 + size):
+        size = edge - e0
+        break
+    active = e0 >= lo and (hi is None or e0 <= hi)
+    fault = ((plan.update_kind, plan.update_rank - 1, plan.update_factor)
+             if active else None)
+    return fault, size
+
+
+_active: Optional[FaultPlan] = None
+_env_checked = False
+
+
+def install_plan(plan: Optional[FaultPlan]) -> None:
+    """Install (or clear, with None) the process-wide plan; a plan with a
+    kind the port does not act on is refused."""
+    global _active, _env_checked
+    require_ported(plan)
+    _active = plan
+    _env_checked = True  # an explicit install wins over the env var
+
+
+def active_plan() -> Optional[FaultPlan]:
+    """The process-wide plan: installed, or parsed from
+    ``FED_TGAN_TORCH_FAULTS`` on first use."""
+    global _active, _env_checked
+    if not _env_checked:
+        _env_checked = True
+        spec = os.environ.get(ENV_VAR)
+        if spec:
+            plan = FaultPlan.parse(spec)
+            require_ported(plan)
+            _active = plan
+            log.warning("fault injection active from %s=%r", ENV_VAR, spec)
+    return _active

@@ -24,16 +24,23 @@ Snapshots sample the aggregated generator through the slice-1
 ``SamplingEngine`` with the JAX trainer's sampling-key offset 29, decoded
 by the packed8 layout unless another is asked for.
 
+The active fault plan (:mod:`fed_tgan_torch.testing.faults`) acts on the
+round: ``kill_client`` drops its client at the start of its round, and the
+update faults corrupt their client's update in every round of their window
+(:func:`corrupt_updates`).  ``fit(health_cb=)`` hands each round's losses
+to the training watchdog before the sample hook runs, so a round the
+watchdog rejects is never checkpointed.
+
 Not ported yet, each rejected with the ROADMAP item it waits for: cohort
 sampling, buffered aggregation and EMA (A.17), bf16 (A.15); elastic
-capacity, several rounds per program and fault plans are CLI-level and
-refused there.
+capacity and several rounds per program are CLI-level and refused there.
 """
 
 from __future__ import annotations
 
 import copy
 import csv
+import dataclasses
 import logging
 import os
 import time
@@ -55,6 +62,7 @@ from fed_tgan_torch.parallel.fedavg import (
 from fed_tgan_torch.runtime.checkpoint import SavedSynthesizer
 from fed_tgan_torch.serve.engine import SamplingEngine, step_seed
 from fed_tgan_torch.serve.registry import LoadedModel
+from fed_tgan_torch.testing.faults import active_plan, update_fault_window
 from fed_tgan_torch.train.sampler import CondSampler, RowSampler
 from fed_tgan_torch.train.steps import (
     Models,
@@ -62,6 +70,7 @@ from fed_tgan_torch.train.steps import (
     TrainConfig,
     draw_step,
     init_models,
+    lr_factor,
     require_trainable,
     train_step,
 )
@@ -159,6 +168,7 @@ class FederatedTrainer:
         self.completed_epochs = 0
         self.last_metrics: Optional[np.ndarray] = None
         self.last_quarantined: Optional[np.ndarray] = None
+        self.run_name: Optional[str] = None  # set by load_federated
 
     # ---------------------------------------------------------- the round
 
@@ -253,14 +263,31 @@ class FederatedTrainer:
                       "has diverged (lower the learning rate)")
                 return
 
+    def _fault_kill(self, plan, e: int) -> None:
+        """The ``kill_client`` fault: drop its client at the start of its
+        round (``fed_tgan_tpu/train/federated.py:1314-1318``)."""
+        if (plan is not None and plan.kill_rank
+                and plan.should_kill(plan.kill_rank, e + 1)):
+            self.drop_client(plan.kill_rank - 1,
+                             f"fault-injected kill at round {e + 1}")
+
     def fit(self, epochs: int, log_every: int = 0, sample_hook=None,
-            hook_epochs=None, update_fault=None) -> "FederatedTrainer":
+            hook_epochs=None, update_fault=None,
+            health_cb=None) -> "FederatedTrainer":
         """Run ``epochs`` rounds; ``sample_hook(epoch, self)`` after each
-        round (or only the rounds in ``hook_epochs``).  ``update_fault``
-        ``(kind, client, factor)`` corrupts that client's update after its
-        local steps in every round of this call: ``"nan"``, ``"scale"``
-        (``prev + factor * delta``) or ``"stuck"`` (the pre-round values),
-        as the JAX package's fault plans do."""
+        round (or only the rounds in ``hook_epochs``).
+
+        ``update_fault`` ``(kind, client, factor)`` corrupts that client's
+        update after its local steps in every round of this call:
+        ``"nan"``, ``"scale"`` (``prev + factor * delta``) or ``"stuck"``
+        (the pre-round values).  Without it, the active fault plan's
+        update fault applies in the rounds of its window.
+
+        ``health_cb(round, metrics)`` gets ``loss_d``, ``pen`` and
+        ``loss_g`` as (1, n_clients) host arrays and ``quarantined``, after
+        the strikes and before the sample hook; an exception it raises
+        ends the call with the round's state in place and the round not
+        counted."""
         e = self.completed_epochs
         end = e + epochs
         if sample_hook is None:
@@ -270,10 +297,18 @@ class FederatedTrainer:
         else:
             firing = {x for x in hook_epochs if e <= x < end}
         while e < end:
+            plan = active_plan()
+            self._fault_kill(plan, e)
+            fault = (update_fault if update_fault is not None
+                     else update_fault_window(plan, e, 1)[0])
             t0 = time.perf_counter()
-            metrics, q = self.run_round(e, update_fault)
+            metrics, q = self.run_round(e, fault)
             self._warn_nonfinite(metrics, q, e)
             self._strike(q, metrics, e)
+            if health_cb is not None:
+                health_cb(e, {**{name: metrics[None, :, j]
+                                 for j, name in enumerate(METRICS)},
+                              "quarantined": q[None].astype(np.float32)})
             t_round = time.perf_counter() - t0
             self.phase_times["train_aggregate"].append(t_round)
             self.phase_times["distribution"].append(0.0)
@@ -291,6 +326,23 @@ class FederatedTrainer:
                       f"loss_g={m[2]:.3f} ({self.epoch_times[-1]:.3f}s/round)")
             e += 1
         return self
+
+    def set_lr(self, lr: float) -> None:
+        """Set every client's learning rate to ``lr`` from the next update
+        on (the watchdog's re-anneal): the schedules keep their step
+        counts and scale from the new base."""
+        self.cfg = dataclasses.replace(self.cfg, lr=float(lr))
+        factor = lr_factor(self.cfg)
+        for models in self.models:
+            models.cfg = self.cfg
+            for opt, sched in ((models.opt_g, models.sched_g),
+                               (models.opt_d, models.sched_d)):
+                sched.base_lrs = [self.cfg.lr]
+                sched.lr_lambdas = [factor]
+                for group in opt.param_groups:
+                    group["initial_lr"] = self.cfg.lr
+                    group["lr"] = self.cfg.lr * factor(sched.last_epoch)
+                sched._last_lr = [g["lr"] for g in opt.param_groups]
 
     # ---------------------------------------------------------- membership
 

@@ -120,15 +120,20 @@ def make_optimizers(cfg: TrainConfig, generator: Generator,
     gradient before the moments like ``optax.add_decayed_weights`` before
     ``scale_by_adam`` (not AdamW).  The schedulers set each update's
     learning rate from :func:`lr_schedule`."""
-    sched = lr_schedule(cfg)
     betas = (cfg.beta1, cfg.beta2)
     opt_g = torch.optim.Adam(generator.parameters(), lr=cfg.lr, betas=betas,
                              eps=1e-8, weight_decay=cfg.l2scale)
     opt_d = torch.optim.Adam(discriminator.parameters(), lr=cfg.lr,
                              betas=betas, eps=1e-8)
-    factor = lambda count: sched(count) / cfg.lr
+    factor = lr_factor(cfg)
     return (opt_g, opt_d, torch.optim.lr_scheduler.LambdaLR(opt_g, factor),
             torch.optim.lr_scheduler.LambdaLR(opt_d, factor))
+
+
+def lr_factor(cfg: TrainConfig) -> Callable[[int], float]:
+    """The schedulers' multiplier of ``cfg.lr`` after ``count`` updates."""
+    sched = lr_schedule(cfg)
+    return lambda count: sched(count) / cfg.lr
 
 
 @dataclass
@@ -277,9 +282,26 @@ def draw_step(gen: torch.Generator, models: Models) -> StepDraws:
 # ------------------------------------------------------------- train step
 
 
-def _set_grads(params: list, loss: torch.Tensor) -> None:
-    for p, g in zip(params, torch.autograd.grad(loss, params)):
-        p.grad = g
+def _set_grads(params: list, *losses: torch.Tensor) -> None:
+    """``p.grad`` = the gradient of the sum of ``losses``, each loss's
+    gradient from its own backward pass, summed in argument order.
+
+    One backward pass over the critic's loss plus its gradient penalty
+    would add several contributions into one weight's gradient in the
+    autograd engine's order, which on the card depends on sequence
+    numbers that the forward (main thread) and the penalty's double
+    backward (the engine's device thread) draw from two counters: the
+    order, and the last bits of the gradient, then change with how many
+    nodes each thread made before.  Separate passes keep every step
+    bit-reproducible, so a resumed run repeats the uninterrupted one."""
+    total = None
+    for loss in losses:
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        total = grads if total is None else [
+            a if b is None else (b if a is None else a + b)
+            for a, b in zip(total, grads)]
+    for p, g in zip(params, total):
+        p.grad = torch.zeros_like(p) if g is None else g
 
 
 def d_update(models: Models, data: torch.Tensor, cond: CondSampler,
@@ -307,7 +329,7 @@ def d_update(models: Models, data: torch.Tensor, cond: CondSampler,
     loss_d = y_fake.mean() - y_real.mean()
     pen = gradient_penalty(lambda x: D(x, keep=d.keep_gp), real_cat,
                            fake_cat, d.alpha, pac=pac)
-    _set_grads(list(D.parameters()), loss_d + pen)
+    _set_grads(list(D.parameters()), loss_d, pen)
     models.opt_d.step()
     models.sched_d.step()
     return loss_d.detach(), pen.detach()

@@ -6,7 +6,10 @@ on the same raw Intrusion-shaped CSV (600 rows, 3 clients).
   0.05 of the JAX run's (the two packages draw different random streams,
   so only the distribution of the result is shared);
 - ``--mode standalone``: the same meta and encoders;
-- a flag of a feature not ported yet exits with code 2.
+- ``--monitor-every``/``--save-every`` then ``--resume``: the run goes on
+  from its checkpoint and extends the monitor CSV;
+- a flag of a feature not ported yet, or a fault kind the port does not
+  act on, exits with code 2 and names its ROADMAP item.
 """
 
 import csv
@@ -98,12 +101,61 @@ def test_standalone_cli_matches_jax(data, tmp_path, capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--cohort", "2"], "A.17"), (["--rounds-per-program", "4"], "A.17"),
-    (["--faults", "nan_update:rank=1"], "A.14"),
+    (["--faults", "straggle:rank=1,delay=2"], "A.17"),
     (["--elastic-capacity", "8"], "A.16"), (["--precision", "bf16"], "A.15"),
-    (["--mode", "mdgan"], "A.17"), (["--monitor-every", "1"], "A.11")])
+    (["--mode", "mdgan"], "A.17"), (["--snapshot-format", "parquet"],
+                                    "A.21")])
 def test_unported_flags_exit_2(data, tmp_path, capsys, flag, item):
     assert port_cli.main(argv(data, tmp_path, "--device", "cpu", *flag)) == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("spec,item", [
+    ("delay_msg:ms=5", "A.18"), ("sever_conn:rank=1,after=1", "A.18"),
+    ("corrupt_cache", "A.16"), ("join:round=2", "A.16"),
+    ("leave:client=1,round=2", "A.16"), ("drift:client=1,round=2", "A.16"),
+    ("straggle:rank=1,delay=2", "A.17"), ("degrade_snapshot:100", "A.19"),
+    ("kill_client:rank=1,round=1;delay_msg:ms=5", "A.18")])
+def test_unported_fault_kinds_exit_2(data, tmp_path, capsys, spec, item):
+    assert port_cli.main(argv(data, tmp_path, "--device", "cpu",
+                              "--faults", spec)) == 2
+    err = capsys.readouterr().err
+    assert f"ROADMAP {item}" in err and spec.split(";")[-1].split(":")[0] \
+        in err
+    assert not (tmp_path / "Intrusion_result").exists()
+
+
+def test_save_every_then_resume_extends_the_monitor_csv(data, tmp_path,
+                                                        capsys):
+    out = tmp_path / "out"
+    common = ["--device", "cpu", "--monitor-every", "1", "--save-every",
+              "1", "--ckpt-keep", "2", "--watchdog"]
+    assert port_cli.main(argv(data, out, *common)) == 0
+    first = capsys.readouterr().out
+    assert "on-device monitor" in first and "note:" not in first
+    rows = list(csv.reader(open(out / "monitor_similarity.csv")))
+    assert rows[0] == ["Epoch_No.", "Avg_JSD", "Avg_WD"]
+    assert [r[0] for r in rows[1:]] == ["0", "1"]
+    assert (out / "checkpoint").is_dir() and (out / "checkpoint.1").is_dir()
+    resumed = [a if a != "2" or prev != "-epochs" else "4"
+               for prev, a in zip([None] + argv(data, out), argv(data, out))]
+    assert port_cli.main(resumed + common + ["--resume"]) == 0
+    text = capsys.readouterr().out
+    assert "resumed from" in text and "at round 2" in text
+    assert "final Avg_JSD=" in text
+    rows = list(csv.reader(open(out / "monitor_similarity.csv")))
+    assert [r[0] for r in rows[1:]] == ["0", "1", "2", "3"]
+    assert all(np.isfinite(float(v)) for r in rows[1:] for v in r[1:])
+    assert sorted(p.name for p in (out / "Intrusion_result").iterdir()) == [
+        f"Intrusion_synthesis_epoch_{e}.csv" for e in range(4)]
+    assert open(out / "timestamp_experiment.csv").read().count("\n") == 4
+
+
+def test_watchdog_without_save_every_notes_it(data, tmp_path, capsys):
+    assert port_cli.main(argv(data, tmp_path, "--device", "cpu",
+                              "--watchdog")) == 0
+    assert ("note: --watchdog without --save-every has no checkpoint to "
+            "roll back to; an alarm aborts cleanly") in capsys.readouterr().out
 
 
 def test_batch_size_must_be_a_multiple_of_pac(data, tmp_path):

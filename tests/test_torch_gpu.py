@@ -340,3 +340,67 @@ def test_standalone_trains_and_samples_on_card(cuda):
     out = synth.sample(300, seed=1)
     assert out.shape == (300, 2) and np.isfinite(out).all()
     assert set(np.unique(out[:, 1])) <= {0.0, 1.0, 2.0}
+
+
+def test_monitor_probe_shape_launches_k1_once(cuda, tmp_path):
+    """The monitor's probe: 10,000 rows (20 steps of 500) through the
+    engine's device path are one K1 launch at (10000, D), and K1 at that
+    shape matches its plain version."""
+    build_random_artifact(str(tmp_path), seed=2)
+    engine = SamplingEngine(open_model(str(tmp_path), device="cuda"))
+    before = fused_apply_activate.launches
+    rows = engine.decoded_on_device(10_000, seed=3, key_offset=31)
+    torch.cuda.synchronize()
+    assert fused_apply_activate.launches == before + 1
+    assert rows.shape == (10_000, len(engine.model.synth.columns))
+    assert rows.is_cuda and torch.isfinite(rows).all()
+    spec = engine.spec
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn((10_000, spec.dim), generator=g, device=cuda) * 2.0
+    u = torch.rand(x.shape, generator=g, device=cuda)
+    got = fused_apply_activate(x, spec, u)
+    assert (got - apply_activate(x, spec, u)).abs().max().item() <= ATOL
+
+
+def _small_federation():
+    from fed_tgan_torch.data.ingest import TablePreprocessor
+    from fed_tgan_torch.federation.init import federated_initialize
+
+    rng = np.random.default_rng(5)
+    tables = [{"x": rng.normal(0, 1, 240),
+               "c": rng.choice(["a", "b", "c"], 240).astype(object)}
+              for _ in range(2)]
+    init = federated_initialize(
+        [TablePreprocessor(table=t, categorical_columns=["c"])
+         for t in tables], device="cpu")
+    cfg = steps.TrainConfig(embedding_dim=8, gen_dims=(16,), dis_dims=(16,),
+                            batch_size=40, pac=4)
+    return init, cfg
+
+
+def test_federated_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
+    """Saved on the card, loaded on the CPU (and back): weights, BatchNorm
+    state and Adam moments equal; the generators are reseeded off their
+    own device type.  On the card, a loaded run continues bit for bit."""
+    from fed_tgan_torch.runtime.checkpoint import load_federated, save_federated
+    from fed_tgan_torch.train.federated import FederatedTrainer
+
+    init, cfg = _small_federation()
+    tr = FederatedTrainer(init, cfg, seed=0, device="cuda").fit(1)
+    save_federated(tr, str(tmp_path / "card"))
+    host = load_federated(str(tmp_path / "card"), device="cpu")
+    back = load_federated(str(tmp_path / "card"), device="cuda")
+    for a, b, c in zip(tr.models, host.models, back.models):
+        for x, y, z in zip(a.generator.state_dict().values(),
+                           b.generator.state_dict().values(),
+                           c.generator.state_dict().values()):
+            assert torch.equal(x.cpu(), y) and torch.equal(x, z)
+    save_federated(host, str(tmp_path / "cpu"))
+    again = load_federated(str(tmp_path / "cpu"), device="cuda")
+    assert again.models[0].generator.out.weight.is_cuda
+    tr.fit(1)
+    back.fit(1)
+    for a, c in zip(tr.models, back.models):
+        for x, z in zip(a.discriminator.parameters(),
+                        c.discriminator.parameters()):
+            assert torch.equal(x, z)

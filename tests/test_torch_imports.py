@@ -71,7 +71,8 @@ def test_port_package_lists_every_slice_module():
                  "serve.service", "serve.demo", "__main__", "cli",
                  "datasets", "data.ingest", "data.sharding",
                  "federation.init", "parallel.fedavg", "train.federated",
-                 "train.snapshots", "eval.similarity"):
+                 "train.snapshots", "eval.similarity", "testing.faults",
+                 "train.monitor", "train.watchdog"):
         assert f"fed_tgan_torch.{name}" in mods
 
 
@@ -105,13 +106,15 @@ def test_federated_cli_runs_with_jax_sklearn_and_pandas_blocked(tmp_path):
     """``python -m fed_tgan_torch --mode fedavg`` for one round on the CPU
     in a fresh interpreter where jax, the JAX package, pandas, pyarrow and
     sklearn cannot be imported: CSV ingest, init, the round, a snapshot,
-    the artifact and the evaluation need none of them."""
+    the monitor, a checkpoint under the watchdog and a fault plan, the
+    artifact and the evaluation need none of them."""
     data = str(tmp_path / "intr.csv")
     argv = ["--mode", "fedavg", "--datapath", data, "--dataset", "intrusion",
             "--n-clients", "2", "-epochs", "1", "--sample-rows", "60",
             "--batch-size", "40", "--embedding-dim", "8", "--eval",
             "--save-model", "--out-dir", str(tmp_path / "out"), "--quiet",
-            "--device", "cpu"]
+            "--device", "cpu", "--monitor-every", "1", "--save-every", "1",
+            "--watchdog", "--faults", "crash_checkpoint:save=9"]
     code = (
         "import sys, runpy\n"
         f"for name in {BLOCKED!r}:\n"
@@ -130,6 +133,9 @@ def test_federated_cli_runs_with_jax_sklearn_and_pandas_blocked(tmp_path):
     snap = tmp_path / "out" / "Intrusion_result" / "Intrusion_synthesis_epoch_0.csv"
     assert open(snap).read().count("\n") == 61
     assert (tmp_path / "out" / "models" / "synthesizer_torch").is_dir()
+    assert (tmp_path / "out" / "checkpoint" / "COMPLETE").exists()
+    assert open(tmp_path / "out" / "monitor_similarity.csv").read().count(
+        "\n") == 2
 
 
 def test_resolve_device_never_falls_back():
