@@ -7,7 +7,8 @@
 Phases, each fatal on failure:
 
 1. build the fused activation kernels (``fed_tgan_torch/csrc/activate.cu``:
-   K1 forward, K2 backward) with nvcc for sm_90a;
+   K1 forward, K2 backward) with nvcc for sm_90a, and the host CSV
+   formatter (``fed_tgan_torch/csrc/csvfmt.c``) with cc;
 2. hold K1 against its plain PyTorch version on the card within atol 1e-5
    at 1, 5, 500, 8,000 (the chunk of phase 4) and 64,000 rows of the
    282-wide Intrusion layout, a distant-dim underflow case, a 70-wide
@@ -30,7 +31,8 @@ Phases, each fatal on failure:
    request and ``/healthz``; every status 200, every row count right,
    every number finite; K1 must launch; then the card's output against
    the CPU's on the same injected draws, and the stages of one request
-   (draws, generator, activation, decode and copy to the host, CSV);
+   (draws, generator, activation, decode and copy to the host, CSV), its
+   CSV byte-equal to the stdlib writer's;
 5. training, slice 2's main path: the standalone CTGAN at full width
    (``TrainConfig()`` defaults, pac 10) on a 10,000-row Intrusion-shaped
    table for 2 epochs of 20 steps: finite losses, weights moved, K1
@@ -54,8 +56,10 @@ Phases, each fatal on failure:
 10. the same configuration in this process: init phases, 3 rounds with a
    snapshot each (K1 launched ``sum(steps) * (d_steps + 1) + chunks`` and
    K2 ``sum(steps)`` times a round, exactly), seconds per round split
-   into local steps, aggregation and snapshot, the writer thread's CSV
-   time and what it costs the next round, then one round and its
+   into local steps, aggregation and snapshot dispatch, the writer
+   thread's CSV time and what it costs the next round, the last
+   snapshot's file (pinned copies, packed8 lookup tables) byte-equal to
+   the stdlib writer's bytes of the same rows, then one round and its
    snapshot under ``torch.profiler`` (busy ms, K1/K2 share);
 11. one round on the card against the same round on the CPU (injected
    draws), then a round with client 1's update scaled x1e3, quarantined
@@ -110,8 +114,9 @@ import urllib.request
 import numpy as np
 import torch
 
-from fed_tgan_torch.data.csvio import csv_bytes, read_csv
-from fed_tgan_torch.data.decode import decode_columns
+from fed_tgan_torch.data import fastcsv
+from fed_tgan_torch.data.csvio import plain_csv_bytes, read_csv
+from fed_tgan_torch.data.decode import decode_cells, decode_columns
 from fed_tgan_torch.data.ingest import TablePreprocessor
 from fed_tgan_torch.data.sharding import shard_table
 from fed_tgan_torch.datasets import (
@@ -812,9 +817,10 @@ def fed_round_phase(root: str, seed: int, card: str) -> dict:
     writer = SnapshotWriter(init.global_meta, init.encoders, path_fn,
                             rows=SNAPSHOT_ROWS, seed=seed)
     sum_steps = int(trainer.steps.sum())
-    # K1 launches once per chunk of a snapshot
+    # K1 launches once per chunk of a snapshot (sampled on the device: no
+    # power-of-two tail)
     chunks = len(trainer._sampler()._chunk_plan(
-        0, -(-SNAPSHOT_ROWS // cfg.batch_size)))
+        0, -(-SNAPSHOT_ROWS // cfg.batch_size), pow2_tail=False))
     fused_apply_activate.launches = 0
     fused_activate_bwd.launches = 0
     with writer:
@@ -830,6 +836,8 @@ def fed_round_phase(root: str, seed: int, card: str) -> dict:
         with open(path_fn(e)) as f:
             if sum(1 for _ in f) != SNAPSHOT_ROWS + 1:
                 raise AssertionError(f"snapshot {e}: wrong row count")
+    formatter = snapshot_formatter_check(trainer, path_fn(FED_EPOCHS - 1),
+                                         seed + FED_EPOCHS - 1, card)
     if not np.isfinite(trainer.last_metrics).all():
         raise AssertionError(f"non-finite round metrics "
                              f"{trainer.last_metrics}")
@@ -858,6 +866,7 @@ def fed_round_phase(root: str, seed: int, card: str) -> dict:
         "snapshot_host_csv_s": writer.write_s,
         "local_steps_s_next_to_writer": with_snap[1:],
         "local_steps_s_no_writer": quiet,
+        "formatter": formatter,
         "launches": launches, "launches_per_round": per_round,
         "device_one_round": device,
     }
@@ -869,10 +878,52 @@ def fed_round_phase(root: str, seed: int, card: str) -> dict:
           f"thread {writer.write_s!r}); local steps next to the writer "
           f"{with_snap[1:]!r} vs without {quiet!r}; launches {launches} "
           f"(expected {want})  [{card}]", flush=True)
+    print(f"snapshot host side: writer thread (packed8 lookup tables, "
+          f"compiled formatter) {writer.write_s!r} s per {SNAPSHOT_ROWS}-row "
+          f"snapshot; the snapshot's dispatch on the training thread "
+          f"{snapshot_s!r} s; local steps next to the writer {with_snap[1:]!r}"
+          f" s vs without it {quiet!r} s; s/round {rounds_s!r}  [{card}]",
+          flush=True)
     print(f"federated round on the device (torch.profiler, one round and "
           f"its snapshot's device work): "
           f"{json.dumps(device)}  [{card}]", flush=True)
     return trainer, report
+
+
+def snapshot_formatter_check(trainer, path: str, seed: int,
+                             card: str) -> dict:
+    """The compiled formatter on this machine: the last snapshot's file
+    (pinned non-blocking copies, the packed8 lookup tables) and the lookup
+    tables alone, against the stdlib writer's bytes of the same rows
+    copied to the host with a blocking copy."""
+    meta, encoders = trainer.init.global_meta, trainer.init.encoders
+    parts = trainer.sample_parts(SNAPSHOT_ROWS, seed=seed)
+    t0 = time.perf_counter()
+    plain = plain_csv_bytes(decode_columns(trainer.decode.assemble(parts),
+                                           meta, encoders))
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fmt = fastcsv.PackedSnapshotFormatter.build(trainer.decode, meta,
+                                                encoders)
+    build_s = time.perf_counter() - t0
+    if fmt is None:
+        raise AssertionError("the packed8 snapshot did not take the lookup "
+                             "tables")
+    t0 = time.perf_counter()
+    packed = fmt.csv_bytes(parts)
+    packed_s = time.perf_counter() - t0
+    with open(path, "rb") as f:
+        written = f.read()
+    if packed != plain or written != plain:
+        raise AssertionError(
+            f"snapshot bytes differ from the stdlib writer's: tables "
+            f"{packed == plain}, written file {written == plain}")
+    print(f"snapshot formatter: the written file and the lookup tables are "
+          f"byte-equal to the stdlib writer ({len(plain)} bytes, "
+          f"{SNAPSHOT_ROWS} rows); tables {packed_s!r} s (built once in "
+          f"{build_s!r} s) vs stdlib {plain_s!r} s  [{card}]", flush=True)
+    return {"bytes": len(plain), "byte_equal": True, "tables_s": packed_s,
+            "tables_build_s": build_s, "plain_s": plain_s}
 
 
 def fed_reference_phase(root: str, seed: int, card: str) -> dict:
@@ -1478,8 +1529,8 @@ def stage_breakdown(art: str, rows: int, seed: int, card: str,
         t = tick("activation", t)
         mat = layout_decode(enc, engine._tables).cpu().numpy()[:rows]
         t = tick("decode_d2h", t)
-        csv_bytes(decode_columns(mat, engine.model.meta,
-                                 engine.model.encoders))
+        blob = engine.csv_plan.csv_bytes(decode_cells(
+            mat, engine.model.meta, engine.model.encoders))
         tick("csv", t)
     ms = {k: statistics.median(v[1:]) * 1e3 for k, v in times.items()}
     total = sum(ms.values())
@@ -1487,6 +1538,18 @@ def stage_breakdown(art: str, rows: int, seed: int, card: str,
           "median ms: " + ", ".join(
               f"{k} {v!r} ({100 * v / total:.1f}%)" for k, v in ms.items())
           + f"  [{card}]", flush=True)
+    # the compiled formatter against the stdlib writer on this request
+    t0 = time.perf_counter()
+    plain = plain_csv_bytes(decode_columns(mat, engine.model.meta,
+                                           engine.model.encoders))
+    ms["csv_plain"] = (time.perf_counter() - t0) * 1e3
+    if blob != plain:
+        raise AssertionError("served CSV bytes differ from the stdlib "
+                             "writer's")
+    print(f"serving formatter: a {rows}-row request's CSV is byte-equal to "
+          f"the stdlib writer's ({len(plain)} bytes); compiled "
+          f"{ms['csv']!r} ms ({fastcsv.default_threads(rows)} threads) vs "
+          f"stdlib {ms['csv_plain']!r} ms  [{card}]", flush=True)
     return ms
 
 
@@ -1589,6 +1652,10 @@ def main(argv=None) -> int:
     lib, log = activate_cuda.build()
     print(f"built {os.path.relpath(lib, REPO)} in "
           f"{time.perf_counter() - t0!r} s  [{card}]", flush=True)
+    t0 = time.perf_counter()
+    csv_lib = fastcsv.build()
+    print(f"built {os.path.relpath(csv_lib, REPO)} (host CSV formatter, cc) "
+          f"in {time.perf_counter() - t0!r} s  [{card}]", flush=True)
     for line in log.splitlines():
         if "ptxas" in line:
             print(f"  {line.strip()}")
@@ -1624,6 +1691,9 @@ def main(argv=None) -> int:
             raise AssertionError("the served path never launched K1")
         reference_phase(art, args.seed, card)
         serving["stages_ms"] = stage_breakdown(art, args.rows, args.seed, card)
+        print(f"serving host side: host CSV {serving['stages_ms']['csv']!r} "
+              f"ms of a {args.rows}-row request; {serving['rows_per_s']!r} "
+              f"rows/s, p50 {serving['p50_ms']!r} ms  [{card}]", flush=True)
     finally:
         shutil.rmtree(art, ignore_errors=True)
     mark("serving")

@@ -60,6 +60,10 @@ NOT_PORTED = {
     "--journal": (dict(type=str, default=None), "A.20"),
     "--profile-dir": (dict(type=str, default=None), "A.20"),
     "--sanitize": (dict(action="store_true"), "A.20"),
+    "--sanitize-nans": (dict(action="store_true"), "A.20"),
+    "--profile-rounds": (dict(type=int, default=3), "A.20"),
+    "--init-only": (dict(action="store_true"), "A.18"),
+    "--params-out": (dict(type=str, default=None), "A.18"),
     "--snapshot-format": (dict(type=str, default=None), "A.21"),
 }
 NOT_PORTED_MODES = {"mdgan": "A.17"}
@@ -86,6 +90,11 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="problem_type")
     p.add_argument("-name", "--name", type=str, default=None)
     p.add_argument("-epochs", "--epochs", type=int, default=10)
+    p.add_argument("-E_interval", "--e-interval", type=int, default=None,
+                   dest="e_interval",
+                   help="accepted and ignored, as the reference does")
+    p.add_argument("-report", "--report", action="store_true",
+                   help="accepted and ignored, as the reference does")
     p.add_argument("--n-clients", type=int, default=None)
     p.add_argument("--shard-strategy", type=str, default="iid",
                    choices=["iid", "contiguous", "label_sorted", "dirichlet"])

@@ -1,9 +1,13 @@
-"""CSV in and out with the stdlib ``csv`` module.
+"""CSV in and out.
 
 Writing: floats as Python's shortest round-trip ``repr``, categories as
 their string form, blanks as ``' '``; ``\\n`` ends every line.  Parsed back,
 the cells equal the JAX package's CSV output for the same matrix
 (``fed_tgan_tpu/data/csvio.py:95``), which goes through pandas or pyarrow.
+:func:`csv_bytes` and :func:`write_csv` write through the compiled
+formatter (:mod:`fed_tgan_torch.data.fastcsv`); :func:`plain_csv_bytes`,
+the stdlib ``csv`` writer, is its plain version, which the tests hold it
+against byte for byte.
 
 Reading (:func:`read_csv`) types each column as ``pandas.read_csv`` does
 with its defaults, which is what the JAX package's ingest and similarity
@@ -45,14 +49,26 @@ def _cells(values: np.ndarray) -> list[str]:
             for v in values.tolist()]
 
 
-def csv_bytes(columns: dict, header: bool = True) -> bytes:
-    """``{name: values}`` (equal lengths) -> CSV bytes."""
+def plain_csv_bytes(columns: dict, header: bool = True) -> bytes:
+    """``{name: values}`` (equal lengths) -> CSV bytes, with the stdlib
+    ``csv`` writer."""
     buf = io.StringIO()
     writer = csv.writer(buf, lineterminator="\n")
     if header:
         writer.writerow(list(columns))
     writer.writerows(zip(*(_cells(np.asarray(v)) for v in columns.values())))
     return buf.getvalue().encode()
+
+
+def csv_bytes(columns: dict, header: bool = True) -> bytes:
+    """``{name: values}`` (equal lengths) -> CSV bytes, through the compiled
+    formatter; byte-equal to :func:`plain_csv_bytes`."""
+    # imported here: fastcsv imports this module's _cells
+    from fed_tgan_torch.data.fastcsv import format_rows, header_line, to_cells
+
+    alone = len(columns) == 1
+    return format_rows([to_cells(v, alone) for v in columns.values()],
+                       header_line(list(columns)) if header else b"")
 
 
 def write_csv(columns: dict, path: str) -> None:

@@ -6,12 +6,17 @@
   ``-1`` (the missing sentinel) -> ``' '``;
 - continuous missing sentinel -> ``' '``; the missing category -> ``' '``.
 
+:func:`decode_cells` gives the same columns without object arrays (float64
+values and blank masks, category codes), which the compiled CSV formatter
+(:mod:`fed_tgan_torch.data.fastcsv`) takes directly; :func:`decode_columns`
+gives the values themselves, for evaluation.
+
 Date part-columns are not ported yet: a meta with ``date_info`` raises.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 
@@ -20,10 +25,20 @@ from fed_tgan_torch.data.encoders import CategoryEncoder
 from fed_tgan_torch.data.schema import TableMeta
 
 
-def decode_columns(data: np.ndarray, meta: TableMeta,
-                   encoders: Sequence[CategoryEncoder]) -> dict:
-    """``{column name: values}`` in meta column order; values are float64
-    arrays, or object arrays where categories or blanks appear."""
+class Cells(NamedTuple):
+    """One decoded column.  Categorical (``encoder`` set): ``values`` are
+    int64 codes.  Otherwise ``values`` are numbers (float64 for continuous
+    and non-negative columns) and ``blank`` marks the cells written blank
+    (None when there are none)."""
+
+    values: np.ndarray
+    blank: Optional[np.ndarray] = None
+    encoder: Optional[CategoryEncoder] = None
+
+
+def decode_cells(data: np.ndarray, meta: TableMeta,
+                 encoders: Sequence[CategoryEncoder]) -> dict:
+    """``{column name: Cells}`` in meta column order."""
     if meta.date_info:
         raise NotImplementedError("date columns are not ported yet")
     data = np.asarray(data)
@@ -35,15 +50,12 @@ def decode_columns(data: np.ndarray, meta: TableMeta,
     cont_names = set(meta.continuous_columns)
     nonneg = set(meta.non_negative_columns)
 
-    cols: dict[str, np.ndarray] = {}
+    cols: dict[str, Cells] = {}
     for i, name in enumerate(meta.column_names):
         x = data[:, i]
         if name in enc_by_name:
-            vals = enc_by_name[name].inverse_transform(x.astype(int))
-            if (vals == MISSING_TOKEN).any():
-                vals = vals.copy()
-                vals[vals == MISSING_TOKEN] = " "
-            cols[name] = vals
+            enc = enc_by_name[name]
+            cols[name] = Cells(enc.validate_codes(x.astype(int)), encoder=enc)
             continue
         if name in nonneg:
             y = np.exp(x.astype(float)) - 1.0
@@ -53,10 +65,33 @@ def decode_columns(data: np.ndarray, meta: TableMeta,
             y = x.astype(float)
             missing = y == MISSING_CONTINUOUS
         else:
-            cols[name] = x
+            cols[name] = Cells(x)
             continue
-        if missing.any():
-            y = y.astype(object)
-            y[missing] = " "
-        cols[name] = y
+        cols[name] = Cells(y, missing if missing.any() else None)
+    return cols
+
+
+def category_values(encoder: CategoryEncoder, codes) -> np.ndarray:
+    """The categories of ``codes``, the missing token as ``' '``."""
+    vals = encoder.inverse_transform(codes)
+    if (vals == MISSING_TOKEN).any():
+        vals = vals.copy()
+        vals[vals == MISSING_TOKEN] = " "
+    return vals
+
+
+def decode_columns(data: np.ndarray, meta: TableMeta,
+                   encoders: Sequence[CategoryEncoder]) -> dict:
+    """``{column name: values}`` in meta column order; values are float64
+    arrays, or object arrays where categories or blanks appear."""
+    cols = {}
+    for name, c in decode_cells(data, meta, encoders).items():
+        if c.encoder is not None:
+            cols[name] = category_values(c.encoder, c.values)
+        elif c.blank is None:
+            cols[name] = c.values
+        else:
+            y = c.values.astype(object)
+            y[c.blank] = " "
+            cols[name] = y
     return cols

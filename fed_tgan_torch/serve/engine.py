@@ -27,8 +27,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from fed_tgan_torch.data.csvio import csv_bytes
-from fed_tgan_torch.data.decode import decode_columns
+from fed_tgan_torch.data.decode import decode_cells
+from fed_tgan_torch.data.fastcsv import ColumnPlan
 from fed_tgan_torch.features.transformer import DiscreteColumn
 from fed_tgan_torch.ops.decode import decode_tables, layout_decode, tables_to
 from fed_tgan_torch.serve.registry import LoadedModel
@@ -66,6 +66,10 @@ class SamplingEngine:
         self.device = synth.device
         self.spec, self.cfg = synth.spec, synth.cfg
         self._tables = tables_to(decode_tables(synth.columns), self.device)
+        # how a request's columns are written (a model without a meta,
+        # as the standalone trainer's, serves no CSV)
+        self.csv_plan = (None if model.meta is None
+                         else ColumnPlan(model.meta, model.encoders))
         # one generator reseeded per step; the lock keeps two callers from
         # interleaving reseeds
         self._gen = torch.Generator(device=self.device)
@@ -208,11 +212,14 @@ class SamplingEngine:
                             lambda enc: layout_decode(enc, self._tables))
 
     def sample_parts(self, n: int, decode, seed: int = 0, offset: int = 0,
-                     draws: Optional[Draws] = None) -> dict:
+                     draws: Optional[Draws] = None,
+                     to_host: bool = True) -> dict:
         """The same rows through a snapshot decode
         (``ops.decode.SnapshotDecode``): its dict of host arrays, which
-        ``decode.assemble`` turns into column values."""
-        return self._chunks(n, seed, offset, None, draws, decode.decode)
+        ``decode.assemble`` turns into column values, or with
+        ``to_host=False`` of tensors left on the device."""
+        return self._chunks(n, seed, offset, None, draws, decode.decode,
+                            to_host=to_host)
 
     def decoded_on_device(self, n: int, seed: int,
                           key_offset: int) -> torch.Tensor:
@@ -227,5 +234,5 @@ class SamplingEngine:
                          draws: Optional[Draws] = None) -> bytes:
         """The same rows as CSV bytes (header line optional)."""
         mat = self.sample_decoded(n, seed, offset, condition, draws)
-        cols = decode_columns(mat, self.model.meta, self.model.encoders)
-        return csv_bytes(cols, header=header)
+        cells = decode_cells(mat, self.model.meta, self.model.encoders)
+        return self.csv_plan.csv_bytes(cells, header=header)

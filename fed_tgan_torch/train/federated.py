@@ -403,10 +403,13 @@ class FederatedTrainer:
         """``n`` activated rows of stream ``seed`` (encoded layout)."""
         return self._sampler().sample_encoded(n, seed=seed)
 
-    def sample_parts(self, n: int, seed: int = 0) -> dict:
+    def sample_parts(self, n: int, seed: int = 0,
+                     to_host: bool = True) -> dict:
         """``n`` rows of stream ``seed`` in the snapshot decode's packed
-        parts (host arrays)."""
-        return self._sampler().sample_parts(n, self.decode, seed=seed)
+        parts: host arrays, or with ``to_host=False`` tensors on the
+        trainer's device, still being computed."""
+        return self._sampler().sample_parts(n, self.decode, seed=seed,
+                                            to_host=to_host)
 
     def sample(self, n: int, seed: int = 0) -> np.ndarray:
         """``n`` decoded rows: numeric values, categorical codes."""

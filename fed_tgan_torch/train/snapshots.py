@@ -2,16 +2,28 @@
 (counterpart of ``fed_tgan_tpu/train/snapshots.py:136-312``).
 
 The reference server samples 40,000 rows and writes their CSV inside every
-round.  Here the device work of a snapshot (generator, K1, the packed
-decode and the copy to the host) runs on the calling thread, and the host
-work (assembling the values, decoding categories, formatting and writing
-the CSV) goes to one background thread, so it overlaps the next round.
-At most :data:`MAX_PENDING` snapshots are in flight: a new one waits for
-the oldest.  A worker's error is re-raised at the next submit, at ``drain`` or
-when the ``with`` block exits.
+round.  Here the training thread only dispatches a snapshot: the generator,
+K1 and the snapshot decode on the device, then copies of the decoded parts
+into pinned host buffers with ``non_blocking=True`` on the current stream
+(whose order keeps the source tensors alive until the copies are done),
+and a CUDA event after them.  One background thread waits on the event
+and does the host work, so it overlaps the next round:
 
-The writer thread holds the GIL while it formats, so it can slow the next
-round's dispatch; ``chip_smoke.py`` measures by how much.
+- a packed8 snapshot goes through the lookup tables of
+  :class:`fed_tgan_torch.data.fastcsv.PackedSnapshotFormatter` (built once
+  by the writer thread), so no float is formatted per row;
+- any other snapshot is assembled, decoded (``decode_cells``) and written
+  through the compiled formatter's float columns.
+
+Either way the file is byte-equal to the stdlib writer's
+(``plain_csv_bytes(decode_columns(decode.assemble(parts), ...))``), and
+the compiled formatter runs without the GIL.  On CPU tensors the same code
+runs with a plain copy and no event.
+
+At most :data:`MAX_PENDING` snapshots are in flight, each with its own set
+of host buffers, reused by later snapshots: a new one waits for the oldest.
+A worker's error is re-raised at the next submit, at ``drain`` or when the
+``with`` block exits.
 """
 
 from __future__ import annotations
@@ -21,10 +33,12 @@ import os
 import time
 from typing import Callable
 
-from fed_tgan_torch.data.csvio import write_csv
-from fed_tgan_torch.data.decode import decode_columns
+import torch
 
-MAX_PENDING = 2  # snapshots in flight (each holds its parts on the host)
+from fed_tgan_torch.data.decode import decode_cells, decode_columns
+from fed_tgan_torch.data.fastcsv import ColumnPlan, PackedSnapshotFormatter
+
+MAX_PENDING = 2  # snapshots in flight, each with its own host buffers
 
 
 class SnapshotWriter:
@@ -41,31 +55,83 @@ class SnapshotWriter:
         self.rows = rows
         self.seed = seed
         self._pool = cf.ThreadPoolExecutor(max_workers=1)
-        self._pending: list[cf.Future] = []
-        self._last = None
+        self._pending: list[tuple[cf.Future, dict]] = []  # (write, buffers)
+        self._free: list[dict] = []  # host buffer sets no write is using
+        self._last = None  # (parts, decode) of the last finished write
+        # the writer thread's formatters: (decode, packed formatter or
+        # None) and the exact path's plan, each built at first use
+        self._packed = None
+        self._plan = None
         self.write_s: list[float] = []  # worker seconds per snapshot
 
     def _settle_oldest(self) -> None:
-        self._last = self._pending.pop(0).result()
+        future, buffers = self._pending.pop(0)
+        try:
+            self._last = future.result()
+        finally:
+            self._free.append(buffers)
+
+    def _buffers(self, parts: dict) -> dict:
+        """A free host buffer set shaped like ``parts`` (pinned for
+        device tensors), or a new one."""
+        def fits(bufs):
+            return bufs.keys() == parts.keys() and all(
+                bufs[k].shape == v.shape and bufs[k].dtype == v.dtype
+                for k, v in parts.items())
+
+        while self._free:
+            bufs = self._free.pop()
+            if fits(bufs):
+                return bufs
+        return {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=v.is_cuda)
+                for k, v in parts.items()}
 
     def __call__(self, epoch: int, trainer) -> None:
         while len(self._pending) >= MAX_PENDING:
             self._settle_oldest()
-        parts = trainer.sample_parts(self.rows, seed=self.seed + epoch)
-        self._pending.append(self._pool.submit(
-            self._write, self.path_fn(epoch), parts, trainer.decode))
+        parts = trainer.sample_parts(self.rows, seed=self.seed + epoch,
+                                     to_host=False)
+        buffers = self._buffers(parts)
+        event = None
+        for k, v in parts.items():
+            buffers[k].copy_(v, non_blocking=True)
+            if v.is_cuda and event is None:
+                event = torch.cuda.Event()
+        if event is not None:
+            event.record(torch.cuda.current_stream(next(
+                v.device for v in parts.values() if v.is_cuda)))
+        self._pending.append((self._pool.submit(
+            self._write, self.path_fn(epoch), buffers, event,
+            trainer.decode), buffers))
 
-    def _write(self, path: str, parts: dict, decode):
+    def _formatter(self, decode):
+        if self._packed is None or self._packed[0] is not decode:
+            self._packed = (decode, PackedSnapshotFormatter.build(
+                decode, self.meta, self.encoders))
+        return self._packed[1]
+
+    def _write(self, path: str, buffers: dict, event, decode):
+        if event is not None:
+            event.synchronize()
         t0 = time.perf_counter()
-        cols = decode_columns(decode.assemble(parts), self.meta,
-                              self.encoders)
-        write_csv(cols, path)
+        parts = {k: v.numpy() for k, v in buffers.items()}
+        packed = self._formatter(decode)
+        if packed is not None:
+            blob = packed.csv_bytes(parts)
+        else:
+            if self._plan is None:
+                self._plan = ColumnPlan(self.meta, self.encoders)
+            blob = self._plan.csv_bytes(decode_cells(
+                decode.assemble(parts), self.meta, self.encoders))
+        with open(path, "wb") as f:
+            f.write(blob)
         self.write_s.append(time.perf_counter() - t0)
-        return cols
+        # the buffers go back to the pool: keep a copy for drain()
+        return {k: v.copy() for k, v in parts.items()}, decode
 
-    def drain(self):
+    def _settle_all(self) -> None:
         """Wait for every pending write (even past a failure); re-raise
-        the first worker error; return the last snapshot's columns."""
+        the first worker error."""
         err = None
         while self._pending:
             try:
@@ -74,11 +140,21 @@ class SnapshotWriter:
                 err = err or exc
         if err is not None:
             raise err
-        return self._last
+
+    def drain(self):
+        """Wait for every pending write; re-raise the first worker error;
+        return the last snapshot's columns (``decode_columns`` of its
+        parts, densified here, once per call)."""
+        self._settle_all()
+        if self._last is None:
+            return None
+        parts, decode = self._last
+        return decode_columns(decode.assemble(parts), self.meta,
+                              self.encoders)
 
     def close(self) -> None:
         try:
-            self.drain()
+            self._settle_all()
         finally:
             self._pool.shutdown(wait=True)
 

@@ -8,6 +8,8 @@ on the same raw Intrusion-shaped CSV (600 rows, 3 clients).
 - ``--mode standalone``: the same meta and encoders;
 - ``--monitor-every``/``--save-every`` then ``--resume``: the run goes on
   from its checkpoint and extends the monitor CSV;
+- the reference's drop-in flags ``-E_interval`` and ``-report`` are
+  accepted and ignored;
 - a flag of a feature not ported yet, or a fault kind the port does not
   act on, exits with code 2 and names its ROADMAP item.
 """
@@ -104,10 +106,20 @@ def test_standalone_cli_matches_jax(data, tmp_path, capsys):
     (["--faults", "straggle:rank=1,delay=2"], "A.17"),
     (["--elastic-capacity", "8"], "A.16"), (["--precision", "bf16"], "A.15"),
     (["--mode", "mdgan"], "A.17"), (["--snapshot-format", "parquet"],
-                                    "A.21")])
+                                    "A.21"),
+    (["--sanitize-nans"], "A.20"), (["--profile-rounds", "5"], "A.20"),
+    (["--init-only"], "A.18"), (["--params-out", "D"], "A.18")])
 def test_unported_flags_exit_2(data, tmp_path, capsys, flag, item):
     assert port_cli.main(argv(data, tmp_path, "--device", "cpu", *flag)) == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_reference_drop_in_flags_are_accepted(data, tmp_path, capsys):
+    """``-E_interval`` and ``-report`` are accepted and ignored, as the
+    reference and the JAX CLI do."""
+    assert port_cli.main(argv(data, tmp_path, "--device", "cpu", "-epochs",
+                              "1", "-E_interval", "5", "-report")) == 0
+    assert "final Avg_JSD=" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("spec,item", [

@@ -13,12 +13,16 @@ is below 1e-6 set aside and counted (Adam's first update ``g / (|g| +
 1e-8)`` may take the other sign there); quarantine strikes equal.
 """
 
+import os
+
 import jax
 import numpy as np
 import pandas as pd
 import pytest
 import torch
 
+from fed_tgan_torch.data.csvio import plain_csv_bytes
+from fed_tgan_torch.data.decode import decode_columns
 from fed_tgan_torch.interop import (
     client_models_from_jax,
     federated_init_from_jax,
@@ -161,18 +165,31 @@ def test_scaled_client_is_quarantined_like_jax(jinit):
 
 def test_round_snapshot_and_artifact(jinit, tmp_path):
     """The trainer's own draws, a snapshot through the writer thread, the
-    saved artifact, timing files and membership changes."""
+    saved artifact, timing files and membership changes.  Two runs from
+    one seed write byte-equal snapshot files, equal to the stdlib writer's
+    bytes of the same rows sampled to the host, and ``drain`` returns
+    those rows' decoded columns."""
     cfg = steps.TrainConfig(**SMALL)
     init = federated_init_from_jax(jinit)
-    tr = port_fed.FederatedTrainer(init, cfg, seed=4, device="cpu")
-    path_fn = result_path_fn(str(tmp_path), "toy")
-    with SnapshotWriter(init.global_meta, init.encoders, path_fn, rows=70,
-                        seed=1) as snap:
-        tr.fit(2, sample_hook=snap, hook_epochs=[1])
-        last = snap.drain()
-    lines = open(path_fn(1)).read().splitlines()
+    files = []
+    for run in ("a", "b"):
+        tr = port_fed.FederatedTrainer(init, cfg, seed=4, device="cpu")
+        path_fn = result_path_fn(str(tmp_path / run), "toy")
+        with SnapshotWriter(init.global_meta, init.encoders, path_fn,
+                            rows=70, seed=1) as snap:
+            tr.fit(2, sample_hook=snap, hook_epochs=[1])
+            last = snap.drain()
+        files.append(open(path_fn(1), "rb").read())
+    assert files[0] == files[1]
+    want = decode_columns(tr.decode.assemble(tr.sample_parts(70, seed=2)),
+                          init.global_meta, init.encoders)
+    assert list(last) == list(want)
+    for name in want:
+        np.testing.assert_array_equal(last[name], want[name])
+    assert files[0] == plain_csv_bytes(want)
+    lines = files[0].decode().splitlines()
     assert lines[0] == "x,size,kind,level" and len(lines) == 71
-    assert not (tmp_path / "toy_result" / "toy_synthesis_epoch_0.csv").exists()
+    assert not os.path.exists(path_fn(0))
     assert set(last["kind"]) <= {"p", "q", "r"}
     np.testing.assert_array_equal(tr.sample(70, seed=2),
                                   tr.sample(70, seed=2))

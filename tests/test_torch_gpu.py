@@ -404,3 +404,33 @@ def test_federated_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
         for x, z in zip(a.discriminator.parameters(),
                         c.discriminator.parameters()):
             assert torch.equal(x, z)
+
+
+def test_pinned_snapshot_files_equal_a_blocking_copy(cuda, tmp_path):
+    """The writer's pinned, non-blocking copies (waited on through a CUDA
+    event on the writer thread) give the same file as the parts copied to
+    the host with a blocking copy and written by the stdlib writer, and
+    each snapshot's file is its own rows' even while the next round runs
+    beside the writer."""
+    from fed_tgan_torch.data.csvio import plain_csv_bytes
+    from fed_tgan_torch.data.decode import decode_columns
+    from fed_tgan_torch.train.federated import FederatedTrainer
+    from fed_tgan_torch.train.snapshots import SnapshotWriter, result_path_fn
+
+    init, cfg = _small_federation()
+    tr = FederatedTrainer(init, cfg, seed=0, device="cuda")
+    path_fn = result_path_fn(str(tmp_path), "toy")
+    want = []
+
+    def hook(e, trainer):
+        writer(e, trainer)
+        parts = trainer.sample_parts(3000, seed=1 + e)  # blocking copy
+        want.append(plain_csv_bytes(decode_columns(
+            trainer.decode.assemble(parts), init.global_meta,
+            init.encoders)))
+
+    with SnapshotWriter(init.global_meta, init.encoders, path_fn, rows=3000,
+                        seed=1) as writer:
+        tr.fit(3, sample_hook=hook)
+    for e in range(3):
+        assert open(path_fn(e), "rb").read() == want[e]

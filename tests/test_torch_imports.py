@@ -52,6 +52,28 @@ def test_every_port_module_imports_with_jax_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def test_fastcsv_formats_with_jax_pandas_and_pyarrow_blocked():
+    """The compiled CSV formatter builds, loads and writes in a fresh
+    interpreter where jax, the JAX package, pandas, pyarrow and sklearn
+    cannot be imported."""
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np\n"
+        "from fed_tgan_torch.data import fastcsv\n"
+        "from fed_tgan_torch.data.csvio import csv_bytes\n"
+        "cols = {'x': np.array([0.1, -2.0]), 'c': np.array(['a,b', 'c'], "
+        "dtype=object)}\n"
+        "assert csv_bytes(cols) == b'x,c\\n0.1,\"a,b\"\\n-2.0,c\\n'\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_sources_never_import_jax_or_the_jax_package():
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|fed_tgan_tpu)\b",
                      re.MULTILINE)
@@ -72,7 +94,7 @@ def test_port_package_lists_every_slice_module():
                  "datasets", "data.ingest", "data.sharding",
                  "federation.init", "parallel.fedavg", "train.federated",
                  "train.snapshots", "eval.similarity", "testing.faults",
-                 "train.monitor", "train.watchdog"):
+                 "train.monitor", "train.watchdog", "data.fastcsv"):
         assert f"fed_tgan_torch.{name}" in mods
 
 

@@ -1,19 +1,24 @@
 """The port's snapshot decodes (packed8, packed16, exact) against
-``fed_tgan_tpu/ops/decode.py`` on the same activated rows, and the
-snapshot writer's error path.
+``fed_tgan_tpu/ops/decode.py`` on the same activated rows, the snapshot
+writer's error path, and its reuse of host buffers under thread switches.
 
 Tolerance: packed parts equal as integers, assembled values equal
 (float64, the same formula on the same tables); exact values equal.
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
 
+from fed_tgan_torch.data.csvio import plain_csv_bytes
+from fed_tgan_torch.data.decode import decode_columns
 from fed_tgan_torch.features.bgm import ColumnGMM
 from fed_tgan_torch.features.transformer import ModeNormalizer
 from fed_tgan_torch.ops.decode import SnapshotDecode, select_snapshot_decode
-from fed_tgan_torch.train.snapshots import SnapshotWriter
+from fed_tgan_torch.serve.demo import intrusion_layout
+from fed_tgan_torch.train.snapshots import MAX_PENDING, SnapshotWriter
 from fed_tgan_tpu.features.bgm import ColumnGMM as JaxGMM
 from fed_tgan_tpu.features.transformer import ModeNormalizer as JaxNormalizer
 from fed_tgan_tpu.ops import decode as jdecode
@@ -88,14 +93,61 @@ def test_disc_dtype_widens_and_default_is_packed8():
 class _Boom:
     decode = SnapshotDecode([], "exact")
 
-    def sample_parts(self, n, seed=0):
-        return {"values": np.zeros((n, 0))}
+    def sample_parts(self, n, seed=0, to_host=True):
+        return {"values": torch.zeros((n, 0))}
 
 
 def test_writer_reraises_worker_errors(tmp_path):
     writer = SnapshotWriter(None, [], lambda e: str(tmp_path / "x.csv"),
                             rows=3)
-    writer(0, _Boom())  # decode_columns(meta=None) fails on the worker
+    writer(0, _Boom())  # the column plan of meta=None fails on the worker
     with pytest.raises(AttributeError):
         writer.drain()
     writer.close()
+
+
+class _Stream:
+    """A trainer whose snapshot parts are a function of the seed alone."""
+
+    def __init__(self):
+        self.meta, self.encoders, columns = intrusion_layout(
+            np.random.default_rng(0))
+        self.decode = SnapshotDecode(columns, "packed8")
+
+    def parts(self, n, seed):
+        rng = np.random.default_rng(seed)
+        cols = self.decode.columns
+        k = [rng.integers(0, c.n_active, n) for c in cols
+             if hasattr(c, "n_active")]
+        d = [rng.choice(c.codes, n) for c in cols if hasattr(c, "codes")]
+        return {"u": rng.integers(-127, 128, (n, len(k))).astype(np.int8),
+                "k": np.stack(k, 1).astype(np.int8),
+                "disc": np.stack(d, 1).astype(np.int16)}
+
+    def sample_parts(self, n, seed=0, to_host=True):
+        return {k: torch.from_numpy(v) for k, v in self.parts(n, seed).items()}
+
+
+def test_writer_reuses_buffers_without_mixing_snapshots(tmp_path):
+    """Many snapshots through the writer's reused host buffer sets, with
+    the interpreter switching threads as often as it can: each file holds
+    exactly its own rows."""
+    stream = _Stream()
+    path_fn = lambda e: str(tmp_path / f"s{e}.csv")  # noqa: E731
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with SnapshotWriter(stream.meta, stream.encoders, path_fn, rows=300,
+                            seed=5) as writer:
+            for e in range(24):
+                writer(e, stream)
+            last = writer.drain()
+            assert len(writer._free) == MAX_PENDING
+    finally:
+        sys.setswitchinterval(old)
+    for e in range(24):
+        want = decode_columns(stream.decode.assemble(stream.parts(300, 5 + e)),
+                              stream.meta, stream.encoders)
+        assert open(path_fn(e), "rb").read() == plain_csv_bytes(want), e
+    for name in want:
+        np.testing.assert_array_equal(last[name], want[name])
