@@ -53,14 +53,18 @@ Phases, each fatal on failure:
    process of its own for 3 rounds with ``--eval --save-model`` (exit 0,
    3 snapshots of 40,000 rows with the right header), then ``serve``
    answers one request from the saved artifact;
-10. the same configuration in this process: init phases, 3 rounds with a
-   snapshot each (K1 launched ``sum(steps) * (d_steps + 1) + chunks`` and
-   K2 ``sum(steps)`` times a round, exactly), seconds per round split
+10. the same configuration in this process, every client stacked (one
+   step of all clients per local step index): init phases, 3 rounds with
+   a snapshot each (K1 launched ``max(steps) * (d_steps + 1) + chunks``
+   and K2 ``max(steps)`` times a round, exactly), seconds per round split
    into local steps, aggregation and snapshot dispatch, the writer
    thread's CSV time and what it costs the next round, the last
    snapshot's file (pinned copies, packed8 lookup tables) byte-equal to
    the stdlib writer's bytes of the same rows, then one round and its
-   snapshot under ``torch.profiler`` (busy ms, K1/K2 share);
+   snapshot under ``torch.profiler`` (busy ms, device ops, K1/K2 share
+   and launches, the launches held to the count above), then one round's
+   local steps as the per-client loop the stacked round replaced and as
+   the stacked round, in turns;
 11. one round on the card against the same round on the CPU (injected
    draws), then a round with client 1's update scaled x1e3, quarantined
    on both devices; then K1 and K2 against their plain versions at the
@@ -75,7 +79,11 @@ Phases, each fatal on failure:
    ``--resume``) in processes of its own from the start of phase 11, its
    resumed rounds equal to the same rounds replayed here; K1 and K2 launches per monitored round
    exact; then the monitor's probe, save, load and seconds per round
-   timed, and K1 held against its plain version at the probe's shape.
+   timed, and K1 held against its plain version at the probe's shape;
+13. a ragged round: the first 70% of ``adult_like_table(7000, 11)`` over 8
+   Dirichlet clients (alpha 0.5), some with no step, 2 rounds twice from
+   one seed (bit-equal, K1/K2 launches exact), then K1 and K2 against
+   their plain versions at its shape (8 x 500 rows of the Adult layout).
 
 ``--ab TREE`` runs none of the phases: it builds the kernels of the
 ``fed_tgan_torch`` package under TREE (for example a ``git archive`` of an
@@ -87,7 +95,8 @@ Prints the card's name and power limit beside every number, a JSON line
 with the training numbers, one with the federated round's, one with the
 durable round's, the card's line, a JSON line with the kernels' numbers
 (one entry per kernel and path: K1 serving, K1 and K2 training, K1 and K2
-federated, K1 in the similarity monitor), and last
+federated, K1 in the similarity monitor, K1 and K2 in the ragged round),
+and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no result line, when CUDA is not available.
 """
@@ -144,6 +153,7 @@ from fed_tgan_torch.ops.segments import (
     cond_tables,
 )
 from fed_tgan_torch.serve.demo import (
+    adult_like_table,
     build_random_artifact,
     intrusion_layout,
     intrusion_like_table,
@@ -193,6 +203,10 @@ FED_ROWS, FED_CLIENTS, FED_EPOCHS, SNAPSHOT_ROWS = 20_000, 4, 3, 40_000
 # the durable round: the similarity monitor at the JAX default of 10,000
 # rows every round, 3 rounds per run (cut from 4 to keep the script's time)
 MONITOR_ROWS, DUR_ROUNDS = 10_000, 3
+# the ragged round: the non-IID federation of the run-level record (the
+# JAX package's ADULT_ROWS_r04.jsonl runs): 7,000 Adult-shaped rows, 70%
+# trained on, 8 Dirichlet clients
+ADULT_ROWS, ADULT_CLIENTS = 7_000, 8
 
 
 def gpu_line() -> str:
@@ -816,7 +830,7 @@ def fed_round_phase(root: str, seed: int, card: str) -> dict:
     path_fn = result_path_fn(os.path.join(root, "round_out"), "Intrusion")
     writer = SnapshotWriter(init.global_meta, init.encoders, path_fn,
                             rows=SNAPSHOT_ROWS, seed=seed)
-    sum_steps = int(trainer.steps.sum())
+    max_steps = int(trainer.steps.max())
     # K1 launches once per chunk of a snapshot (sampled on the device: no
     # power-of-two tail)
     chunks = len(trainer._sampler()._chunk_plan(
@@ -827,8 +841,9 @@ def fed_round_phase(root: str, seed: int, card: str) -> dict:
         trainer.fit(FED_EPOCHS, sample_hook=writer)
     launches = {"K1": fused_apply_activate.launches,
                 "K2": fused_activate_bwd.launches}
-    per_round = {"K1": sum_steps * (cfg.d_steps + 1) + chunks,
-                 "K2": sum_steps}
+    # one stacked step of every client per local step index
+    per_round = {"K1": max_steps * (cfg.d_steps + 1) + chunks,
+                 "K2": max_steps}
     want = {k: FED_EPOCHS * v for k, v in per_round.items()}
     if launches != want:
         raise AssertionError(f"federated launches {launches} != {want}")
@@ -851,6 +866,16 @@ def fed_round_phase(root: str, seed: int, card: str) -> dict:
     device = device_profile(
         lambda: (trainer.run_round(e),
                  trainer.sample_parts(SNAPSHOT_ROWS, seed=seed)), 1)
+    traced = {k: v["per_step"] for k, v in device.get("activation",
+                                                       {}).items()}
+    print(f"K1/K2 launches per round (torch.profiler, one round and its "
+          f"snapshot): {traced} against the prediction {per_round}; device "
+          f"ops {device.get('device_ops_per_step')!r} and busy "
+          f"{device.get('busy_ms_per_step')!r} ms per round  [{card}]",
+          flush=True)
+    if traced and traced != {k: float(v) for k, v in per_round.items()}:
+        raise AssertionError(f"traced launches {traced} != {per_round}")
+    loop = loop_vs_stacked(trainer, seed, card)
     report = {
         "config": {"rows": FED_ROWS, "clients": FED_CLIENTS,
                    "rows_per_client": init.rows_per_client,
@@ -868,7 +893,7 @@ def fed_round_phase(root: str, seed: int, card: str) -> dict:
         "local_steps_s_no_writer": quiet,
         "formatter": formatter,
         "launches": launches, "launches_per_round": per_round,
-        "device_one_round": device,
+        "device_one_round": device, "loop_vs_stacked": loop,
     }
     print(f"federated round: {FED_CLIENTS} clients, steps {trainer.steps}"
           f" per round, layout {trainer.spec.dim}; init {init_s!r} s "
@@ -888,6 +913,104 @@ def fed_round_phase(root: str, seed: int, card: str) -> dict:
           f"its snapshot's device work): "
           f"{json.dumps(device)}  [{card}]", flush=True)
     return trainer, report
+
+
+def loop_vs_stacked(trainer, seed: int, card: str) -> dict:
+    """One round's local steps two ways on the same clients, in turns
+    (loop, stacked, stacked, loop), the card synchronised around each:
+    the per-client loop the stacked round replaced (each client's
+    ``train_step``s on its own ``Models``, unstacked from the trainer,
+    with its own generator: the parent tree's algorithm) and the stacked
+    round (``FederatedTrainer._local_steps``).  Seconds per round."""
+    spec, cfg = trainer.spec, trainer.cfg
+    clients = []
+    for i, m in enumerate(trainer.init.client_matrices):
+        m = np.asarray(m, dtype=np.float32)
+        clients.append((trainer.stack.to_models(i),
+                        torch.as_tensor(m, device="cuda"),
+                        CondSampler.from_data(m, spec, "cuda"),
+                        RowSampler.from_data(m, spec, "cuda"),
+                        torch.Generator(device="cuda").manual_seed(seed + i),
+                        int(trainer.steps[i])))
+
+    def loop():
+        for models, data, cond, rows, gen, n in clients:
+            for _ in range(n):
+                steps.train_step(models, data, cond, rows,
+                                 steps.draw_step(gen, models))
+
+    e = trainer.completed_epochs
+    times = {"loop": [], "stacked": []}
+    for name in ("loop", "stacked", "stacked", "loop"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop() if name == "loop" else trainer._local_steps(e)
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+    print(f"local steps of one round ({trainer.n_clients} clients, steps "
+          f"{trainer.steps.tolist()}): per-client loop (the parent's "
+          f"algorithm) {times['loop']!r} s, stacked {times['stacked']!r} s, "
+          f"in turns loop, stacked, stacked, loop  [{card}]", flush=True)
+    return times
+
+
+def ragged_round_phase(root: str, seed: int, card: str) -> dict:
+    """The non-IID federation of the run-level record: the first 70% of
+    ``adult_like_table(7000, 11)`` split over 8 clients by a Dirichlet
+    draw over ``income`` (alpha 0.5, seed ``seed``), so clients with
+    fewer rows than a batch train no step (``allow_zero_step_clients``);
+    ``TrainConfig()`` otherwise.  Two rounds, twice from one seed: finite
+    metrics, zeros for the zero-step clients, every tensor ``torch.equal``
+    between the runs, K1 and K2 launched ``max(steps) * (d_steps + 1)``
+    and ``max(steps)`` times a round."""
+    table = adult_like_table(ADULT_ROWS, 11)
+    train = {k: v[:int(ADULT_ROWS * 0.7)] for k, v in table.items()}
+    kw = preprocessor_kwargs(PRESETS["adult"])
+    shards = shard_table(train, ADULT_CLIENTS, "dirichlet",
+                         label_column="income", alpha=0.5, seed=seed)
+    t0 = time.perf_counter()
+    init = federated_initialize(
+        [TablePreprocessor(table=t, name="Adult", **kw) for t in shards],
+        seed=seed, device="cuda")
+    init_s = time.perf_counter() - t0
+    cfg = steps.TrainConfig(allow_zero_step_clients=True)
+    runs, launches = [], []
+    for _ in range(2):
+        tr = FederatedTrainer(init, cfg, seed=seed, device="cuda")
+        fused_apply_activate.launches = 0
+        fused_activate_bwd.launches = 0
+        tr.fit(2)
+        launches.append({"K1": fused_apply_activate.launches,
+                         "K2": fused_activate_bwd.launches})
+        runs.append(tr)
+    a, b = runs
+    n = int(a.steps.max())
+    want = {"K1": 2 * n * (cfg.d_steps + 1), "K2": 2 * n}
+    zero = [i for i, k in enumerate(a.steps) if k == 0]
+    state = lambda t: [t.stack.generator.params, t.stack.generator.bn_state,
+                       t.stack.discriminator.params, t.stack.opt_g.exp_avg,
+                       t.stack.opt_g.exp_avg_sq, t.stack.opt_d.exp_avg,
+                       t.stack.opt_d.exp_avg_sq, t.stack.opt_g.count,
+                       *(g.get_state() for g in t.gens)]
+    print(f"ragged round: {ADULT_CLIENTS} Dirichlet clients of the Adult-"
+          f"shaped table, rows {init.rows_per_client}, steps "
+          f"{a.steps.tolist()} (zero-step clients {zero}), layout "
+          f"{a.spec.dim}; init {init_s!r} s; s/round {a.epoch_times!r} "
+          f"(local steps {a.round_split['local_steps']!r}); launches "
+          f"{launches} (expected {want} in 2 rounds); two runs equal  "
+          f"[{card}]", flush=True)
+    _require_equal("two ragged runs from one seed", state(a), state(b))
+    if not zero or launches != [want, want]:
+        raise AssertionError(f"ragged round: zero-step clients {zero}, "
+                             f"launches {launches} != {want}")
+    if not np.isfinite(a.last_metrics).all() or \
+            (a.last_metrics[zero] != 0).any():
+        raise AssertionError(f"ragged metrics {a.last_metrics}")
+    return {"trainer": a, "rows_per_client": init.rows_per_client,
+            "steps": a.steps.tolist(), "dim": a.spec.dim, "init_s": init_s,
+            "round_s": a.epoch_times,
+            "local_steps_s": a.round_split["local_steps"],
+            "launches": launches[0]}
 
 
 def snapshot_formatter_check(trainer, path: str, seed: int,
@@ -1258,13 +1381,13 @@ def fed_durability_phase(init, root: str, seed: int, card: str,
     reads_a, reads_b = [], []
     run_a = FederatedTrainer(init, cfg, seed=seed, device="cuda")
     column_sums = cond_sum_probe(run_a.spec, cfg.batch_size, card)
-    sum_steps = int(run_a.steps.sum())
+    max_steps = int(run_a.steps.max())
     fused_apply_activate.launches = 0
     fused_activate_bwd.launches = 0
     run_a.fit(DUR_ROUNDS, sample_hook=monitored(reads_a))
     launches = {"K1": fused_apply_activate.launches,
                 "K2": fused_activate_bwd.launches}
-    per_round = {"K1": sum_steps * (cfg.d_steps + 1) + 1, "K2": sum_steps}
+    per_round = {"K1": max_steps * (cfg.d_steps + 1) + 1, "K2": max_steps}
     want = {k: DUR_ROUNDS * v for k, v in per_round.items()}
     if launches != want or monitor_k1 != [1] * DUR_ROUNDS:
         raise AssertionError(f"durable launches {launches} (monitor "
@@ -1295,7 +1418,7 @@ def fed_durability_phase(init, root: str, seed: int, card: str,
           f"uninterrupted, reads from round 2 equal; Avg_JSD by round "
           f"{[r['avg_jsd'] for r in reads_a]!r}, Avg_WD "
           f"{[r['avg_wd'] for r in reads_a]!r}; launches {launches} "
-          f"(expected {want}: per round {sum_steps} steps x "
+          f"(expected {want}: per round {max_steps} stacked steps x "
           f"{cfg.d_steps + 1} K1 + 1 monitor K1 at ({MONITOR_ROWS}, "
           f"{run_a.spec.dim}))  [{card}]", flush=True)
 
@@ -1731,17 +1854,26 @@ def main(argv=None) -> int:
         durability = fed_durability_phase(trainer.init, fed_root, args.seed,
                                           card, cli_run)
         mark("durability")
+        ragged = ragged_round_phase(fed_root, args.seed, card)
+        ragged_tr = ragged.pop("trainer")
+        federated["ragged"] = ragged
+        mark("ragged_round")
     finally:
         if cli_run is not None:
             cli_run.stop()
         shutil.rmtree(fed_root, ignore_errors=True)
-    # both kernels at the shapes the federated round gives them: a client
-    # step (batch, the federation's layout) and a snapshot chunk
-    B = trainer.cfg.batch_size
+    # both kernels at the shapes the federated round gives them: a stacked
+    # step (every client's batch, the federation's layout) and a snapshot
+    # chunk; and at the ragged round's (8 clients' batches, Adult layout)
+    B, N = trainer.cfg.batch_size, trainer.n_clients
     shapes += check_kernel(trainer.spec, card,
-                           (("fed", B), ("fed_snapshot", 128 * B)),
+                           (("fed", N * B), ("fed_snapshot", 128 * B)),
                            extra=False)
-    bwd_shapes += check_bwd_kernel(trainer.spec, card, (("fed", B),),
+    bwd_shapes += check_bwd_kernel(trainer.spec, card, (("fed", N * B),),
+                                   extra=False)
+    ragged_rows = (("ragged", ragged_tr.n_clients * B),)
+    shapes += check_kernel(ragged_tr.spec, card, ragged_rows, extra=False)
+    bwd_shapes += check_bwd_kernel(ragged_tr.spec, card, ragged_rows,
                                    extra=False)
     # K1 at the similarity monitor's probe: one launch over its rows
     shapes += check_kernel(trainer.spec, card,
@@ -1789,6 +1921,11 @@ def main(argv=None) -> int:
         # slice 4's durable round: the similarity monitor's probe
         entry("fused_gumbel_activation_fwd_monitor", fwd, "federated monitor",
               shapes, "fed_monitor", durability["monitor_launches"]),
+        # slice 6's ragged round: 8 Dirichlet clients, some with no step
+        entry("fused_gumbel_activation_fwd_ragged", fwd, "federated ragged",
+              shapes, "ragged", federated["ragged"]["launches"]["K1"]),
+        entry("fused_gumbel_activation_bwd_ragged", bwd, "federated ragged",
+              bwd_shapes, "ragged", federated["ragged"]["launches"]["K2"]),
     ]
     print(json.dumps({"training": training}))
     print(json.dumps({"federated": federated}))

@@ -46,11 +46,10 @@ from fed_tgan_torch.runtime.checkpoint import (
     SYNTH_DIR,
     SavedSynthesizer,
     config_from_dict,
-    restore_optimizer,
     save_synthesizer,
 )
 from fed_tgan_torch.train.sampler import CondSampler
-from fed_tgan_torch.train.steps import Models, TrainConfig, lr_factor
+from fed_tgan_torch.train.steps import Models, TrainConfig
 
 
 def _t(a) -> torch.Tensor:
@@ -406,31 +405,24 @@ def _bundle_from_leaves(leaves, n_blocks: int, n_layers: int,
                            params_d=params_d, opt_g=opt_g, opt_d=opt_d)
 
 
-def _load_adam(models: Models, bundle: SimpleNamespace, i: int,
-               cfg: TrainConfig) -> None:
-    """Client ``i``'s optax Adam states (``count``, ``mu``, ``nu``) into
-    its torch optimizers (``step``, ``exp_avg``, ``exp_avg_sq``) and LR
-    schedules.  The moments are laid out through the same converters as
-    the weights (a Linear's ``w`` transposed)."""
-    state_g = _index(bundle.state_g, i)
-    for opt, sched, (count, mu, nu), as_module in (
-            (models.opt_g, models.sched_g, bundle.opt_g,
-             lambda t: generator_from_jax(t, state_g)),
-            (models.opt_d, models.sched_d, bundle.opt_d,
-             lambda t: discriminator_from_jax(t, cfg.pac))):
-        n = int(np.asarray(count)[i])
-        params = opt.param_groups[0]["params"]
-        state = {}
-        if n:
-            mus = list(as_module(_index(mu, i)).parameters())
-            nus = list(as_module(_index(nu, i)).parameters())
-            state = {k: {"step": torch.tensor(float(n)),
-                         "exp_avg": m.detach().clone(),
-                         "exp_avg_sq": v.detach().clone()}
-                     for k, (m, v) in enumerate(zip(mus, nus))}
-        if len(state) not in (0, len(params)):
+def _load_adam(stack, bundle: SimpleNamespace, cfg: TrainConfig) -> None:
+    """The clients' optax Adam states (``count``, ``mu``, ``nu``, each
+    with the client axis) onto the stacked optimizers (count, moments).
+    The moments are laid out through the same converters as the weights
+    (a Linear's ``w`` transposed)."""
+    n = stack.n
+    for opt, (count, mu, nu), as_module in (
+            (stack.opt_g, bundle.opt_g,
+             lambda t, i: generator_from_jax(t, _index(bundle.state_g, i))),
+            (stack.opt_d, bundle.opt_d,
+             lambda t, i: discriminator_from_jax(t, cfg.pac))):
+        flat = [torch.stack([torch.cat([p.detach().reshape(-1) for p in
+                                        as_module(_index(tree, i), i)
+                                        .parameters()]) for i in range(n)])
+                for tree in (mu, nu)]
+        if flat[0].shape != opt.exp_avg.shape:
             raise ValueError("Adam moments do not match the parameters")
-        restore_optimizer(opt, sched, state, cfg.lr * lr_factor(cfg)(n), n)
+        opt.load(np.asarray(count).astype(np.int64), *flat)
 
 
 def convert_jax_checkpoint(src_dir: str, dst_dir: str) -> str:
@@ -468,8 +460,7 @@ def convert_jax_checkpoint(src_dir: str, dst_dir: str) -> str:
     trainer = FederatedTrainer(
         init, cfg, seed=host["seed"], device="cpu",
         models=client_models_from_jax(bundle, spec, cfg, "cpu"))
-    for i, models in enumerate(trainer.models):
-        _load_adam(models, bundle, i, cfg)
+    _load_adam(trainer.stack, bundle, cfg)
     trainer.weights = np.asarray(host["weights"], dtype=np.float32)
     trainer._strikes = np.asarray(host["strikes"], dtype=np.int64)
     trainer.dropped_clients = {int(i) for i in host.get("dropped_clients")

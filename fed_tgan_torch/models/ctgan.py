@@ -19,15 +19,30 @@ The matrix products are plain ``nn.Linear``: the JAX package leaves them
 to XLA too, outside any hand-written kernel.  Every layer initialises as
 torch's default, U(+-1/sqrt(fan_in)) for weights and biases, which is the
 JAX package's ``_linear_init``.
+
+The federated round trains every client at once, as the JAX program's
+``vmap`` over clients does (``fed_tgan_tpu/train/federated.py:237-270``):
+:class:`StackedGenerator` and :class:`StackedDiscriminator` hold N
+clients' weights in one flat ``(N, P)`` tensor, each weight a view
+``(N, *shape)`` of it in the modules' parameter order.  Linear layers are
+``baddbmm`` over ``(N, rows, in)``; BatchNorm takes each client's batch
+statistics and moves each client's running statistics
+(:func:`stacked_batch_norm`); the pac discriminator packs each client's
+rows on its own.  ``from_modules`` / ``unstack`` convert to and from the
+per-client modules.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from fed_tgan_torch.device import resolve_device
 
 BN_EPS = 1e-5  # torch BatchNorm1d defaults, as in the reference
 BN_MOMENTUM = 0.1
@@ -106,3 +121,248 @@ class Discriminator(nn.Module):
             if keep is not None:
                 h = torch.where(keep[i], h / (1.0 - DROPOUT_RATE), 0.0)
         return self.out(h)
+
+
+# ------------------------------------------------------------ stacked clients
+
+
+def stacked_linear(x: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """``x @ weight[i].T + bias[i]`` for every client ``i``: ``x`` (N, rows,
+    in), ``weight`` (N, out, in), ``bias`` (N, out)."""
+    return torch.baddbmm(bias.unsqueeze(1), x, weight.transpose(1, 2))
+
+
+def stacked_batch_norm(h: torch.Tensor, weight: torch.Tensor,
+                       bias: torch.Tensor, running_mean: torch.Tensor,
+                       running_var: torch.Tensor) -> torch.Tensor:
+    """Train-mode BatchNorm of N clients at once: ``h`` (N, rows, F) is
+    normalised with each client's own batch mean and biased variance, and
+    each client's running statistics (``running_*`` (N * F,), contiguous,
+    updated in place) move with the unbiased variance and momentum 0.1, as
+    ``nn.BatchNorm1d`` moves them.  Every (client, feature) pair is one
+    channel of one ``batch_norm`` over the rows."""
+    n, rows, feat = h.shape
+    y = F.batch_norm(h.transpose(0, 1).reshape(rows, n * feat), running_mean,
+                     running_var, weight.reshape(n * feat),
+                     bias.reshape(n * feat), training=True,
+                     momentum=BN_MOMENTUM, eps=BN_EPS)
+    return y.view(rows, n, feat).transpose(0, 1)
+
+
+class _Stacked:
+    """N clients' parameters in one flat (N, P) leaf tensor, laid out in
+    the per-client module's ``parameters()`` order (``shapes``)."""
+
+    def _init_params(self, n: int, shapes: list, device) -> None:
+        device = resolve_device(device)
+        self.n = n
+        self.shapes = shapes
+        self.sizes = [math.prod(shape) for _, shape in shapes]
+        self.params = torch.zeros((n, sum(self.sizes)), device=device,
+                                  requires_grad=True)
+
+    @property
+    def device(self) -> torch.device:
+        return self.params.device
+
+    def leaves(self) -> dict:
+        """``{name: (N, *shape) view of params}`` (one split, so the
+        gradient of ``params`` is one concatenation)."""
+        parts = self.params.split(self.sizes, dim=1)
+        return {name: p.view(self.n, *shape)
+                for (name, shape), p in zip(self.shapes, parts)}
+
+    def client_state(self, i: int) -> dict:
+        """Client ``i``'s ``state_dict`` as views into the stack."""
+        return {name: v[i] for name, v in self.leaves().items()}
+
+    @torch.no_grad()
+    def load_state_dicts(self, states: list) -> None:
+        """Every client's weights from one ``state_dict`` (tensors on any
+        device, or arrays; the per-client module's keys) per client."""
+        self.params.copy_(torch.stack([
+            _joined([sd[name] for name, _ in self.shapes], self.device)
+            for sd in states]))
+
+    def state_dicts(self) -> list:
+        """One ``state_dict`` of numpy copies per client (one copy of the
+        stack to the host)."""
+        host = self.params.detach().cpu().numpy()
+        out = []
+        for i in range(self.n):
+            parts = np.split(host[i], np.cumsum(self.sizes)[:-1])
+            out.append({name: p.reshape(shape).copy()
+                        for (name, shape), p in zip(self.shapes, parts)})
+        return out
+
+
+class StackedGenerator(_Stacked):
+    """N residual-MLP generators in train mode: (N, rows, input_dim) ->
+    (N, rows, data_dim).  ``bn_state`` holds each block's running mean
+    then running variance, each (N * width,) contiguous; ``num_batches``
+    (N,) counts each client's train-mode forwards (the caller advances
+    it, so a masked step can leave it)."""
+
+    def __init__(self, n: int, input_dim: int, gen_dims: Sequence[int],
+                 data_dim: int, device="cuda"):
+        shapes, dim = [], input_dim
+        for j, h in enumerate(gen_dims):
+            shapes += [(f"blocks.{j}.fc.weight", (h, dim)),
+                       (f"blocks.{j}.fc.bias", (h,)),
+                       (f"blocks.{j}.bn.weight", (h,)),
+                       (f"blocks.{j}.bn.bias", (h,))]
+            dim += h
+        shapes += [("out.weight", (data_dim, dim)), ("out.bias", (data_dim,))]
+        self._init_params(n, shapes, device)
+        device = self.device
+        self.dims = (input_dim, tuple(gen_dims), data_dim)
+        self.widths = list(gen_dims)
+        self.bn_state = torch.zeros(2 * n * sum(gen_dims), device=device)
+        self.num_batches = torch.zeros(n, dtype=torch.long, device=device)
+        # the client each entry of bn_state belongs to
+        self.bn_client = torch.cat([
+            torch.arange(n, device=device).repeat_interleave(h).repeat(2)
+            for h in gen_dims])
+
+    def running(self, j: int, bn_state: Optional[torch.Tensor] = None):
+        """Block ``j``'s (running mean, running var), each (N * width,),
+        views into ``bn_state`` (default: this stack's)."""
+        bn = self.bn_state if bn_state is None else bn_state
+        start = 2 * self.n * sum(self.widths[:j])
+        size = self.n * self.widths[j]
+        return bn[start:start + size], bn[start + size:start + 2 * size]
+
+    def __call__(self, z: torch.Tensor) -> torch.Tensor:
+        lv = self.leaves()
+        for j in range(len(self.widths)):
+            pre = f"blocks.{j}"
+            h = stacked_linear(z, lv[f"{pre}.fc.weight"], lv[f"{pre}.fc.bias"])
+            h = stacked_batch_norm(h, lv[f"{pre}.bn.weight"],
+                                   lv[f"{pre}.bn.bias"], *self.running(j))
+            z = torch.cat([torch.relu(h), z], dim=2)
+        return stacked_linear(z, lv["out.weight"], lv["out.bias"])
+
+    def _buffers(self, i: int, bn_state: torch.Tensor,
+                 num_batches: torch.Tensor) -> dict:
+        out = {}
+        for j, h in enumerate(self.widths):
+            mean, var = self.running(j, bn_state)
+            out[f"blocks.{j}.bn.running_mean"] = mean.view(self.n, h)[i]
+            out[f"blocks.{j}.bn.running_var"] = var.view(self.n, h)[i]
+            out[f"blocks.{j}.bn.num_batches_tracked"] = num_batches[i]
+        return out
+
+    def client_state(self, i: int) -> dict:
+        """Client ``i``'s ``Generator.state_dict()`` as views into the
+        stack."""
+        return {**super().client_state(i),
+                **self._buffers(i, self.bn_state, self.num_batches)}
+
+    def unstack(self, i: int) -> Generator:
+        """Client ``i``'s generator as a module of its own (a copy), in
+        train mode."""
+        return _module(Generator, self.dims, self.device,
+                       self.client_state(i))
+
+    @torch.no_grad()
+    def load_state_dicts(self, states: list) -> None:
+        super().load_state_dicts(states)
+        self.bn_state.copy_(_joined(
+            [sd[f"blocks.{j}.bn.{key}"] for j in range(len(self.widths))
+             for key in ("running_mean", "running_var") for sd in states],
+            self.device))
+        self.num_batches.copy_(torch.as_tensor(
+            [int(sd["blocks.0.bn.num_batches_tracked"]) for sd in states]))
+
+    def state_dicts(self) -> list:
+        bn, nb = self.bn_state.cpu(), self.num_batches.cpu()
+        return [{**sd, **{k: v.numpy().copy() for k, v in
+                          self._buffers(i, bn, nb).items()}}
+                for i, sd in enumerate(super().state_dicts())]
+
+    @classmethod
+    def from_modules(cls, gens: Sequence[Generator]) -> "StackedGenerator":
+        g = gens[0]
+        stack = cls(len(gens), g.blocks[0].fc.in_features,
+                    [b.fc.out_features for b in g.blocks], g.out.out_features,
+                    g.out.weight.device)
+        stack.load_state_dicts([m.state_dict() for m in gens])
+        return stack
+
+
+class StackedDiscriminator(_Stacked):
+    """N pac discriminators: (N * batch, input_dim), client-major rows ->
+    (N, batch / pac, 1) scores; each client packs its own rows."""
+
+    def __init__(self, n: int, input_dim: int, dis_dims: Sequence[int],
+                 pac: int, device="cuda"):
+        shapes, dim = [], input_dim * pac
+        for j, h in enumerate(dis_dims):
+            shapes += [(f"layers.{j}.weight", (h, dim)),
+                       (f"layers.{j}.bias", (h,))]
+            dim = h
+        shapes += [("out.weight", (1, dim)), ("out.bias", (1,))]
+        self._init_params(n, shapes, device)
+        self.dims = (input_dim, tuple(dis_dims), pac)
+        self.pac = pac
+        self.widths = list(dis_dims)
+
+    def keep_shapes(self, batch: int) -> list[tuple[int, int, int]]:
+        """The shape of each hidden layer's stacked dropout keep mask."""
+        return [(self.n, batch // self.pac, h) for h in self.widths]
+
+    def __call__(self, x: torch.Tensor,
+                 keep: Optional[Sequence] = None) -> torch.Tensor:
+        """Scores of ``x``; ``keep`` as :meth:`Discriminator.forward`'s,
+        each mask stacked (N, batch / pac, width)."""
+        if x.shape[0] % (self.n * self.pac):
+            raise ValueError(f"{x.shape[0]} rows are not {self.n} clients' "
+                             f"batches divisible by pac {self.pac}")
+        h = x.reshape(self.n, x.shape[0] // (self.n * self.pac), -1)
+        lv = self.leaves()
+        for j in range(len(self.widths)):
+            h = F.leaky_relu(stacked_linear(h, lv[f"layers.{j}.weight"],
+                                            lv[f"layers.{j}.bias"]),
+                             LEAKY_SLOPE)
+            if keep is not None:
+                h = torch.where(keep[j], h / (1.0 - DROPOUT_RATE), 0.0)
+        return stacked_linear(h, lv["out.weight"], lv["out.bias"])
+
+    def unstack(self, i: int) -> Discriminator:
+        """Client ``i``'s discriminator as a module of its own (a copy),
+        in train mode."""
+        return _module(Discriminator, self.dims, self.device,
+                       self.client_state(i))
+
+    @classmethod
+    def from_modules(cls, diss: Sequence[Discriminator]
+                     ) -> "StackedDiscriminator":
+        d = diss[0]
+        stack = cls(len(diss), d.layers[0].in_features // d.pac,
+                    [l.out_features for l in d.layers], d.pac,
+                    d.out.weight.device)
+        stack.load_state_dicts([m.state_dict() for m in diss])
+        return stack
+
+
+def _joined(values: list, device) -> torch.Tensor:
+    """``values`` (tensors on any device, or arrays) flattened and joined
+    into one float32 tensor on ``device``."""
+    if all(isinstance(v, torch.Tensor) for v in values):
+        return torch.cat([v.detach().reshape(-1).to(device, torch.float32)
+                          for v in values])
+    return torch.as_tensor(np.concatenate(
+        [np.asarray(v, dtype=np.float32).reshape(-1) for v in values]),
+        device=device)
+
+
+def _module(cls, dims: tuple, device, state: dict) -> nn.Module:
+    """A train-mode ``cls(*dims)`` on ``device`` holding ``state``; built
+    on the meta device first, so no initialisation draws from torch's
+    global generator."""
+    with torch.device("meta"):
+        module = cls(*dims)
+    module = module.to_empty(device=device)
+    module.load_state_dict(state)
+    return module.train()

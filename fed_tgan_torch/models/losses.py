@@ -9,7 +9,7 @@ through a discriminator made of differentiable ops only.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -36,14 +36,21 @@ def slerp(val: torch.Tensor, low: torch.Tensor,
 
 def gradient_penalty(d_fn: Callable[[torch.Tensor], torch.Tensor],
                      real: torch.Tensor, fake: torch.Tensor,
-                     alpha: torch.Tensor, pac: int = 10) -> torch.Tensor:
+                     alpha: torch.Tensor, pac: int = 10,
+                     clients: Optional[int] = None) -> torch.Tensor:
     """``((||dD/dx at slerp(real, fake)|| per pac group - 1)^2).mean() *
     GP_LAMBDA``.  ``alpha`` (batch, 1) holds one uniform per row; ``d_fn``
     closes over the discriminator and its dropout masks.  The result is
-    differentiable with respect to what ``d_fn`` closes over."""
+    differentiable with respect to what ``d_fn`` closes over.
+
+    With ``clients`` = N the rows are N clients' batches, client-major,
+    and the result is (N,): each client's mean over its own groups."""
     interp = slerp(alpha, real.detach(), fake.detach()).requires_grad_(True)
     (grads,) = torch.autograd.grad(d_fn(interp).sum(), interp,
                                    create_graph=True)
     norms = torch.linalg.vector_norm(
         grads.reshape(-1, pac * real.shape[1]), dim=1)
-    return ((norms - 1.0) ** 2).mean() * GP_LAMBDA
+    sq = (norms - 1.0) ** 2
+    if clients is not None:
+        return sq.reshape(clients, -1).mean(dim=1) * GP_LAMBDA
+    return sq.mean() * GP_LAMBDA

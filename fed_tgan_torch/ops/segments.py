@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -157,14 +158,16 @@ def _column_max(logits: torch.Tensor, col_ids: torch.Tensor,
 
 
 def cond_loss(data: torch.Tensor, spec: SegmentSpec, cond_vec: torch.Tensor,
-              mask: torch.Tensor) -> torch.Tensor:
+              mask: torch.Tensor, clients: Optional[int] = None
+              ) -> torch.Tensor:
     """Masked cross-entropy between the generated discrete logits and the
     conditioning one-hot (``fed_tgan_tpu/ops/segments.py:144``).
 
     ``data`` (batch, dim) raw generator output, ``cond_vec`` (batch,
     n_opt), ``mask`` (batch, n_discrete) with a 1 at each row's
     conditioned column.  The float32 logsumexp is stabilised by a detached
-    per-column max."""
+    per-column max.  With ``clients`` = N the rows are N clients' batches,
+    client-major, and the result is (N,): each client's own loss."""
     data = data.float()
     tables = cond_tables(spec, data.device)
     dims, col_ids = tables["discrete_dims"], tables["cond_column_ids"]
@@ -178,4 +181,7 @@ def cond_loss(data: torch.Tensor, spec: SegmentSpec, cond_vec: torch.Tensor,
     member = tables["member"]
     lse = torch.log(torch.exp(shifted) @ member) + m
     target = (logits * cond_vec) @ member
-    return ((lse - target) * mask).sum() / data.shape[0]
+    per = (lse - target) * mask
+    if clients is not None:
+        return per.reshape(clients, -1).sum(dim=1) / (data.shape[0] // clients)
+    return per.sum() / data.shape[0]

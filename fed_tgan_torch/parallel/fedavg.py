@@ -30,23 +30,27 @@ EPS = 1e-12
 AGGREGATORS = ("weighted", "clipped", "trimmed", "median")
 
 
-def agg_leaves(models) -> list[torch.Tensor]:
-    """The tensors one client contributes to the aggregate, in the JAX
+def agg_leaves(stack) -> list[torch.Tensor]:
+    """The stacked tensors the clients contribute to the aggregate, each
+    ``(n_clients, ...)`` and a view into ``stack`` (a
+    :class:`~fed_tgan_torch.train.steps.StackedModels`), in the JAX
     package's leaf order of ``(params_g, params_d, state_g)``: per
     generator block its BatchNorm bias and scale, then its Linear bias and
     weight; the generator's output Linear; the discriminator's layers and
     output (bias, weight); per generator block its BatchNorm running mean
     and variance.  ``num_batches_tracked`` is not part of it."""
-    G, D = models.generator, models.discriminator
+    G, D = stack.generator, stack.discriminator
+    g, d = G.leaves(), D.leaves()
     out = []
-    for b in G.blocks:
-        out += [b.bn.bias, b.bn.weight, b.fc.bias, b.fc.weight]
-    out += [G.out.bias, G.out.weight]
-    for layer in D.layers:
-        out += [layer.bias, layer.weight]
-    out += [D.out.bias, D.out.weight]
-    for b in G.blocks:
-        out += [b.bn.running_mean, b.bn.running_var]
+    for j in range(len(G.widths)):
+        out += [g[f"blocks.{j}.{k}"] for k in ("bn.bias", "bn.weight",
+                                                "fc.bias", "fc.weight")]
+    out += [g["out.bias"], g["out.weight"]]
+    for j in range(len(D.widths)):
+        out += [d[f"layers.{j}.bias"], d[f"layers.{j}.weight"]]
+    out += [d["out.bias"], d["out.weight"]]
+    for j, h in enumerate(G.widths):
+        out += [x.view(G.n, h) for x in G.running(j)]
     return out
 
 

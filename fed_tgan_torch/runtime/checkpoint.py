@@ -356,21 +356,6 @@ def _init_from(host: dict, data):
         timings=dict(host["timings"]))
 
 
-def _optimizers(models):
-    return (("opt_g", models.opt_g, models.sched_g),
-            ("opt_d", models.opt_d, models.sched_d))
-
-
-def restore_optimizer(opt, sched, state: dict, lr: float, step: int) -> None:
-    """Install Adam ``state`` (parameter index -> ``step``, ``exp_avg``,
-    ``exp_avg_sq`` tensors) into ``opt``, and put its schedule after
-    ``step`` updates at learning rate ``lr``."""
-    opt.load_state_dict({"state": state,
-                         "param_groups": opt.state_dict()["param_groups"]})
-    opt.param_groups[0]["lr"] = lr
-    sched.last_epoch, sched._step_count, sched._last_lr = step, step + 1, [lr]
-
-
 def save_federated(trainer, path: str, run_name: str | None = None,
                    keep: int = 1) -> None:
     """Write a full-resume checkpoint of a port ``FederatedTrainer`` to
@@ -379,20 +364,35 @@ def save_federated(trainer, path: str, run_name: str | None = None,
     the previous K-1 checkpoints as ``path.1`` ..."""
     init_host, arrays = _init_parts(trainer.init)
     n_done = len(trainer.epoch_times)
+    stack = trainer.stack
+    parts = (("generator", stack.generator.state_dicts()),
+             ("discriminator", stack.discriminator.state_dicts()))
+    adam = [(name, opt, [t.cpu().numpy() for t in (
+        opt.count, opt.exp_avg, opt.exp_avg_sq)], module)
+        for name, opt, module in (("opt_g", stack.opt_g, stack.generator),
+                                  ("opt_d", stack.opt_d,
+                                   stack.discriminator))]
     clients = []
-    for i, models in enumerate(trainer.models):
+    for i in range(trainer.n_clients):
         pre = f"client_{i:03d}"
-        for part, mod in (("generator", models.generator),
-                          ("discriminator", models.discriminator)):
-            for k, v in mod.state_dict().items():
-                arrays[f"{pre}.{part}.{k}"] = v.detach().cpu().numpy()
+        for part, states in parts:
+            for k, v in states[i].items():
+                arrays[f"{pre}.{part}.{k}"] = v
         entry = {"rng_device": trainer.gens[i].device.type}
-        for part, opt, sched in _optimizers(models):
-            for idx, st in opt.state_dict()["state"].items():
-                for k, v in st.items():
-                    arrays[f"{pre}.{part}.{idx}.{k}"] = v.detach().cpu().numpy()
-            entry[part] = {"lr": opt.param_groups[0]["lr"],
-                           "sched_step": sched.last_epoch}
+        # torch Adam's state_dict layout: per parameter index its step and
+        # moments, none before the first update
+        for part, opt, (count, mom, sq), module in adam:
+            n = int(count[i])
+            if n:
+                split = np.cumsum(module.sizes)[:-1]
+                for idx, (m, v, (_, shape)) in enumerate(zip(
+                        np.split(mom[i], split), np.split(sq[i], split),
+                        module.shapes)):
+                    arrays[f"{pre}.{part}.{idx}.step"] = np.asarray(
+                        float(n), dtype=np.float32)
+                    arrays[f"{pre}.{part}.{idx}.exp_avg"] = m.reshape(shape)
+                    arrays[f"{pre}.{part}.{idx}.exp_avg_sq"] = v.reshape(shape)
+            entry[part] = {"lr": opt.lr(n), "sched_step": n}
         arrays[f"{pre}.rng"] = trainer.gens[i].get_state().numpy()
         clients.append(entry)
     host = {
@@ -464,24 +464,30 @@ def load_federated(path: str, device="cuda"):
             quarantine_strikes=host["quarantine_strikes"], device=device,
             decode=host["decode"])
         done = host["completed_epochs"]
-        for i, (models, entry) in enumerate(zip(trainer.models,
-                                                host["clients"])):
+        stack = trainer.stack
+        for part, module in (("generator", stack.generator),
+                             ("discriminator", stack.discriminator)):
+            names = list(module.client_state(0))
+            module.load_state_dicts([
+                {k: data[f"client_{i:03d}.{part}.{k}"] for k in names}
+                for i in range(trainer.n_clients)])
+        for part, opt, module in (("opt_g", stack.opt_g, stack.generator),
+                                  ("opt_d", stack.opt_d,
+                                   stack.discriminator)):
+            counts, moments = [], []
+            for i, entry in enumerate(host["clients"]):
+                pre = f"client_{i:03d}.{part}"
+                counts.append(int(entry[part]["sched_step"]))
+                moments.append([np.concatenate([
+                    data[f"{pre}.{idx}.{key}"].reshape(-1)
+                    if f"{pre}.{idx}.{key}" in data.files
+                    else np.zeros(size, np.float32)
+                    for idx, size in enumerate(module.sizes)])
+                    for key in ("exp_avg", "exp_avg_sq")])
+            opt.load(np.asarray(counts), *(np.stack(m) for m in
+                                           zip(*moments)))
+        for i, entry in enumerate(host["clients"]):
             pre = f"client_{i:03d}"
-            for part, mod in (("generator", models.generator),
-                              ("discriminator", models.discriminator)):
-                mod.load_state_dict({
-                    k: torch.as_tensor(data[f"{pre}.{part}.{k}"])
-                    for k in mod.state_dict()})
-            for part, opt, sched in _optimizers(models):
-                state = {}
-                for idx in range(len(opt.param_groups[0]["params"])):
-                    keys = [k for k in ("step", "exp_avg", "exp_avg_sq")
-                            if f"{pre}.{part}.{idx}.{k}" in data.files]
-                    if keys:
-                        state[idx] = {k: torch.as_tensor(
-                            data[f"{pre}.{part}.{idx}.{k}"]) for k in keys}
-                restore_optimizer(opt, sched, state, entry[part]["lr"],
-                                  entry[part]["sched_step"])
             if entry["rng_device"] == device.type:
                 trainer.gens[i].set_state(torch.as_tensor(data[f"{pre}.rng"]))
             else:

@@ -179,6 +179,94 @@ def intrusion_like_table(n: int = 400, seed: int = 0):
     return np.stack(cols, axis=1), cat_idx, meta, encoders
 
 
+_EDUCATION = np.array([
+    "Preschool", "1st-4th", "5th-6th", "7th-8th", "9th", "10th", "11th",
+    "12th", "HS-grad", "Some-college", "Assoc-voc", "Assoc-acdm",
+    "Bachelors", "Masters", "Prof-school", "Doctorate"])
+# (column, categories, probabilities) of the independently drawn ones
+_ADULT_CHOICES = {
+    "workclass": (["Private", "Self-emp-not-inc", "Self-emp-inc",
+                   "Federal-gov", "Local-gov", "State-gov", "Without-pay",
+                   "Never-worked"],
+                  [0.694, 0.079, 0.035, 0.029, 0.064, 0.041, 0.05, 0.008]),
+    "marital-status": (["Married-civ-spouse", "Never-married", "Divorced",
+                        "Separated", "Widowed", "Married-spouse-absent",
+                        "Married-AF-spouse"],
+                       [0.458, 0.33, 0.136, 0.031, 0.031, 0.013, 0.001]),
+    "occupation": (["Prof-specialty", "Craft-repair", "Exec-managerial",
+                    "Adm-clerical", "Sales", "Other-service",
+                    "Machine-op-inspct", "Transport-moving",
+                    "Handlers-cleaners", "Farming-fishing", "Tech-support",
+                    "Protective-serv", "Priv-house-serv", "Armed-Forces"],
+                   [0.132, 0.13, 0.129, 0.12, 0.117, 0.106, 0.066, 0.053,
+                    0.047, 0.035, 0.028, 0.02, 0.016, 0.001]),
+    "relationship": (["Husband", "Not-in-family", "Own-child", "Unmarried",
+                      "Wife", "Other-relative"],
+                     [0.404, 0.255, 0.155, 0.105, 0.048, 0.033]),
+    "race": (["White", "Black", "Asian-Pac-Islander", "Amer-Indian-Eskimo",
+              "Other"], [0.855, 0.096, 0.031, 0.01, 0.008]),
+    "native-country": (["United-States", "Mexico", "Philippines", "Germany",
+                        "Canada", "Puerto-Rico", "El-Salvador", "India",
+                        "Cuba", "England", "other"],
+                       [0.895, 0.02, 0.006, 0.004, 0.004, 0.004, 0.003,
+                        0.003, 0.003, 0.003, 0.055]),
+}
+
+
+def adult_like_table(n: int = 7000, seed: int = 11) -> dict:
+    """``{column: raw values}`` of an Adult-census-shaped table of ``n``
+    rows, the columns, values and order ``bench.py::_adult_like(n, seed)``
+    draws (6 continuous columns, two of them zero-inflated capital
+    columns, 9 categorical; an income label from a logistic in age,
+    education, hours, capital gain and sex).  Numbers as float64,
+    categories as strings; numpy only."""
+    rng = np.random.default_rng(seed)
+    age = np.clip(rng.normal(38.6, 13.7, n), 17, 90).round()
+    edu_num = np.clip(rng.normal(10.1, 2.6, n), 1, 16).round()
+    hours = np.clip(rng.normal(40.4, 12.3, n), 1, 99).round()
+    gain = np.where(rng.random(n) < 0.083,
+                    np.exp(rng.normal(7.6, 1.3, n)), 0.0).round()
+    loss = np.where(rng.random(n) < 0.047,
+                    np.exp(rng.normal(7.4, 0.6, n)), 0.0).round()
+    sex = rng.choice(["Male", "Female"], n, p=[0.67, 0.33])
+    logit = (0.035 * (age - 38) + 0.32 * (edu_num - 10)
+             + 0.03 * (hours - 40) + 0.9 * (gain > 0)
+             + 0.55 * (sex == "Male") - 1.45)
+    income = np.where(rng.random(n) < 1.0 / (1.0 + np.exp(-logit)),
+                      ">50K", "<=50K")
+    choice = lambda name: rng.choice(_ADULT_CHOICES[name][0], n,
+                                     p=_ADULT_CHOICES[name][1])
+    # the draws below follow the reference table's column order
+    out = {"age": age, "workclass": choice("workclass"),
+           "fnlwgt": np.exp(rng.normal(11.9, 0.5, n)).round(),
+           "education": _EDUCATION[edu_num.astype(int) - 1],
+           "education-num": edu_num,
+           "marital-status": choice("marital-status"),
+           "occupation": choice("occupation"),
+           "relationship": choice("relationship"), "race": choice("race"),
+           "sex": sex, "capital-gain": gain, "capital-loss": loss,
+           "hours-per-week": hours,
+           "native-country": choice("native-country"), "income": income}
+    return out
+
+
+def write_adult_csv(path: str, n: int = 7000, seed: int = 11,
+                    train_frac: float = 1.0) -> str:
+    """The first ``int(n * train_frac)`` rows of :func:`adult_like_table`
+    (the training side of the reference's 70/30 split at 0.7) as a raw
+    CSV file, integral numbers written as integers; returns ``path``."""
+    rows = int(n * train_frac)
+    cols = {}
+    for name, v in adult_like_table(n, seed).items():
+        v = v[:rows]
+        if v.dtype.kind == "f" and np.array_equal(v, np.round(v)):
+            v = v.astype(np.int64)
+        cols[name] = v
+    with open(path, "wb") as f:
+        f.write(csv_bytes(cols))
+    return path
+
+
 def write_artifact(out_dir: str, synth: SavedSynthesizer, meta: TableMeta,
                    encoders) -> str:
     """Write ``synth`` with its meta and encoders as a port artifact under

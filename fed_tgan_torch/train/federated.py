@@ -2,20 +2,28 @@
 (counterpart of ``fed_tgan_tpu/train/federated.py:102-135, 166-458,
 1123-1190, 1256-1600, 1604-1669``).
 
-A round, as the JAX program computes it:
+A round, as the JAX program computes it (``vmap(run_one)`` over the
+clients of a ``lax.scan`` of ``max_steps`` masked steps):
 
-- each live client runs its own ``len(shard) // batch_size`` train steps
-  (the slice-2 :func:`~fed_tgan_torch.train.steps.train_step`, K1 and K2
-  inside) on its shard, with its own optimizers and its own device
-  ``torch.Generator``; a client with no step reports zero metrics;
-- the clients' ``(params_g, params_d, state_g)`` leaves are stacked and
-  gated + aggregated on the device
+- every client's weights, BatchNorm state, Adam state and shard are
+  stacked on a leading clients axis once (:func:`build_client_stacks`,
+  :func:`~fed_tgan_torch.train.steps.stack_models`); a round is
+  ``max(steps_i)`` calls of
+  :func:`~fed_tgan_torch.train.steps.stacked_train_step`, each one train
+  step of every client at once (K1 over N * batch rows, K2 in its
+  backward), where client i's step s runs only while ``s < steps_i``:
+  past it the step changes nothing of that client (its shard is
+  ``len(shard) // batch_size`` steps; a client with no step reports zero
+  metrics);
+- each client draws from its own device ``torch.Generator``, on its
+  active steps only, into its slice of the step's stacked draws;
+- the stacked ``(params_g, params_d, state_g)`` leaves are gated +
+  aggregated on the device
   (:func:`~fed_tgan_torch.parallel.fedavg.robust_aggregate`, or plain
-  :func:`weighted_average` when nothing robust can trigger);
-- the aggregate is written into every client's parameters and BatchNorm
-  buffers in place.  Adam moments and learning-rate schedules stay per
-  client across rounds: the JAX program replicates parameters, never
-  optimizer state (``federated.py:409-413``);
+  :func:`weighted_average` when nothing robust can trigger), and the
+  aggregate is written into every client's slice.  Adam moments and
+  learning-rate schedules stay per client across rounds: the JAX program
+  replicates parameters, never optimizer state (``federated.py:409-413``);
 - the round's metrics and the gate's quarantine mask come to the host in
   one copy; clients the gate rejects ``quarantine_strikes`` times are
   dropped (down to ``min_clients``) and the weights renormalized.
@@ -38,7 +46,6 @@ capacity and several rounds per program are CLI-level and refused there.
 
 from __future__ import annotations
 
-import copy
 import csv
 import dataclasses
 import logging
@@ -51,7 +58,6 @@ import torch
 
 from fed_tgan_torch.device import resolve_device
 from fed_tgan_torch.federation.init import FederatedInit, renormalize_weights
-from fed_tgan_torch.models.ctgan import Generator
 from fed_tgan_torch.ops.decode import select_snapshot_decode
 from fed_tgan_torch.ops.segments import SegmentSpec
 from fed_tgan_torch.parallel.fedavg import (
@@ -63,16 +69,22 @@ from fed_tgan_torch.runtime.checkpoint import SavedSynthesizer
 from fed_tgan_torch.serve.engine import SamplingEngine, step_seed
 from fed_tgan_torch.serve.registry import LoadedModel
 from fed_tgan_torch.testing.faults import active_plan, update_fault_window
-from fed_tgan_torch.train.sampler import CondSampler, RowSampler
+from fed_tgan_torch.train.sampler import (
+    CondSampler,
+    RowSampler,
+    StackedCondSampler,
+    StackedRowSampler,
+)
 from fed_tgan_torch.train.steps import (
-    Models,
     StepDraws,
     TrainConfig,
-    draw_step,
+    client_draws,
+    draw_into,
     init_models,
-    lr_factor,
     require_trainable,
-    train_step,
+    stack_models,
+    stacked_draws,
+    stacked_train_step,
 )
 
 KEY_OFFSET = 29  # the JAX trainer's sampling stream offset
@@ -96,6 +108,40 @@ def require_federated(cfg: TrainConfig) -> None:
                 f"{name}={getattr(cfg, name)!r} is not ported yet "
                 f"(ROADMAP {item})")
     require_trainable(cfg)
+
+
+def build_client_stacks(init: FederatedInit, cfg: TrainConfig,
+                        spec: SegmentSpec, device) -> tuple:
+    """Per-client tables stacked on the clients axis
+    (``fed_tgan_tpu/train/federated.py:102-135``): ``(cond, rows, data,
+    steps, server_cond)``.  ``data`` is (N * max_rows, dim), each shard
+    padded to ``max_rows``; ``steps`` (N,) is the reference's
+    ``len(train) // batch_size`` per client (distributed.py:304).  A
+    shard smaller than one batch trains 0 steps, which the reference
+    silently allows: here that needs ``cfg.allow_zero_step_clients``."""
+    mats = [np.asarray(m, dtype=np.float32) for m in init.client_matrices]
+    steps = np.asarray([len(m) // cfg.batch_size for m in mats],
+                       dtype=np.int64)
+    if (steps == 0).any() and not cfg.allow_zero_step_clients:
+        small = [i for i, s in enumerate(steps) if s == 0]
+        raise ValueError(
+            f"clients {small} hold fewer than batch_size={cfg.batch_size} "
+            "rows (reference behavior: they would train 0 steps); rebalance "
+            "shards, shrink the batch, or opt in with "
+            "TrainConfig(allow_zero_step_clients=True)")
+    stride = max(1, max(len(m) for m in mats))
+    data = np.zeros((len(mats) * stride, spec.dim), dtype=np.float32)
+    for i, m in enumerate(mats):
+        data[i * stride:i * stride + len(m)] = m
+    cond = StackedCondSampler.stack([CondSampler.from_data(m, spec, device)
+                                     for m in mats])
+    rows = StackedRowSampler.stack([RowSampler.from_data(m, spec, device)
+                                    for m in mats], stride)
+    # generation draws from the pooled empirical frequencies (the
+    # reference server rebuilds Cond on the full table)
+    server_cond = CondSampler.from_data(np.concatenate(mats), spec, device)
+    return (cond, rows, torch.as_tensor(data, device=device), steps,
+            server_cond)
 
 
 class FederatedTrainer:
@@ -123,37 +169,26 @@ class FederatedTrainer:
         self.spec = SegmentSpec.from_output_info(init.output_info)
 
         t0 = time.perf_counter()
-        mats = [np.asarray(m, dtype=np.float32) for m in init.client_matrices]
-        self.steps = np.asarray([len(m) // self.cfg.batch_size for m in mats],
-                                dtype=np.int64)
-        if (self.steps == 0).any() and not self.cfg.allow_zero_step_clients:
-            small = [i for i, s in enumerate(self.steps) if s == 0]
-            raise ValueError(
-                f"clients {small} hold fewer than batch_size="
-                f"{self.cfg.batch_size} rows (reference behavior: they would "
-                "train 0 steps); rebalance shards, shrink the batch, or opt "
-                "in with TrainConfig(allow_zero_step_clients=True)")
-        dev = self.device
-        self.data = [torch.as_tensor(m, device=dev) for m in mats]
-        self.conds = [CondSampler.from_data(m, self.spec, dev) for m in mats]
-        self.rows = [RowSampler.from_data(m, self.spec, dev) for m in mats]
-        # generation draws from the pooled empirical frequencies
-        self.server_cond = CondSampler.from_data(np.concatenate(mats),
-                                                 self.spec, dev)
+        (self.conds, self.rows, self.data, self.steps,
+         self.server_cond) = build_client_stacks(init, self.cfg, self.spec,
+                                                 self.device)
         self.timings = {"shard_packing": time.perf_counter() - t0}
 
         if models is None:
-            one = init_models(self.spec, self.cfg, seed, dev)
-            models = [one] + [
-                Models.build(copy.deepcopy(one.generator),
-                             copy.deepcopy(one.discriminator), self.spec,
-                             self.cfg) for _ in range(self.n_clients - 1)]
+            models = [init_models(self.spec, self.cfg, seed, self.device)
+                      ] * self.n_clients
         if len(models) != self.n_clients:
             raise ValueError(f"{len(models)} models for {self.n_clients} "
                              "clients")
-        self.models = models
-        self._leaves = [agg_leaves(m) for m in models]
-        self.gens = [torch.Generator(device=dev).manual_seed(
+        self.stack = stack_models(models)
+        # one client's dropout masks; the step's draws, every client's slice
+        self._keep = [s[1:] for s in self.stack.discriminator.keep_shapes(
+            self.cfg.batch_size)]
+        self._draws = stacked_draws(self.spec, self.cfg, self.n_clients,
+                                    self._keep, self.device)
+        self._client_draws = [client_draws(self._draws, i)
+                              for i in range(self.n_clients)]
+        self.gens = [torch.Generator(device=self.device).manual_seed(
             step_seed(seed, i)) for i in range(self.n_clients)]
         self.weights = np.asarray(init.weights, dtype=np.float32)
         self._strikes = np.zeros(self.n_clients, dtype=np.int64)
@@ -170,32 +205,52 @@ class FederatedTrainer:
         self.last_quarantined: Optional[np.ndarray] = None
         self.run_name: Optional[str] = None  # set by load_federated
 
+    @property
+    def models(self) -> list:
+        """Every client as a per-client ``Models`` (copies unstacked from
+        :attr:`stack`, with torch optimizers at the client's state): for
+        reading, as tests and interop do; training runs on the stack."""
+        return [self.stack.to_models(i) for i in range(self.n_clients)]
+
     # ---------------------------------------------------------- the round
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _local_steps(self, e: int) -> list:
-        """Every client's steps of round ``e``; per client its last
-        step's metrics as a (3,) tensor (zeros without a step)."""
-        out = []
-        for i, models in enumerate(self.models):
-            met = None
-            for s in range(int(self.steps[i])):
-                draws = (self.draws(e, i, s).to(self.device) if self.draws
-                         else draw_step(self.gens[i], models))
-                met = train_step(models, self.data[i], self.conds[i],
-                                 self.rows[i], draws)
-            out.append(torch.stack([met[k] for k in METRICS]) if met
-                       else torch.zeros(len(METRICS), device=self.device))
-        return out
+    def _local_steps(self, e: int) -> torch.Tensor:
+        """Every client's steps of round ``e``: ``max(steps)`` stacked
+        steps, client i's active while ``s < steps[i]``; returns the
+        (n_clients, 3) metrics of each client's last step (zeros without
+        a step)."""
+        steps = self.steps
+        n_max = int(steps.max(initial=0))
+        active = torch.as_tensor(np.arange(n_max)[:, None] < steps[None],
+                                 device=self.device)
+        metrics = torch.zeros((self.n_clients, len(METRICS)),
+                              device=self.device)
+        for s in range(n_max):
+            # each client draws on its own steps only, into its slice
+            for i in np.flatnonzero(s < steps):
+                dst = self._client_draws[i]
+                if self.draws is not None:
+                    src = self.draws(e, int(i), s).tensors()
+                    for a, b in zip(dst.tensors(), src):
+                        a.copy_(b)
+                else:
+                    draw_into(self.gens[i], self.spec, self.cfg, self._keep,
+                              self.device, dst)
+            metrics = stacked_train_step(self.stack, self.data, self.conds,
+                                         self.rows, self._draws, active[s],
+                                         metrics)
+        return metrics
 
     @torch.no_grad()
     def _aggregate(self, prev: list, update_fault=None):
-        """Gate and aggregate the clients' leaves against ``prev``, write
-        the result into every client; returns the quarantine mask."""
-        new = [torch.stack(leaf) for leaf in zip(*self._leaves)]
+        """Gate and aggregate the clients' stacked leaves against
+        ``prev``, write the result into every client's slice; returns the
+        quarantine mask."""
+        new = agg_leaves(self.stack)
         if update_fault is not None:
             new = corrupt_updates(prev, new, update_fault)
         w = torch.as_tensor(self.weights, device=self.device)
@@ -210,9 +265,8 @@ class FederatedTrainer:
             agg = weighted_average(new, w)
             quar = torch.zeros(self.n_clients, dtype=torch.bool,
                                device=self.device)
-        for leaves in self._leaves:
-            for x, a in zip(leaves, agg):
-                x.copy_(a)
+        for x, a in zip(agg_leaves(self.stack), agg):
+            x.copy_(a)
         return quar
 
     def run_round(self, e: int, update_fault=None):
@@ -221,13 +275,13 @@ class FederatedTrainer:
         records the local / aggregate split (the device synchronised
         between them)."""
         t0 = time.perf_counter()
-        with torch.no_grad():
-            prev = [x.detach().clone() for x in self._leaves[0]]
+        with torch.no_grad():  # every client holds the global state
+            prev = [x[0].clone() for x in agg_leaves(self.stack)]
         metrics = self._local_steps(e)
         self._sync()
         t1 = time.perf_counter()
         quar = self._aggregate(prev, update_fault)
-        host = torch.cat([torch.stack(metrics).flatten(),
+        host = torch.cat([metrics.flatten(),
                           quar.to(torch.float32)]).cpu().numpy()
         t2 = time.perf_counter()
         self.round_split["local_steps"].append(t1 - t0)
@@ -332,17 +386,7 @@ class FederatedTrainer:
         on (the watchdog's re-anneal): the schedules keep their step
         counts and scale from the new base."""
         self.cfg = dataclasses.replace(self.cfg, lr=float(lr))
-        factor = lr_factor(self.cfg)
-        for models in self.models:
-            models.cfg = self.cfg
-            for opt, sched in ((models.opt_g, models.sched_g),
-                               (models.opt_d, models.sched_d)):
-                sched.base_lrs = [self.cfg.lr]
-                sched.lr_lambdas = [factor]
-                for group in opt.param_groups:
-                    group["initial_lr"] = self.cfg.lr
-                    group["lr"] = self.cfg.lr * factor(sched.last_epoch)
-                sched._last_lr = [g["lr"] for g in opt.param_groups]
+        self.stack.set_config(self.cfg)
 
     # ---------------------------------------------------------- membership
 
@@ -387,16 +431,14 @@ class FederatedTrainer:
         """The engine over the aggregated generator (client 0's copy,
         refreshed on every call; all clients hold the aggregate)."""
         if self._engine is None:
-            cfg = self.cfg
-            gen = Generator(cfg.embedding_dim + self.spec.n_opt,
-                            cfg.gen_dims, self.spec.dim).to(self.device)
-            synth = SavedSynthesizer(gen, self.server_cond, self.columns, cfg,
+            synth = SavedSynthesizer(self.stack.generator.unstack(0),
+                                     self.server_cond, self.columns, self.cfg,
                                      key_offset=KEY_OFFSET)
             self._engine = SamplingEngine(LoadedModel(
                 model_id="in-memory", synth=synth, meta=self.init.global_meta,
                 encoders=tuple(self.init.encoders), artifact=None))
         gen = self._engine.model.synth.generator
-        gen.load_state_dict(self.models[0].generator.state_dict())
+        gen.load_state_dict(self.stack.generator.client_state(0))
         return self._engine
 
     def sample_encoded(self, n: int, seed: int = 0) -> np.ndarray:
@@ -417,7 +459,7 @@ class FederatedTrainer:
 
     def to_saved(self) -> SavedSynthesizer:
         """The aggregated model as a sampling artifact."""
-        return SavedSynthesizer(copy.deepcopy(self.models[0].generator),
+        return SavedSynthesizer(self.stack.generator.unstack(0),
                                 self.server_cond, self.columns, self.cfg,
                                 key_offset=KEY_OFFSET)
 

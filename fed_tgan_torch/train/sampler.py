@@ -13,6 +13,12 @@
 
 Every draw can be made from injected random numbers (``*_from_draws``),
 which is how the tests feed both packages the same draws.
+
+The federated round draws for every client at once from
+:class:`StackedCondSampler` and :class:`StackedRowSampler`, the clients'
+tables stacked on a leading axis (the counterpart of
+``fed_tgan_tpu/train/federated.py:87-99``, ``_stack_samplers``).  A
+client's row draw indexes only its own rows of the stacked data.
 """
 
 from __future__ import annotations
@@ -173,3 +179,88 @@ class RowSampler:
     def sample_uniform(self, u: torch.Tensor) -> torch.Tensor:
         """Uniformly drawn row indices ``floor(u * n_rows)`` (batch,)."""
         return (u * self.n_rows).to(torch.long)
+
+
+@dataclass(frozen=True, eq=False)
+class StackedCondSampler:
+    """N clients' training tables: ``p_train`` (N * n_discrete, max_size),
+    client-major; ``base`` (N,) = each client's first row of it."""
+
+    p_train: torch.Tensor
+    base: torch.Tensor
+    spec: SegmentSpec
+
+    @classmethod
+    def stack(cls, samplers: list) -> "StackedCondSampler":
+        p = torch.cat([c.p_train for c in samplers])
+        nd = samplers[0].p_train.shape[0]
+        base = torch.arange(len(samplers), device=p.device) * nd
+        return cls(p_train=p, base=base, spec=samplers[0].spec)
+
+    def train_from_draws(self, col: torch.Tensor, r: torch.Tensor):
+        """:meth:`CondSampler.train_from_draws` for every client: ``col``
+        (N, batch) int64, ``r`` (N, batch, 1), each client's row of
+        ``p_train``; returns ``(cond (N * batch, n_opt), mask (N * batch,
+        n_discrete), col (N, batch), opt (N, batch))``, client-major."""
+        n, batch = col.shape
+        rows = (col + self.base[:, None]).reshape(-1)
+        opt = (torch.cumsum(self.p_train[rows], dim=1) > r.reshape(-1, 1)
+               ).to(torch.int8).argmax(dim=1)
+        flat = col.reshape(-1)
+        pos = cond_tables(self.spec, col.device)["cond_offsets"][flat] + opt
+        cond = torch.zeros((n * batch, self.spec.n_opt), device=col.device)
+        mask = torch.zeros((n * batch, self.spec.n_discrete),
+                           device=col.device)
+        return (cond.scatter_(1, pos[:, None], 1.0),
+                mask.scatter_(1, flat[:, None], 1.0), col, opt.view(n, batch))
+
+
+@dataclass(frozen=True, eq=False)
+class StackedRowSampler:
+    """N clients' real-row tables over the stacked data, whose client ``i``
+    holds rows ``[i * stride, i * stride + n_rows[i])``.
+
+    ``row_pool`` (N * L,) holds stacked-data row indices, client ``i``'s
+    pool at ``[i * L, i * L + len)``, padded with its first row;
+    ``offsets`` (N, n_opt) point into it and ``counts`` (N, n_opt) count
+    each group, so a draw never leaves its client's rows."""
+
+    row_pool: torch.Tensor  # int64
+    offsets: torch.Tensor   # int64
+    counts: torch.Tensor    # int32
+    n_rows: torch.Tensor    # (N,) float32
+    row_base: torch.Tensor  # (N,) int64
+    spec: SegmentSpec
+
+    @classmethod
+    def stack(cls, samplers: list, stride: int) -> "StackedRowSampler":
+        device = samplers[0].row_pool.device
+        length = max(int(s.row_pool.shape[0]) for s in samplers)
+        pools, offsets = [], []
+        for i, s in enumerate(samplers):
+            pool = s.row_pool + i * stride
+            pad = torch.full((length - pool.shape[0],), i * stride,
+                             dtype=pool.dtype, device=device)
+            pools.append(torch.cat([pool, pad]))
+            offsets.append(s.offsets + i * length)
+        return cls(row_pool=torch.cat(pools), offsets=torch.stack(offsets),
+                   counts=torch.stack([s.counts for s in samplers]),
+                   n_rows=torch.tensor([float(s.n_rows) for s in samplers],
+                                       device=device),
+                   row_base=torch.arange(len(samplers), device=device)
+                   * stride, spec=samplers[0].spec)
+
+    def sample_rows(self, col: torch.Tensor, opt: torch.Tensor,
+                    u: torch.Tensor) -> torch.Tensor:
+        """:meth:`RowSampler.sample_rows` for every client: ``col``,
+        ``opt``, ``u`` (N, batch); returns (N * batch,) stacked-data row
+        indices."""
+        o = cond_tables(self.spec, col.device)["cond_offsets"][col] + opt
+        cnt = torch.clamp(self.counts.gather(1, o), min=1)
+        start = self.offsets.gather(1, o)
+        return self.row_pool[start + (u * cnt).to(torch.long)].reshape(-1)
+
+    def sample_uniform(self, u: torch.Tensor) -> torch.Tensor:
+        """Each client's uniformly drawn rows (N * batch,)."""
+        idx = (u * self.n_rows[:, None]).to(torch.long)
+        return (idx + self.row_base[:, None]).reshape(-1)

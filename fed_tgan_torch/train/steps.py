@@ -15,6 +15,15 @@ One train step is the reference's hot loop (Server/dtds/distributed.py:
 Every random tensor of a step is one :class:`StepDraws` value:
 :func:`draw_step` fills it from a ``torch.Generator`` on the device, and
 the tests fill it from the JAX package's key layout.
+
+The federated round trains every client at once:
+:func:`stacked_train_step` is :func:`train_step` over the clients of a
+:class:`StackedModels` (stacked modules, :class:`StackedAdam` with a step
+count per client), each step masked to the clients still inside their own
+step count, as the JAX program's ``vmap`` over a fixed-trip ``lax.scan``
+(``fed_tgan_tpu/train/federated.py:237-270``).  :func:`train_step` stays
+the standalone trainer's step and the reference the stacked one is tested
+against.
 """
 
 from __future__ import annotations
@@ -27,11 +36,22 @@ from typing import Callable, Optional
 import torch
 
 from fed_tgan_torch.device import resolve_device
-from fed_tgan_torch.models.ctgan import Discriminator, Generator
+from fed_tgan_torch.models.ctgan import (
+    DROPOUT_RATE,
+    Discriminator,
+    Generator,
+    StackedDiscriminator,
+    StackedGenerator,
+)
 from fed_tgan_torch.models.losses import gradient_penalty
 from fed_tgan_torch.ops.activate_cuda import fused_apply_activate
 from fed_tgan_torch.ops.segments import SegmentSpec, cond_loss
-from fed_tgan_torch.train.sampler import CondSampler, RowSampler
+from fed_tgan_torch.train.sampler import (
+    CondSampler,
+    RowSampler,
+    StackedCondSampler,
+    StackedRowSampler,
+)
 
 
 @dataclass(frozen=True)
@@ -225,66 +245,144 @@ class StepDraws:
     d: list
     g: GDraws
 
-    def to(self, device) -> "StepDraws":
-        """A copy with every tensor on ``device``."""
-        def move(v):
+    def map(self, fn) -> "StepDraws":
+        """A copy with ``fn`` applied to every tensor."""
+        def one(v):
             if isinstance(v, list):
-                return [move(x) for x in v]
-            return None if v is None else v.to(device)
+                return [one(x) for x in v]
+            return None if v is None else fn(v)
 
         def block(b):
-            return type(b)(**{f.name: move(getattr(b, f.name))
+            return type(b)(**{f.name: one(getattr(b, f.name))
                               for f in dataclasses.fields(b)})
 
         return StepDraws(d=[block(b) for b in self.d], g=block(self.g))
 
+    def to(self, device) -> "StepDraws":
+        """A copy with every tensor on ``device``."""
+        return self.map(lambda t: t.to(device))
 
-def draw_step(gen: torch.Generator, models: Models) -> StepDraws:
+    def tensors(self) -> list:
+        """Every tensor, in field order."""
+        out = []
+        self.map(out.append)
+        return out
+
+
+def draw_step(gen: torch.Generator, models: Models,
+              out: Optional[StepDraws] = None) -> StepDraws:
     """One step's draws from ``gen`` (on the models' device).  Columns
     are uniform over the conditional columns; dropout keeps with
-    probability 0.5."""
-    spec, cfg, D = models.spec, models.cfg, models.discriminator
-    B, device = cfg.batch_size, D.out.weight.device
-    has_cond = spec.n_discrete > 0
+    probability 0.5.  With ``out`` the draws are written into its tensors
+    (which :func:`draw_into` describes) and ``out`` is returned."""
+    D = models.discriminator
+    return draw_into(gen, models.spec, models.cfg,
+                     D.keep_shapes(models.cfg.batch_size), D.out.weight.device,
+                     out)
 
-    def uniform(*shape):
-        return torch.rand(shape, generator=gen, device=device)
+
+def draw_into(gen: torch.Generator, spec: SegmentSpec, cfg: TrainConfig,
+              keep_shapes: list, device, out: Optional[StepDraws] = None
+              ) -> StepDraws:
+    """:func:`draw_step` for a discriminator whose hidden layers' keep
+    masks have ``keep_shapes``.  ``out`` (optional) receives every draw in
+    place, in the order they are drawn, so one generator's stream is the
+    same whether a client's draws land in tensors of their own or in its
+    slice of the stacked clients' draws."""
+    B = cfg.batch_size
+    has_cond = spec.n_discrete > 0
+    slots = out if out is not None else _no_slots(cfg, len(keep_shapes))
+
+    def uniform(shape, dst=None):
+        return torch.rand(shape, generator=gen, device=device, out=dst)
+
+    def cond(block):
+        if not has_cond:
+            return None, None
+        col = torch.randint(0, spec.n_discrete, (B,), generator=gen,
+                            device=device, out=block.col)
+        return col, uniform((B, 1), block.r)
+
+    def normal(dst):
+        return torch.randn((B, cfg.embedding_dim), generator=gen,
+                           device=device, out=dst)
+
+    def keep(dsts):
+        return [torch.lt(uniform(shape), 1.0 - DROPOUT_RATE, out=dst)
+                for shape, dst in zip(keep_shapes, dsts)]
+
+    blocks = []
+    for slot in slots.d:
+        z = normal(slot.z)
+        col, r = cond(slot)
+        perm = (torch.randperm(B, generator=gen, device=device, out=slot.perm)
+                if has_cond else None)
+        blocks.append(DDraws(
+            z=z, col=col, r=r, perm=perm, row_u=uniform((B,), slot.row_u),
+            u=uniform((B, spec.dim), slot.u), keep_fake=keep(slot.keep_fake),
+            keep_real=keep(slot.keep_real), keep_gp=keep(slot.keep_gp),
+            alpha=uniform((B, 1), slot.alpha)))
+    z = normal(slots.g.z)
+    col, r = cond(slots.g)
+    return StepDraws(d=blocks, g=GDraws(
+        z=z, col=col, r=r, u=uniform((B, spec.dim), slots.g.u),
+        keep=keep(slots.g.keep)))
+
+
+def _no_slots(cfg: TrainConfig, n_keep: int) -> StepDraws:
+    none = [None] * n_keep
+    return StepDraws(d=[DDraws(None, None, None, None, None, None, none, none,
+                               none, None) for _ in range(cfg.d_steps)],
+                     g=GDraws(None, None, None, None, none))
+
+
+def stacked_draws(spec: SegmentSpec, cfg: TrainConfig, n: int,
+                  keep_shapes: list, device) -> StepDraws:
+    """Buffers for N clients' draws of one step, each tensor with a
+    leading client axis, filled with valid placeholders (a client that
+    does not draw in a step keeps whatever its slice holds)."""
+    B, has_cond = cfg.batch_size, spec.n_discrete > 0
+
+    def full(shape, value, dtype=torch.float32):
+        return torch.full((n, *shape), value, dtype=dtype, device=device)
+
+    def keep():
+        return [torch.ones((n, *shape), dtype=torch.bool, device=device)
+                for shape in keep_shapes]
 
     def cond():
         if not has_cond:
             return None, None
-        col = torch.randint(0, spec.n_discrete, (B,), generator=gen,
-                            device=device)
-        return col, uniform(B, 1)
-
-    def normal():
-        return torch.randn((B, cfg.embedding_dim), generator=gen,
-                           device=device)
+        return full((B,), 0, torch.long), full((B, 1), 0.5)
 
     blocks = []
     for _ in range(cfg.d_steps):
-        z = normal()
         col, r = cond()
-        perm = (torch.randperm(B, generator=gen, device=device)
-                if has_cond else None)
+        perm = (torch.arange(B, device=device).repeat(n, 1) if has_cond
+                else None)
         blocks.append(DDraws(
-            z=z, col=col, r=r, perm=perm, row_u=uniform(B),
-            u=uniform(B, spec.dim), keep_fake=D.draw_keep(B, gen),
-            keep_real=D.draw_keep(B, gen), keep_gp=D.draw_keep(B, gen),
-            alpha=uniform(B, 1)))
-    z = normal()
+            z=full((B, cfg.embedding_dim), 0.0), col=col, r=r, perm=perm,
+            row_u=full((B,), 0.0), u=full((B, spec.dim), 0.5),
+            keep_fake=keep(), keep_real=keep(), keep_gp=keep(),
+            alpha=full((B, 1), 0.5)))
     col, r = cond()
-    return StepDraws(d=blocks, g=GDraws(z=z, col=col, r=r,
-                                        u=uniform(B, spec.dim),
-                                        keep=D.draw_keep(B, gen)))
+    return StepDraws(d=blocks, g=GDraws(
+        z=full((B, cfg.embedding_dim), 0.0), col=col, r=r,
+        u=full((B, spec.dim), 0.5), keep=keep()))
+
+
+def client_draws(draws: StepDraws, i: int) -> StepDraws:
+    """Client ``i``'s slice of stacked draws, as views."""
+    return draws.map(lambda t: t[i])
 
 
 # ------------------------------------------------------------- train step
 
 
-def _set_grads(params: list, *losses: torch.Tensor) -> None:
-    """``p.grad`` = the gradient of the sum of ``losses``, each loss's
-    gradient from its own backward pass, summed in argument order.
+def _grads(params: list, *losses: torch.Tensor) -> list:
+    """The gradient of the sum of ``losses`` with respect to ``params``,
+    each loss's gradient from its own backward pass, summed in argument
+    order (None where no loss reaches a parameter).
 
     One backward pass over the critic's loss plus its gradient penalty
     would add several contributions into one weight's gradient in the
@@ -300,7 +398,12 @@ def _set_grads(params: list, *losses: torch.Tensor) -> None:
         total = grads if total is None else [
             a if b is None else (b if a is None else a + b)
             for a, b in zip(total, grads)]
-    for p, g in zip(params, total):
+    return list(total)
+
+
+def _set_grads(params: list, *losses: torch.Tensor) -> None:
+    """``p.grad`` = :func:`_grads` (zeros where no loss reaches ``p``)."""
+    for p, g in zip(params, _grads(params, *losses)):
         p.grad = torch.zeros_like(p) if g is None else g
 
 
@@ -388,6 +491,275 @@ def epoch(models: Models, data: torch.Tensor, cond: CondSampler,
     for _ in range(steps_per_epoch):
         metrics = train_step(models, data, cond, rows, draw_step(gen, models))
     return metrics
+
+
+# ------------------------------------------------------- stacked clients
+
+
+def restore_optimizer(opt, sched, state: dict, lr: float, step: int) -> None:
+    """Install Adam ``state`` (parameter index -> ``step``, ``exp_avg``,
+    ``exp_avg_sq`` tensors) into ``opt``, and put its schedule after
+    ``step`` updates at learning rate ``lr``."""
+    opt.load_state_dict({"state": state,
+                         "param_groups": opt.state_dict()["param_groups"]})
+    opt.param_groups[0]["lr"] = lr
+    sched.last_epoch, sched._step_count, sched._last_lr = step, step + 1, [lr]
+
+
+class StackedAdam:
+    """Adam over N clients' flat parameters ``params`` (N, P), with a step
+    count per client: torch's Adam and ``LambdaLR`` (:func:`
+    make_optimizers`) client by client, each client's bias correction and
+    learning rate ``lr_schedule(cfg)`` at its own count, L2
+    (``weight_decay``) added to the gradient before the moments.
+
+    :meth:`step` updates only the clients of its ``active`` mask: the
+    parameters, both moments, the kept gradient and the count of every
+    other client stay as they were (``torch.where`` after the update, the
+    JAX program's ``sel``).  The per-client step size and bias correction
+    come from a table indexed by the count, built on the host with torch
+    Adam's formulas; past its end neither changes."""
+
+    def __init__(self, params: torch.Tensor, cfg: TrainConfig,
+                 weight_decay: float = 0.0):
+        self.params = params
+        self.weight_decay = weight_decay
+        self.exp_avg = torch.zeros_like(params)
+        self.exp_avg_sq = torch.zeros_like(params)
+        self.grad = torch.zeros_like(params)  # each client's last
+        self.count = torch.zeros(params.shape[0], dtype=torch.long,
+                                 device=params.device)
+        self.set_config(cfg)
+
+    def set_config(self, cfg: TrainConfig) -> None:
+        """Take ``cfg``'s learning rate, schedule and betas from the next
+        update on; the counts stay."""
+        self.cfg = cfg
+        b1, b2 = cfg.beta1, cfg.beta2
+        end = 1
+        while (1 - b1 ** end != 1.0 or 1 - b2 ** end != 1.0) and end < 1 << 20:
+            end += 1
+        end = max(end, cfg.lr_decay_steps + 1)
+        rows = []
+        for count in range(end):
+            t = count + 1
+            rows.append((-self.lr(count) / (1 - b1 ** t),
+                         math.sqrt(1 - b2 ** t)))
+        self._table = torch.tensor(rows, dtype=torch.float32,
+                                   device=self.params.device)
+
+    def lr(self, count: int) -> float:
+        """The learning rate of the update after ``count`` updates, as
+        ``LambdaLR`` computes it."""
+        return self.cfg.lr * lr_factor(self.cfg)(count)
+
+    @torch.no_grad()
+    def step(self, grad: torch.Tensor, active: torch.Tensor) -> None:
+        """One update of the ``active`` (N,) bool clients by ``grad``."""
+        cfg = self.cfg
+        idx = torch.clamp(self.count, max=self._table.shape[0] - 1)
+        tab = self._table[idx]
+        neg_step, bc2_sqrt = tab[:, :1], tab[:, 1:]
+        g = (grad.add(self.params, alpha=self.weight_decay)
+             if self.weight_decay else grad)
+        m = self.exp_avg.lerp(g, 1 - cfg.beta1)
+        v = self.exp_avg_sq.mul(cfg.beta2).addcmul_(g, g, value=1 - cfg.beta2)
+        denom = (v.sqrt() / bc2_sqrt).add_(1e-8)
+        keep = active[:, None]
+        self.params.add_(torch.where(keep, neg_step * m / denom, 0.0))
+        torch.where(keep, m, self.exp_avg, out=self.exp_avg)
+        torch.where(keep, v, self.exp_avg_sq, out=self.exp_avg_sq)
+        torch.where(keep, grad, self.grad, out=self.grad)
+        self.count.add_(active)
+
+    @torch.no_grad()
+    def load(self, counts, exp_avg, exp_avg_sq) -> None:
+        """Every client's count (N,) and moments (N, P), arrays or
+        tensors."""
+        for dst, src in ((self.count, counts), (self.exp_avg, exp_avg),
+                         (self.exp_avg_sq, exp_avg_sq)):
+            dst.copy_(torch.as_tensor(src))
+
+
+@dataclass
+class StackedModels:
+    """Every client's models and optimizers, stacked: what evolves during
+    a federated round."""
+
+    generator: StackedGenerator
+    discriminator: StackedDiscriminator
+    opt_g: StackedAdam
+    opt_d: StackedAdam
+    spec: SegmentSpec
+    cfg: TrainConfig
+
+    @property
+    def n(self) -> int:
+        return self.generator.n
+
+    def set_config(self, cfg: TrainConfig) -> None:
+        self.cfg = cfg
+        self.opt_g.set_config(cfg)
+        self.opt_d.set_config(cfg)
+
+    def unstack(self, i: int) -> tuple:
+        """Client ``i``'s ``(Generator, Discriminator)``, copies."""
+        return self.generator.unstack(i), self.discriminator.unstack(i)
+
+    def to_models(self, i: int) -> Models:
+        """Client ``i`` as the per-client :class:`Models` the standalone
+        step trains: copies of its modules, its torch Adam states and
+        schedules at its count, and each parameter's ``.grad`` its last
+        update's gradient (None before its first update)."""
+        models = Models.build(*self.unstack(i), self.spec, self.cfg)
+        for opt, sched, stack, module in (
+                (models.opt_g, models.sched_g, self.opt_g, models.generator),
+                (models.opt_d, models.sched_d, self.opt_d,
+                 models.discriminator)):
+            count = int(stack.count[i])
+            sizes = [p.numel() for p in module.parameters()]
+            parts = [t[i].split(sizes)
+                     for t in (stack.exp_avg, stack.exp_avg_sq, stack.grad)]
+            state = {}
+            for k, (p, m, v, g) in enumerate(zip(module.parameters(),
+                                                 *parts)):
+                if count:  # no gradient, no state before the first update
+                    p.grad = g.view_as(p).clone()
+                    state[k] = {"step": torch.tensor(float(count)),
+                                "exp_avg": m.view_as(p).clone(),
+                                "exp_avg_sq": v.view_as(p).clone()}
+            restore_optimizer(opt, sched, state, stack.lr(count), count)
+        return models
+
+
+def stack_models(models: list) -> StackedModels:
+    """N clients' :class:`Models` stacked (copies): weights, BatchNorm
+    state, and the torch Adam states (count, moments) and last gradients
+    where they have them (zeros where not)."""
+    first = models[0]
+    G = StackedGenerator.from_modules([m.generator for m in models])
+    D = StackedDiscriminator.from_modules([m.discriminator for m in models])
+    cfg = first.cfg
+    out = StackedModels(G, D, StackedAdam(G.params, cfg, cfg.l2scale),
+                        StackedAdam(D.params, cfg), first.spec, cfg)
+    for stack, part, opt in ((out.opt_g, "generator", "opt_g"),
+                             (out.opt_d, "discriminator", "opt_d")):
+        counts, per_client = [], []
+        for m in models:
+            params = list(getattr(m, part).parameters())
+            state = getattr(m, opt).state
+            counts.append(int(state[params[0]]["step"]) if state else 0)
+            per_client.append([torch.cat([
+                (t if t is not None else torch.zeros_like(p)).reshape(-1)
+                for p, t in zip(params, tensors)]) for tensors in (
+                    [state.get(p, {}).get("exp_avg") for p in params],
+                    [state.get(p, {}).get("exp_avg_sq") for p in params],
+                    [p.grad for p in params])])
+        mom, sq, grads = (torch.stack(t).detach() for t in zip(*per_client))
+        stack.load(counts, mom, sq)
+        with torch.no_grad():
+            stack.grad.copy_(grads)
+    return out
+
+
+def stacked_train_step(stack: StackedModels, data: torch.Tensor,
+                       cond: StackedCondSampler, rows: StackedRowSampler,
+                       draws: StepDraws, active: torch.Tensor,
+                       last: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One D+G update pair for every client at once, in place on
+    ``stack``: :func:`train_step` on each client's slice, the clients'
+    rows stacked (K1 over N * batch rows, K2 in its backward).  ``data``
+    (N * stride, dim) is the stacked encoded data; ``draws`` hold every
+    client's draws (N leading).  Each client's losses are its own means;
+    the loss each backward pass takes is their sum over clients, so a
+    client's gradient is the one it would get alone.
+
+    Clients outside ``active`` (N,) bool are computed but change nothing:
+    their parameters, moments, counts, BatchNorm state and metrics keep
+    their values (the JAX program's masked scan steps,
+    ``fed_tgan_tpu/train/federated.py:254-266``).  Returns the (N, 3)
+    metrics ``loss_d``, ``pen``, ``loss_g``: this step's for the active
+    clients, ``last`` (default zeros) for the others."""
+    cfg = stack.cfg
+    if len(draws.d) != cfg.d_steps:
+        raise ValueError(f"{len(draws.d)} critic draw blocks for d_steps="
+                         f"{cfg.d_steps}")
+    G = stack.generator
+    bn_before = G.bn_state.clone()
+    for d in draws.d:
+        loss_d, pen = _stacked_d_update(stack, data, cond, rows, d, active)
+    loss_g = _stacked_g_update(stack, cond, draws.g, active)
+    with torch.no_grad():
+        torch.where(active[G.bn_client], G.bn_state, bn_before,
+                    out=G.bn_state)
+        G.num_batches.add_(active, alpha=cfg.d_steps + 1)
+        met = torch.stack([loss_d, pen, loss_g], dim=1)
+        if last is None:
+            last = torch.zeros_like(met)
+        return torch.where(active[:, None], met, last)
+
+
+def _stacked_d_update(stack: StackedModels, data: torch.Tensor,
+                      cond: StackedCondSampler, rows: StackedRowSampler,
+                      d: DDraws, active: torch.Tensor):
+    """Every client's critic update (:func:`d_update`); returns its
+    ``(loss_d, pen)`` (N,) each."""
+    spec, cfg, n = stack.spec, stack.cfg, stack.n
+    G, D = stack.generator, stack.discriminator
+    B = cfg.batch_size
+    z = d.z.reshape(n * B, -1)
+    if spec.n_discrete:
+        c1, _, col, opt = cond.train_from_draws(d.col, d.r)
+        row_idx = rows.sample_rows(col.gather(1, d.perm),
+                                   opt.gather(1, d.perm), d.row_u)
+        gen_in = torch.cat([z, c1], dim=1)
+    else:
+        row_idx = rows.sample_uniform(d.row_u)
+        gen_in = z
+    real = data[row_idx]
+    with torch.no_grad():  # train-mode BN: the running statistics move
+        raw = G(gen_in.view(n, B, -1)).reshape(n * B, -1)
+        fake = fused_apply_activate(raw, spec, d.u.reshape(n * B, -1))
+    if spec.n_discrete:
+        c1_perm = c1.view(n, B, -1).gather(
+            1, d.perm[:, :, None].expand(-1, -1, c1.shape[1]))
+        fake_cat = torch.cat([fake, c1], dim=1)
+        real_cat = torch.cat([real, c1_perm.reshape(n * B, -1)], dim=1)
+    else:
+        fake_cat, real_cat = fake, real
+    y_fake = D(fake_cat, keep=d.keep_fake)
+    y_real = D(real_cat, keep=d.keep_real)
+    loss_d = y_fake.mean(dim=(1, 2)) - y_real.mean(dim=(1, 2))
+    pen = gradient_penalty(lambda x: D(x, keep=d.keep_gp), real_cat,
+                           fake_cat, d.alpha.reshape(n * B, 1), pac=cfg.pac,
+                           clients=n)
+    (grad,) = _grads([D.params], loss_d.sum(), pen.sum())
+    stack.opt_d.step(grad, active)
+    return loss_d.detach(), pen.detach()
+
+
+def _stacked_g_update(stack: StackedModels, cond: StackedCondSampler,
+                      g: GDraws, active: torch.Tensor) -> torch.Tensor:
+    """Every client's generator update (:func:`g_update`); returns its
+    ``loss_g`` (N,)."""
+    spec, cfg, n = stack.spec, stack.cfg, stack.n
+    G, D = stack.generator, stack.discriminator
+    B = cfg.batch_size
+    z = g.z.reshape(n * B, -1)
+    if spec.n_discrete:
+        c1, m1, _, _ = cond.train_from_draws(g.col, g.r)
+        gen_in = torch.cat([z, c1], dim=1)
+    else:
+        gen_in = z
+    raw = G(gen_in.view(n, B, -1)).reshape(n * B, -1)
+    act = fused_apply_activate(raw, spec, g.u.reshape(n * B, -1))
+    d_in = torch.cat([act, c1], dim=1) if spec.n_discrete else act
+    loss_g = -D(d_in, keep=g.keep).mean(dim=(1, 2))
+    if spec.n_discrete:
+        loss_g = loss_g + cond_loss(raw, spec, c1, m1, clients=n)
+    (grad,) = _grads([G.params], loss_g.sum())
+    stack.opt_g.step(grad, active)
+    return loss_g.detach()
 
 
 # --------------------------------------------------------------- sampling

@@ -1,5 +1,7 @@
 """The port's ``FederatedTrainer`` against ``fed_tgan_tpu``'s on three
-ragged client shards (3, 2 and 1 local steps a round).
+ragged client shards (3, 2 and 1 local steps a round), and on Dirichlet
+shards where one client trains no step (3, 2 and 0): the port's stacked
+round with masked steps against the JAX program's masked scan.
 
 Both start from the same init (``interop.federated_init_from_jax``) and
 the same per-client weights (``interop.client_models_from_jax``); every
@@ -33,6 +35,7 @@ from fed_tgan_torch.train import federated as port_fed
 from fed_tgan_torch.train import steps
 from fed_tgan_torch.train.snapshots import SnapshotWriter, result_path_fn
 from fed_tgan_tpu.data.ingest import TablePreprocessor as JaxPre
+from fed_tgan_tpu.data.sharding import shard_dataframe
 from fed_tgan_tpu.federation.init import federated_initialize
 from fed_tgan_tpu.ops.segments import SegmentSpec as JaxSpec
 from fed_tgan_tpu.parallel.mesh import client_mesh
@@ -145,6 +148,28 @@ def test_one_and_two_rounds_match_jax(jinit, gate):
         assert np.isfinite(tr.last_metrics).all()
     assert list(tr.steps) == [3, 2, 1]
     assert len(tr.epoch_times) == 2 == len(tr.round_split["aggregate"])
+
+
+def test_ragged_dirichlet_rounds_match_jax():
+    """The three clients' rows pooled and split by a Dirichlet draw over
+    ``kind`` (alpha 0.5): 172, 118 and 20 rows, so 3, 2 and 0 local steps
+    a round.  One and two rounds within the tolerance of
+    :func:`test_one_and_two_rounds_match_jax`; the zero-step client
+    reports zero metrics and holds the aggregate."""
+    frame = pd.concat(client_frames(), ignore_index=True)
+    shards = shard_dataframe(frame, 3, "dirichlet", label_column="kind",
+                             alpha=0.5, seed=10)
+    jinit = federated_initialize(
+        [JaxPre(frame=f, name="toy", **KW) for f in shards], seed=0,
+        backend="jax")
+    jtr, tr, grads = make_pair(jinit, allow_zero_step_clients=True)
+    assert list(tr.steps) == [3, 2, 0]
+    for r in range(2):
+        jtr.fit(1)
+        tr.fit(1)
+        compare(jtr, tr, grads, after_round0=r == 0)
+        assert (tr.last_metrics[2] == 0).all()
+        assert np.isfinite(tr.last_metrics).all()
 
 
 def test_scaled_client_is_quarantined_like_jax(jinit):

@@ -434,3 +434,81 @@ def test_pinned_snapshot_files_equal_a_blocking_copy(cuda, tmp_path):
         tr.fit(3, sample_hook=hook)
     for e in range(3):
         assert open(path_fn(e), "rb").read() == want[e]
+
+
+def _ragged_federation():
+    """Three clients of 200, 120 and 30 rows: 5, 3 and 0 steps a round at
+    batch 40."""
+    from fed_tgan_torch.data.ingest import TablePreprocessor
+    from fed_tgan_torch.federation.init import federated_initialize
+
+    rng = np.random.default_rng(6)
+    tables = [{"x": rng.normal(0, 1, n),
+               "c": rng.choice(["a", "b", "c"], n).astype(object)}
+              for n in (200, 120, 30)]
+    init = federated_initialize(
+        [TablePreprocessor(table=t, categorical_columns=["c"])
+         for t in tables], device="cpu")
+    cfg = steps.TrainConfig(embedding_dim=8, gen_dims=(16, 16),
+                            dis_dims=(16, 16), batch_size=40, pac=4,
+                            allow_zero_step_clients=True)
+    return init, cfg
+
+
+def test_stacked_rounds_repeat_bit_for_bit(cuda):
+    """Two stacked runs of two ragged rounds from one seed end equal
+    (``torch.equal``): weights, BatchNorm state, Adam state, counts and
+    every client's generator state."""
+    from fed_tgan_torch.train.federated import FederatedTrainer
+
+    init, cfg = _ragged_federation()
+    a, b = (FederatedTrainer(init, cfg, seed=0, device="cuda").fit(2)
+            for _ in range(2))
+    assert a.steps.tolist() == [5, 3, 0]
+    for x, y in ((a.stack.generator.params, b.stack.generator.params),
+                 (a.stack.generator.bn_state, b.stack.generator.bn_state),
+                 (a.stack.discriminator.params, b.stack.discriminator.params),
+                 (a.stack.opt_g.exp_avg_sq, b.stack.opt_g.exp_avg_sq),
+                 (a.stack.opt_d.exp_avg, b.stack.opt_d.exp_avg),
+                 (a.stack.opt_g.count, b.stack.opt_g.count)):
+        assert torch.equal(x, y)
+    for g, h in zip(a.gens, b.gens):
+        assert torch.equal(g.get_state(), h.get_state())
+    assert np.array_equal(a.last_metrics, b.last_metrics)
+    assert (a.last_metrics[2] == 0).all()
+
+
+def test_stacked_round_matches_the_per_client_loop_on_the_card(cuda):
+    """One round's local steps on the card against each client's
+    ``train_step`` loop on the card, from the same seeds: the CPU test's
+    tolerance and set-aside rule (``test_torch_stacked.py``)."""
+    from test_torch_stacked import _assert_client_equal, _loop_round
+
+    from fed_tgan_torch.train.federated import FederatedTrainer
+
+    init, cfg = _ragged_federation()
+    tr = FederatedTrainer(init, cfg, seed=2, device="cuda")
+    models, gens, metrics, tiny = _loop_round(init, cfg, 2, "cuda")
+    got = tr._local_steps(0).cpu().numpy()
+    np.testing.assert_allclose(got, metrics, atol=1e-5, rtol=1e-4)
+    aside = total = 0
+    for i, (a, b) in enumerate(zip(tr.models, models)):
+        n_aside, n = _assert_client_equal(a, b, tiny, f"client {i}")
+        aside, total = aside + n_aside, total + n
+        assert torch.equal(tr.gens[i].get_state(), gens[i].get_state())
+    assert aside <= 0.05 * total, (aside, total)
+
+
+def test_stacked_round_launches_k1_and_k2_once_per_step(cuda):
+    """A round launches K1 max(steps) * (d_steps + 1) times and K2
+    max(steps) times, each over every client's rows at once."""
+    from fed_tgan_torch.train.federated import FederatedTrainer
+
+    init, cfg = _ragged_federation()
+    tr = FederatedTrainer(init, cfg, seed=0, device="cuda")
+    fused_apply_activate.launches = 0
+    fused_activate_bwd.launches = 0
+    tr.fit(2)
+    n = int(tr.steps.max())
+    assert fused_apply_activate.launches == 2 * n * (cfg.d_steps + 1)
+    assert fused_activate_bwd.launches == 2 * n

@@ -124,6 +124,46 @@ def test_trainer_runs_with_jax_sklearn_and_pandas_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def test_stacked_ragged_round_runs_with_jax_sklearn_and_pandas_blocked():
+    """Two stacked rounds of 4 Dirichlet clients of the Adult-shaped table
+    (4, 0, 3 and 1 steps a round) on the CPU in a fresh interpreter where
+    jax, the JAX package, pandas, pyarrow and sklearn cannot be imported;
+    two runs from one seed end equal."""
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from fed_tgan_torch.data.ingest import TablePreprocessor\n"
+        "from fed_tgan_torch.data.sharding import shard_table\n"
+        "from fed_tgan_torch.datasets import ADULT, preprocessor_kwargs\n"
+        "from fed_tgan_torch.federation.init import federated_initialize\n"
+        "from fed_tgan_torch.serve.demo import adult_like_table\n"
+        "from fed_tgan_torch.train.federated import FederatedTrainer\n"
+        "from fed_tgan_torch.train.steps import TrainConfig\n"
+        "kw = preprocessor_kwargs(ADULT)\n"
+        "shards = shard_table(adult_like_table(400, 11), 4, 'dirichlet',\n"
+        "                     label_column='income', alpha=0.5, seed=9)\n"
+        "init = federated_initialize([TablePreprocessor(table=t, **kw)\n"
+        "                             for t in shards], device='cpu')\n"
+        "cfg = TrainConfig(embedding_dim=8, gen_dims=(16,), dis_dims=(16,),\n"
+        "                  batch_size=40, pac=4,\n"
+        "                  allow_zero_step_clients=True)\n"
+        "runs = [FederatedTrainer(init, cfg, seed=3, device='cpu').fit(2)\n"
+        "        for _ in range(2)]\n"
+        "assert runs[0].steps.tolist() == [4, 0, 3, 1]\n"
+        "assert (runs[0].last_metrics[1] == 0).all()\n"
+        "assert torch.equal(runs[0].stack.generator.params,\n"
+        "                   runs[1].stack.generator.params)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"
+
+
 def test_federated_cli_runs_with_jax_sklearn_and_pandas_blocked(tmp_path):
     """``python -m fed_tgan_torch --mode fedavg`` for one round on the CPU
     in a fresh interpreter where jax, the JAX package, pandas, pyarrow and
@@ -174,6 +214,10 @@ def test_resolve_device_never_falls_back():
 def _default_device_builders():
     import numpy as np
 
+    from fed_tgan_torch.models.ctgan import (
+        StackedDiscriminator,
+        StackedGenerator,
+    )
     from fed_tgan_torch.ops.segments import SegmentSpec
     from fed_tgan_torch.train import steps
     from fed_tgan_torch.train.sampler import CondSampler, RowSampler
@@ -184,13 +228,17 @@ def _default_device_builders():
                             batch_size=10, pac=5)
     return {
         "init_models": lambda: steps.init_models(spec, cfg).generator,
+        "stacked_generator": lambda: StackedGenerator(2, 4, (8,), 4).params,
+        "stacked_discriminator":
+            lambda: StackedDiscriminator(2, 4, (8,), 5).params,
         "cond_sampler": lambda: CondSampler.from_data(data, spec).p_train,
         "row_sampler": lambda: RowSampler.from_data(data, spec).row_pool,
     }
 
 
 @pytest.mark.parametrize("name", ["init_models", "cond_sampler",
-                                  "row_sampler"])
+                                  "row_sampler", "stacked_generator",
+                                  "stacked_discriminator"])
 def test_trainer_builders_default_to_the_card(name):
     """The trainer's building blocks run on the card unless the caller
     names the CPU: without CUDA, the default raises."""
