@@ -32,7 +32,18 @@ Phases, each fatal on failure:
    every number finite; K1 must launch; then the card's output against
    the CPU's on the same injected draws, and the stages of one request
    (draws, generator, activation, decode and copy to the host, CSV), its
-   CSV byte-equal to the stdlib writer's;
+   CSV byte-equal to the stdlib writer's; then the fleet, slice 7's main
+   path (``fleet_phase``): three Intrusion-layout tenants (two of equal
+   weights) and one Adult-layout tenant at full width behind the asyncio
+   front door (2 workers, a 5 ms coalesce window, a row pool); 16
+   concurrent clients x 4 requests of N rows, every body equal to the
+   tenant's single engine, fleet and single-model services in turns; K1
+   launches in that run = lane dispatches + single dispatches + pool
+   fills, and at least one dispatch of 4+ lanes; chunked == one-shot; a
+   pool hit; a new generation published under fire (every response the
+   old or the new bytes); a quota tenant's 429; a one-worker backlog (K1
+   once per lane dispatch) and a drained shutdown; the stages of an
+   8-lane dispatch; K1 against its plain version at the 8-lane shape;
 5. training, slice 2's main path: the standalone CTGAN at full width
    (``TrainConfig()`` defaults, pac 10) on a 10,000-row Intrusion-shaped
    table for 2 epochs of 20 steps: finite losses, weights moved, K1
@@ -87,9 +98,12 @@ Phases, each fatal on failure:
 
 ``--ab TREE`` runs none of the phases: it builds the kernels of the
 ``fed_tgan_torch`` package under TREE (for example a ``git archive`` of an
-earlier commit) and times them against this tree's in turns (other, this,
-this, other) at the training batch, the serving chunk, a 128-step chunk
-and the 70-wide segment, and prints one ``{"ab": ...}`` line.
+earlier commit, ``chip_smoke.py`` included) and times them against this
+tree's in turns (other, this, this, other) at the training batch, the
+serving chunk, a 128-step chunk and the 70-wide segment; then, in the same
+turns, phase 4 and the stage breakdown of TREE's ``chip_smoke.py`` and of
+this one, each turn a process of its own; and prints one
+``{"ab": ..., "ab_serving": ...}`` line.
 
 Prints the card's name and power limit beside every number, a JSON line
 with the training numbers, one with the federated round's, one with the
@@ -161,7 +175,7 @@ from fed_tgan_torch.serve.demo import (
     write_intrusion_csv,
 )
 from fed_tgan_torch.serve.engine import SamplingEngine
-from fed_tgan_torch.serve.registry import open_model
+from fed_tgan_torch.serve.registry import ModelRegistry, open_model
 from fed_tgan_torch.runtime.checkpoint import (
     find_resumable,
     list_resumable,
@@ -428,6 +442,8 @@ def load_parent(root: str):
     mod_spec = importlib.util.spec_from_file_location("parent_activate_cuda",
                                                       path)
     mod = importlib.util.module_from_spec(mod_spec)
+    # a dataclass looks its module up in sys.modules while it is built
+    sys.modules[mod_spec.name] = mod
     mod_spec.loader.exec_module(mod)
     return mod
 
@@ -494,6 +510,62 @@ def ab_phase(parent_root: str, shapes: list, card: str) -> list[dict]:
                   f"{bound!r} ms  [{card}]", flush=True)
             results.append(entry)
     return results
+
+
+# one side's turn of the serving A/B, run in a process of its own from the
+# root of that side's tree: its chip_smoke's phase 4 and stage breakdown
+_SERVE_TURN = """
+import json, shutil, sys, tempfile
+import chip_smoke as cs
+rows, seed, repeats, card = json.loads(sys.argv[1])
+cs.activate_cuda.build()
+cs.fastcsv.build()
+art = tempfile.mkdtemp(prefix="ab_serve_", dir=cs.REPO)
+try:
+    cs.build_random_artifact(art, seed=seed)
+    runs = [cs.serve_phase(art, rows, seed, card) for _ in range(repeats)]
+    stages = cs.stage_breakdown(art, rows, seed, card)
+finally:
+    shutil.rmtree(art, ignore_errors=True)
+print(json.dumps({"runs": runs, "stages_ms": stages}))
+"""
+
+
+def serve_ab_phase(other_root: str, rows: int, seed: int, card: str,
+                   repeats: int = 4) -> dict:
+    """Phase 4 (the single-model service, one client, ``rows``-row
+    requests) and its stage breakdown, of the other tree and of this one,
+    in turns (other, this, this, other), each turn a process of its own
+    from its tree's root; per side the median of the turns' p50s and
+    of their rows/s, and the median of each stage."""
+    turns = []
+    for side, root in (("parent", other_root), ("change", REPO),
+                       ("change", REPO), ("parent", other_root)):
+        proc = subprocess.run(
+            [sys.executable, "-c", _SERVE_TURN,
+             json.dumps([rows, seed, repeats, card])],
+            cwd=root, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"serving A/B, {side} turn: exit "
+                                 f"{proc.returncode}\n{proc.stderr[-4000:]}")
+        turns.append({"side": side,
+                      **json.loads(proc.stdout.strip().splitlines()[-1])})
+    out = {}
+    for side in ("parent", "change"):
+        runs = [r for t in turns if t["side"] == side for r in t["runs"]]
+        stages = [t["stages_ms"] for t in turns if t["side"] == side]
+        out[side] = {
+            "p50_ms": statistics.median(r["p50_ms"] for r in runs),
+            "rows_per_s": statistics.median(r["rows_per_s"] for r in runs),
+            "stages_ms": {k: statistics.median(st[k] for st in stages)
+                          for k in stages[0]}}
+        print(f"A/B serving, {rows}-row requests, {len(runs)} runs of 5 "
+              f"({'other' if side == 'parent' else 'this'} tree): p50 "
+              f"{out[side]['p50_ms']!r} ms, {out[side]['rows_per_s']!r} "
+              f"rows/s, stages {out[side]['stages_ms']}  [{card}]",
+              flush=True)
+    out["turns"] = turns
+    return out
 
 
 def train_phase(seed: int, card: str):
@@ -796,8 +868,9 @@ def fed_cli_phase(root: str, seed: int, card: str) -> dict:
     jsd, wd = (float(v.split("=")[1]) for v in final[0].split()[1:3])
     if not (math.isfinite(jsd) and math.isfinite(wd)):
         raise AssertionError(f"non-finite evaluation {final[0]}")
-    model = open_model(out, device="cuda")
-    service = SamplingService(model).start()
+    registry = ModelRegistry(out, device="cuda", log=_silent)
+    model = registry.get()
+    service = SamplingService(registry).start()
     try:
         status, body, _ = fetch(f"{service.url}/sample?rows=1000&seed={seed}")
     finally:
@@ -1580,7 +1653,8 @@ def serve_phase(art: str, rows: int, seed: int, card: str) -> dict:
     names = model.meta.column_names
     numeric = [i for i, n in enumerate(names)
                if n in model.meta.continuous_columns]
-    service = SamplingService(model).start()
+    service = SamplingService(ModelRegistry(art, device="cuda",
+                                            log=_silent)).start()
     try:
         q = lambda **kw: f"{service.url}/sample?{urllib.parse.urlencode(kw)}"
         status, one_shot, first_s = fetch(q(rows=rows, seed=seed))
@@ -1642,7 +1716,8 @@ def stage_breakdown(art: str, rows: int, seed: int, card: str,
     for _ in range(repeats + 1):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        z, c, u = engine._draw(seed + synth.key_offset, 0, steps, None, None)
+        z, c, u = engine.draw(engine.snapshot(), seed + synth.key_offset, 0,
+                              steps, None)
         t = tick("draws", t)
         with torch.no_grad():
             x = torch.cat([z, c], dim=1)
@@ -1694,15 +1769,29 @@ def reference_phase(art: str, seed: int, card: str) -> None:
                 r.random((cfg.batch_size, spec.dim)))
 
     n = 2 * cfg.batch_size
-    enc_g = gpu.sample_encoded(n, seed=seed, draws=draws)
+    # keep the card path's own K1 operands and result, to say where a
+    # difference arises if one does
+    seen, launch = {}, steps.fused_apply_activate
+
+    def keep(x, sp, u):
+        out = launch(x, sp, u)
+        seen.update(x=x, u=u, out=out)
+        return out
+
+    steps.fused_apply_activate = keep
+    try:
+        enc_g = gpu.sample_encoded(n, seed=seed, draws=draws)
+    finally:
+        steps.fused_apply_activate = launch
     enc_c = cpu.sample_encoded(n, seed=seed, draws=draws)
     err = float(np.abs(enc_g - enc_c).max())
 
     # where a difference comes from: the generator's logits on the two
     # devices, and K1 against its plain version on the same logits
     def logits(engine):
-        z, c, u = engine._draw(seed + engine.model.synth.key_offset, 0, 2,
-                               None, draws)
+        z, c, u = engine.draw(engine.snapshot(),
+                              seed + engine.model.synth.key_offset, 0, 2,
+                              None, draws)
         with torch.no_grad():
             return torch.cat([engine.model.synth.generator(b) for b in
                               torch.cat([z, c], 1).split(cfg.batch_size)]), u
@@ -1712,6 +1801,16 @@ def reference_phase(art: str, seed: int, card: str) -> None:
     raw_err = float((raw_g.cpu() - raw_c).abs().max())
     k1_err = float((fused_apply_activate(raw_c.cuda(), spec, u_c.cuda()).cpu()
                     - apply_activate(raw_c, spec, u_c)).abs().max())
+    path_x = float((seen["x"] - raw_g).abs().max())
+    path_u = float((seen["u"].cpu() - u_c).abs().max())
+    path_k1 = float((fused_apply_activate(seen["x"].clone(), spec,
+                                          seen["u"].clone())
+                     - seen["out"]).abs().max())
+    ptrs = [seen[k].data_ptr() % 512 for k in ("x", "u", "out")]
+    print(f"reference: the card path's K1 operands vs this phase's: logits "
+          f"{path_x!r}, uniforms {path_u!r}; K1 again on copies of them vs "
+          f"its result {path_k1!r}; operand addresses mod 512 {ptrs}"
+          f"  [{card}]", flush=True)
     print(f"reference: generator logits card vs CPU max_abs_err {raw_err!r}; "
           f"K1 vs plain on the CPU's logits {k1_err!r}; matmul TF32 "
           f"{torch.backends.cuda.matmul.allow_tf32}, float32 matmul precision "
@@ -1738,6 +1837,15 @@ def reference_phase(art: str, seed: int, card: str) -> None:
         # say where, and whether the card gives the same rows again
         r, c = np.unravel_index(np.abs(enc_g - enc_c).argmax(), enc_g.shape)
         again = gpu.sample_encoded(n, seed=seed, draws=draws)
+        plain_path = apply_activate(seen["x"].cpu(), spec, seen["u"].cpu())
+        for d in np.flatnonzero(spec.segment_ids == spec.segment_ids[c]):
+            print(f"reference: row {r} dim {d}: card path logit "
+                  f"{float(seen['x'][r, d])!r}, uniform "
+                  f"{float(seen['u'][r, d])!r}, K1 "
+                  f"{float(seen['out'][r, d])!r}, plain on them "
+                  f"{float(plain_path[r, d])!r}; CPU logit "
+                  f"{float(raw_c[r, d])!r}, uniform {float(u_c[r, d])!r}, "
+                  f"plain {float(enc_c[r, d])!r}  [{card}]", flush=True)
         raise AssertionError(
             f"card vs CPU encoded error {err} > 1e-4 at row {r}, dim {c} "
             f"({'tanh' if spec.is_tanh_dim[c] else 'softmax'}, segment "
@@ -1747,6 +1855,421 @@ def reference_phase(art: str, seed: int, card: str) -> None:
             f"{float(u_c[r, c])!r}; the card again: error "
             f"{float(np.abs(again - enc_c).max())!r} vs the CPU, "
             f"{float(np.abs(again - enc_g).max())!r} vs its first rows")
+
+
+# ------------------------------------------------------------ serving fleet
+
+# the fleet phase: three Intrusion-layout tenants (alpha and beta with
+# equal weights, gamma with others) and one Adult-layout tenant, served by
+# 2 workers behind the asyncio front door with a 5 ms coalesce window and
+# a row pool; 16 closed-loop clients, each sending FLEET_REQUESTS
+# 5,000-row requests to the tenants in turn
+FLEET_TENANTS = (("alpha", "intrusion", 0), ("beta", "intrusion", 0),
+                 ("gamma", "intrusion", 7), ("adult", "adult", 0))
+FLEET_CLIENTS, FLEET_REQUESTS = 16, 4
+
+
+def _silent(*args, **kwargs) -> None:
+    pass
+
+
+class LaneLog:
+    """The member count of every lane dispatch of ``svc`` (recorded beside
+    the fleet's own lane metrics) and the host seconds of each one's
+    device work (``lane_pass``)."""
+
+    def __init__(self, svc):
+        self.sizes, self.seconds = [], []
+        record, run = svc.metrics.record_lane_dispatch, svc.lane_pass
+
+        def note(n):
+            self.sizes.append(n)
+            record(n)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = run(*args, **kwargs)
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        svc.metrics.record_lane_dispatch = note
+        svc.lane_pass = timed
+
+
+def _load(clients: int, requests: list, url_of) -> dict:
+    """``clients`` closed-loop keep-alive clients; client ``c`` sends
+    ``requests[c]`` (a list of (tenant, rows, seed)) one after another.
+    Returns the bodies by (client, index), each request's latency and the
+    wall time."""
+    import http.client
+
+    bodies, lat, errors = {}, [], []
+
+    def client(c):
+        conns = {}
+        try:
+            for k, (tenant, n, seed) in enumerate(requests[c]):
+                host, port, path = url_of(tenant)
+                conn = conns.get((host, port))
+                if conn is None:
+                    conn = conns[(host, port)] = http.client.HTTPConnection(
+                        host, port, timeout=120)
+                t0 = time.perf_counter()
+                conn.request("GET", f"{path}?rows={n}&seed={seed}")
+                resp = conn.getresponse()
+                body = resp.read()
+                lat.append(time.perf_counter() - t0)
+                bodies[(c, k)] = (resp.status, body)
+        except Exception as exc:  # noqa: BLE001 — fatal below
+            errors.append(repr(exc))
+        finally:
+            for conn in conns.values():
+                conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"fleet load: client errors {errors[:3]}")
+    return {"bodies": bodies, "latencies": lat, "wall": wall}
+
+
+def _load_stats(run: dict, rows: int) -> dict:
+    lat = sorted(run["latencies"])
+    return {"rows_per_s": rows * len(lat) / run["wall"],
+            "p50_ms": statistics.median(lat) * 1e3,
+            "p99_ms": lat[min(len(lat) - 1, round(0.99 * (len(lat) - 1)))]
+            * 1e3, "max_ms": lat[-1] * 1e3, "requests": len(lat),
+            "wall_s": run["wall"]}
+
+
+def _check_bodies(run: dict, mix: list, want: dict) -> None:
+    for (c, k), (status, body) in run["bodies"].items():
+        if status != 200 or body != want[mix[c][k]]:
+            raise AssertionError(f"request {mix[c][k]}: status {status}, "
+                                 "bytes differ from the tenant's single "
+                                 "engine")
+
+
+def fleet_phase(seed: int, rows: int, card: str, build_root: str) -> dict:
+    """The serving process and the fleet at full width on the card (see
+    the module docstring, phase 4)."""
+    import urllib.error
+
+    from fed_tgan_torch.serve.fleet import (
+        FleetRegistry,
+        FleetService,
+        TokenBucket,
+        _FleetRequest,
+        _Member,
+    )
+    from fed_tgan_torch.serve.pool import RowPool
+    from fed_tgan_torch.serve.registry import ModelRegistry
+    from fed_tgan_torch.serve.service import SamplingService
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_", dir=build_root)
+    try:
+        arts = {name: build_random_artifact(os.path.join(root, name),
+                                            seed=seed + s, table=table)
+                for name, table, s in FLEET_TENANTS}
+        names = [name for name, _, _ in FLEET_TENANTS]
+        # request k of client c: tenant in turn, a seed of its own
+        mix = [[(names[(c + k) % len(names)], rows,
+                 1000 + c * FLEET_REQUESTS + k)
+                for k in range(FLEET_REQUESTS)] for c in range(FLEET_CLIENTS)]
+        singles = {name: SamplingEngine(open_model(art, device="cuda"))
+                   for name, art in arts.items()}
+        want = {(t, n, s): singles[t].sample_csv_bytes(n, seed=s)
+                for reqs in mix for t, n, s in reqs}
+        if singles["alpha"].sample_csv_bytes(rows, seed=1) != \
+                singles["beta"].sample_csv_bytes(rows, seed=1):
+            raise AssertionError("equal-weight tenants serve other bytes")
+        if singles["alpha"].sample_csv_bytes(rows, seed=1) == \
+                singles["gamma"].sample_csv_bytes(rows, seed=1):
+            raise AssertionError("tenants of other weights serve equal bytes")
+
+        fleet = FleetRegistry(device="cuda", log=_silent)
+        for name, art in arts.items():
+            fleet.load(name, art)
+        pool = RowPool(fleet)
+        B = fleet.get("alpha").engine.cfg.batch_size
+        chunk_rows = fleet.get("alpha").engine.max_chunk_steps * B
+        if rows > chunk_rows or pool.chunk_rows + B > chunk_rows:
+            raise AssertionError("a request or a pool fill spans chunks: "
+                                 "the K1 count below assumes one apiece")
+        svc = FleetService(fleet, workers=2, coalesce_window_s=0.005,
+                           row_pool=pool, http_mode="asyncio",
+                           reload_interval_s=0.2, log=_silent).start()
+        lanes = LaneLog(svc)
+        base = urllib.parse.urlsplit(svc.url)
+        fleet_url = lambda t: (base.hostname, base.port, f"/t/{t}/sample")
+        servers = {name: SamplingService(
+            ModelRegistry(art, device="cuda", log=_silent),
+            reload_interval_s=0, log=_silent).start()
+            for name, art in arts.items()}
+
+        def single_url(t):
+            u = urllib.parse.urlsplit(servers[t].url)
+            return u.hostname, u.port, "/sample"
+
+        try:
+            # one untimed request per tenant through each side first: a
+            # worker's first GEMM, batch norm or lane shape pays one-time
+            # costs (library handles, allocator growth)
+            warm_mix = [[reqs[0]] for reqs in mix[:len(names)]]
+            slowest = []
+            for url_of in (fleet_url, single_url):
+                warm = _load(len(names), warm_mix, url_of)
+                _check_bodies(warm, warm_mix, want)
+                slowest.append(max(warm["latencies"]) * 1e3)
+            print(f"fleet warm-up: one request per tenant through each side; "
+                  f"slowest {slowest[0]!r} ms (fleet), {slowest[1]!r} ms "
+                  f"(single services)  [{card}]", flush=True)
+            lanes.seconds.clear()
+            lanes.sizes.clear()
+            warm_counts = svc.metrics.snapshot()
+            warm_fills = pool.stats()["fills"]
+            # the main path: every count set to 0 just before it
+            fused_apply_activate.launches = 0
+            fleet_runs, single_runs = [], []
+            for turn in range(2):  # in turns: fleet, single, fleet, single
+                fleet_runs.append(_load(FLEET_CLIENTS, mix, fleet_url))
+                if turn == 0:
+                    launches = fused_apply_activate.launches
+                    # the first timed turn alone (the warm-up taken out)
+                    snap = {k: v - warm_counts[k] for k, v in
+                            svc.metrics.snapshot().items() if k in (
+                                "lane_dispatches_total",
+                                "lane_requests_total", "pool_hits_total",
+                                "batches_total", "requests_total")}
+                    snap["batch_occupancy"] = (
+                        (snap["requests_total"] - snap["pool_hits_total"])
+                        / snap["batches_total"])
+                    # each request of the mix and each pool fill is one
+                    # chunk, so one K1 launch apiece outside the lanes
+                    singles_n = (snap["requests_total"]
+                                 - snap["lane_requests_total"]
+                                 - snap["pool_hits_total"])
+                    fills = pool.stats()["fills"] - warm_fills
+                    want_k1 = (snap["lane_dispatches_total"] + singles_n
+                               + fills)
+                    if launches != want_k1:
+                        raise AssertionError(
+                            f"K1 launched {launches} times, expected "
+                            f"{snap['lane_dispatches_total']} lane "
+                            f"dispatches + {singles_n} single dispatches "
+                            f"+ {fills} pool fills")
+                    sizes = sorted(lanes.sizes)
+                    lane_s = sorted(lanes.seconds)
+                single_runs.append(_load(FLEET_CLIENTS, mix, single_url))
+            for run in fleet_runs + single_runs:
+                _check_bodies(run, mix, want)
+            if max(lanes.sizes, default=0) < 4:  # over both fleet turns
+                raise AssertionError(f"no lane dispatch of 4+ lanes: "
+                                     f"{sorted(lanes.sizes)}")
+            fleet_stats = [_load_stats(r, rows) for r in fleet_runs]
+            single_stats = [_load_stats(r, rows) for r in single_runs]
+            for name, f_st, s_st in zip(("first", "second"), fleet_stats,
+                                        single_stats):
+                print(f"fleet vs single-model services ({name} turn): "
+                      f"{FLEET_CLIENTS} clients x {FLEET_REQUESTS} "
+                      f"{rows}-row requests: fleet {f_st['rows_per_s']!r} "
+                      f"rows/s, p50 {f_st['p50_ms']!r} ms, p99 "
+                      f"{f_st['p99_ms']!r} ms, max {f_st['max_ms']!r} ms; "
+                      f"single {s_st['rows_per_s']!r} rows/s, p50 "
+                      f"{s_st['p50_ms']!r} ms, p99 {s_st['p99_ms']!r} ms, max "
+                      f"{s_st['max_ms']!r} ms  [{card}]", flush=True)
+            print(f"fleet lanes (first turn): {snap['lane_dispatches_total']} "
+                  f"lane dispatches for {snap['lane_requests_total']} "
+                  f"requests (sizes {sizes}; device work of one: median "
+                  f"{statistics.median(lane_s) * 1e3!r} ms, max "
+                  f"{lane_s[-1] * 1e3!r} ms), batch occupancy "
+                  f"{snap['batch_occupancy']}, pool hits "
+                  f"{snap['pool_hits_total']}; K1 launches {launches} "
+                  f"= {snap['lane_dispatches_total']} lane dispatches + "
+                  f"{singles_n} single dispatches + {fills} pool fills; "
+                  f"every body equal to the single engine's  [{card}]",
+                  flush=True)
+
+            # chunked fetches through the front door equal one-shot ones
+            q = lambda **kw: (f"{svc.url}/t/gamma/sample?"
+                              f"{urllib.parse.urlencode(kw)}")
+            one = fetch(q(rows=rows, seed=seed))[1]
+            cuts = [0, rows // 3, 2 * rows // 3, rows]
+            parts = [fetch(q(rows=b - a, seed=seed, offset=a,
+                             header=int(a == 0)))[1]
+                     for a, b in zip(cuts, cuts[1:])]
+            if b"".join(parts) != one or one != \
+                    singles["gamma"].sample_csv_bytes(rows, seed=seed):
+                raise AssertionError("fleet chunked bytes differ")
+            # a pool hit: the same rows again and again make the key hot
+            for _ in range(pool.hot_after + 1):
+                fetch(q(rows=1000, seed=seed + 1))
+            pool.fill_once()
+            hits = pool.stats()["hits"]
+            body = fetch(q(rows=1000, seed=seed + 1))[1]
+            if pool.stats()["hits"] != hits + 1 or body != \
+                    singles["gamma"].sample_csv_bytes(1000, seed=seed + 1):
+                raise AssertionError("pool hit missing or bytes differ")
+
+            # a new generation of gamma published under fire
+            old = fetch(q(rows=rows, seed=seed + 2))[1]
+            reg = fleet.get("gamma").registry
+            reloads, real = [], reg.maybe_reload
+
+            def timed_reload():
+                t0 = time.perf_counter()
+                done = real()
+                if done:
+                    reloads.append(time.perf_counter() - t0)
+                return done
+
+            reg.maybe_reload = timed_reload
+            seen, stop = [], threading.Event()
+
+            def hammer():
+                while not stop.is_set():
+                    try:
+                        seen.append(fetch(q(rows=rows, seed=seed + 2)))
+                    except urllib.error.HTTPError as exc:
+                        seen.append((exc.code, b"", 0.0))
+
+            threads = [threading.Thread(target=hammer) for _ in range(4)]
+            for t in threads:
+                t.start()
+            build_random_artifact(arts["gamma"], seed=seed + 99)
+            new = SamplingEngine(open_model(arts["gamma"], device="cuda")) \
+                .sample_csv_bytes(rows, seed=seed + 2)
+            deadline = time.monotonic() + 30
+            while fetch(q(rows=rows, seed=seed + 2))[1] != new:
+                if time.monotonic() > deadline:
+                    raise AssertionError("the new generation never served")
+                time.sleep(0.02)
+            time.sleep(0.2)
+            stop.set()
+            for t in threads:
+                t.join(timeout=60)
+            if not seen or any(st != 200 or b not in (old, new)
+                               for st, b, _ in seen):
+                raise AssertionError("a response under reload was neither "
+                                     "the old nor the new model's")
+            print(f"reload under fire: {len(seen)} responses, each the old "
+                  f"or the new model's bytes; the new one served after; one "
+                  f"reload (probe, fingerprint, load to the card) "
+                  f"{reloads[0] * 1e3!r} ms  [{card}]", flush=True)
+
+            # a quota tenant is shed with 429 while the others get 200
+            fleet.load("quota", arts["alpha"])
+            fleet.get("quota").bucket = TokenBucket(rate=0.01, burst=2.0)
+            statuses = []
+            for _ in range(4):
+                try:
+                    statuses.append(fetch(f"{svc.url}/t/quota/sample"
+                                          "?rows=10")[0])
+                except urllib.error.HTTPError as exc:
+                    statuses.append(exc.code)
+            others = [fetch(f"{svc.url}/t/{t}/sample?rows=10")[0]
+                      for t in names]
+            if statuses != [200, 200, 429, 429] or set(others) != {200}:
+                raise AssertionError(f"quota: {statuses}, others {others}")
+            fleet.evict("quota")
+        finally:
+            for s in servers.values():
+                s.shutdown()
+            svc.shutdown(drain=True)
+
+        # a backlog on one worker: K1 exactly once per lane dispatch, then
+        # a drained shutdown answers everything queued
+        seam = FleetService(fleet, max_batch=16, reload_interval_s=0,
+                            log=_silent)
+        backlog = [_FleetRequest(t, rows, 7 + i, 0, None, True)
+                   for i, t in enumerate(names * 4)]
+        for r in backlog:
+            seam.submit(fleet.get(r.tenant), r)
+        before = fused_apply_activate.launches
+        seam.start_workers()
+        seam.shutdown(drain=True)
+        sn = seam.metrics.snapshot()
+        seam_k1 = fused_apply_activate.launches - before
+        fleet_engines = {t: fleet.get(t).engine for t in names}
+        for r in backlog:
+            if not r.done.is_set() or r.status != 200 or r.result != \
+                    fleet_engines[r.tenant].sample_csv_bytes(rows,
+                                                             seed=r.seed):
+                raise AssertionError("drained backlog: a request unanswered "
+                                     "or its bytes differ")
+        if sn["lane_dispatches_total"] != seam_k1 or \
+                sn["lane_requests_total"] != len(backlog):
+            raise AssertionError(f"K1 launches {seam_k1} != lane dispatches "
+                                 f"{sn['lane_dispatches_total']}")
+        print(f"fleet backlog of {len(backlog)} requests on one worker: "
+              f"{sn['lane_dispatches_total']} lane dispatches, K1 launched "
+              f"{seam_k1} times (once per lane dispatch); drained shutdown "
+              f"answered all  [{card}]", flush=True)
+
+        # the stages of one 8-lane dispatch, synchronised at each boundary
+        seam = FleetService(fleet, log=_silent)
+        intrusion = [t for t in names if t != "adult"]
+        B = fleet.get("alpha").engine.cfg.batch_size
+        steps = fleet.get("alpha").engine._chunk_plan(0, -(-rows // B))[0][1]
+        members = []
+        for i in range(8):
+            rt = fleet.get(intrusion[i % 3])
+            members.append(_Member(_FleetRequest(rt.name, rows, 50 + i, 0,
+                                                 None, True), rt,
+                                   rt.engine.snapshot(), 0, 0))
+        times = {}
+
+        def tick(stage):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            times.setdefault(stage, []).append(now - tick.t)
+            tick.t = now
+
+        for _ in range(6):
+            torch.cuda.synchronize()
+            tick.t = time.perf_counter()
+            host = seam.lane_pass(members, steps, tick=tick)
+            for i, m in enumerate(members):
+                m.snap.csv_plan.csv_bytes(decode_cells(
+                    host[i, :rows], m.snap.model.meta, m.snap.model.encoders))
+            tick("csv")
+        stages = {k: statistics.median(v[1:]) * 1e3 for k, v in times.items()}
+        print(f"stages of one 8-lane dispatch ({steps} steps x {B} rows a "
+              "lane), median ms: " + ", ".join(
+                  f"{k} {v!r}" for k, v in stages.items()) + f"  [{card}]",
+              flush=True)
+        # the lanes' generator pass against the single path's loop
+        x = torch.randn((8, steps * B, members[0].snap.spec.n_opt
+                         + fleet.get("alpha").engine.cfg.embedding_dim),
+                        device="cuda")
+        group = seam.lane_group([m.snap for m in members])
+        gens = [m.snap.model.synth.generator for m in members]
+
+        def loop():
+            with torch.no_grad():
+                for i, g in enumerate(gens):
+                    torch.cat([g(b) for b in x[i].split(B)])
+
+        gen_ms = {"lanes": cuda_ms(lambda: group.generator(x, B), 10),
+                  "per_lane_loop": cuda_ms(loop, 10)}
+        print(f"generator of 8 lanes x {steps} steps: stacked "
+              f"{gen_ms['lanes']!r} ms, the single path's loop "
+              f"{gen_ms['per_lane_loop']!r} ms  [{card}]", flush=True)
+        return {"launches": launches, "lane_sizes": sizes,
+                "lane_dispatches": snap["lane_dispatches_total"],
+                "batch_occupancy": snap["batch_occupancy"],
+                "fleet": fleet_stats, "single": single_stats,
+                "reload_ms": reloads[0] * 1e3, "lane_stages_ms": stages,
+                "generator_ms": gen_ms, "lane_rows": 8 * steps * B,
+                "spec": members[0].snap.spec}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main(argv=None) -> int:
@@ -1784,8 +2307,9 @@ def main(argv=None) -> int:
             print(f"  {line.strip()}")
 
     if args.ab:
-        print(json.dumps({"ab": ab_phase(args.ab, main_shapes(args.seed),
-                                         card)}))
+        kernels_ab = ab_phase(args.ab, main_shapes(args.seed), card)
+        serving_ab = serve_ab_phase(args.ab, args.rows, args.seed, card)
+        print(json.dumps({"ab": kernels_ab, "ab_serving": serving_ab}))
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1820,6 +2344,11 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(art, ignore_errors=True)
     mark("serving")
+    fleet = fleet_phase(args.seed, args.rows, card, build_root)
+    # K1 at the shape of an 8-lane dispatch: every lane's rows at once
+    shapes += check_kernel(fleet.pop("spec"), card,
+                           (("fleet", fleet["lane_rows"]),), extra=False)
+    mark("fleet")
 
     synth, meta, encoders, training = train_phase(args.seed, card)
     # both kernels again at the shape training gave them: (batch, the
@@ -1909,6 +2438,9 @@ def main(argv=None) -> int:
         # chunk) and launch count it has had since that slice
         entry("fused_gumbel_activation_fwd", fwd, "serving", shapes,
               "rows8000", serve_launches),
+        # slice 7's fleet: one launch over every lane's rows a dispatch
+        entry("fused_gumbel_activation_fwd_fleet", fwd, "serving fleet",
+              shapes, "fleet", fleet["launches"]),
         entry("fused_gumbel_activation_fwd_train", fwd, "training", shapes,
               "train", training["launches"]["K1"]),
         entry("fused_gumbel_activation_bwd", bwd, "training", bwd_shapes,
@@ -1931,7 +2463,8 @@ def main(argv=None) -> int:
     print(json.dumps({"federated": federated}))
     print(json.dumps({"durability": durability}))
     print(card)
-    print(json.dumps({"kernels": kernels, "serving": serving}))
+    print(json.dumps({"kernels": kernels, "serving": serving,
+                      "fleet": fleet}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,12 @@
 """``python -m fed_tgan_torch``: entry points of the port.
 
-- ``python -m fed_tgan_torch serve ART [--port P] [--device cuda|cpu]``
+- ``python -m fed_tgan_torch serve ART [--port P] [--device cuda|cpu]
+  [--workers N --max-batch B --coalesce-window S ...]``: one model over
+  HTTP (:mod:`fed_tgan_torch.serve.service`);
+- ``python -m fed_tgan_torch fleet NAME=DIR [NAME=DIR ...] [flags]``: many
+  models behind one server (:mod:`fed_tgan_torch.serve.fleet`);
+- ``python -m fed_tgan_torch sample-client --url URL --rows N [--chunks
+  K]``: fetch rows from a running server;
 - ``python -m fed_tgan_torch --sample-from ART --sample-rows N --seed S
   --out FILE [--device cuda|cpu]``
 - ``python -m fed_tgan_torch --mode fedavg|standalone ...``: training
@@ -50,6 +56,14 @@ def main(argv=None) -> int:
         from fed_tgan_torch.serve.service import serve_main
 
         return serve_main(argv[1:])
+    if argv and argv[0] == "fleet":
+        from fed_tgan_torch.serve.fleet import fleet_main
+
+        return fleet_main(argv[1:])
+    if argv and argv[0] == "sample-client":
+        from fed_tgan_torch.serve.service import client_main
+
+        return client_main(argv[1:])
     if any(a == "--sample-from" or a.startswith("--sample-from=")
            for a in argv):
         return sample_main(argv)

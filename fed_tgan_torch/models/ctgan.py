@@ -30,6 +30,10 @@ statistics and moves each client's running statistics
 (:func:`stacked_batch_norm`); the pac discriminator packs each client's
 rows on its own.  ``from_modules`` / ``unstack`` convert to and from the
 per-client modules.
+
+The serving fleet samples several models at once:
+:class:`StackedEvalGenerator` runs L eval-mode generators over their
+lanes' rows with one BatchNorm over (lane, feature) channels.
 """
 
 from __future__ import annotations
@@ -344,6 +348,60 @@ class StackedDiscriminator(_Stacked):
                     d.out.weight.device)
         stack.load_state_dicts([m.state_dict() for m in diss])
         return stack
+
+
+class StackedEvalGenerator:
+    """L eval-mode generators side by side (the serving fleet's lanes):
+    (L, rows, input_dim) -> (L, rows, data_dim), bit for bit what each
+    lane's :class:`Generator` gives its own rows through ``sample_step``.
+
+    The rows run in blocks of ``block_rows``, as the single-model path
+    runs them, and each lane's linear layers are that path's own ``addmm``
+    at that path's shape, so the card picks the same GEMM and every row
+    keeps its bits.  (One ``baddbmm`` over the lanes is faster, but cuBLAS
+    may pick it another kernel with another accumulation order: on the
+    H100 it kept the bits at the Intrusion layout's shapes for 2 to 8
+    lanes, not for one lane and not at the Adult layout's.)  BatchNorm
+    normalises with each lane's running statistics through one
+    ``batch_norm(training=False)`` over (lane, feature) channels, and the
+    ReLU and the residual concatenation run once for every lane."""
+
+    def __init__(self, gens: Sequence[Generator]):
+        def stack(get):
+            return torch.stack([get(g).detach() for g in gens])
+
+        self.n = len(gens)
+        self.fc = [(stack(lambda g: g.blocks[j].fc.weight),
+                    stack(lambda g: g.blocks[j].fc.bias))
+                   for j in range(len(gens[0].blocks))]
+        # (L * width,) per block: one channel per (lane, feature)
+        self.bn = [tuple(stack(lambda g: getattr(g.blocks[j].bn, k))
+                         .reshape(-1) for k in ("weight", "bias",
+                                                "running_mean",
+                                                "running_var"))
+                   for j in range(len(gens[0].blocks))]
+        self.out = (stack(lambda g: g.out.weight), stack(lambda g: g.out.bias))
+
+    def _linear(self, x: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+        return torch.stack([F.linear(x[i], weight[i], bias[i])
+                            for i in range(self.n)])
+
+    def _block(self, z: torch.Tensor) -> torch.Tensor:
+        for (w, b), (bn_w, bn_b, mean, var) in zip(self.fc, self.bn):
+            h = self._linear(z, w, b)
+            lanes, rows, feat = h.shape
+            y = F.batch_norm(h.transpose(0, 1).reshape(rows, lanes * feat),
+                             mean, var, bn_w, bn_b, training=False,
+                             momentum=BN_MOMENTUM, eps=BN_EPS)
+            h = y.view(rows, lanes, feat).transpose(0, 1)
+            z = torch.cat([torch.relu(h), z], dim=2)
+        return self._linear(z, *self.out)
+
+    def __call__(self, x: torch.Tensor, block_rows: int) -> torch.Tensor:
+        with torch.no_grad():
+            return torch.cat([self._block(b)
+                              for b in x.split(block_rows, dim=1)], dim=1)
 
 
 def _joined(values: list, device) -> torch.Tensor:

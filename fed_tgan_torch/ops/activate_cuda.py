@@ -33,6 +33,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -307,13 +308,18 @@ def _launch(fn_name: str, a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+# the launch counts are bumped from every serving thread at once
+_COUNT_LOCK = threading.Lock()
+
+
 def _activate(x: torch.Tensor, spec: SegmentSpec,
               u: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return apply_activate(x, spec, u)
     _check_rows("fused_apply_activate", spec, x, u)
     out = _launch("fed_tgan_activate_fwd", x, u, spec)
-    fused_apply_activate.launches += 1
+    with _COUNT_LOCK:
+        fused_apply_activate.launches += 1
     return out
 
 
@@ -363,7 +369,8 @@ def fused_activate_bwd(dy: torch.Tensor, out: torch.Tensor,
         return apply_activate_bwd(dy, out, spec)
     _check_rows("fused_activate_bwd", spec, dy, out)
     dx = _launch("fed_tgan_activate_bwd", dy, out, spec)
-    fused_activate_bwd.launches += 1
+    with _COUNT_LOCK:
+        fused_activate_bwd.launches += 1
     return dx
 
 

@@ -53,34 +53,47 @@ def tables_to(tables: tuple, device) -> tuple:
                  for tab in tables)
 
 
+def stack_tables(tables: Sequence[tuple]) -> tuple:
+    """L models' :func:`tables_to` tables of one decode layout -> one
+    table set whose arrays gain a leading lane axis."""
+    return tuple(tuple(torch.stack(arrays) for arrays in zip(*cols))
+                 for cols in zip(*tables))
+
+
 def layout_decode(encoded: torch.Tensor, tables: tuple) -> torch.Tensor:
-    """``(n, dim)`` activated rows -> ``(n, n_columns)`` float32 values.
+    """``(n, dim)`` activated rows -> ``(n, n_columns)`` float32 values,
+    or L lanes at once: ``(L, n, dim)`` rows and :func:`stack_tables`
+    tables -> ``(L, n, n_columns)``, each lane through its own tables.
 
     ``tables`` is :func:`decode_tables` output (moved to ``encoded``'s
     device by :func:`tables_to`); a 2-tuple is a continuous column, a
     1-tuple a discrete one.  Ties in the argmax go to the first slot, as
-    in JAX."""
-    width = sum(1 + t[0].shape[0] if len(t) == 2 else t[0].shape[0]
+    in JAX.  One model's rows run as a single lane, so a lane's values
+    equal the same rows decoded alone bit for bit."""
+    if encoded.dim() == 2:
+        one = tuple(tuple(a[None] for a in tab) for tab in tables)
+        return layout_decode(encoded[None], one)[0]
+    width = sum(1 + t[0].shape[1] if len(t) == 2 else t[0].shape[1]
                 for t in tables)
-    if width != encoded.shape[1]:
+    if width != encoded.shape[2]:
         raise ValueError(f"tables cover {width} dims, encoded has "
-                         f"{encoded.shape[1]}")
+                         f"{encoded.shape[2]}")
     outs, start = [], 0
     for tab in tables:
         if len(tab) == 2:
             means, stds = tab
-            size = means.shape[0]
-            u = torch.clamp(encoded[:, start], -1.0, 1.0)
-            k = torch.argmax(encoded[:, start + 1:start + 1 + size], dim=1)
-            outs.append(u * SCALE * stds[k] + means[k])
+            size = means.shape[1]
+            u = torch.clamp(encoded[:, :, start], -1.0, 1.0)
+            k = torch.argmax(encoded[:, :, start + 1:start + 1 + size], dim=2)
+            outs.append(u * SCALE * stds.gather(1, k) + means.gather(1, k))
             start += 1 + size
         else:
             (codes,) = tab
-            size = codes.shape[0]
-            k = torch.argmax(encoded[:, start:start + size], dim=1)
-            outs.append(codes[k].to(torch.float32))
+            size = codes.shape[1]
+            k = torch.argmax(encoded[:, :, start:start + size], dim=2)
+            outs.append(codes.gather(1, k).to(torch.float32))
             start += size
-    return torch.stack(outs, dim=1)
+    return torch.stack(outs, dim=2)
 
 
 # ------------------------------------------------------ snapshot decodes

@@ -187,6 +187,21 @@ def checkpoint_fingerprint(path: str) -> str:
     return h.hexdigest()[:12]
 
 
+def is_valid_synthesizer(path: str) -> bool:
+    """Both files of a :func:`save_synthesizer` directory present and
+    readable: the serving registry's probe before it loads a newly
+    published artifact (a torn or half-copied one fails it)."""
+    try:
+        with open(os.path.join(path, _CONFIG)) as f:
+            if json.load(f).get("kind") != "synthesizer_torch":
+                return False
+        with np.load(os.path.join(path, _WEIGHTS)) as data:
+            _ = data.files
+        return True
+    except Exception:
+        return False
+
+
 # ------------------------------------------------------ crash-safe writes
 
 

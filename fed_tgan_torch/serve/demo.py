@@ -76,30 +76,36 @@ INTRUSION_META = {
 }
 
 
-def intrusion_layout(rng: np.random.Generator):
-    """``(meta, encoders, columns)`` of the Intrusion-shaped table; the
-    continuous columns' mode means and stds are drawn from ``rng``
-    (non-negative columns in log space, as the encoder stores them)."""
-    metas, encoders, columns = [], [], []
-    for i, (name, spec) in enumerate(INTRUSION_COLUMNS):
+def table_layout(columns: tuple, info: dict, rng: np.random.Generator):
+    """``(meta, encoders, columns)`` of a table given as ``columns``
+    ((name, number of active modes) or (name, categories in frequency
+    order), in meta order) and ``info`` (name, problem type, target,
+    integer and non-negative columns); the continuous columns' mode means
+    and stds are drawn from ``rng`` (non-negative columns in log space, as
+    the encoder stores them)."""
+    metas, encoders, out = [], [], []
+    for i, (name, spec) in enumerate(columns):
         if isinstance(spec, int):
             metas.append(ColumnMeta(name, "continuous", i, min=0.0, max=1.0))
-            log_space = name in INTRUSION_META["non_negative_cols"]
+            log_space = name in info["non_negative_cols"]
             means = rng.uniform(0.0, 8.0 if log_space else 2.0, spec)
             stds = rng.uniform(0.05, 0.5, spec)
-            columns.append(ContinuousColumn(name, means, stds))
+            out.append(ContinuousColumn(name, means, stds))
         else:
             metas.append(ColumnMeta(name, "categorical", i, i2s=list(spec)))
             enc = CategoryEncoder.fit(spec)
             encoders.append(enc)
-            columns.append(DiscreteColumn(name, enc.transform(spec)))
+            out.append(DiscreteColumn(name, enc.transform(spec)))
     meta = TableMeta(
-        columns=metas, name=INTRUSION_META["name"],
-        problem_type=INTRUSION_META["problem_type"],
-        target=INTRUSION_META["target"],
-        integer_columns=list(INTRUSION_META["integer_info"]),
-        non_negative_columns=list(INTRUSION_META["non_negative_cols"]))
-    return meta, encoders, columns
+        columns=metas, name=info["name"], problem_type=info["problem_type"],
+        target=info["target"], integer_columns=list(info["integer_info"]),
+        non_negative_columns=list(info["non_negative_cols"]))
+    return meta, encoders, out
+
+
+def intrusion_layout(rng: np.random.Generator):
+    """:func:`table_layout` of the Intrusion-shaped table (282 dims)."""
+    return table_layout(INTRUSION_COLUMNS, INTRUSION_META, rng)
 
 
 _VOCAB = {
@@ -213,6 +219,32 @@ _ADULT_CHOICES = {
 }
 
 
+# the Adult-census-shaped layout of 123 dims: 6 continuous columns with
+# 46 active modes in all (about what the mode fit keeps on
+# adult_like_table) and 9 categorical columns of 71 categories
+ADULT_COLUMNS = (
+    ("age", 10), ("workclass", tuple(_ADULT_CHOICES["workclass"][0])),
+    ("fnlwgt", 10), ("education", tuple(_EDUCATION)), ("education-num", 6),
+    ("marital-status", tuple(_ADULT_CHOICES["marital-status"][0])),
+    ("occupation", tuple(_ADULT_CHOICES["occupation"][0])),
+    ("relationship", tuple(_ADULT_CHOICES["relationship"][0])),
+    ("race", tuple(_ADULT_CHOICES["race"][0])), ("sex", ("Male", "Female")),
+    ("capital-gain", 8), ("capital-loss", 4), ("hours-per-week", 8),
+    ("native-country", tuple(_ADULT_CHOICES["native-country"][0])),
+    ("income", ("<=50K", ">50K")),
+)
+ADULT_META = {
+    "name": "Adult",
+    "problem_type": "binary_classification",
+    "target": "income",
+    "integer_info": ["age", "fnlwgt", "education-num", "capital-gain",
+                     "capital-loss", "hours-per-week"],
+    "non_negative_cols": ["capital-gain", "capital-loss", "fnlwgt"],
+}
+LAYOUTS = {"intrusion": (INTRUSION_COLUMNS, INTRUSION_META),
+           "adult": (ADULT_COLUMNS, ADULT_META)}
+
+
 def adult_like_table(n: int = 7000, seed: int = 11) -> dict:
     """``{column: raw values}`` of an Adult-census-shaped table of ``n``
     rows, the columns, values and order ``bench.py::_adult_like(n, seed)``
@@ -284,11 +316,13 @@ def write_artifact(out_dir: str, synth: SavedSynthesizer, meta: TableMeta,
 
 
 def build_random_artifact(out_dir: str, seed: int = 0,
-                          cfg: TrainConfig = TrainConfig()) -> str:
-    """Write a random-weight Intrusion-shaped port artifact under
+                          cfg: TrainConfig = TrainConfig(),
+                          table: str = "intrusion") -> str:
+    """Write a random-weight port artifact of the ``table`` layout
+    (:data:`LAYOUTS`: ``intrusion``, 282 dims, or ``adult``, 123) under
     ``out_dir/models``; returns ``out_dir``."""
     rng = np.random.default_rng(seed)
-    meta, encoders, columns = intrusion_layout(rng)
+    meta, encoders, columns = table_layout(*LAYOUTS[table], rng)
     spec = SegmentSpec.from_output_info(output_info(columns))
     torch_gen = torch.Generator().manual_seed(seed)
     with torch.random.fork_rng(devices=[]):

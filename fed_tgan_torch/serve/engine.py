@@ -1,5 +1,5 @@
 """Offset-addressable deterministic sampling over one loaded model
-(counterpart of ``fed_tgan_tpu/serve/engine.py:148-476``).
+(counterpart of ``fed_tgan_tpu/serve/engine.py:133-502``).
 
 Determinism contract: rows form a virtual stream addressed by
 ``(seed, row_offset)``.  Step ``s`` (``batch_size`` rows) of stream
@@ -17,12 +17,20 @@ generator over fixed ``batch_size``-row blocks (one matrix-product shape
 whatever the chunk size, so a row never depends on its neighbours), then
 the activation kernel once over all the chunk's rows, then the layout
 decode, and copies the (rows, n_columns) result to the host.
+
+Hot reload: :meth:`SamplingEngine.snapshot` captures one consistent
+serving state (:class:`EngineSnapshot`) under the engine's lock, and a
+request (or a fleet batch) formed against it keeps sampling that model
+even when :meth:`SamplingEngine.adopt` swaps in a new one mid-flight.
+:meth:`SamplingEngine.layout_key` is the encoded layout's full signature:
+models with equal keys can share the fleet's lanes.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Callable, Optional
+import time
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -30,7 +38,12 @@ import torch
 from fed_tgan_torch.data.decode import decode_cells
 from fed_tgan_torch.data.fastcsv import ColumnPlan
 from fed_tgan_torch.features.transformer import DiscreteColumn
-from fed_tgan_torch.ops.decode import decode_tables, layout_decode, tables_to
+from fed_tgan_torch.ops.decode import (
+    decode_layout,
+    decode_tables,
+    layout_decode,
+    tables_to,
+)
 from fed_tgan_torch.serve.registry import LoadedModel
 from fed_tgan_torch.train.steps import sample_step
 
@@ -55,25 +68,80 @@ def step_seed(stream: int, step: int) -> int:
     return int(seq.generate_state(1, np.uint64)[0])
 
 
+def _add_stage(stages: Optional[dict], name: str, t0: float) -> float:
+    """Add the host seconds since ``t0`` to ``stages[name]``; returns
+    now."""
+    now = time.perf_counter()
+    if stages is not None:
+        stages[name] = stages.get(name, 0.0) + now - t0
+    return now
+
+
+class EngineSnapshot(NamedTuple):
+    """One consistent view of an engine's serving state, captured under
+    its lock: everything a multi-chunk request (or a fleet batch formed
+    for this model) needs, immune to a hot reload swapping fields out
+    from under it."""
+
+    model: LoadedModel
+    spec: object
+    cfg: object
+    tables: tuple          # decode tables on the model's device
+    sig: tuple             # layout_key(model)
+    csv_plan: Optional[ColumnPlan]
+
+
 class SamplingEngine:
     """Deterministic sampling over one :class:`LoadedModel`, on the
     device the model was loaded onto."""
 
     def __init__(self, model: LoadedModel, max_chunk_steps: int = 128):
-        self.model = model
         self.max_chunk_steps = max_chunk_steps
+        # one generator reseeded per step; the lock keeps two callers from
+        # interleaving reseeds, and makes adoption atomic for readers
+        self._lock = threading.RLock()
+        self._adopt_fields(model)
+        self.device = model.synth.device
+        self._gen = torch.Generator(device=self.device)
+
+    def _adopt_fields(self, model: LoadedModel) -> None:
         synth = model.synth
-        self.device = synth.device
+        self.model = model
         self.spec, self.cfg = synth.spec, synth.cfg
-        self._tables = tables_to(decode_tables(synth.columns), self.device)
+        self._tables = tables_to(decode_tables(synth.columns), synth.device)
+        self._sig = self.layout_key(model)
         # how a request's columns are written (a model without a meta,
         # as the standalone trainer's, serves no CSV)
         self.csv_plan = (None if model.meta is None
                          else ColumnPlan(model.meta, model.encoders))
-        # one generator reseeded per step; the lock keeps two callers from
-        # interleaving reseeds
-        self._gen = torch.Generator(device=self.device)
-        self._lock = threading.Lock()
+
+    @staticmethod
+    def layout_key(model: LoadedModel) -> tuple:
+        """Everything the shape of a sampling pass depends on, and
+        nothing a model's values feed: equal keys mean the models' rows
+        can run side by side as lanes of one pass."""
+        synth = model.synth
+        cfg = synth.cfg
+        return (tuple(synth.spec.output_info), decode_layout(synth.columns),
+                int(cfg.batch_size), int(cfg.embedding_dim),
+                tuple(cfg.gen_dims), cfg.precision, str(synth.device))
+
+    def adopt(self, model: LoadedModel) -> bool:
+        """Swap in a hot-reloaded model (on this engine's device); returns
+        whether its layout key equals the old one's."""
+        if model.synth.device != self.device:
+            raise ValueError(f"model on {model.synth.device}, engine on "
+                             f"{self.device}")
+        with self._lock:
+            same = self.layout_key(model) == self._sig
+            self._adopt_fields(model)
+            return same
+
+    def snapshot(self) -> EngineSnapshot:
+        """The current serving state, captured under the lock."""
+        with self._lock:
+            return EngineSnapshot(self.model, self.spec, self.cfg,
+                                  self._tables, self._sig, self.csv_plan)
 
     def _chunk_plan(self, first_step: int, total_steps: int,
                     pow2_tail: bool = True):
@@ -93,37 +161,46 @@ class SamplingEngine:
 
     # -------------------------------------------------------------- draws
 
-    def _draw(self, stream: int, start: int, steps: int,
-              condition: Optional[int], draws: Optional[Draws]):
-        """(z, cond_vec, u) for ``steps`` steps from ``start``."""
-        B, emb, spec = self.cfg.batch_size, self.cfg.embedding_dim, self.spec
-        cond = self.model.synth.cond
+    def draw(self, snap: EngineSnapshot, stream: int, start: int, steps: int,
+             condition: Optional[int], draws: Optional[Draws] = None):
+        """(z, cond_vec, u) of ``snap``'s model for ``steps`` steps from
+        ``start`` of stream ``stream`` (``seed + key_offset``)."""
+        B, emb, spec = snap.cfg.batch_size, snap.cfg.embedding_dim, snap.spec
+        cond = snap.model.synth.cond
         zs, cs, us = [], [], []
-        for s in range(start, start + steps):
-            if draws is not None:
-                z, c, u = (None if a is None else torch.tensor(
-                    np.asarray(a), dtype=torch.float32, device=self.device)
-                    for a in draws(s))
-            else:
-                g = self._gen.manual_seed(step_seed(stream, s))
-                z = torch.randn((B, emb), generator=g, device=self.device)
-                c = None
-                if spec.n_discrete and condition is None:
-                    c = cond.sample_empirical(B, g)
-                u = torch.rand((B, spec.dim), generator=g, device=self.device)
-            if spec.n_discrete and condition is not None:
-                c = cond.onehot(torch.full((B,), condition, dtype=torch.long,
-                                           device=self.device))
-            zs.append(z)
-            cs.append(c)
-            us.append(u)
+        with self._lock:
+            for s in range(start, start + steps):
+                if draws is not None:
+                    z, c, u = (None if a is None else torch.tensor(
+                        np.asarray(a), dtype=torch.float32,
+                        device=self.device) for a in draws(s))
+                else:
+                    g = self._gen.manual_seed(step_seed(stream, s))
+                    z = torch.randn((B, emb), generator=g, device=self.device)
+                    c = None
+                    if spec.n_discrete and condition is None:
+                        c = cond.sample_empirical(B, g)
+                    u = torch.rand((B, spec.dim), generator=g,
+                                   device=self.device)
+                if spec.n_discrete and condition is not None:
+                    c = cond.onehot(torch.full((B,), condition,
+                                               dtype=torch.long,
+                                               device=self.device))
+                zs.append(z)
+                cs.append(c)
+                us.append(u)
         cond_vec = torch.cat(cs) if spec.n_discrete else None
         return torch.cat(zs), cond_vec, torch.cat(us)
 
     # ----------------------------------------------------------- sampling
 
     def resolve_condition(self, column: str, value) -> int:
-        """(column name, raw category value) -> conditional-vector position."""
+        """(column name, raw category value) -> conditional-vector
+        position, read from one model under the lock."""
+        with self._lock:
+            return self._resolve_condition_locked(column, value)
+
+    def _resolve_condition_locked(self, column: str, value) -> int:
         meta = self.model.meta
         columns = self.model.synth.columns
         names = list(meta.column_names)
@@ -160,40 +237,49 @@ class SamplingEngine:
 
     def _chunks(self, n: int, seed: int, offset: int,
                 condition: Optional[int], draws: Optional[Draws], post,
-                key_offset: Optional[int] = None, to_host: bool = True):
+                key_offset: Optional[int] = None, to_host: bool = True,
+                snap: Optional[EngineSnapshot] = None,
+                stages: Optional[dict] = None):
         """Rows [offset, offset + n) of stream ``seed + key_offset`` (the
         model's offset by default), each chunk's activated rows passed
-        through ``post`` (a tensor, or a dict of tensors) and copied to the
-        host; returns the rows' array (or dict of arrays).  With
-        ``to_host=False`` the rows stay on the device, and the last chunk
-        is exactly the steps still due: nothing is copied, so no
-        power-of-two tail pads it (a row does not depend on its chunk)."""
+        through ``post(enc, snap)`` (a tensor, or a dict of tensors) and
+        copied to the host; returns the rows' array (or dict of arrays).
+        With ``to_host=False`` the rows stay on the device, and the last
+        chunk is exactly the steps still due: nothing is copied, so no
+        power-of-two tail pads it (a row does not depend on its chunk).
+        ``stages`` gains the host seconds of the whole loop as
+        ``dispatch``."""
         if n <= 0:
             raise ValueError(f"n={n}: need at least one row")
         if offset < 0:
             raise ValueError(f"offset={offset}: must be >= 0")
-        B = self.cfg.batch_size
+        if snap is None:
+            snap = self.snapshot()
+        t0 = time.perf_counter()
+        B = snap.cfg.batch_size
         first_step, skip = divmod(offset, B)
         total_steps = -(-(skip + n) // B)
         if key_offset is None:
-            key_offset = self.model.synth.key_offset
+            key_offset = snap.model.synth.key_offset
         out = []
         for start, steps in self._chunk_plan(first_step, total_steps,
                                              pow2_tail=to_host):
-            with self._lock:
-                z, c, u = self._draw(seed + key_offset, start, steps,
-                                     condition, draws)
-            res = post(sample_step(self.model.synth.generator, self.spec, z,
-                                   c, u, block_rows=B))
+            z, c, u = self.draw(snap, seed + key_offset, start, steps,
+                                condition, draws)
+            res = post(sample_step(snap.model.synth.generator, snap.spec, z,
+                                   c, u, block_rows=B), snap)
             if to_host:
                 res = ({k: v.cpu().numpy() for k, v in res.items()}
                        if isinstance(res, dict) else res.cpu().numpy())
             out.append(res)
         cat = np.concatenate if to_host else torch.cat
         if isinstance(out[0], dict):
-            return {k: cat([o[k] for o in out])[skip:skip + n]
-                    for k in out[0]}
-        return cat(out)[skip:skip + n]
+            result = {k: cat([o[k] for o in out])[skip:skip + n]
+                      for k in out[0]}
+        else:
+            result = cat(out)[skip:skip + n]
+        _add_stage(stages, "dispatch", t0)
+        return result
 
     def sample_encoded(self, n: int, seed: int = 0, offset: int = 0,
                        condition: Optional[int] = None,
@@ -202,14 +288,18 @@ class SamplingEngine:
         encoded rows (n, spec.dim) float32.  ``draws`` (tests only)
         replaces the generator draws of each step."""
         return self._chunks(n, seed, offset, condition, draws,
-                            lambda enc: enc)
+                            lambda enc, snap: enc)
 
     def sample_decoded(self, n: int, seed: int = 0, offset: int = 0,
                        condition: Optional[int] = None,
-                       draws: Optional[Draws] = None) -> np.ndarray:
+                       draws: Optional[Draws] = None,
+                       snap: Optional[EngineSnapshot] = None,
+                       stages: Optional[dict] = None) -> np.ndarray:
         """The same rows as the numeric (n, n_columns) float32 matrix."""
-        return self._chunks(n, seed, offset, condition, draws,
-                            lambda enc: layout_decode(enc, self._tables))
+        return self._chunks(
+            n, seed, offset, condition, draws,
+            lambda enc, s: layout_decode(enc, s.tables), snap=snap,
+            stages=stages)
 
     def sample_parts(self, n: int, decode, seed: int = 0, offset: int = 0,
                      draws: Optional[Draws] = None,
@@ -218,7 +308,8 @@ class SamplingEngine:
         (``ops.decode.SnapshotDecode``): its dict of host arrays, which
         ``decode.assemble`` turns into column values, or with
         ``to_host=False`` of tensors left on the device."""
-        return self._chunks(n, seed, offset, None, draws, decode.decode,
+        return self._chunks(n, seed, offset, None, draws,
+                            lambda enc, snap: decode.decode(enc),
                             to_host=to_host)
 
     def decoded_on_device(self, n: int, seed: int,
@@ -226,13 +317,47 @@ class SamplingEngine:
         """Rows [0, n) of stream ``seed + key_offset`` as
         :meth:`sample_decoded`'s numeric layout, left on the device."""
         return self._chunks(n, seed, 0, None, None,
-                            lambda enc: layout_decode(enc, self._tables),
+                            lambda enc, snap: layout_decode(enc, snap.tables),
                             key_offset=key_offset, to_host=False)
+
+    def _cells(self, n, seed, offset, condition, draws, snap, stages):
+        if snap is None:
+            snap = self.snapshot()
+        mat = self.sample_decoded(n, seed, offset, condition, draws,
+                                  snap=snap, stages=stages)
+        t0 = time.perf_counter()
+        cells = decode_cells(mat, snap.model.meta, snap.model.encoders)
+        return snap, cells, _add_stage(stages, "decode", t0)
 
     def sample_csv_bytes(self, n: int, seed: int = 0, offset: int = 0,
                          condition: Optional[int] = None, header: bool = True,
-                         draws: Optional[Draws] = None) -> bytes:
-        """The same rows as CSV bytes (header line optional)."""
-        mat = self.sample_decoded(n, seed, offset, condition, draws)
-        cells = decode_cells(mat, self.model.meta, self.model.encoders)
-        return self.csv_plan.csv_bytes(cells, header=header)
+                         draws: Optional[Draws] = None,
+                         snap: Optional[EngineSnapshot] = None,
+                         stages: Optional[dict] = None) -> bytes:
+        """The same rows as CSV bytes (header line optional).  ``snap``
+        pins the model (default: a fresh snapshot); ``stages`` ({stage:
+        seconds}) gains the host seconds of ``dispatch`` (draws,
+        generator, K1, decode on the device, copy), ``decode`` (column
+        values) and ``serialize`` (CSV), never a device sync of its own."""
+        snap, cells, t0 = self._cells(n, seed, offset, condition, draws,
+                                      snap, stages)
+        out = snap.csv_plan.csv_bytes(cells, header=header)
+        _add_stage(stages, "serialize", t0)
+        return out
+
+    def sample_csv_segments(self, n: int, seed: int = 0, offset: int = 0,
+                            condition: Optional[int] = None,
+                            snap: Optional[EngineSnapshot] = None,
+                            stages: Optional[dict] = None):
+        """``(header_line, [row_line, ...])`` for rows [offset, offset+n):
+        ``header + b"".join(rows)`` is :meth:`sample_csv_bytes`'s output,
+        ``b"".join(rows)`` its ``header=False`` one.  A row's bytes depend
+        on its position in the stream alone, so the row pool stitches any
+        contiguous slice of cached segments into a response equal to a
+        cold dispatch.  Raises ``ValueError`` when a cell holds a line
+        break (the rows are then not line-sliceable)."""
+        snap, cells, t0 = self._cells(n, seed, offset, condition, None,
+                                      snap, stages)
+        out = snap.csv_plan.csv_segments(cells)
+        _add_stage(stages, "serialize", t0)
+        return out

@@ -1,10 +1,14 @@
-"""Artifact discovery and loading for the port's format
-(counterpart of ``fed_tgan_tpu/serve/registry.py:40-162``).
+"""Artifact discovery, loading and hot reload for the port's format
+(counterpart of ``fed_tgan_tpu/serve/registry.py:40-265``).
 
 A run's artifacts live in one ``models`` directory: the
 ``synthesizer_torch/`` directory, the meta ``<name>.json`` and its paired
-``label_encoders_<name>.json``.  Hot reload is not ported yet: a
-:class:`LoadedModel` is loaded once.
+``label_encoders_<name>.json``.  A loaded model's identity is the content
+hash of its synthesizer files (``checkpoint_fingerprint``), so
+:meth:`ModelRegistry.maybe_reload` swaps models exactly when a generation
+with other bytes has been published.  The canary's candidate methods
+(``poll_candidate``, ``load_candidate``, ``promote``, ``dismiss``) wait
+with canary promotion (ROADMAP A.19, rest).
 """
 
 from __future__ import annotations
@@ -12,7 +16,8 @@ from __future__ import annotations
 import glob
 import json
 import os
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 from typing import Sequence
 
 from fed_tgan_torch.data.encoders import CategoryEncoder
@@ -21,6 +26,7 @@ from fed_tgan_torch.runtime.checkpoint import (
     SYNTH_DIR,
     SavedSynthesizer,
     checkpoint_fingerprint,
+    is_valid_synthesizer,
     load_synthesizer,
 )
 
@@ -105,17 +111,20 @@ class LoadedModel:
     meta: TableMeta
     encoders: Sequence[CategoryEncoder]
     artifact: ResolvedArtifact
+    loaded_at: float = field(default_factory=time.time)
 
 
 def load_model(art: ResolvedArtifact, device="cuda") -> LoadedModel:
     """Load the synthesizer onto ``device`` plus the decode artifacts."""
+    # the id first: a generation published during the load then gives
+    # an id older than the weights, and the next poll reloads
+    model_id = checkpoint_fingerprint(art.synth_dir)
     synth = load_synthesizer(art.synth_dir, device=device)
     meta = TableMeta.load_json(art.meta_path)
     with open(art.enc_path) as f:
         encoders = [CategoryEncoder.from_dict(d) for d in json.load(f)]
-    return LoadedModel(model_id=checkpoint_fingerprint(art.synth_dir),
-                       synth=synth, meta=meta, encoders=encoders,
-                       artifact=art)
+    return LoadedModel(model_id=model_id, synth=synth, meta=meta,
+                       encoders=encoders, artifact=art)
 
 
 def open_model(root: str, device="cuda", allow_meta_mismatch: bool = False,
@@ -125,3 +134,88 @@ def open_model(root: str, device="cuda", allow_meta_mismatch: bool = False,
     art = resolve_artifact(root, log=log)
     check_meta_freshness(art, allow=allow_meta_mismatch, log=log)
     return load_model(art, device=device)
+
+
+class ModelRegistry:
+    """A lazily loaded, hot-reloadable model over one artifact root, on
+    ``device``.
+
+    ``get()`` loads on first use.  ``maybe_reload()`` is the cheap poll a
+    serving worker runs between batches: the stat signature first (mtimes
+    and sizes of the synthesizer's files and the meta), then the validity
+    probe and the content fingerprint only when the stats moved, then a
+    full load only when the bytes changed.  A half-published or torn
+    generation is skipped and the current model keeps serving; a
+    generation that failed to load is not tried again until another
+    publish moves the signature."""
+
+    def __init__(self, root: str, device="cuda",
+                 allow_meta_mismatch: bool = False, log=print):
+        self.root = root
+        self.device = device
+        self.allow_meta_mismatch = allow_meta_mismatch
+        self._log = log
+        self._model: LoadedModel | None = None
+        self._stat_sig: tuple | None = None
+
+    def _resolve_checked(self) -> ResolvedArtifact:
+        art = resolve_artifact(self.root, log=self._log)
+        check_meta_freshness(art, allow=self.allow_meta_mismatch,
+                             log=self._log)
+        return art
+
+    @staticmethod
+    def _stat_signature(art: ResolvedArtifact) -> tuple:
+        parts = []
+        for p in (os.path.join(art.synth_dir, "config.json"),
+                  os.path.join(art.synth_dir, "weights.npz"),
+                  art.meta_path):
+            try:
+                st = os.stat(p)
+                parts.append((p, st.st_mtime_ns, st.st_size))
+            except OSError:
+                parts.append((p, None, None))
+        return tuple(parts)
+
+    def get(self) -> LoadedModel:
+        if self._model is None:
+            art = self._resolve_checked()
+            self._model = load_model(art, device=self.device)
+            self._stat_sig = self._stat_signature(art)
+        return self._model
+
+    def maybe_reload(self) -> bool:
+        """Swap in a newer generation if one landed; returns whether a
+        reload happened.  Never raises."""
+        if self._model is None:
+            return False
+        try:
+            art = resolve_artifact(self.root, log=lambda *_: None)
+        except ArtifactError:
+            return False
+        sig = self._stat_signature(art)
+        if sig == self._stat_sig:
+            return False
+        if not is_valid_synthesizer(art.synth_dir):
+            return False  # mid-publish: caught on a later poll
+        try:
+            if checkpoint_fingerprint(art.synth_dir) == self._model.model_id:
+                self._stat_sig = sig  # a rewrite of identical bytes
+                return False
+            check_meta_freshness(art, allow=self.allow_meta_mismatch,
+                                 log=self._log)
+            model = load_model(art, device=self.device)
+        except ArtifactError as exc:
+            self._log(f"registry: reload skipped ({exc})")
+            self._stat_sig = sig  # not logged again every poll
+            return False
+        except Exception as exc:  # a torn write raced past the probe
+            self._log(f"registry: reload failed ({exc!r}); keeping "
+                      f"{self._model.model_id}")
+            self._stat_sig = sig  # the next publish moves it again
+            return False
+        self._log(f"registry: hot-reload {self._model.model_id} -> "
+                  f"{model.model_id}")
+        self._model = model
+        self._stat_sig = sig
+        return True

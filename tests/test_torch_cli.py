@@ -173,3 +173,71 @@ def test_watchdog_without_save_every_notes_it(data, tmp_path, capsys):
 def test_batch_size_must_be_a_multiple_of_pac(data, tmp_path):
     with pytest.raises(SystemExit):
         port_cli.main(argv(data, tmp_path, "--batch-size", "55"))
+
+
+@pytest.mark.parametrize("command,flag,item", [
+    ("serve", ["--promote", "canary"], "A.19"),
+    ("serve", ["--sanitize"], "A.20"),
+    ("fleet", ["--promote", "canary"], "A.19"),
+    ("fleet", ["--sanitize"], "A.20"),
+    ("fleet", ["--lockwatch"], "A.20")])
+def test_unported_serving_flags_exit_2(tmp_path, capsys, command, flag,
+                                       item):
+    """``serve`` and ``fleet`` refuse a flag they do not act on yet with
+    exit code 2 and its ROADMAP item, before they load anything."""
+    from fed_tgan_torch.__main__ import main
+
+    target = str(tmp_path) if command == "serve" else f"a={tmp_path}"
+    assert main([command, target, "--device", "cpu", *flag]) == 2
+    out = capsys.readouterr().out
+    assert f"ROADMAP {item}" in out and flag[0] in out
+
+
+def test_serving_commands_take_the_jax_flags_and_defaults():
+    """``serve`` and ``fleet`` take the JAX commands' flags with their
+    defaults (``fed_tgan_tpu/serve/service.py:479-520``,
+    ``serve/fleet.py:1218-1300``), plus ``--device``."""
+    import argparse
+
+    from fed_tgan_torch.serve import fleet, service
+
+    def defaults(main_fn):
+        seen = {}
+        real = argparse.ArgumentParser.parse_args
+
+        def grab(self, args=None, namespace=None):
+            ns = real(self, args, namespace)
+            seen.update(vars(ns))
+            raise SystemExit(0)
+
+        argparse.ArgumentParser.parse_args = grab
+        try:
+            with pytest.raises(SystemExit):
+                main_fn(["x=y"] if main_fn is fleet.fleet_main else ["x"])
+        finally:
+            argparse.ArgumentParser.parse_args = real
+        return seen
+
+    serve = defaults(service.serve_main)
+    assert {k: serve[k] for k in (
+        "max_batch", "queue_size", "workers", "coalesce_window",
+        "request_timeout", "reload_interval", "promote", "quiet", "device",
+        "port")} == {
+        "max_batch": 8, "queue_size": 64, "workers": 1,
+        "coalesce_window": 0.0, "request_timeout": 120.0,
+        "reload_interval": 5.0, "promote": "immediate", "quiet": False,
+        "device": "cuda", "port": 7799}
+    fl = defaults(fleet.fleet_main)
+    assert {k: fl[k] for k in (
+        "max_batch", "queue_size", "max_lanes", "queue_share", "quota_rps",
+        "quota_burst", "cache_entries", "cache_mb", "workers",
+        "coalesce_window", "http", "row_pool_chunks", "row_pool_chunk_rows",
+        "request_timeout", "reload_interval", "promote", "lockwatch",
+        "device")} == {
+        "max_batch": 16, "queue_size": 128, "max_lanes": 8,
+        "queue_share": 0.5, "quota_rps": 0.0, "quota_burst": None,
+        "cache_entries": 64, "cache_mb": 256.0, "workers": 1,
+        "coalesce_window": 0.0, "http": "asyncio", "row_pool_chunks": 8,
+        "row_pool_chunk_rows": 2048, "request_timeout": 120.0,
+        "reload_interval": 5.0, "promote": "immediate", "lockwatch": False,
+        "device": "cuda"}

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from fed_tgan_torch.data.decode import decode_cells
 from fed_tgan_torch.features.transformer import output_info
 from fed_tgan_torch.ops.activate_cuda import (
     fused_activate_bwd,
@@ -512,3 +513,141 @@ def test_stacked_round_launches_k1_and_k2_once_per_step(cuda):
     n = int(tr.steps.max())
     assert fused_apply_activate.launches == 2 * n * (cfg.d_steps + 1)
     assert fused_activate_bwd.launches == 2 * n
+
+
+# ------------------------------------------------------------ serving fleet
+
+
+@pytest.fixture(scope="module")
+def card_fleet(tmp_path_factory):
+    """Four full-width Intrusion-shaped tenants on the card (``a`` and
+    ``b`` with equal weights, ``c`` and ``d`` with others) and two
+    Adult-shaped ones (``e``, ``f``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from fed_tgan_torch.serve.fleet import FleetRegistry
+
+    base = tmp_path_factory.mktemp("card_fleet")
+    fleet = FleetRegistry(device="cuda", log=lambda *a: None)
+    for name, seed, table in (("a", 0, "intrusion"), ("b", 0, "intrusion"),
+                              ("c", 1, "intrusion"), ("d", 2, "intrusion"),
+                              ("e", 0, "adult"), ("f", 1, "adult")):
+        fleet.load(name, build_random_artifact(str(base / name), seed=seed,
+                                               table=table))
+    return fleet
+
+
+LANE_TENANTS = {"intrusion": (["a", "c", "b", "d"], "protocol_type", "udp"),
+                "adult": (["e", "f"], "sex", "Female")}
+
+
+def _card_members(fleet, table, lanes, steps, conditional):
+    from fed_tgan_torch.serve.fleet import _FleetRequest, _Member
+
+    names, column, value = LANE_TENANTS[table]
+    out = []
+    for i in range(lanes):
+        name = names[i % len(names)]
+        rt = fleet.get(name)
+        snap = rt.engine.snapshot()
+        B = snap.cfg.batch_size
+        cond = rt.engine.resolve_condition(column, value) if conditional \
+            else None
+        n, offset = steps * B - 11, 11 + (i % 3) * B
+        first, skip = divmod(offset, B)
+        out.append(_Member(_FleetRequest(name, n, 7 * i + 1, offset, cond,
+                                         True), rt, snap, first, skip))
+    return out
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 3, 8])
+@pytest.mark.parametrize("steps", [1, 16, 128])
+@pytest.mark.parametrize("conditional", [False, True])
+@pytest.mark.parametrize("table", ["intrusion", "adult"])
+def test_lane_rows_equal_single_engine_on_the_card(card_fleet, table, lanes,
+                                                   steps, conditional):
+    """Contract 1 on the card: every lane of one dispatch (one stacked
+    generator pass, one K1 launch, one decode, one copy) equals its
+    tenant's single-engine rows bit for bit, and so its CSV bytes."""
+    from fed_tgan_torch.serve.fleet import FleetService
+
+    members = _card_members(card_fleet, table, lanes, steps, conditional)
+    svc = FleetService(card_fleet, max_lanes=8, log=lambda *a: None)
+    before = fused_apply_activate.launches
+    host = svc.lane_pass(members, steps)
+    torch.cuda.synchronize()
+    assert fused_apply_activate.launches == before + 1
+    for i, m in enumerate(members):
+        req = m.req
+        want = m.rt.engine.sample_decoded(req.n, seed=req.seed,
+                                          offset=req.offset,
+                                          condition=req.condition)
+        got = host[i, m.skip:m.skip + req.n]
+        assert np.array_equal(got, want), f"lane {i}"
+    if steps == 16:
+        m = members[-1]
+        assert m.snap.csv_plan.csv_bytes(decode_cells(
+            host[lanes - 1, m.skip:m.skip + m.req.n], m.snap.model.meta,
+            m.snap.model.encoders)) == m.rt.engine.sample_csv_bytes(
+            m.req.n, seed=m.req.seed, offset=m.req.offset,
+            condition=m.req.condition)
+
+
+def test_fleet_dispatch_launches_k1_once_per_lane_dispatch(card_fleet):
+    """A backlog of same-layout requests from four tenants: K1 launches
+    exactly once per lane dispatch, and every body equals the tenant's
+    single-engine bytes."""
+    from fed_tgan_torch.serve.fleet import FleetService, _FleetRequest
+
+    svc = FleetService(card_fleet, max_batch=16, max_lanes=8,
+                       reload_interval_s=0, log=lambda *a: None)
+    reqs = [_FleetRequest(n, 5000, s, 0, None, True)
+            for n in ("a", "b", "c", "d") for s in (1, 2)]
+    for r in reqs:
+        assert svc.submit(card_fleet.get(r.tenant), r) is None
+    before = fused_apply_activate.launches
+    svc.start_workers()
+    for r in reqs:
+        assert r.done.wait(timeout=120) and r.status == 200, r.error
+    svc.shutdown(drain=True)
+    snap = svc.metrics.snapshot()
+    assert snap["lane_dispatches_total"] == 1
+    assert snap["lane_requests_total"] == 8
+    assert fused_apply_activate.launches - before == 1
+    for r in reqs:
+        assert r.result == card_fleet.get(r.tenant).engine.sample_csv_bytes(
+            5000, seed=r.seed)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 3, 8])
+@pytest.mark.parametrize("n_steps", [1, 16, 128])
+@pytest.mark.parametrize("layout", [(95, 282), (71, 123)],
+                         ids=["intrusion", "adult"])
+def test_stacked_eval_generator_equals_generator_on_the_card(cuda, lanes,
+                                                             n_steps, layout):
+    """The eval-mode stacked generator (each lane's ``addmm`` per block,
+    one BatchNorm over every lane) equals each lane's ``Generator`` over
+    the same 500-row blocks bit for bit, at the Intrusion layout's widths
+    (95 conditional options, 282 dims) and the Adult layout's (71, 123)."""
+    from fed_tgan_torch.models.ctgan import Generator, StackedEvalGenerator
+
+    cfg = steps.TrainConfig()  # the full widths
+    n_opt, dim = layout
+    gens = []
+    for s in range(lanes):
+        torch.manual_seed(s)
+        g = Generator(cfg.embedding_dim + n_opt, cfg.gen_dims, dim)
+        with torch.no_grad():
+            for b in g.blocks:
+                b.bn.running_mean.normal_(0, 0.5)
+                b.bn.running_var.uniform_(0.5, 2.0)
+        gens.append(g.to(cuda).eval())
+    B = cfg.batch_size
+    x = torch.randn((lanes, n_steps * B, cfg.embedding_dim + n_opt),
+                    generator=torch.Generator(device=cuda).manual_seed(lanes),
+                    device=cuda)
+    got = StackedEvalGenerator(gens)(x, block_rows=B)
+    with torch.no_grad():
+        for i, g in enumerate(gens):
+            want = torch.cat([g(b) for b in x[i].split(B)])
+            assert torch.equal(got[i], want), f"lane {i}"

@@ -94,7 +94,9 @@ def test_port_package_lists_every_slice_module():
                  "datasets", "data.ingest", "data.sharding",
                  "federation.init", "parallel.fedavg", "train.federated",
                  "train.snapshots", "eval.similarity", "testing.faults",
-                 "train.monitor", "train.watchdog", "data.fastcsv"):
+                 "train.monitor", "train.watchdog", "data.fastcsv",
+                 "obs.registry", "serve.metrics", "serve.fleet",
+                 "serve.pool", "serve.frontdoor"):
         assert f"fed_tgan_torch.{name}" in mods
 
 
@@ -284,3 +286,104 @@ def test_federated_entry_points_default_to_the_card():
 def test_tf32_is_off():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+@pytest.mark.parametrize("command", ["serve", "fleet", "sample-client"])
+def test_serving_commands_help_with_jax_sklearn_and_pandas_blocked(command):
+    """``serve``, ``fleet`` and ``sample-client --help`` run in a fresh
+    interpreter where jax, the JAX package, pandas, pyarrow and sklearn
+    cannot be imported."""
+    code = (
+        "import sys, runpy\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"sys.argv = ['fed_tgan_torch', {command!r}, '--help']\n"
+        "runpy.run_module('fed_tgan_torch', run_name='__main__')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"python -m fed_tgan_torch {command}" in proc.stdout
+
+
+def test_fleet_serves_with_jax_sklearn_and_pandas_blocked(tmp_path):
+    """Two tenants behind the asyncio front door on the CPU, one lane
+    dispatch, a row pool and a hot reload, in a fresh interpreter where
+    jax, the JAX package, pandas, pyarrow and sklearn cannot be
+    imported."""
+    code = (
+        "import sys, urllib.request\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from fed_tgan_torch.serve.demo import build_random_artifact\n"
+        "from fed_tgan_torch.serve.fleet import FleetRegistry, FleetService\n"
+        "from fed_tgan_torch.serve.pool import RowPool\n"
+        "from fed_tgan_torch.train.steps import TrainConfig\n"
+        "cfg = TrainConfig(embedding_dim=8, gen_dims=(16,), batch_size=20)\n"
+        "fleet = FleetRegistry(device='cpu', log=lambda *a: None)\n"
+        "for i, name in enumerate(('a', 'b')):\n"
+        f"    fleet.load(name, build_random_artifact({str(tmp_path)!r} + name,"
+        " seed=i, cfg=cfg))\n"
+        "svc = FleetService(fleet, http_mode='asyncio', row_pool=RowPool("
+        "fleet), reload_interval_s=0, log=lambda *a: None).start()\n"
+        "get = lambda t: urllib.request.urlopen(svc.url + '/t/' + t + "
+        "'/sample?rows=30&seed=2', timeout=60).read()\n"
+        "assert get('a') != get('b')\n"
+        "svc.shutdown()\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"
+
+
+def test_serving_entry_points_default_to_the_card(tmp_path):
+    """The registry, the fleet and the ``serve`` / ``fleet`` commands run
+    on the card unless the caller names the CPU: without CUDA, they
+    raise."""
+    from fed_tgan_torch.__main__ import main
+    from fed_tgan_torch.serve.demo import build_random_artifact
+    from fed_tgan_torch.serve.fleet import FleetRegistry
+    from fed_tgan_torch.serve.registry import ModelRegistry
+    from fed_tgan_torch.train.steps import TrainConfig
+
+    art = build_random_artifact(str(tmp_path), cfg=TrainConfig(
+        embedding_dim=8, gen_dims=(16,), batch_size=20))
+    if torch.cuda.is_available():
+        assert ModelRegistry(art).get().synth.device.type == "cuda"
+        return
+    for call in (lambda: ModelRegistry(art).get(),
+                 lambda: FleetRegistry().load("a", art),
+                 lambda: main(["serve", art, "--port", "0"]),
+                 lambda: main(["fleet", f"a={art}", "--port", "0"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_first_parallel_log_after_import_is_accurate():
+    """Importing the package settles MKL's vector math before any parallel
+    call: in fresh interpreters started together (a loaded host), the
+    first ``torch.log`` over a (1000, 282) float32 tensor (the CPU
+    activation's Gumbel noise) is within 2 ulps of the float64 log
+    everywhere (without the settling call one thread's chunk was seen
+    4e-5 off, in about one process in twenty)."""
+    code = (
+        "import numpy as np, torch, fed_tgan_torch\n"
+        "u = np.random.default_rng(1).random((1000, 282)).astype(np.float32)\n"
+        "got = torch.log(torch.from_numpy(u)).numpy()\n"
+        "want = np.log(u.astype(np.float64))\n"
+        "ulp = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)\n"
+        "print(float((np.abs(got - want) / ulp).max()))\n"
+    )
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(8)]
+    errs = []
+    for p in procs:
+        out, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err
+        errs.append(float(out))
+    assert max(errs) <= 2.0, errs  # in float32 ulps of the log

@@ -34,6 +34,7 @@ from fed_tgan_torch.serve.engine import ConditionError, SamplingEngine
 from fed_tgan_torch.serve.registry import (
     ArtifactError,
     MetaMismatchError,
+    ModelRegistry,
     open_model,
     resolve_artifact,
 )
@@ -210,7 +211,8 @@ def _get(url):
 
 
 def test_http_service_on_cpu(arts):
-    service = SamplingService(arts["pmodel"]).start()
+    service = SamplingService(ModelRegistry(arts["port_dir"], device="cpu",
+                                            log=lambda *a: None)).start()
     try:
         status, body = _get(f"{service.url}/healthz")
         health = json.loads(body)
@@ -228,7 +230,8 @@ def test_http_service_on_cpu(arts):
         assert _get(f"{service.url}/sample?rows=0")[0] == 400
         assert _get(f"{service.url}/sample?rows=5&column=color&value=x")[0] == 400
         assert _get(f"{service.url}/nope")[0] == 404
-        assert json.loads(_get(f"{service.url}/healthz")[1])["requests"] == 4
+        assert json.loads(_get(f"{service.url}/healthz")[1])[
+            "requests_total"] == 4
     finally:
         service.shutdown()
     assert not service.submit(None)  # draining: new requests are shed
