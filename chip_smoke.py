@@ -57,6 +57,32 @@ Phases, each fatal on failure:
    with K2, Adam on G) one by one, then 20 steps back to back, then 20
    steps under ``torch.profiler`` for the card's busy time per step and
    K1's and K2's share of it;
+8a. canary promotion, slice 8's serving path (``canary_phase``): the
+   trained model as an artifact with reference statistics of its
+   training table, served by ``SamplingService(promote="canary",
+   workers=2)``; a generation degraded by ``degrade_checkpoint(..., 100)``
+   rejected (non-empty ``tripped`` and ``per_column``) while a client
+   keeps asking, every response the incumbent's bytes, a ``utime`` not
+   scored again, ``/metrics`` and ``/healthz`` showing the rejection; a
+   clean republish (stream offset + 1000) promoted, its bytes those of an
+   immediate-mode service of the same generation; two fleet tenants, one
+   degraded and one clean, deciding apart with no lane group holding the
+   rejected model; an artifact without statistics rejecting the degraded
+   generation on statistics derived from the serving model; K1 launched
+   exactly once per shadow sample (plus once per request served during a
+   decision); the scorer on the card against the CPU (atol 1e-5) and its
+   time, the shadow sample's time, seconds per decision;
+8b. date columns (``dated_phase``): an Intrusion-shaped CSV with a
+   ``YYYY-MM-DD`` and a ``yymmdd`` column (leap days, 2000-2009, blanks)
+   trained by the CLI, run in this process (``--mode fedavg``, 2 clients,
+   1 round, ``--date-format``, ``--save-model``; K1 and K2 launched
+   ``max(steps) * (d_steps + 1) + chunks`` and ``max(steps)`` times,
+   exactly); ``serve`` answers 5,000-row requests from the artifact (K1
+   once per chunk); every date cell of the snapshot and of the response
+   blank or valid as the JAX package writes it, the response equal to
+   the card's encoded rows of the same request decoded on the CPU
+   (stdlib writer); then K1 and K2 against their plain versions at the
+   dated layout (a served chunk, a stacked training step);
 9. the federated round, slice 3's main path, at its target configuration
    (a 20,000-row raw Intrusion-shaped CSV, 4 IID clients, ``TrainConfig()``
    defaults, the gated weighted aggregator, a 40,000-row packed8 snapshot
@@ -107,9 +133,12 @@ this one, each turn a process of its own; and prints one
 
 Prints the card's name and power limit beside every number, a JSON line
 with the training numbers, one with the federated round's, one with the
-durable round's, the card's line, a JSON line with the kernels' numbers
-(one entry per kernel and path: K1 serving, K1 and K2 training, K1 and K2
-federated, K1 in the similarity monitor, K1 and K2 in the ragged round),
+durable round's, one with the canary's and the dated phase's, the card's
+line, a JSON line with the kernels' numbers (one entry per kernel and
+path: K1 serving, K1 in the fleet, K1 and K2 training, K1 and K2
+federated, K1 in the similarity monitor, K1 and K2 in the ragged round, K1
+in the canary's shadow samples, K1 serving a dated model, K1 and K2 in
+the dated training),
 and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no result line, when CUDA is not available.
@@ -118,6 +147,8 @@ Exits non-zero, with no result line, when CUDA is not available.
 from __future__ import annotations
 
 import argparse
+import ast
+import contextlib
 import csv
 import dataclasses
 import io
@@ -2272,6 +2303,424 @@ def fleet_phase(seed: int, rows: int, card: str, build_root: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --------------------------------------------------- canary and date columns
+
+DATED_ROWS, DATED_SNAPSHOT_ROWS, DATED_REQUEST_ROWS = 4_000, 10_000, 5_000
+DATED_FORMATS = {"when": "YYYY-MM-DD", "stamp": "yymmdd|YYYY-MM-DD"}
+
+
+class TrafficLoop:
+    """One client requesting ``url`` back to back in a thread until
+    :meth:`stop`; keeps every body and the request count."""
+
+    def __init__(self, url: str):
+        self.url, self.bodies, self.errors = url, [], []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                status, body, _ = fetch(self.url)
+                self.bodies.append((status, body))
+            except Exception as exc:  # noqa: BLE001 — fatal in stop()
+                self.errors.append(repr(exc))
+                return
+
+    def stop(self) -> list:
+        self._stop.set()
+        self._thread.join(timeout=300)
+        if self.errors:
+            raise AssertionError(f"traffic during a decision: {self.errors}")
+        return self.bodies
+
+
+def canary_phase(synth, meta, encoders, seed: int, card: str,
+                 build_root: str, rows: int) -> dict:
+    """Canary promotion at full width on the card, on the model
+    ``train_phase`` trained, written with reference statistics of its
+    training table: a degraded generation rejected under traffic, a clean
+    one promoted to the bytes immediate mode serves, two tenants of a fleet
+    deciding apart, and statistics derived from the serving model."""
+    from fed_tgan_torch.federation.sketch import wd_scores
+    from fed_tgan_torch.runtime.checkpoint import (
+        SYNTH_DIR,
+        load_synthesizer,
+        save_synthesizer,
+    )
+    from fed_tgan_torch.serve.canary import (
+        compute_reference_stats,
+        reference_stats_path,
+        wd_call,
+        wd_inputs,
+        write_reference_stats,
+    )
+    from fed_tgan_torch.serve.demo import intrusion_like_raw
+    from fed_tgan_torch.serve.fleet import FleetRegistry, FleetService
+    from fed_tgan_torch.testing.faults import degrade_checkpoint
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_canary_", dir=build_root)
+    stats = compute_reference_stats(
+        intrusion_like_raw(TRAIN_ROWS, seed), meta.categorical_columns,
+        name=meta.name, probe_rows=64)
+    synth_dir = lambda art: os.path.join(art, "models", SYNTH_DIR)
+
+    def artifact(name: str, with_stats: bool = True) -> str:
+        art = write_artifact(os.path.join(root, name), synth.to_saved(),
+                             meta, encoders)
+        if with_stats:
+            write_reference_stats(stats, reference_stats_path(
+                os.path.join(art, "models"), meta.name))
+        return art
+
+    def republish(art: str) -> None:
+        """The clean candidate: the trained weights, stream offset + 1000."""
+        clean = load_synthesizer(os.path.join(root, "clean", "models",
+                                              SYNTH_DIR), device="cuda")
+        clean.key_offset += 1000
+        save_synthesizer(clean, synth_dir(art))
+
+    decisions, samples = [], 0
+
+    def checked(gates, poll, what: str, requests=lambda: 0) -> None:
+        """Run the promotion poll ``poll()``: the K1 launches during it
+        must be one per shadow sample of ``gates`` (one chunk each), plus
+        one per request ``requests()`` counts after the poll."""
+        nonlocal samples
+        k1 = fused_apply_activate.launches
+        drawn = [g.shadow_samples for g in gates]
+        poll()
+        served = requests()
+        n = sum(g.shadow_samples - d for g, d in zip(gates, drawn))
+        got = fused_apply_activate.launches - k1
+        if got != n + served:
+            raise AssertionError(f"canary {what}: {got} K1 launches for {n} "
+                                 f"shadow samples and {served} requests")
+        decisions.extend(g.last_decision for g in gates)
+        samples += n
+
+    try:
+        artifact("clean")
+        art = artifact("single")
+        fused_apply_activate.launches = 0
+        svc = SamplingService(ModelRegistry(art, device="cuda", log=_silent),
+                              workers=2, reload_interval_s=0,
+                              promote="canary", log=_silent).start()
+        try:
+            gate = svc.gate
+            incumbent = svc.registry.get().model_id
+            req = f"{svc.url}/sample?rows={rows}&seed={seed}"
+            status, before, _ = fetch(req)
+            assert status == 200, status
+            # a degraded generation, decided while a client keeps asking
+            degrade_checkpoint(synth_dir(art), 100.0)
+            traffic = []
+            checked([gate], lambda: (traffic.append(TrafficLoop(req)),
+                                     svc._maybe_reload()),
+                    "degraded", lambda: len(traffic[0].stop()))
+            bodies, bad = traffic[0].bodies, gate.last_decision
+            if bad["promoted"] or not bad["tripped"] or not bad["per_column"]:
+                raise AssertionError(f"degraded generation not rejected: "
+                                     f"{ {k: bad[k] for k in ('promoted', 'tripped')} }")
+            if any(s != 200 or b != before for s, b in bodies):
+                raise AssertionError("a response during the decision was "
+                                     "not the incumbent's bytes")
+            status, after, _ = fetch(req)
+            if status != 200 or after != before or \
+                    svc.registry.get().model_id != incumbent:
+                raise AssertionError("the rejected generation served")
+            scored = gate.scored_total
+            os.utime(os.path.join(synth_dir(art), "weights.npz"))
+            svc._maybe_reload()
+            if gate.scored_total != scored:
+                raise AssertionError("a quarantined generation was scored "
+                                     "again")
+            metrics = fetch(f"{svc.url}/metrics")[1].decode()
+            line = (f'fed_tgan_quality_rejections_total{{tenant="'
+                    f'{meta.name}"}} 1')
+            health = json.loads(fetch(f"{svc.url}/healthz")[1])
+            if line not in metrics or health["promotion"]["rejections"] != 1 \
+                    or health["model_id"] != incumbent:
+                raise AssertionError(f"metrics/health after the rejection: "
+                                     f"{health['promotion']}")
+            # a clean generation: promoted, then served as immediate mode
+            republish(art)
+            checked([gate], svc._maybe_reload, "clean")
+            good = gate.last_decision
+            if not good["promoted"]:
+                raise AssertionError(f"clean generation rejected: "
+                                     f"{good['tripped']}")
+            status, promoted, _ = fetch(req)
+            plain = SamplingService(ModelRegistry(art, device="cuda",
+                                                  log=_silent)).start()
+            try:
+                immediate = fetch(req)[1]
+            finally:
+                plain.shutdown()
+            if status != 200 or promoted != immediate:
+                raise AssertionError("promoted bytes differ from immediate "
+                                     "mode's for the same generation")
+            if promoted == before:
+                raise AssertionError("the promoted generation serves the "
+                                     "incumbent's bytes")
+            # the scorer on the card against the CPU on the same inputs,
+            # and its time at the canary's shape
+            snap = svc.engine.snapshot()
+            t0 = time.perf_counter()
+            frame = svc.engine.sample_frame(gate.config.shadow_rows,
+                                            seed=gate.config.shadow_seed,
+                                            snap=snap)
+            shadow_ms = (time.perf_counter() - t0) * 1e3
+            _, means, stds, weights, _ = wd_inputs(stats, frame)
+            args_card = wd_call(means, stds, weights, 512, "cuda")
+            card_wd = wd_scores(*args_card).cpu().numpy()
+            cpu_wd = wd_scores(*wd_call(means, stds, weights, 512,
+                                        "cpu")).numpy()
+            wd_err = float(np.abs(card_wd - cpu_wd).max())
+            if wd_err > ATOL:
+                raise AssertionError(f"scorer card vs CPU {wd_err} > {ATOL}")
+            scorer_ms = cuda_ms(lambda: wd_scores(*args_card), 50)
+            shadow_ms_warm = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                svc.engine.sample_frame(gate.config.shadow_rows, seed=seed,
+                                        snap=snap)
+                shadow_ms_warm.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            svc.shutdown()
+
+        # two tenants of a fleet: a degraded publish and a clean one
+        arts = {"good": artifact("good"), "bad": artifact("bad")}
+        fleet = FleetRegistry(promote="canary", device="cuda", log=_silent)
+        for name, path in arts.items():
+            fleet.load(name, path)
+        fsvc = FleetService(fleet, workers=2, reload_interval_s=0,
+                            log=_silent).start()
+        try:
+            incumbents = {n: fleet.get(n).registry.get().model_id
+                          for n in arts}
+            republish(arts["good"])
+            degrade_checkpoint(synth_dir(arts["bad"]), 100.0)
+            checked([fleet.get(n).gate for n in ("good", "bad")],
+                    fsvc._maybe_reload, "fleet")
+            d_good = fleet.get("good").gate.last_decision
+            d_bad = fleet.get("bad").gate.last_decision
+            if not d_good["promoted"] or d_bad["promoted"]:
+                raise AssertionError(f"fleet decisions: good "
+                                     f"{d_good['promoted']}, bad "
+                                     f"{d_bad['promoted']}")
+            if fleet.get("bad").registry.get().model_id != incumbents["bad"]:
+                raise AssertionError("the fleet serves the rejected model")
+            want = {n: SamplingEngine(open_model(arts[n], device="cuda"))
+                    .sample_csv_bytes(rows, seed=seed) for n in ("good",)}
+            want["bad"] = SamplingEngine(fleet.get("bad").registry.get()) \
+                .sample_csv_bytes(rows, seed=seed)
+            run = _load(4, [[(n, rows, seed)] * 2 for n in
+                            ("good", "bad", "good", "bad")],
+                        lambda t: ("127.0.0.1", fsvc.port, f"/t/{t}/sample"))
+            for (c, _), (status, body) in run["bodies"].items():
+                tenant = ("good", "bad")[c % 2]
+                if status != 200 or body != want[tenant]:
+                    raise AssertionError(f"fleet tenant {tenant}: bytes "
+                                         "differ from its serving model's")
+            rejected = d_bad["candidate"]
+            if any(rejected in str(key) for key in fleet.cache.keys()):
+                raise AssertionError("a lane group holds the rejected model")
+            status_json = json.loads(fetch(f"{fsvc.url}/fleet")[1])
+            promo = {t["name"]: t["promotion"]
+                     for t in status_json["tenants"]}
+            if promo["good"]["promotions"] != 1 or \
+                    promo["bad"]["quarantined"] != [rejected]:
+                raise AssertionError(f"/fleet promotion state {promo}")
+        finally:
+            fsvc.shutdown()
+
+        # no statistics file: the gate derives them from the serving model
+        derived_art = artifact("derived", with_stats=False)
+        dsvc = SamplingService(ModelRegistry(derived_art, device="cuda",
+                                             log=_silent),
+                               reload_interval_s=0, promote="canary",
+                               log=_silent)
+        degrade_checkpoint(synth_dir(derived_art), 100.0)
+        checked([dsvc.gate], dsvc._maybe_reload, "derived stats")
+        derived = dsvc.gate.last_decision
+        if derived["promoted"] or not derived["tripped"] or \
+                dsvc.gate._stats_cache.stats["source"] != "derived_incumbent":
+            raise AssertionError(f"derived stats: {derived['tripped']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = [d["seconds"] for d in decisions]
+    # the engine's chunk of a shadow sample: its steps, to a power of two
+    due = -(-gate.config.shadow_rows // synth.cfg.batch_size)
+    chunk_rows = (1 << (due - 1).bit_length()) * synth.cfg.batch_size
+    out = {
+        "launches": fused_apply_activate.launches,
+        "shadow_samples": samples, "decisions": len(decisions),
+        "decision_s_p50": statistics.median(seconds), "decision_s": seconds,
+        "tripped_degraded": bad["tripped"], "jsd_delta_degraded":
+        bad.get("jsd_delta"), "wd_delta_degraded": bad.get("wd_delta"),
+        "jsd_delta_clean": good.get("jsd_delta"),
+        "wd_delta_clean": good.get("wd_delta"),
+        "scorer_ms": scorer_ms, "scorer_shape": list(means.shape) + [512],
+        "scorer_card_vs_cpu": wd_err, "shadow_ms_first": shadow_ms,
+        "shadow_ms": statistics.median(shadow_ms_warm),
+        "requests_during_degraded_decision": len(bodies),
+        "chunk_rows": chunk_rows,
+    }
+    print(f"canary: {len(decisions)} decisions (degraded rejected, tripped "
+          f"{bad['tripped']}, jsd_delta {bad.get('jsd_delta')!r} wd_delta "
+          f"{bad.get('wd_delta')!r}, {len(bodies)} requests during it all "
+          f"the incumbent's bytes; clean promoted, jsd_delta "
+          f"{good.get('jsd_delta')!r} wd_delta {good.get('wd_delta')!r}, "
+          f"bytes == immediate mode; fleet good promoted / bad rejected, no "
+          f"lane group holds it; derived stats rejected): seconds per "
+          f"decision p50 {out['decision_s_p50']!r} ({seconds!r}); K1 "
+          f"{out['launches']} launches in the phase, {samples} shadow "
+          f"samples of {gate.config.shadow_rows} rows (one "
+          f"({chunk_rows}, {synth.spec.dim}) chunk each)  [{card}]",
+          flush=True)
+    print(f"canary scorer: {scorer_ms!r} ms on the card at (2, "
+          f"{means.shape[1]}, {means.shape[2]}) x 512 grid points, card vs "
+          f"CPU max abs diff {wd_err!r} (atol {ATOL}); shadow sample of "
+          f"{gate.config.shadow_rows} rows {out['shadow_ms']!r} ms (first "
+          f"{shadow_ms!r} ms)  [{card}]", flush=True)
+    return out
+
+
+def _valid_date_cell(cell: str, fmt: str) -> bool:
+    """``' '``, or a valid date as the JAX package writes the column: a
+    ``yymmdd`` origin as the int of its digits, any other as
+    ``YYYY-MM-DD 00:00:00``."""
+    import datetime as dt
+
+    if cell == " ":
+        return True
+    try:
+        if fmt.startswith("yymmdd"):
+            return cell.isdigit() and len(cell) <= 6 and bool(
+                dt.datetime.strptime(cell.zfill(6), "%y%m%d"))
+        return len(cell) == 19 and cell.endswith(" 00:00:00") and bool(
+            dt.datetime.strptime(cell, "%Y-%m-%d %H:%M:%S"))
+    except ValueError:
+        return False
+
+
+def _date_cells(blob: bytes, formats: dict) -> dict:
+    """{date column: (cells, blanks)} of a CSV; fatal on an invalid cell."""
+    lines = list(csv.reader(io.StringIO(blob.decode())))
+    header, out = lines[0], {}
+    for col, fmt in formats.items():
+        j = header.index(col)
+        bad = [r[j] for r in lines[1:] if not _valid_date_cell(r[j], fmt)]
+        if bad:
+            raise AssertionError(f"date column {col}: invalid cells "
+                                 f"{bad[:5]}")
+        out[col] = (len(lines) - 1, sum(r[j] == " " for r in lines[1:]))
+    return out
+
+
+def dated_phase(root: str, seed: int, card: str) -> dict:
+    """Date columns on the card: the training CLI, run in this process so
+    that its K1 and K2 launches are counted, trains an Intrusion-shaped
+    CSV with a ``YYYY-MM-DD`` and a ``yymmdd`` column (2 clients, 1 round,
+    ``--date-format``, ``--save-model``); then ``serve`` answers 5,000-row
+    requests from its artifact, one K1 launch per chunk.  Every date cell
+    of the snapshot and of the response is valid, and the response equals
+    the card's encoded rows of the same request decoded on the CPU."""
+    from fed_tgan_torch.cli import main as cli_main
+    from fed_tgan_torch.ops.decode import decode_tables, tables_to
+    from fed_tgan_torch.serve.demo import write_dated_csv
+
+    data = write_dated_csv(os.path.join(root, "dated.csv"), DATED_ROWS, seed)
+    out = os.path.join(root, "dated_out")
+    columns = [*INTRUSION_SELECTED, *DATED_FORMATS]
+    argv = ["--mode", "fedavg", "--datapath", data, "--dataset", "intrusion",
+            "--selected", *columns, "--n-clients", "2", "-epochs", "1",
+            "--sample-rows", str(DATED_SNAPSHOT_ROWS), "--eval",
+            "--save-model", "--out-dir", out, "--seed", str(seed),
+            "--date-format", *(f"{k}={v}" for k, v in DATED_FORMATS.items())]
+    stdout = io.StringIO()
+    fused_apply_activate.launches = 0
+    fused_activate_bwd.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = cli_main(argv)
+    wall = time.perf_counter() - t0
+    train_launches = {"K1": fused_apply_activate.launches,
+                      "K2": fused_activate_bwd.launches}
+    if rc != 0:
+        raise AssertionError(f"dated CLI exited {rc}: "
+                             f"{stdout.getvalue()[-3000:]}")
+    snap = os.path.join(out, "Intrusion_result",
+                        "Intrusion_synthesis_epoch_0.csv")
+    with open(snap, "rb") as f:
+        snap_cells = _date_cells(f.read(), DATED_FORMATS)
+    if any(n != DATED_SNAPSHOT_ROWS for n, _ in snap_cells.values()):
+        raise AssertionError(f"snapshot rows {snap_cells}")
+    registry = ModelRegistry(out, device="cuda", log=_silent)
+    model = registry.get()
+    if model.meta.date_info != DATED_FORMATS:
+        raise AssertionError(f"saved date_info {model.meta.date_info}")
+    spec, cfg = model.synth.spec, model.synth.cfg
+    B = cfg.batch_size
+    # one stacked step of both clients per local step, one snapshot chunk
+    shards = next(ast.literal_eval(line.split("rows per shard: ", 1)[1])
+                  for line in stdout.getvalue().splitlines()
+                  if "rows per shard: " in line)
+    max_steps = max(r // B for r in shards)
+    service = SamplingService(registry).start()
+    try:
+        engine = service.engine
+        snap_chunks = len(engine._chunk_plan(
+            0, -(-DATED_SNAPSHOT_ROWS // B), pow2_tail=False))
+        want_train = {"K1": max_steps * (cfg.d_steps + 1) + snap_chunks,
+                      "K2": max_steps}
+        if train_launches != want_train:
+            raise AssertionError(f"dated CLI launches {train_launches} != "
+                                 f"{want_train}")
+        plan = engine._chunk_plan(0, -(-DATED_REQUEST_ROWS // B))
+        url = f"{service.url}/sample?rows={DATED_REQUEST_ROWS}&seed={seed}"
+        fused_apply_activate.launches = 0
+        status, body, first_s = fetch(url)
+        # the same request again, warm: p50 of 5
+        warm = [fetch(url) for _ in range(5)]
+        serve_launches = fused_apply_activate.launches
+        enc = engine.sample_encoded(DATED_REQUEST_ROWS, seed=seed)
+    finally:
+        service.shutdown()
+    if status != 200 or any(s != 200 or b != body for s, b, _ in warm):
+        raise AssertionError(f"serve answered {status}, or a repeat "
+                             "differs")
+    if serve_launches != 6 * len(plan):
+        raise AssertionError(f"dated serving: {serve_launches} K1 launches "
+                             f"for 6 requests of {len(plan)} chunks")
+    request_ms = statistics.median(t for _, _, t in warm) * 1e3
+    served_cells = _date_cells(body, DATED_FORMATS)
+    # the card's encoded rows of the request, decoded on the CPU
+    mat = layout_decode(torch.from_numpy(enc), tables_to(
+        decode_tables(model.synth.columns), "cpu")).numpy()
+    plain = plain_csv_bytes(decode_columns(mat, model.meta, model.encoders))
+    if body != plain:
+        raise AssertionError("the dated response differs from the CPU "
+                             "decode of the same encoded rows")
+    chunk_rows = plan[0][1] * B
+    print(f"dated: CLI --date-format {DATED_FORMATS} on {DATED_ROWS} rows, "
+          f"2 clients {shards}, 1 round, layout {spec.dim}: exit 0 in "
+          f"{wall!r} s, K1/K2 launches {train_launches} (== {want_train}); "
+          f"snapshot (rows, blanks) {snap_cells}; serve answered "
+          f"{DATED_REQUEST_ROWS} rows in {request_ms!r} ms p50 of 5 (first "
+          f"{first_s * 1e3!r} ms), {serve_launches} K1 launches in 6 "
+          f"requests (one ({chunk_rows}, {spec.dim}) chunk each), (rows, "
+          f"blanks) {served_cells}, every date cell valid, bytes == the "
+          f"CPU decode of the card's encoded rows  [{card}]", flush=True)
+    return {"cli_wall_s": wall, "snapshot": snap_cells,
+            "served": served_cells, "request_ms": request_ms,
+            "first_request_ms": first_s * 1e3, "spec": spec,
+            "launches": {"train": train_launches, "serve": serve_launches},
+            "chunk_rows": chunk_rows, "train_rows": len(shards) * B}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2360,6 +2809,26 @@ def main(argv=None) -> int:
     serve_trained_phase(synth, meta, encoders, args.rows, args.seed, card)
     training.update(train_stage_breakdown(synth, args.seed, card))
     mark("training")
+    canary = canary_phase(synth, meta, encoders, args.seed, card, build_root,
+                          args.rows)
+    # K1 at the shadow sample's shape: one engine chunk
+    shapes += check_kernel(synth.spec, card,
+                           (("canary", canary["chunk_rows"]),), extra=False)
+    mark("canary")
+    dated_root = tempfile.mkdtemp(prefix="chip_smoke_dated_", dir=build_root)
+    try:
+        dated = dated_phase(dated_root, args.seed, card)
+    finally:
+        shutil.rmtree(dated_root, ignore_errors=True)
+    # both kernels at the dated layout: a served chunk, and a stacked step
+    # of the dated training (both clients' batches)
+    dated_spec = dated.pop("spec")
+    dated_train = (("dated_train", dated["train_rows"]),)
+    shapes += check_kernel(dated_spec, card, (("dated", dated["chunk_rows"]),
+                                              *dated_train), extra=False)
+    bwd_shapes += check_bwd_kernel(dated_spec, card, dated_train,
+                                   extra=False)
+    mark("dated")
 
     fed_root = tempfile.mkdtemp(prefix="chip_smoke_fed_", dir=build_root)
     cli_run = None
@@ -2458,10 +2927,24 @@ def main(argv=None) -> int:
               shapes, "ragged", federated["ragged"]["launches"]["K1"]),
         entry("fused_gumbel_activation_bwd_ragged", bwd, "federated ragged",
               bwd_shapes, "ragged", federated["ragged"]["launches"]["K2"]),
+        # slice 8's canary: one launch per shadow sample (one chunk); the
+        # requests served beside the decisions are in the canary's report
+        entry("fused_gumbel_activation_fwd_canary", fwd, "serving canary",
+              shapes, "canary", canary["shadow_samples"]),
+        # slice 8's date columns: the dated artifact served, and the dated
+        # CLI's stacked steps and snapshot
+        entry("fused_gumbel_activation_fwd_dated", fwd, "serving dated",
+              shapes, "dated", dated["launches"]["serve"]),
+        entry("fused_gumbel_activation_fwd_dated_train", fwd,
+              "federated dated", shapes, "dated_train",
+              dated["launches"]["train"]["K1"]),
+        entry("fused_gumbel_activation_bwd_dated", bwd, "federated dated",
+              bwd_shapes, "dated_train", dated["launches"]["train"]["K2"]),
     ]
     print(json.dumps({"training": training}))
     print(json.dumps({"federated": federated}))
     print(json.dumps({"durability": durability}))
+    print(json.dumps({"canary": canary, "dated": dated}))
     print(card)
     print(json.dumps({"kernels": kernels, "serving": serving,
                       "fleet": fleet}))

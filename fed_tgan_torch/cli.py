@@ -15,7 +15,11 @@ layout:
 - ``<out>/timestamp_experiment.csv`` and ``timing_phases.csv``;
 - ``<out>/models/<name>.json`` (harmonized meta),
   ``label_encoders_<name>.json`` and, with ``--save-model``, the port
-  artifact ``synthesizer_torch/`` that ``serve`` loads;
+  artifact ``synthesizer_torch/`` that ``serve`` loads, with the
+  training table's reference statistics ``reference_stats_<name>.json``
+  that ``serve --promote canary`` scores new generations against;
+- ``--date-format col=FORMAT ...`` splits each date column into
+  categorical parts for training and rejoins it in every written CSV;
 - with ``--monitor-every K``, ``<out>/monitor_similarity.csv`` (appended
   to on ``--resume``);
 - with ``--save-every K``, crash-safe training checkpoints in
@@ -55,7 +59,6 @@ NOT_PORTED = {
     "--world_size": (dict(type=int, default=None), "A.18"),
     "--ip": (dict(type=str, default=None), "A.18"),
     "--port": (dict(type=int, default=None), "A.18"),
-    "--date-format": (dict(type=str, nargs="*", default=None), "A.19"),
     "--obs-port": (dict(type=int, default=None), "A.20"),
     "--journal": (dict(type=str, default=None), "A.20"),
     "--profile-dir": (dict(type=str, default=None), "A.20"),
@@ -160,6 +163,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rollbacks before the run aborts")
     p.add_argument("--watchdog-lr-reanneal", type=float, default=0.5,
                    help="learning-rate multiplier applied on each rollback")
+    p.add_argument("--date-format", type=str, nargs="*", default=None,
+                   dest="date_format", metavar="COL=FORMAT",
+                   help="date columns and their formats, e.g. "
+                        "when=YYYY-MM-DD stamp=yymmdd|YYYY-MM-DD")
     p.add_argument("--faults", type=str, default=None, metavar="SPEC",
                    help="fault-injection plan, e.g. 'kill_client:rank=3,"
                         "round=2;crash_checkpoint:save=2' (also read from "
@@ -185,6 +192,27 @@ def _refused(args, parser) -> str | None:
     return None
 
 
+def _parse_date_formats(items) -> dict:
+    """``['when=YYYY-MM-DD', ...]`` -> ``{'when': 'YYYY-MM-DD'}``
+    (``fed_tgan_tpu/cli.py:553-562``); a malformed entry exits."""
+    out = {}
+    for item in items or []:
+        col, sep, fmt = item.partition("=")
+        if not sep or not col or not fmt:
+            raise SystemExit(f"--date-format entries must be col=FORMAT, "
+                             f"got {item!r}")
+        out[col] = fmt
+    return out
+
+
+def _eval_categorical_columns(kwargs) -> list:
+    """The columns ``--eval`` scores with JSD: the categorical ones and
+    the date columns, which decode to dates, not numbers."""
+    return list(kwargs["categorical_columns"]) + [
+        c for c in kwargs.get("date_formats", {})
+        if c not in kwargs["categorical_columns"]]
+
+
 def _dataset_kwargs(args):
     """``(run name, TablePreprocessor kwargs)``; ``(None, None)`` for an
     unknown preset."""
@@ -194,6 +222,7 @@ def _dataset_kwargs(args):
         kwargs = dict(
             categorical_columns=args.categorical or [],
             non_negative_columns=args.non_negative or [],
+            date_formats=_parse_date_formats(args.date_format),
             target_column=args.target_column or "",
             problem_type=args.problem_type or "",
             selected_columns=args.selected or None)
@@ -213,6 +242,8 @@ def _dataset_kwargs(args):
             kwargs[kw] = getattr(args, flag)
     if args.selected is not None:
         kwargs["selected_columns"] = args.selected or None
+    if args.date_format is not None:
+        kwargs["date_formats"] = _parse_date_formats(args.date_format)
     return args.name or preset.name, kwargs
 
 
@@ -228,12 +259,30 @@ def _write_meta(models_dir: str, name: str, meta, encoders) -> None:
                    zip(meta.categorical_columns, encoders)], f)
 
 
-def _save_model(out_dir: str, name: str, synth, meta, encoders) -> None:
+def _save_model(out_dir: str, name: str, synth, meta, encoders,
+                tables=None) -> None:
+    """The artifact: meta and encoders, the synthesizer last, then the
+    reference statistics of the training ``tables`` (their columns of the
+    meta, every client's rows; ``fed_tgan_tpu/cli.py:1103-1112,
+    1345-1360``), which ``serve --promote canary`` scores against."""
     from fed_tgan_torch.runtime.checkpoint import SYNTH_DIR, save_synthesizer
+    from fed_tgan_torch.serve.canary import (
+        compute_reference_stats,
+        reference_stats_path,
+        write_reference_stats,
+    )
 
     models_dir = os.path.join(out_dir, "models")
     _write_meta(models_dir, name, meta, encoders)  # synthesizer last
     save_synthesizer(synth, os.path.join(models_dir, SYNTH_DIR))
+    if tables is None:
+        return  # a resumed run without its data: the gate derives them
+    real = {c: np.concatenate([t[c] for t in tables])
+            for c in meta.column_names if c in tables[0]}
+    stats = compute_reference_stats(
+        real, meta.categorical_columns, name=name,
+        probe_rows=min(64, len(next(iter(real.values()))) if real else 0))
+    write_reference_stats(stats, reference_stats_path(models_dir, name))
 
 
 def _evaluate(real_tables: list, fake: dict, categorical) -> None:
@@ -338,6 +387,7 @@ def _resume(args, name, kwargs, ckpt_dir, device) -> int:
     init = trainer.init
     name = trainer.run_name or name
     kwargs["categorical_columns"] = init.global_meta.categorical_columns
+    kwargs["date_formats"] = dict(init.global_meta.date_info)
     tables = None
     if args.eval:
         try:
@@ -381,9 +431,10 @@ def _run_standalone(args, name, kwargs, tables, columns, cfg, device) -> int:
     if not args.quiet:
         print(f"wrote {args.sample_rows} rows to {out_csv}")
     if args.save_model:
-        _save_model(args.out_dir, name, synth.to_saved(), meta, encoders)
+        _save_model(args.out_dir, name, synth.to_saved(), meta, encoders,
+                    [table])
     if args.eval:
-        _evaluate([table], raw, kwargs["categorical_columns"])
+        _evaluate([table], raw, _eval_categorical_columns(kwargs))
     return 0
 
 
@@ -500,13 +551,13 @@ def _run_training(args, name, kwargs, trainer, init, tables,
         save_federated(trainer, ckpt_dir, run_name=name, keep=args.ckpt_keep)
     if args.save_model:
         _save_model(args.out_dir, name, trainer.to_saved(), init.global_meta,
-                    init.encoders)
+                    init.encoders, tables)
     trainer.write_timing(args.out_dir)
     if args.eval and tables is not None and last_epoch >= 0:
         last = ((last_epoch // args.sample_every) * args.sample_every
                 if args.sample_every else last_epoch)
         _evaluate(tables, read_csv(path_fn(last)),
-                  kwargs["categorical_columns"])
+                  _eval_categorical_columns(kwargs))
     if not args.quiet:
         total = sum(trainer.epoch_times)
         n = max(len(trainer.epoch_times), 1)

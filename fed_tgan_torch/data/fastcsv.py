@@ -44,7 +44,11 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 
 from fed_tgan_torch.data.csvio import _cells
-from fed_tgan_torch.data.decode import category_values, decode_cells
+from fed_tgan_torch.data.decode import (
+    category_values,
+    decode_cells,
+    output_columns,
+)
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "csvfmt.c"
@@ -256,22 +260,29 @@ def _category_table(encoder, alone: bool) -> CellTable:
 class ColumnPlan:
     """How the columns of ``decode_cells(data, meta, encoders)`` are
     written: numeric ones as floats, categorical ones through a table of
-    their encoder's classes (the missing token as ``' '``).  Built once per
+    their encoder's classes (the missing token as ``' '``), a rejoined
+    date column through a table of its distinct cells.  Built once per
     model; the bytes equal ``plain_csv_bytes(decode_columns(...))``."""
 
     def __init__(self, meta, encoders):
-        self.names = list(meta.column_names)
-        alone = len(self.names) == 1
+        self.names = output_columns(meta)
+        self._alone = len(self.names) == 1
+        self.dates = set(meta.date_info)
         self.tables = {
-            name: _category_table(enc, alone)
-            for name, enc in zip(meta.categorical_columns, encoders)}
+            name: _category_table(enc, self._alone)
+            for name, enc in zip(meta.categorical_columns, encoders)
+            if name in self.names}
         self.header = header_line(self.names)
 
+    def _column(self, name: str, cells):
+        if name in self.tables:
+            return TableCells(cells.values, self.tables[name])
+        if name in self.dates:
+            return to_cells(cells.values, self._alone)
+        return FloatCells(cells.values, cells.blank)
+
     def _columns(self, cells: dict) -> list:
-        return [TableCells(cells[name].values, self.tables[name])
-                if name in self.tables
-                else FloatCells(cells[name].values, cells[name].blank)
-                for name in self.names]
+        return [self._column(name, cells[name]) for name in self.names]
 
     def csv_bytes(self, cells: dict, header: bool = True) -> bytes:
         return format_rows(self._columns(cells),

@@ -14,9 +14,10 @@ follows the JAX package's order and pandas' semantics cell by cell:
    its missing cells become the sentinel -999999;
 4. categorical values are compared as their pandas string form
    (``csvio.cell_strings``): ``"1"`` for an integer column, ``"1.0"`` for
-   a float one.
-
-Date columns are not ported yet: ``date_formats`` raises.
+   a float one;
+5. a date column (``date_formats``, exempt from step 3) is replaced by
+   its categorical part-columns, appended after every other column
+   (:mod:`fed_tgan_torch.data.dates`).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import numpy as np
 
 from fed_tgan_torch.data.constants import MISSING_CONTINUOUS, MISSING_TOKEN
 from fed_tgan_torch.data.csvio import cell_strings, read_csv
+from fed_tgan_torch.data.dates import split_date_columns
 from fed_tgan_torch.data.encoders import CategoryEncoder
 from fed_tgan_torch.data.schema import TableMeta
 
@@ -84,9 +86,6 @@ class TablePreprocessor:
     selected_columns: Optional[Sequence[str]] = None
 
     def __post_init__(self):
-        if self.date_formats:
-            raise NotImplementedError(
-                "date columns are not ported yet (ROADMAP A.19)")
         names = (list(self.selected_columns)
                  if self.selected_columns is not None else list(self.table))
         missing = [c for c in names if c not in self.table]
@@ -97,8 +96,9 @@ class TablePreprocessor:
         self.integer_columns = infer_integer_columns(cols)
         cols = {c: _fill_missing(v) for c, v in cols.items()}
         nonneg = set(self.non_negative_columns)
+        exempt = set(self.categorical_columns) | set(self.date_formats)
         for c, v in cols.items():
-            if c in self.categorical_columns:
+            if c in exempt:
                 continue
             missing = cell_strings(v) == MISSING_TOKEN
             if not missing.any() and c not in nonneg:
@@ -110,6 +110,11 @@ class TablePreprocessor:
                 with np.errstate(invalid="ignore", divide="ignore"):
                     vals = np.log(vals + 1.0)
             cols[c] = np.where(np.isnan(vals), MISSING_CONTINUOUS, vals)
+        if self.date_formats:
+            self.date_formats = dict(self.date_formats)
+            self.categorical_columns.extend(self.date_formats)
+            cols = split_date_columns(cols, self.date_formats,
+                                      self.categorical_columns)
         self.columns = cols
 
     @classmethod

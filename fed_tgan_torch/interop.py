@@ -8,8 +8,9 @@
   ``ModelBundle``, and :func:`params_to_jax_layout` maps the port's
   weights back to the JAX pytree layout;
 - :func:`convert_jax_artifact` reads a JAX ``--save-model`` artifact
-  (``synthesizer/host.pkl`` + ``arrays.npz``, meta JSON, encoder pickle)
-  and writes the port's own format (:mod:`fed_tgan_torch.runtime.checkpoint`);
+  (``synthesizer/host.pkl`` + ``arrays.npz``, meta JSON, encoder pickle,
+  reference statistics) and writes the port's own format
+  (:mod:`fed_tgan_torch.runtime.checkpoint`);
 - :func:`convert_jax_checkpoint` turns a JAX ``save_federated`` training
   checkpoint into the port's, so a run trained in JAX resumes on the card.
 
@@ -337,6 +338,11 @@ def convert_jax_artifact(src_dir: str, dst_dir: str) -> str:
     with open(os.path.join(models, f"label_encoders_{name}.json"), "w") as f:
         json.dump(encoders, f)
     save_synthesizer(synth, os.path.join(models, SYNTH_DIR))
+    # the canary's reference statistics have one JSON schema in both
+    stats = os.path.join(os.path.dirname(meta_path),
+                         f"reference_stats_{name}.json")
+    if os.path.exists(stats):
+        shutil.copyfile(stats, os.path.join(models, os.path.basename(stats)))
     return dst_dir
 
 

@@ -141,6 +141,17 @@ def save_synthesizer(synth: SavedSynthesizer, path: str) -> None:
     if os.path.isdir(path):
         shutil.rmtree(path)
     os.replace(tmp, path)
+    _snapshot_fault_hook(path)
+
+
+def _snapshot_fault_hook(path: str) -> None:
+    """After a publish: the active fault plan's ``degrade_snapshot`` may
+    degrade the published artifact in place (a no-op without one)."""
+    from fed_tgan_torch.testing.faults import active_plan
+
+    plan = active_plan()
+    if plan is not None:
+        plan.on_snapshot_publish(path)
 
 
 def load_synthesizer(path: str, device="cuda") -> SavedSynthesizer:

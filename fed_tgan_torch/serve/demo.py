@@ -1,10 +1,17 @@
-"""Intrusion-shaped demo data: a random-weight artifact and a training table.
+"""Demo data and artifacts: a random-weight artifact, training tables and
+a small trained model.
 
 - :func:`build_random_artifact` writes a full-width Intrusion-shaped
   artifact with random weights.
 - :func:`intrusion_like_table` makes an Intrusion-shaped numeric training
   table, with its meta and encoders, without pandas;
-  :func:`write_intrusion_csv` writes the same raw table as a CSV file.
+  :func:`write_intrusion_csv` writes the same raw table as a CSV file, and
+  :func:`write_dated_csv` the same with two date columns.
+- :func:`build_demo_artifact` trains a tiny standalone model on
+  :func:`demo_frame` and writes it with its reference statistics (the
+  canary's tests and recipes), and :func:`republish_demo_candidate`
+  publishes the same weights again as a new generation
+  (``fed_tgan_tpu/serve/demo.py:18-109``).
 
 The artifact's layout is what the JAX package's ``ModeNormalizer(backend="sklearn",
 seed=0)`` fits to the Intrusion-shaped stand-in table of
@@ -142,6 +149,46 @@ def write_intrusion_csv(path: str, n: int = 400, seed: int = 0) -> str:
     written as integers, as a real export holds them); returns ``path``."""
     cols = {}
     for name, v in intrusion_like_raw(n, seed).items():
+        if v.dtype.kind == "f" and np.array_equal(v, np.round(v)):
+            v = v.astype(np.int64)
+        cols[name] = v
+    with open(path, "wb") as f:
+        f.write(csv_bytes(cols))
+    return path
+
+
+def dated_columns(n: int = 400, seed: int = 0) -> dict:
+    """Two date columns of ``n`` rows for an Intrusion-shaped table:
+    ``when`` as ``YYYY-MM-DD`` strings and ``stamp`` as ``yymmdd`` ints,
+    years 1995-2024 (2000-2009 among them), every fourth row a leap day,
+    and about one cell in twenty blank (``''``)."""
+    rng = np.random.default_rng([seed, 2])
+    out = {}
+    for name in ("when", "stamp"):
+        year = rng.integers(1995, 2025, n)
+        month = rng.integers(1, 13, n)
+        day = rng.integers(1, 29, n)
+        leap = np.arange(n) % 4 == 0
+        year[leap] = rng.choice([1996, 2000, 2004, 2008, 2024], leap.sum())
+        month[leap], day[leap] = 2, 29
+        if name == "when":
+            cells = [f"{y:04d}-{m:02d}-{d:02d}"
+                     for y, m, d in zip(year, month, day)]
+        else:
+            cells = [int(f"{y % 100:02d}{m:02d}{d:02d}")
+                     for y, m, d in zip(year, month, day)]
+        col = np.array(cells, dtype=object)
+        col[rng.random(n) < 0.05] = ""
+        out[name] = col
+    return out
+
+
+def write_dated_csv(path: str, n: int = 400, seed: int = 0) -> str:
+    """:func:`write_intrusion_csv`'s table with :func:`dated_columns`
+    appended, as a raw CSV file; returns ``path``."""
+    cols = {}
+    for name, v in {**intrusion_like_raw(n, seed),
+                    **dated_columns(n, seed)}.items():
         if v.dtype.kind == "f" and np.array_equal(v, np.round(v)):
             v = v.astype(np.int64)
         cols[name] = v
@@ -342,3 +389,71 @@ def build_random_artifact(out_dir: str, seed: int = 0,
     cond = CondSampler.from_counts(counts, spec, "cpu")
     synth = SavedSynthesizer(generator, cond, columns, cfg, key_offset=17)
     return write_artifact(out_dir, synth, meta, encoders)
+
+
+def demo_frame(rows: int = 200, seed: int = 0) -> dict:
+    """A mixed-type table as ``{column: values}``, with the JAX demo's
+    draws: continuous, non-negative and two categorical columns."""
+    rng = np.random.default_rng(seed)
+    return {
+        "amount": np.exp(rng.normal(2.0, 1.0, rows)).round(2),
+        "score": np.concatenate([
+            rng.normal(-4.0, 0.5, rows // 2),
+            rng.normal(3.0, 1.0, rows - rows // 2),
+        ]),
+        "color": rng.choice(["red", "green", "blue"], rows,
+                            p=[0.6, 0.3, 0.1]).astype(object),
+        "flag": rng.choice(["yes", "no"], rows, p=[0.8, 0.2]).astype(object),
+    }
+
+
+def build_demo_artifact(out_dir: str, rows: int = 200, seed: int = 0,
+                        epochs: int = 1, batch_size: int = 50,
+                        embedding_dim: int = 16, name: str = "demo",
+                        device="cuda") -> str:
+    """Train a tiny standalone model on :func:`demo_frame` on ``device``
+    and write it under ``out_dir/models`` (meta and encoders, the
+    synthesizer last), with reference statistics of the training table;
+    returns ``out_dir``."""
+    from fed_tgan_torch.data.ingest import TablePreprocessor
+    from fed_tgan_torch.federation.init import harmonize_categories
+    from fed_tgan_torch.serve.canary import (
+        compute_reference_stats,
+        reference_stats_path,
+        write_reference_stats,
+    )
+    from fed_tgan_torch.train.standalone import StandaloneSynthesizer
+
+    frame = demo_frame(rows, seed)
+    pre = TablePreprocessor(table=frame, name=name,
+                            categorical_columns=["color", "flag"],
+                            non_negative_columns=["amount"])
+    meta_dict, encoders, _ = harmonize_categories([pre.local_meta()])
+    matrix, cat_idx, ord_idx = pre.encode(encoders)
+    cfg = TrainConfig(batch_size=batch_size, embedding_dim=embedding_dim,
+                      gen_dims=(32, 32), dis_dims=(32, 32))
+    synth = StandaloneSynthesizer(cfg, seed=seed, device=device)
+    synth.fit(matrix, cat_idx, ord_idx, epochs=epochs)
+    meta = pre.global_table_meta(meta_dict)
+    write_artifact(out_dir, synth.to_saved(), meta, encoders)
+    # the canary scores later generations against these
+    stats = compute_reference_stats(frame, meta.categorical_columns,
+                                    name=name, probe_rows=min(64, rows))
+    write_reference_stats(stats, reference_stats_path(
+        os.path.join(out_dir, "models"), name))
+    return out_dir
+
+
+def republish_demo_candidate(artifact_dir: str, key_offset_bump: int = 1000,
+                             device="cuda") -> str:
+    """Publish the artifact's synthesizer again as a new generation: the
+    same weights (loaded onto ``device``) with the sampling stream offset
+    bumped, so a new fingerprint with the same output law, a candidate the
+    canary should promote.  Returns the synthesizer's path."""
+    from fed_tgan_torch.runtime.checkpoint import load_synthesizer
+
+    path = os.path.join(artifact_dir, "models", SYNTH_DIR)
+    synth = load_synthesizer(path, device=device)
+    synth.key_offset += int(key_offset_bump)
+    save_synthesizer(synth, path)
+    return path

@@ -24,6 +24,10 @@ request (or a fleet batch) formed against it keeps sampling that model
 even when :meth:`SamplingEngine.adopt` swaps in a new one mid-flight.
 :meth:`SamplingEngine.layout_key` is the encoded layout's full signature:
 models with equal keys can share the fleet's lanes.
+:meth:`SamplingEngine.shadow_snapshot` is a snapshot over a model the
+engine does not serve (the canary's candidate), sampled through the same
+chunk loop; :meth:`SamplingEngine.sample_frame` gives its rows as the
+decoded columns.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from fed_tgan_torch.data.decode import decode_cells
+from fed_tgan_torch.data.decode import decode_cells, decode_columns
 from fed_tgan_torch.data.fastcsv import ColumnPlan
 from fed_tgan_torch.features.transformer import DiscreteColumn
 from fed_tgan_torch.ops.decode import (
@@ -142,6 +146,22 @@ class SamplingEngine:
         with self._lock:
             return EngineSnapshot(self.model, self.spec, self.cfg,
                                   self._tables, self._sig, self.csv_plan)
+
+    def shadow_snapshot(self, model: LoadedModel) -> EngineSnapshot:
+        """A snapshot over a candidate ``model`` (on this engine's
+        device), without adopting it: the canary samples shadow rows
+        through the serving path while every serving field stays as it
+        is."""
+        if model.synth.device != self.device:
+            raise ValueError(f"model on {model.synth.device}, engine on "
+                             f"{self.device}")
+        synth = model.synth
+        return EngineSnapshot(
+            model, synth.spec, synth.cfg,
+            tables_to(decode_tables(synth.columns), synth.device),
+            self.layout_key(model),
+            None if model.meta is None
+            else ColumnPlan(model.meta, model.encoders))
 
     def _chunk_plan(self, first_step: int, total_steps: int,
                     pow2_tail: bool = True):
@@ -328,6 +348,21 @@ class SamplingEngine:
         t0 = time.perf_counter()
         cells = decode_cells(mat, snap.model.meta, snap.model.encoders)
         return snap, cells, _add_stage(stages, "decode", t0)
+
+    def sample_frame(self, n: int, seed: int = 0, offset: int = 0,
+                     condition: Optional[int] = None,
+                     snap: Optional[EngineSnapshot] = None,
+                     stages: Optional[dict] = None) -> dict:
+        """The same rows as ``{column: values}``, dates rejoined: the
+        columns the one-shot CSV writes."""
+        if snap is None:
+            snap = self.snapshot()
+        mat = self.sample_decoded(n, seed, offset, condition, snap=snap,
+                                  stages=stages)
+        t0 = time.perf_counter()
+        frame = decode_columns(mat, snap.model.meta, snap.model.encoders)
+        _add_stage(stages, "decode", t0)
+        return frame
 
     def sample_csv_bytes(self, n: int, seed: int = 0, offset: int = 0,
                          condition: Optional[int] = None, header: bool = True,

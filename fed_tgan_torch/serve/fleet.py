@@ -42,9 +42,14 @@ The HTTP layer is :mod:`~.frontdoor` (asyncio, the default) or the
 stdlib threaded server; both adapt :meth:`FleetService.route`.  Routes:
 ``/t/<tenant>/sample``, ``/sample`` (the sole tenant), ``/fleet`` (GET;
 POST ``{"action": "load" | "evict"}``), ``/healthz`` and ``/metrics``.
-The journal's ``fleet_load``, ``fleet_evict``, ``tenant_shed`` and
-``serve_stages`` events, the canary and the sanitizers are not ported
-yet (ROADMAP A.19, rest, and A.20).
+Under ``promote="canary"`` each tenant has its own
+:class:`~.canary.CanaryGate` on the reload poll: a candidate is scored in
+shadow through its tenant's engine (never through a lane group, so it
+never enters the :class:`ProgramCache` before it is promoted), and only a
+promoted one is adopted, its row-pool entries dropped as on an immediate
+reload; ``/fleet`` shows each tenant's promotion state.  The journal's
+``fleet_load``, ``fleet_evict``, ``tenant_shed`` and ``serve_stages``
+events and the sanitizers are not ported yet (ROADMAP A.20).
 """
 
 from __future__ import annotations
@@ -234,6 +239,8 @@ class TenantRuntime:
     registry: ModelRegistry
     engine: SamplingEngine
     bucket: TokenBucket
+    # the canary promotion gate (None under the default immediate policy)
+    gate: object = None
 
 
 class FleetRegistry:
@@ -248,9 +255,10 @@ class FleetRegistry:
                  quota_rps: float = 0.0, quota_burst: Optional[float] = None,
                  max_chunk_steps: int = 128,
                  allow_meta_mismatch: bool = False, device="cuda",
-                 log=print):
+                 promote: str = "immediate", log=print):
         self.cache = program_cache if program_cache is not None \
             else ProgramCache()
+        self.promote = str(promote)
         self.quota_rps = float(quota_rps)
         self.quota_burst = quota_burst
         self.max_chunk_steps = int(max_chunk_steps)
@@ -269,10 +277,16 @@ class FleetRegistry:
                                  log=self._log)
         model = registry.get()  # eager: fail here, not on first request
         engine = SamplingEngine(model, max_chunk_steps=self.max_chunk_steps)
+        gate = None
+        if self.promote == "canary":
+            from fed_tgan_torch.serve.canary import CanaryGate
+
+            gate = CanaryGate(registry, engine, tenant=name, log=self._log)
         rt = TenantRuntime(name=name, root=str(root), registry=registry,
                            engine=engine,
                            bucket=TokenBucket(self.quota_rps,
-                                              self.quota_burst))
+                                              self.quota_burst),
+                           gate=gate)
         with self._lock:
             self._tenants[name] = rt
         self._log(f"fleet: loaded tenant {name!r} (model {model.model_id})")
@@ -670,7 +684,10 @@ class FleetService(BatchWorkers):
     def _maybe_reload(self) -> None:
         for name, rt in self.fleet.items():
             try:
-                if rt.registry.maybe_reload():
+                # under the canary a rejected candidate leaves the old
+                # model serving untouched
+                if (rt.gate.poll(self.metrics.quality) if rt.gate is not None
+                        else rt.registry.maybe_reload()):
                     kept = rt.engine.adopt(rt.registry.get())
                     if self.row_pool is not None:
                         # pooled rows belong to the old model
@@ -691,10 +708,13 @@ class FleetService(BatchWorkers):
             model = rt.registry.get()
             with self._adm_lock:
                 inflight = self._inflight.get(name, 0)
-            tenants.append({
+            entry = {
                 "name": name, "root": rt.root, "model_id": model.model_id,
                 "model_name": model.artifact.name, "inflight": inflight,
-                **self.metrics.tenant_snapshot(name)})
+                **self.metrics.tenant_snapshot(name)}
+            if rt.gate is not None:
+                entry["promotion"] = rt.gate.status()
+            tenants.append(entry)
         return {
             "status": "draining" if self._draining.is_set() else "ok",
             "tenants": tenants,
@@ -950,7 +970,7 @@ def fleet_main(argv=None) -> int:
                                    max_bytes=int(args.cache_mb * 2**20)),
         quota_rps=args.quota_rps, quota_burst=args.quota_burst,
         allow_meta_mismatch=args.allow_meta_mismatch, device=args.device,
-        log=log)
+        promote=args.promote, log=log)
     for name, root in pairs:
         try:
             fleet.load(name, root)

@@ -1,16 +1,16 @@
 """Serving observability: the counters behind ``/healthz`` and
 ``/metrics`` (counterpart of ``fed_tgan_tpu/serve/metrics.py``:
-``DrainRate`` ``:34``, ``ServiceMetrics`` ``:147``, ``FleetMetrics``
-``:300``).
+``DrainRate`` ``:34``, ``QualityStore`` ``:62``, ``ServiceMetrics``
+``:147``, ``FleetMetrics`` ``:300``).
 
 The series names, labels, snapshot keys and Prometheus text are the JAX
 package's, so a dashboard reads either service.  Thread-safe: the HTTP
 threads record sheds, the batch workers completions; locking lives in the
 :mod:`fed_tgan_torch.obs.registry` metric types.  Latency quantiles come
 from a histogram's bounded reservoir of the most recent requests.  The
-canary's per-tenant quality series (``QualityStore``) wait with canary
-promotion (ROADMAP A.19, rest): until then both services export no
-``fed_tgan_quality_*`` series, as the JAX package does without a canary.
+canary's per-tenant quality series (:class:`QualityStore`,
+``fed_tgan_quality_*``) appear in both services' text only after a
+promotion decision, so immediate mode's text is unchanged.
 """
 
 from __future__ import annotations
@@ -56,6 +56,67 @@ class DrainRate:
     def rate(self) -> float:
         with self._lock:
             return self._rate
+
+
+class QualityStore:
+    """Per-tenant canary quality behind ``/metrics``: the latest scored
+    candidate's Avg_JSD and Avg_WD and the promotion and rejection
+    counts.  The series have fixed names, ``fed_tgan_quality_{jsd,wd}``
+    and ``fed_tgan_quality_{promotions,rejections}_total`` labelled by
+    tenant, whichever service exports them."""
+
+    def __init__(self):
+        # re-entrant: _state takes it again under the recording methods
+        self._lock = threading.RLock()
+        self._tenants: dict = {}  # tenant -> state dict
+
+    def _state(self, tenant: str) -> dict:
+        with self._lock:
+            state = self._tenants.get(tenant)
+            if state is None:
+                state = {"avg_jsd": None, "avg_wd": None,
+                         "promotions": 0, "rejections": 0}
+                self._tenants[tenant] = state
+            return state
+
+    def record_scores(self, tenant: str, avg_jsd, avg_wd) -> None:
+        """The latest shadow-scored candidate quality of ``tenant``."""
+        if avg_jsd is None or avg_wd is None:
+            return
+        with self._lock:
+            state = self._state(tenant)
+            state["avg_jsd"] = float(avg_jsd)
+            state["avg_wd"] = float(avg_wd)
+
+    def record_decision(self, tenant: str, promoted: bool) -> None:
+        with self._lock:
+            state = self._state(tenant)
+            state["promotions" if promoted else "rejections"] += 1
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {tenant: dict(state)
+                    for tenant, state in sorted(self._tenants.items())}
+
+    def render_prometheus(self) -> str:
+        """The per-tenant quality series; ``""`` while no decision has
+        been recorded."""
+        snap = self.snapshot()
+        if not snap:
+            return ""
+        lines = []
+        for key, kind in (("jsd", "gauge"), ("wd", "gauge"),
+                          ("promotions_total", "counter"),
+                          ("rejections_total", "counter")):
+            field = {"jsd": "avg_jsd", "wd": "avg_wd"}.get(key, key[:-6])
+            series = [(t, s[field]) for t, s in snap.items()
+                      if s[field] is not None]
+            if not series:
+                continue
+            lines.append(f"# TYPE fed_tgan_quality_{key} {kind}")
+            lines.extend(f'fed_tgan_quality_{key}{{tenant="{t}"}} {v:g}'
+                         for t, v in series)
+        return "\n".join(lines) + "\n" if lines else ""
 
 
 def _quantile(sorted_vals: list, q: float) -> float:
@@ -116,6 +177,9 @@ class ServiceMetrics:
                 reservoir=reservoir, labels={"stage": stage})
             for stage in STAGES
         }
+        # canary promotion state: empty, and absent from every export,
+        # unless a gate records into it
+        self.quality = QualityStore()
 
     # ------------------------------------------------- attribute compat
     # pre-registry callers read these as plain ints
@@ -222,7 +286,7 @@ class ServiceMetrics:
             for stage, st in stages.items():
                 lines.append(f'{prefix}_stage_p50_ms{{stage="{stage}"}} '
                              f"{st['p50_ms']}")
-        return "\n".join(lines) + "\n"
+        return "\n".join(lines) + "\n" + self.quality.render_prometheus()
 
 
 class FleetMetrics:
@@ -281,6 +345,9 @@ class FleetMetrics:
             for key in ("keys", "chunks", "rows", "hits", "misses",
                         "fills", "evictions")
         }
+        # canary promotion state, the same fixed-name series as the
+        # single-model service's
+        self.quality = QualityStore()
 
     def _bundle(self, tenant: str) -> dict:
         with self._tlock:
@@ -457,4 +524,5 @@ class FleetMetrics:
                 f"# TYPE {prefix}_uptime_s gauge\n"
                 f"{prefix}_uptime_s "
                 f"{max(time.time() - self.started_at, 0.0):g}\n")
-        return head + self.registry.render_prometheus()
+        return (head + self.registry.render_prometheus()
+                + self.quality.render_prometheus())

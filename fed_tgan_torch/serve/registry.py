@@ -6,9 +6,11 @@ A run's artifacts live in one ``models`` directory: the
 ``label_encoders_<name>.json``.  A loaded model's identity is the content
 hash of its synthesizer files (``checkpoint_fingerprint``), so
 :meth:`ModelRegistry.maybe_reload` swaps models exactly when a generation
-with other bytes has been published.  The canary's candidate methods
-(``poll_candidate``, ``load_candidate``, ``promote``, ``dismiss``) wait
-with canary promotion (ROADMAP A.19, rest).
+with other bytes has been published.  The reload is four steps, which the
+canary gate (:mod:`fed_tgan_torch.serve.canary`) runs with a score
+between them: :meth:`~ModelRegistry.poll_candidate`,
+:meth:`~ModelRegistry.load_candidate`, then :meth:`~ModelRegistry.promote`
+or :meth:`~ModelRegistry.dismiss`.
 """
 
 from __future__ import annotations
@@ -186,36 +188,76 @@ class ModelRegistry:
 
     def maybe_reload(self) -> bool:
         """Swap in a newer generation if one landed; returns whether a
-        reload happened.  Never raises."""
-        if self._model is None:
+        reload happened.  Never raises: a generation that fails to load
+        is logged once and dismissed, and the current model keeps
+        serving."""
+        cand = self.poll_candidate()
+        if cand is None:
             return False
         try:
-            art = resolve_artifact(self.root, log=lambda *_: None)
-        except ArtifactError:
-            return False
-        sig = self._stat_signature(art)
-        if sig == self._stat_sig:
-            return False
-        if not is_valid_synthesizer(art.synth_dir):
-            return False  # mid-publish: caught on a later poll
-        try:
-            if checkpoint_fingerprint(art.synth_dir) == self._model.model_id:
-                self._stat_sig = sig  # a rewrite of identical bytes
-                return False
-            check_meta_freshness(art, allow=self.allow_meta_mismatch,
-                                 log=self._log)
-            model = load_model(art, device=self.device)
+            model = self.load_candidate(cand)
         except ArtifactError as exc:
             self._log(f"registry: reload skipped ({exc})")
-            self._stat_sig = sig  # not logged again every poll
+            self.dismiss(cand)  # not logged again every poll
             return False
         except Exception as exc:  # a torn write raced past the probe
             self._log(f"registry: reload failed ({exc!r}); keeping "
                       f"{self._model.model_id}")
-            self._stat_sig = sig  # the next publish moves it again
+            self.dismiss(cand)  # the next publish moves the signature
             return False
         self._log(f"registry: hot-reload {self._model.model_id} -> "
                   f"{model.model_id}")
-        self._model = model
-        self._stat_sig = sig
+        self.promote(model, cand)
         return True
+
+    # the canary gate scores a candidate between these steps
+
+    def poll_candidate(self) -> "CandidateInfo | None":
+        """A loadable-looking new generation, not installed: None when
+        nothing new landed, the generation is mid-publish, or it holds the
+        serving model's bytes (the stat signature then advances)."""
+        if self._model is None:
+            return None
+        try:
+            art = resolve_artifact(self.root, log=lambda *_: None)
+        except ArtifactError:
+            return None
+        sig = self._stat_signature(art)
+        if sig == self._stat_sig:
+            return None
+        if not is_valid_synthesizer(art.synth_dir):
+            return None  # mid-publish: caught on a later poll
+        try:
+            fingerprint = checkpoint_fingerprint(art.synth_dir)
+        except OSError:
+            return None  # torn mid-read: the next poll
+        if fingerprint == self._model.model_id:
+            self._stat_sig = sig  # a rewrite of identical bytes
+            return None
+        return CandidateInfo(artifact=art, sig=sig, fingerprint=fingerprint)
+
+    def load_candidate(self, cand: "CandidateInfo") -> LoadedModel:
+        """Load a polled candidate onto the registry's device; raises on a
+        torn or mismatched artifact."""
+        check_meta_freshness(cand.artifact, allow=self.allow_meta_mismatch,
+                             log=self._log)
+        return load_model(cand.artifact, device=self.device)
+
+    def promote(self, model: LoadedModel, cand: "CandidateInfo") -> None:
+        """Install ``model`` (loaded from ``cand``) as the serving model."""
+        self._model = model
+        self._stat_sig = cand.sig
+
+    def dismiss(self, cand: "CandidateInfo") -> None:
+        """Remember a rejected or unloadable candidate's signature: the
+        same bytes are not examined again until a publish moves it."""
+        self._stat_sig = cand.sig
+
+
+@dataclass(frozen=True)
+class CandidateInfo:
+    """One polled generation, not installed."""
+
+    artifact: ResolvedArtifact
+    sig: tuple
+    fingerprint: str

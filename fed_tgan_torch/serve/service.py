@@ -20,11 +20,15 @@ Endpoints:
   rows [offset, offset + rows) of stream ``seed``, so contiguous chunks
   concatenate to the one-shot response (the engine's determinism
   contract);
-- ``GET /healthz``: JSON liveness, model id, device and counters;
+- ``GET /healthz``: JSON liveness, model id, device, counters and the
+  promotion state;
 - ``GET /metrics``: Prometheus text.
 
-The journal's ``serve_stages`` and ``serve_reload`` events, the canary
-and the sanitizers are not ported yet (ROADMAP A.19, rest, and A.20).
+``promote="canary"`` puts a :class:`~.canary.CanaryGate` on the reload
+poll: a new generation is scored in shadow and adopted only when the
+gate promotes it, so a rejected one never contributes a byte to a
+response.  The journal's ``serve_stages`` and ``serve_reload`` events and
+the sanitizers are not ported yet (ROADMAP A.20).
 """
 
 from __future__ import annotations
@@ -227,11 +231,21 @@ class SamplingService(BatchWorkers):
                  port: int = 0, max_batch: int = 8, queue_size: int = 64,
                  request_timeout_s: float = 120.0,
                  reload_interval_s: float = 5.0, workers: int = 1,
-                 coalesce_window_s: float = 0.0, log=print):
+                 coalesce_window_s: float = 0.0, promote: str = "immediate",
+                 canary_config=None, log=print):
         self.registry = registry
         self.engine = SamplingEngine(registry.get())
         self.metrics = ServiceMetrics()
         self._log = log
+        # "immediate" adopts any loadable new generation; "canary" scores
+        # it in shadow first and adopts only a promoted one
+        self.promote_mode = str(promote)
+        self.gate = None
+        if self.promote_mode == "canary":
+            from fed_tgan_torch.serve.canary import CanaryGate
+
+            self.gate = CanaryGate(registry, self.engine,
+                                   config=canary_config, log=log)
         self._host, self._port = host, port
         self._init_queues(queue_size, workers, max_batch, coalesce_window_s,
                           request_timeout_s, reload_interval_s)
@@ -309,8 +323,11 @@ class SamplingService(BatchWorkers):
         self._drain_rate.note(len(batch))
 
     def _maybe_reload(self) -> None:
+        """The reload poll: an immediate reload, or under the canary only
+        a promoted model is adopted."""
         try:
-            if self.registry.maybe_reload():
+            if (self.gate.poll(self.metrics.quality) if self.gate is not None
+                    else self.registry.maybe_reload()):
                 kept = self.engine.adopt(self.registry.get())
                 self.metrics.record_reload()
                 self._log(f"service: now serving model "
@@ -328,6 +345,8 @@ class SamplingService(BatchWorkers):
             "device": str(self.engine.device),
             **self.metrics.snapshot(self.queue_depth()),
             "stages": self.metrics.stage_snapshot(),
+            "promotion": (self.gate.status() if self.gate is not None
+                          else {"mode": self.promote_mode}),
         }
 
 
@@ -443,11 +462,8 @@ def _make_handler(service: SamplingService):
 
 def refuse_unported(args, extra: tuple = ()) -> Optional[str]:
     """The exit-2 message for a serving flag the port does not act on yet
-    (``--promote canary``, ``--sanitize`` and the ``extra`` flags, both
-    A.20's), naming its ROADMAP item; None when none is set."""
-    if args.promote == "canary":
-        return ("--promote canary is not ported yet (ROADMAP A.19: canary "
-                "promotion)")
+    (``--sanitize`` and the ``extra`` flags, A.20's), naming its ROADMAP
+    item; None when none is set."""
     for flag in ("sanitize", *extra):
         if getattr(args, flag):
             return (f"--{flag} is not ported yet (ROADMAP A.20: tooling "
@@ -477,7 +493,10 @@ def add_serving_flags(ap, max_batch: int, queue_size: int) -> None:
     ap.add_argument("--promote", choices=("canary", "immediate"),
                     default="immediate",
                     help="new-generation policy: immediate hot-swaps any "
-                         "loadable generation (canary: not ported yet)")
+                         "loadable generation (default); canary scores it "
+                         "in shadow against the tenant's reference "
+                         "statistics and promotes it only inside the "
+                         "quality budgets of obs/budgets.json")
     ap.add_argument("--allow-meta-mismatch", action="store_true",
                     help="serve even when the meta JSON postdates the "
                          "synthesizer")
@@ -522,7 +541,8 @@ def serve_main(argv=None) -> int:
             max_batch=args.max_batch, queue_size=args.queue_size,
             request_timeout_s=args.request_timeout,
             reload_interval_s=args.reload_interval, workers=args.workers,
-            coalesce_window_s=args.coalesce_window, log=log)
+            coalesce_window_s=args.coalesce_window, promote=args.promote,
+            log=log)
     except ArtifactError as exc:
         print(f"serve: {exc}")
         return 2

@@ -4,7 +4,7 @@
 A :class:`FaultPlan` parses the JAX package's spec grammar: ``;``-separated
 faults, ``,``-separated ``key=value`` arguments, every kind of
 :attr:`FaultPlan.VALID_KINDS`.  An unknown kind fails fast.  The port acts
-on five kinds:
+on six kinds:
 
 - ``kill_client:rank=R,round=E`` — client ``R`` (1-based) is dropped at
   the start of round ``E`` (1-based), once;
@@ -15,13 +15,18 @@ on five kinds:
   ``rank=R[,round=E][,until=U]`` (``scale_update:F`` reads the factor
   positionally) — client ``R`` ships all-NaN parameters, ``prev + F *
   delta``, or its pre-round parameters after its local steps in every
-  round of the window [E, U] (U=0: forever).
+  round of the window [E, U] (U=0: forever);
+- ``degrade_snapshot:factor=F[,nth=N]`` (``degrade_snapshot:F`` reads the
+  factor positionally) — the ``N``-th published sampling artifact
+  (``save_synthesizer``) has the generator's first linear weight scaled by
+  ``F`` in place after the publish (:func:`degrade_checkpoint`): loadable,
+  with a new fingerprint, and only the canary's scoring can tell.
 
 The other kinds parse, but a plan holding one is refused by
 :func:`install_plan` and :func:`active_plan` (:func:`require_ported`), so
 none parses and then quietly does nothing: the transport faults wait for
-ROADMAP A.18, the cache and churn faults for A.16, stragglers for A.17
-and the snapshot degrade for A.19.
+ROADMAP A.18, the cache and churn faults for A.16 and stragglers for
+A.17.
 
 Plans come from the ``--faults`` CLI flag or the
 ``FED_TGAN_TORCH_FAULTS`` environment variable.  The trainer and the
@@ -37,6 +42,8 @@ import os
 import threading
 from typing import Optional
 
+import numpy as np
+
 log = logging.getLogger("fed_tgan_torch.faults")
 
 ENV_VAR = "FED_TGAN_TORCH_FAULTS"
@@ -45,7 +52,7 @@ ENV_VAR = "FED_TGAN_TORCH_FAULTS"
 NOT_PORTED_KINDS = {
     "delay_msg": "A.18", "sever_conn": "A.18",
     "corrupt_cache": "A.16", "join": "A.16", "leave": "A.16",
-    "drift": "A.16", "straggle": "A.17", "degrade_snapshot": "A.19",
+    "drift": "A.16", "straggle": "A.17",
 }
 
 
@@ -88,6 +95,7 @@ class FaultPlan:
     def __post_init__(self) -> None:
         self._lock = threading.Lock()
         self._save_calls = 0
+        self._snapshot_saves = 0
         self._killed = False
         self.kinds: list[str] = []  # the kinds of the parsed spec, in order
 
@@ -138,6 +146,50 @@ class FaultPlan:
             log.warning("FAULT: crashing checkpoint save #%d mid-write (%s)",
                         self.crash_save, path)
             raise FaultInjected(f"checkpoint save crashed mid-write: {path}")
+
+    def on_snapshot_publish(self, path: str) -> bool:
+        """Called after ``save_synthesizer`` publishes ``path``; degrades
+        the ``degrade_nth`` published artifact in place (the save still
+        reports success).  Returns whether the fault fired."""
+        if self.degrade_factor == 0.0:
+            return False
+        with self._lock:
+            self._snapshot_saves += 1
+            fire = self._snapshot_saves == self.degrade_nth
+        if not fire:
+            return False
+        log.warning("FAULT: degrading published snapshot #%d by x%g (%s)",
+                    self.degrade_nth, self.degrade_factor, path)
+        degrade_checkpoint(path, self.degrade_factor)
+        return True
+
+
+def degrade_checkpoint(path: str, factor: float) -> str:
+    """Scale the generator's first linear weight in the sampling artifact
+    at ``path`` by ``factor``, in place; returns the rewritten
+    ``weights.npz``.
+
+    It is the matrix the JAX package scales (the first 2-D float leaf of
+    its ``arrays.npz``, the first dense kernel, ``fed_tgan_tpu/testing/
+    faults.py:423``), in torch's ``(out, in)`` layout: the first residual
+    block's ``fc.weight``, or ``out.weight`` without blocks.  No draw, no
+    truncation: the artifact stays valid and loadable, with a new
+    fingerprint."""
+    npz = os.path.join(path, "weights.npz")
+    with np.load(npz) as z:
+        data = {k: z[k] for k in z.files}
+    for key in ("generator.blocks.0.fc.weight", "generator.out.weight"):
+        if key in data:
+            arr = data[key]
+            data[key] = (arr * factor).astype(arr.dtype)
+            break
+    else:
+        raise ValueError(f"{npz}: no generator linear weight to degrade")
+    with open(npz, "wb") as f:
+        np.savez(f, **data)
+        f.flush()
+        os.fsync(f.fileno())
+    return npz
 
 
 def _need(spec: str, name: str, args: dict, keys, example: str) -> None:

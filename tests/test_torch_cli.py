@@ -126,7 +126,7 @@ def test_reference_drop_in_flags_are_accepted(data, tmp_path, capsys):
     ("delay_msg:ms=5", "A.18"), ("sever_conn:rank=1,after=1", "A.18"),
     ("corrupt_cache", "A.16"), ("join:round=2", "A.16"),
     ("leave:client=1,round=2", "A.16"), ("drift:client=1,round=2", "A.16"),
-    ("straggle:rank=1,delay=2", "A.17"), ("degrade_snapshot:100", "A.19"),
+    ("straggle:rank=1,delay=2", "A.17"),
     ("kill_client:rank=1,round=1;delay_msg:ms=5", "A.18")])
 def test_unported_fault_kinds_exit_2(data, tmp_path, capsys, spec, item):
     assert port_cli.main(argv(data, tmp_path, "--device", "cpu",
@@ -176,9 +176,7 @@ def test_batch_size_must_be_a_multiple_of_pac(data, tmp_path):
 
 
 @pytest.mark.parametrize("command,flag,item", [
-    ("serve", ["--promote", "canary"], "A.19"),
     ("serve", ["--sanitize"], "A.20"),
-    ("fleet", ["--promote", "canary"], "A.19"),
     ("fleet", ["--sanitize"], "A.20"),
     ("fleet", ["--lockwatch"], "A.20")])
 def test_unported_serving_flags_exit_2(tmp_path, capsys, command, flag,

@@ -148,12 +148,6 @@ def test_csv_header_flag_and_quoting():
     assert csv_bytes(cols, header=False) == blob.split(b"\n", 1)[1]
 
 
-def test_dates_are_not_ported_yet():
-    meta = TableMeta.from_json_dict({**META, "date_info": {"d": "%Y"}})
-    with pytest.raises(NotImplementedError):
-        decode_columns(_matrix(), meta, _encoders(CategoryEncoder))
-
-
 def test_encoder_json_roundtrip_matches_jax():
     values = ["b", "a", "c", "a"]
     enc, jenc = CategoryEncoder.fit(values), JaxEncoder.fit(values)

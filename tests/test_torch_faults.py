@@ -75,8 +75,7 @@ def test_unported_kinds_are_refused(kind, item):
     spec = {"delay_msg": "delay_msg:ms=5", "sever_conn": "sever_conn:rank=1,"
             "after=1", "corrupt_cache": "corrupt_cache", "join": "join:round=2",
             "leave": "leave:client=1,round=2", "drift": "drift:client=1,"
-            "round=2", "straggle": "straggle:rank=1,delay=2",
-            "degrade_snapshot": "degrade_snapshot:100"}[kind]
+            "round=2", "straggle": "straggle:rank=1,delay=2"}[kind]
     plan = FaultPlan.parse(spec)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         install_plan(plan)

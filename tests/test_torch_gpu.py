@@ -651,3 +651,56 @@ def test_stacked_eval_generator_equals_generator_on_the_card(cuda, lanes,
         for i, g in enumerate(gens):
             want = torch.cat([g(b) for b in x[i].split(B)])
             assert torch.equal(got[i], want), f"lane {i}"
+
+
+# ------------------------------------------------------------ the canary
+
+
+def test_canary_scorer_on_the_card_matches_the_cpu(cuda):
+    """The mixture-CDF W1 scorer at the canary's shape, (2, C, 256)
+    mixtures on 512 grid points, card against CPU within 1e-5."""
+    from fed_tgan_torch.federation.sketch import column_grids, wd_scores
+
+    rng = np.random.default_rng(0)
+    shape = (2, 22, 256)
+    means = rng.uniform(0.0, 1.0, shape)
+    stds = np.full(shape, 1e-3)
+    weights = np.full(shape, 1.0 / 256)
+    grid = column_grids(means, stds, weights)
+    args = (means, stds, weights, np.array([1.0, 0.0]), grid)
+    on = lambda dev: wd_scores(*(torch.tensor(a, dtype=torch.float32,
+                                              device=dev) for a in args))
+    got = on(cuda)
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), on("cpu").numpy(),
+                               rtol=0, atol=ATOL)
+
+
+def test_canary_launches_k1_once_per_shadow_sample(cuda, tmp_path):
+    """A clean republish is promoted and a degraded one rejected; every
+    shadow sample the gate draws is one engine chunk, one K1 launch."""
+    from fed_tgan_torch.runtime.checkpoint import SYNTH_DIR
+    from fed_tgan_torch.serve.canary import CanaryConfig
+    from fed_tgan_torch.serve.demo import (
+        build_demo_artifact,
+        republish_demo_candidate,
+    )
+    from fed_tgan_torch.serve.registry import ModelRegistry
+    from fed_tgan_torch.serve.service import SamplingService
+    from fed_tgan_torch.testing.faults import degrade_checkpoint
+
+    root = build_demo_artifact(str(tmp_path / "art"), device="cuda")
+    svc = SamplingService(ModelRegistry(root, device="cuda",
+                                        log=lambda *a: None),
+                          promote="canary", canary_config=CanaryConfig(),
+                          log=lambda *a: None)
+    for publish, promoted in (
+            (lambda: republish_demo_candidate(root, device="cuda"), True),
+            (lambda: degrade_checkpoint(
+                f"{root}/models/{SYNTH_DIR}", 100.0), False)):
+        publish()
+        k1, drawn = fused_apply_activate.launches, svc.gate.shadow_samples
+        svc._maybe_reload()
+        assert svc.gate.last_decision["promoted"] is promoted
+        n = svc.gate.shadow_samples - drawn
+        assert n >= 1 and fused_apply_activate.launches - k1 == n

@@ -96,7 +96,8 @@ def test_port_package_lists_every_slice_module():
                  "train.snapshots", "eval.similarity", "testing.faults",
                  "train.monitor", "train.watchdog", "data.fastcsv",
                  "obs.registry", "serve.metrics", "serve.fleet",
-                 "serve.pool", "serve.frontdoor"):
+                 "serve.pool", "serve.frontdoor", "obs.slo",
+                 "serve.canary", "federation.sketch", "data.dates"):
         assert f"fed_tgan_torch.{name}" in mods
 
 
@@ -341,10 +342,12 @@ def test_fleet_serves_with_jax_sklearn_and_pandas_blocked(tmp_path):
 
 
 def test_serving_entry_points_default_to_the_card(tmp_path):
-    """The registry, the fleet and the ``serve`` / ``fleet`` commands run
-    on the card unless the caller names the CPU: without CUDA, they
-    raise."""
+    """The registry, the fleet, the canary's scorer and the ``serve`` /
+    ``fleet`` commands run on the card unless the caller names the CPU:
+    without CUDA, they raise."""
     from fed_tgan_torch.__main__ import main
+    from fed_tgan_torch.serve.canary import compute_reference_stats, score_frame
+    from fed_tgan_torch.serve.demo import demo_frame
     from fed_tgan_torch.serve.demo import build_random_artifact
     from fed_tgan_torch.serve.fleet import FleetRegistry
     from fed_tgan_torch.serve.registry import ModelRegistry
@@ -352,10 +355,13 @@ def test_serving_entry_points_default_to_the_card(tmp_path):
 
     art = build_random_artifact(str(tmp_path), cfg=TrainConfig(
         embedding_dim=8, gen_dims=(16,), batch_size=20))
+    frame = demo_frame(rows=40, seed=0)
+    stats = compute_reference_stats(frame, ["color", "flag"])
     if torch.cuda.is_available():
         assert ModelRegistry(art).get().synth.device.type == "cuda"
         return
     for call in (lambda: ModelRegistry(art).get(),
+                 lambda: score_frame(stats, frame),
                  lambda: FleetRegistry().load("a", art),
                  lambda: main(["serve", art, "--port", "0"]),
                  lambda: main(["fleet", f"a={art}", "--port", "0"])):
@@ -387,3 +393,54 @@ def test_first_parallel_log_after_import_is_accurate():
         assert p.returncode == 0, err
         errs.append(float(out))
     assert max(errs) <= 2.0, errs  # in float32 ulps of the log
+
+
+def test_canary_and_dates_run_with_jax_sklearn_and_pandas_blocked(tmp_path):
+    """In a fresh interpreter where jax, the JAX package, pandas, pyarrow
+    and sklearn cannot be imported: a demo artifact trains and writes its
+    reference statistics, a degraded generation is rejected by the canary
+    gate, the ML probe answers None (no sklearn), and a dated table splits,
+    decodes and writes its CSV."""
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from fed_tgan_torch.serve.canary import (CanaryGate,\n"
+        "    compute_reference_stats, ml_efficacy_probe)\n"
+        "from fed_tgan_torch.serve.demo import (build_demo_artifact,\n"
+        "    demo_frame)\n"
+        "from fed_tgan_torch.serve.engine import SamplingEngine\n"
+        "from fed_tgan_torch.serve.registry import ModelRegistry\n"
+        "from fed_tgan_torch.testing.faults import degrade_checkpoint\n"
+        f"root = build_demo_artifact({str(tmp_path / 'a')!r}, rows=120,\n"
+        "                           device='cpu')\n"
+        "reg = ModelRegistry(root, device='cpu', log=lambda *a: None)\n"
+        "gate = CanaryGate(reg, SamplingEngine(reg.get()),\n"
+        "                  log=lambda *a: None)\n"
+        "degrade_checkpoint(root + '/models/synthesizer_torch', 100.0)\n"
+        "assert gate.consider()['promoted'] is False\n"
+        "f = demo_frame(120)\n"
+        "st = compute_reference_stats(f, ['color', 'flag'], probe_rows=8)\n"
+        "assert ml_efficacy_probe(st, f) is None\n"
+        "from fed_tgan_torch.data.csvio import csv_bytes\n"
+        "from fed_tgan_torch.data.decode import decode_columns\n"
+        "from fed_tgan_torch.data.ingest import TablePreprocessor\n"
+        "from fed_tgan_torch.data.schema import TableMeta\n"
+        "from fed_tgan_torch.federation.init import harmonize_categories\n"
+        "t = {'x': np.arange(6.0), 'd': np.array(['2024-02-29', ' ',\n"
+        "     '2001-01-31', '2005-12-01', '2000-02-29', '1999-07-04'],\n"
+        "     dtype=object)}\n"
+        "pre = TablePreprocessor(table=t, date_formats={'d': 'YYYY-MM-DD'})\n"
+        "m, enc, _ = harmonize_categories([pre.local_meta()])\n"
+        "blob = csv_bytes(decode_columns(pre.encode(enc)[0],\n"
+        "                 TableMeta.from_json_dict(m), enc))\n"
+        "assert blob.splitlines()[1] == b'0.0,2024-02-29 00:00:00', blob\n"
+        "assert blob.splitlines()[2] == b'1.0, ', blob\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"

@@ -104,12 +104,6 @@ def test_intrusion_csv_matches_jax(tmp_path):
     np.testing.assert_array_equal(pre.encode(enc)[0], jpre.encode(jenc)[0])
 
 
-def test_date_columns_are_not_ported(tmp_path):
-    path = tricky_csv(tmp_path / "t.csv")
-    with pytest.raises(NotImplementedError, match="A.19"):
-        TablePreprocessor.from_csv(str(path), date_formats={"x": "YYYY"})
-
-
 @pytest.mark.parametrize("strategy", ["iid", "contiguous", "label_sorted",
                                       "dirichlet"])
 def test_shard_indices_match_jax(strategy):
