@@ -122,6 +122,25 @@ Phases, each fatal on failure:
    one seed (bit-equal, K1/K2 launches exact), then K1 and K2 against
    their plain versions at its shape (8 x 500 rows of the Adult layout).
 
+14. mixed precision (``precision_phase``), slice 9's paths in bf16:
+   the matmul flags printed (bf16 GEMMs reduce in float32, TF32 off);
+   the standalone trainer with ``TrainConfig(precision="bf16")`` at phase
+   5's configuration twice from one seed (each K1/K2 variant launched
+   exactly: the sampling K1 once per critic step, the training K1 and K2
+   once per generator step; bit-equal weights), its ms/step beside phase
+   5's, and the f32 and bf16 loss trajectories from one init and draw
+   stream; the federated round of phase 10 in bf16 (the bf16 delta
+   payload, a snapshot and a save every round, exact launches, the save
+   after round 2 resumed: bit-equal); the bf16 and the f32 trained models
+   served in turns (phase 4's requests: p50, rows/s, chunked == one-shot,
+   the bf16 sampling K1 once per chunk), the bf16 one card vs CPU on
+   injected draws (encoded rows within one bf16 ulp, categorical cells
+   equal outside bf16 ties); then each bf16 variant held against its plain
+   version (one bf16 ulp; the float32 residual within 1e-5) at the
+   served chunk, (8000, 282), (64000, 282), (500, D), (2000, D) and
+   operands 2 and 4 bytes off a 16-byte boundary, with times, plan and
+   the bound at 8 (12) bytes an element.
+
 ``--ab TREE`` runs none of the phases: it builds the kernels of the
 ``fed_tgan_torch`` package under TREE (for example a ``git archive`` of an
 earlier commit, ``chip_smoke.py`` included) and times them against this
@@ -133,12 +152,13 @@ this one, each turn a process of its own; and prints one
 
 Prints the card's name and power limit beside every number, a JSON line
 with the training numbers, one with the federated round's, one with the
-durable round's, one with the canary's and the dated phase's, the card's
+durable round's, one with the canary's and the dated phase's, one with
+the precision phase's, the card's
 line, a JSON line with the kernels' numbers (one entry per kernel and
 path: K1 serving, K1 in the fleet, K1 and K2 training, K1 and K2
 federated, K1 in the similarity monitor, K1 and K2 in the ragged round, K1
 in the canary's shadow samples, K1 serving a dated model, K1 and K2 in
-the dated training),
+the dated training, and the three bf16 variants),
 and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no result line, when CUDA is not available.
@@ -195,6 +215,7 @@ from fed_tgan_torch.ops.segments import (
     SegmentSpec,
     apply_activate,
     apply_activate_bwd,
+    apply_activate_residual,
     cond_tables,
 )
 from fed_tgan_torch.serve.demo import (
@@ -213,6 +234,7 @@ from fed_tgan_torch.runtime.checkpoint import (
     load_federated,
     save_federated,
 )
+from fed_tgan_torch.runtime.precision import resolve_precision
 from fed_tgan_torch.serve.service import SamplingService
 from fed_tgan_torch.testing.faults import FaultInjected, FaultPlan, install_plan
 from fed_tgan_torch.train import steps
@@ -276,8 +298,9 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(rows: int, dim: int, kernel: str = "K1") -> tuple[float, str]:
-    t_bytes = BYTES_PER_ELEM * rows * dim / PEAK_BYTES_PER_S * 1e3
+def bound_ms(rows: int, dim: int, kernel: str = "K1",
+             bytes_per_elem: int = BYTES_PER_ELEM) -> tuple[float, str]:
+    t_bytes = bytes_per_elem * rows * dim / PEAK_BYTES_PER_S * 1e3
     t_ops = OPS_PER_ELEM[kernel] * rows * dim / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -332,21 +355,23 @@ def kernel_times(kernel: str, fn, rows: int) -> dict:
             "host_us": host_us(fn)}
 
 
-def measure(kernel: str, fn, plain, rows: int, dim: int) -> dict:
+def measure(kernel: str, fn, plain, rows: int, dim: int,
+            bytes_per_elem: int = BYTES_PER_ELEM) -> dict:
     """:func:`kernel_times` beside the plain version's time and the
     bound."""
-    bound, bound_by = bound_ms(rows, dim, kernel)
+    bound, bound_by = bound_ms(rows, dim, kernel, bytes_per_elem)
     return {**kernel_times(kernel, fn, rows),
             "plain_ms": cuda_ms(plain, 20 if rows >= 64000 else 200),
             "bound_ms": bound, "bound_by": bound_by}
 
 
-def misaligned(t: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of ``t`` whose base is 4 bytes past a 16-byte
-    boundary (a view at storage offset 1)."""
-    st = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
-    st[1:].copy_(t.flatten())
-    return st[1:].view_as(t)
+def misaligned(t: torch.Tensor, elems: int = 1) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose base is ``elems`` elements past a
+    16-byte boundary (a view at storage offset ``elems``): 4 bytes for a
+    float32 tensor and one element, 2 bytes for a bf16 one."""
+    st = torch.empty(t.numel() + elems, device=t.device, dtype=t.dtype)
+    st[elems:].copy_(t.flatten())
+    return st[elems:].view_as(t)
 
 
 def _cases(spec: SegmentSpec, gen, sizes, extra: bool) -> list:
@@ -2721,6 +2746,469 @@ def dated_phase(root: str, seed: int, card: str) -> dict:
             "chunk_rows": chunk_rows, "train_rows": len(shards) * B}
 
 
+# ---------------------------------------------------------- mixed precision
+
+# bytes one element of each bf16 variant moves: K1 for sampling reads x
+# (2) and u (4) and writes out (2); K1 for training also writes its
+# float32 result (4), K2's residual; K2 reads dy (2) and out (4) and writes
+# dx (2).  Their operations are the float32 kernels'.
+BF16_VARIANTS = {"fwd_bf16": ("K1", 8), "fwd_train_bf16": ("K1", 12),
+                 "bwd_bf16": ("K2", 8)}
+
+
+def precision_flags() -> dict:
+    """The process-wide matmul flags the bf16 path relies on."""
+    matmul = torch.backends.cuda.matmul
+    return {"allow_bf16_reduced_precision_reduction":
+            matmul.allow_bf16_reduced_precision_reduction,
+            "matmul_allow_tf32": matmul.allow_tf32,
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each value of ``v`` (0 at 0)."""
+    a = v.float().abs()
+    e = torch.floor(torch.log2(torch.where(a > 0, a, torch.ones_like(a))))
+    return torch.where(a > 0, torch.exp2(e - 7), torch.zeros_like(a))
+
+
+def _ulps(got: torch.Tensor, want: torch.Tensor, atol: float = 0.0):
+    """(max abs error, the largest excess over ``atol`` in bf16 ulps of
+    ``want``)."""
+    diff = (got.float() - want.float()).abs()
+    excess = torch.clamp(diff - atol, min=0.0)
+    ulp = bf16_ulp(want)
+    over = torch.where(excess > 0, excess / torch.where(ulp > 0, ulp, 1.0),
+                       torch.zeros_like(excess))
+    over = torch.where((ulp == 0) & (excess > 0), torch.inf, over)
+    return diff.max().item(), over.max().item()
+
+
+def check_bf16_kernels(cases: list, card: str) -> dict:
+    """Each bf16 variant against its plain version at each case (name,
+    spec, rows, variants): results within one bf16 ulp (K2's past the
+    float32 kernels' 1e-5 where dy - sum cancels), K1's float32 residual
+    within 1e-5; times, plan and bound as for the float32 kernels."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    results = {k: [] for k in BF16_VARIANTS}
+    for name, sp, rows, variants in cases:
+        x = (torch.randn((rows, sp.dim), generator=gen, device="cuda")
+             * 2.0).to(torch.bfloat16)
+        u = torch.rand(x.shape, generator=gen, device="cuda")
+        dy = torch.randn(x.shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        if name.startswith("misaligned"):
+            k = 1 if name.endswith("2B") else 2
+            x, dy, u = misaligned(x, k), misaligned(dy, k), misaligned(u)
+        res = apply_activate_residual(x, sp, u)[1].contiguous()
+        for variant in variants:
+            kernel, nbytes = BF16_VARIANTS[variant]
+            if variant == "fwd_bf16":
+                fn = lambda: fused_apply_activate(x, sp, u)
+                plain = lambda: apply_activate(x, sp, u)
+                got, want = fn(), plain()
+                res_err = None
+            elif variant == "fwd_train_bf16":
+                fn = lambda: activate_cuda._activate(x, sp, u, residual=True)
+                plain = lambda: apply_activate_residual(x, sp, u)
+                (got, got_res), (want, want_res) = fn(), plain()
+                res_err = (got_res - want_res).abs().max().item()
+            else:
+                fn = lambda: fused_activate_bwd(dy, res, sp)
+                plain = lambda: apply_activate_bwd(dy, res, sp)
+                got, want = fn(), plain()
+                res_err = None
+            torch.cuda.synchronize()
+            err, ulps = _ulps(got, want, ATOL if kernel == "K2" else 0.0)
+            times = measure(kernel, fn, plain, rows, sp.dim, nbytes)
+            plan = activate_cuda.plan_for(x, sp).as_dict()
+            share = (times["bound_ms"] / times["device_ms"]
+                     if times["device_ms"] else None)
+            print(f"{variant} {name}: ({rows}, {sp.dim}) max_abs_err {err!r}"
+                  f", {ulps!r} bf16 ulps over the plain version"
+                  + ("" if res_err is None else
+                     f", float32 residual max_abs_err {res_err!r}")
+                  + f"; kernel {times['ms']!r} ms, device "
+                  f"{times['device_ms']!r} ms, host {times['host_us']!r} us; "
+                  f"plain {times['plain_ms']!r} ms; bound "
+                  f"{times['bound_ms']!r} ms ({times['bound_by']}, {nbytes} "
+                  f"B an element), share {share!r}; plan {plan}  [{card}]",
+                  flush=True)
+            if not ulps <= 1.0:
+                raise AssertionError(f"{variant} {name}: {ulps} bf16 ulps "
+                                     "from its plain version")
+            if res_err is not None and not res_err <= ATOL:
+                raise AssertionError(f"{variant} {name}: residual error "
+                                     f"{res_err} > {ATOL}")
+            results[variant].append({
+                "shape": [rows, sp.dim], "case": name, "max_abs_err": err,
+                "max_ulps": ulps, "residual_max_abs_err": res_err, **times,
+                "share": share, "plan": plan, "bytes_per_element": nbytes})
+    return results
+
+
+def _variant_launches() -> dict:
+    return {"K1": dict(fused_apply_activate.variant_launches),
+            "K2": dict(fused_activate_bwd.variant_launches)}
+
+
+def _trajectory(synth, cfg, seed: int, n_steps: int) -> tuple:
+    """``n_steps`` train steps from ``init_models(seed)`` with draws from
+    one seeded generator, on ``synth``'s data: (per-metric losses, ms a
+    step back to back)."""
+    models = steps.init_models(synth.spec, cfg, seed, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mets = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        mets.append(steps.train_step(models, synth.train_data, synth.cond,
+                                     synth.rows, steps.draw_step(gen,
+                                                                 models)))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    return {k: torch.stack([m[k] for m in mets]).cpu().numpy()
+            for k in mets[0]}, ms
+
+
+def precision_train(seed: int, card: str, f32_training: dict) -> tuple:
+    """The standalone trainer with ``TrainConfig(precision="bf16")`` at
+    "Training"'s configuration, twice from one seed: exact launches of
+    each variant, bit-equal weights; then the f32 and bf16 loss
+    trajectories from one init and one draw stream, in turns."""
+    matrix, cat_idx, meta, encoders = intrusion_like_table(TRAIN_ROWS, seed)
+    cfg = steps.TrainConfig(precision="bf16")
+    runs, synth = [], None
+    for _ in range(2):
+        synth = StandaloneSynthesizer(cfg, seed=seed, device="cuda")
+        activate_cuda.reset_launches()
+        synth.fit(matrix, cat_idx, epochs=TRAIN_EPOCHS)
+        runs.append((_variant_launches(), synth.timings, synth.metrics,
+                     [t.detach().clone() for t in
+                      [*synth.models.generator.state_dict().values(),
+                       *synth.models.discriminator.state_dict().values()]]))
+    steps_per_epoch = TRAIN_ROWS // cfg.batch_size
+    total = TRAIN_EPOCHS * steps_per_epoch
+    want = {"K1": {"f32": 0, "bf16": total * cfg.d_steps,
+                   "bf16_train": total},
+            "K2": {"f32": 0, "bf16": total}}
+    for launches, *_ in runs:
+        if launches != want:
+            raise AssertionError(f"bf16 training launches {launches} != "
+                                 f"{want}")
+    equal = all(torch.equal(a, b) for a, b in zip(runs[0][3], runs[1][3]))
+    if not equal:
+        raise AssertionError("two bf16 trainings from one seed differ")
+    if not all(t.dtype in (torch.float32, torch.int64)
+               for t in runs[0][3]):
+        raise AssertionError("a bf16 master weight is not float32")
+    m = runs[0][2]
+    if not all(math.isfinite(v) for v in m.values()):
+        raise AssertionError(f"non-finite bf16 losses {m}")
+    # loss trajectories, f32 / bf16 / bf16 / f32: one init, one draw stream
+    cfg32 = steps.TrainConfig()
+    turns = [(c.precision, *_trajectory(synth, c, seed + 5, total))
+             for c in (cfg32, cfg, cfg, cfg32)]
+    (_, l32, _), (_, l16, _) = turns[0], turns[1]
+    if any(not np.array_equal(turns[1][1][k], turns[2][1][k]) for k in l16):
+        raise AssertionError("the bf16 trajectory did not repeat")
+    gap = {k: float(np.abs(l16[k] - l32[k]).max()) for k in l16}
+    ms_turns = [(p, ms) for p, _, ms in turns]
+    epoch_ms = [[t * 1e3 / steps_per_epoch for t in r[1]["epoch_s"]]
+                for r in runs]
+    print(f"precision train: bf16 standalone, {TRAIN_EPOCHS} epochs x "
+          f"{steps_per_epoch} steps at layout {synth.spec.dim}; ms/step by "
+          f"epoch {epoch_ms!r} (f32 in this call: "
+          f"{f32_training['ms_per_step_by_epoch']!r}); launches "
+          f"{runs[0][0]} (expected {want}); two runs bit-equal {equal}; last "
+          f"losses {m}  [{card}]", flush=True)
+    print(f"precision train: loss trajectories from one init and one draw "
+          f"stream ({total} steps), largest gap bf16 vs f32 {gap}; ms/step "
+          f"in turns {ms_turns!r}  [{card}]", flush=True)
+    report = {"ms_per_step_by_epoch": epoch_ms,
+              "f32_ms_per_step_by_epoch":
+                  f32_training["ms_per_step_by_epoch"],
+              "launches": runs[0][0], "launches_expected": want,
+              "bit_equal": equal, "losses": m, "trajectory_gap": gap,
+              "trajectory_ms_per_step_turns": ms_turns,
+              "bgm_fit_s": [r[1]["bgm_fit_s"] for r in runs]}
+    return synth, meta, encoders, report
+
+
+def _state(tr) -> list:
+    st = tr.stack
+    return [st.generator.params, st.discriminator.params,
+            st.generator.bn_state, st.generator.num_batches,
+            st.opt_g.exp_avg, st.opt_g.exp_avg_sq, st.opt_g.count,
+            st.opt_d.exp_avg, st.opt_d.exp_avg_sq, st.opt_d.count]
+
+
+def precision_federated(init, seed: int, card: str, root: str,
+                        f32_round: dict) -> dict:
+    """The federated round in bf16 at "Federated round"'s configuration:
+    ``FED_EPOCHS`` rounds with a 40,000-row packed8 snapshot and a save
+    after each (exact launches of each variant), then the save after the
+    second round loaded and its third round run: bit-equal to the
+    uninterrupted run."""
+    cfg = steps.TrainConfig(precision="bf16")
+    trainer = FederatedTrainer(init, cfg, seed=seed, device="cuda")
+    path_fn = result_path_fn(os.path.join(root, "bf16_round_out"),
+                             "Intrusion")
+    writer = SnapshotWriter(init.global_meta, init.encoders, path_fn,
+                            rows=SNAPSHOT_ROWS, seed=seed)
+    ckpt = os.path.join(root, "bf16_ckpt")
+    max_steps = int(trainer.steps.max())
+    chunks = len(trainer._sampler()._chunk_plan(
+        0, -(-SNAPSHOT_ROWS // cfg.batch_size), pow2_tail=False))
+    save_s = []
+
+    def hook(e, tr):
+        writer(e, tr)
+        t0 = time.perf_counter()
+        save_federated(tr, ckpt, keep=2)
+        save_s.append(time.perf_counter() - t0)
+
+    activate_cuda.reset_launches()
+    with writer:
+        trainer.fit(FED_EPOCHS, sample_hook=hook)
+    launches = _variant_launches()
+    want = {"K1": {"f32": 0, "bf16": FED_EPOCHS * (max_steps * cfg.d_steps
+                                                   + chunks),
+                   "bf16_train": FED_EPOCHS * max_steps},
+            "K2": {"f32": 0, "bf16": FED_EPOCHS * max_steps}}
+    if launches != want:
+        raise AssertionError(f"bf16 federated launches {launches} != {want}")
+    for e in range(FED_EPOCHS):
+        with open(path_fn(e)) as f:
+            if sum(1 for _ in f) != SNAPSHOT_ROWS + 1:
+                raise AssertionError(f"bf16 snapshot {e}: wrong row count")
+    if not np.isfinite(trainer.last_metrics).all():
+        raise AssertionError(f"non-finite bf16 round metrics "
+                             f"{trainer.last_metrics}")
+    host = json.load(open(os.path.join(ckpt, "host.json")))
+    if host["cfg"]["precision"] != "bf16":
+        raise AssertionError("the bf16 checkpoint does not carry bf16")
+    t0 = time.perf_counter()
+    resumed = load_federated(f"{ckpt}.1", device="cuda")
+    load_s = time.perf_counter() - t0
+    if (resumed.completed_epochs, resumed.cfg.precision) != (
+            FED_EPOCHS - 1, "bf16"):
+        raise AssertionError("the loaded checkpoint is not round "
+                             f"{FED_EPOCHS - 1} in bf16")
+    resumed.fit(1)
+    equal = all(torch.equal(a, b) for a, b in zip(_state(trainer),
+                                                  _state(resumed)))
+    if not equal:
+        raise AssertionError("bf16 resume differs from the uninterrupted "
+                             "run")
+    # a round and its snapshot, the save left out: what phase 10 times
+    rounds_s = [t - s for t, s in zip(trainer.epoch_times[:FED_EPOCHS],
+                                      save_s)]
+    print(f"precision federated: {FED_CLIENTS} clients, steps "
+          f"{trainer.steps.tolist()}, layout {trainer.spec.dim}, bf16 delta "
+          f"payload; s/round with its snapshot {rounds_s!r} (f32 in this "
+          f"call: {f32_round['round_s']!r}) = local steps "
+          f"{trainer.round_split['local_steps'][:FED_EPOCHS]!r} + "
+          f"aggregation {trainer.round_split['aggregate'][:FED_EPOCHS]!r} + "
+          f"snapshot; then a save {save_s!r} s; load {load_s!r} s; "
+          f"launches {launches} (expected {want}); resumed round bit-equal "
+          f"{equal}  [{card}]", flush=True)
+    return {"round_s": rounds_s, "f32_round_s": f32_round["round_s"],
+            "local_steps_s": trainer.round_split["local_steps"][:FED_EPOCHS],
+            "aggregate_s": trainer.round_split["aggregate"][:FED_EPOCHS],
+            "save_s": save_s, "load_s": load_s, "launches": launches,
+            "launches_expected": want, "resume_bit_equal": equal,
+            "shape": [FED_CLIENTS * cfg.batch_size, trainer.spec.dim]}
+
+
+def _segment_ties(enc: np.ndarray, spec: SegmentSpec) -> np.ndarray:
+    """(rows, segments) bool: the segment's two largest outputs equal
+    (a tie the bf16 rounding made)."""
+    out = np.zeros((len(enc), spec.n_segments), dtype=bool)
+    start = 0
+    for j, (size, kind) in enumerate(spec.output_info):
+        if kind == "softmax" and size > 1:
+            top = np.sort(enc[:, start:start + size], axis=1)
+            out[:, j] = top[:, -1] == top[:, -2]
+        start += size
+    return out
+
+
+def bf16_reference(art: str, seed: int, card: str) -> dict:
+    """The bf16 artifact on the card against the CPU on the same injected
+    draws (2 steps): at least 99% of the generator's bf16 logits equal;
+    encoded rows within one bf16 ulp in every segment whose logits are
+    equal (the others counted); K1 on equal logits within one ulp;
+    categorical cells equal except where a side's bf16 segment ties
+    (counted)."""
+    gpu = SamplingEngine(open_model(art, device="cuda"))
+    cpu = SamplingEngine(open_model(art, device="cpu"))
+    cfg, spec = gpu.cfg, gpu.spec
+    cond = cpu.model.synth.cond
+
+    def draws(step):
+        r = np.random.default_rng([seed, step])
+        col = torch.as_tensor(r.integers(0, spec.n_discrete, cfg.batch_size))
+        c = cond.empirical_from_draws(
+            col, torch.as_tensor(r.random((cfg.batch_size, 1)),
+                                 dtype=torch.float32)).numpy()
+        return (r.standard_normal((cfg.batch_size, cfg.embedding_dim)), c,
+                r.random((cfg.batch_size, spec.dim)))
+
+    n = 2 * cfg.batch_size
+    enc_g = gpu.sample_encoded(n, seed=seed, draws=draws)
+    enc_c = cpu.sample_encoded(n, seed=seed, draws=draws)
+
+    def logits(engine):
+        z, c, u = engine.draw(engine.snapshot(),
+                              seed + engine.model.synth.key_offset, 0, 2,
+                              None, draws)
+        x = torch.cat([z, c], 1).to(torch.bfloat16)
+        with torch.no_grad():
+            return torch.cat([engine.model.synth.generator(b) for b in
+                              x.split(cfg.batch_size)]), u
+
+    raw_g, u_g = logits(gpu)
+    raw_c, u_c = logits(cpu)
+    raw_err, raw_ulps = _ulps(raw_g.cpu(), raw_c)
+    raw_equal = float((raw_g.cpu() == raw_c).float().mean())
+    # K1 is row- and segment-wise: where every bf16 logit of a segment is
+    # equal on the two sides (the GEMMs' float32 sums round to the same
+    # bf16), its outputs are K1's float32 island rounded once, within one
+    # ulp; a segment with an unequal logit is counted and set aside
+    ids = torch.as_tensor(spec.segment_ids, dtype=torch.long)
+    seg_differs = torch.zeros((n, spec.n_segments), dtype=torch.int32
+                              ).scatter_add_(1, ids.expand(n, -1),
+                                             (raw_g.cpu() != raw_c).int()) > 0
+    keep = ~seg_differs[:, ids].numpy()
+    err, ulps = _ulps(torch.from_numpy(enc_g[keep]),
+                      torch.from_numpy(enc_c[keep]))
+    set_aside = int((~keep).sum())
+    k1_err, k1_ulps = _ulps(fused_apply_activate(raw_c.cuda(), spec,
+                                                 u_c.cuda()).cpu(),
+                            apply_activate(raw_c, spec, u_c))
+    dec_g = gpu.sample_decoded(n, seed=seed, draws=draws)
+    dec_c = cpu.sample_decoded(n, seed=seed, draws=draws)
+    ties = _segment_ties(enc_g, spec) | _segment_ties(enc_c, spec)
+    # each softmax segment of a discrete column is one decoded column
+    seg_of_col, seg = [], 0
+    for col in gpu.model.synth.columns:
+        seg_of_col.append(seg)
+        seg += 2 if not isinstance(col, DiscreteColumn) else 1
+    cat_cols = [j for j, col in enumerate(gpu.model.synth.columns)
+                if isinstance(col, DiscreteColumn)]
+    mism = tied = 0
+    for j in cat_cols:
+        diff = dec_g[:, j] != dec_c[:, j]
+        tie = ties[:, seg_of_col[j]]
+        mism += int((diff & ~tie).sum())
+        tied += int((diff & tie).sum())
+    print(f"precision reference: bf16 artifact card vs CPU on injected "
+          f"draws, {n} rows: generator logits max_abs_err {raw_err!r} "
+          f"({raw_ulps!r} bf16 ulps; {raw_equal!r} of them equal); encoded "
+          f"rows where a segment's logits are equal max_abs_err {err!r} "
+          f"({ulps!r} ulps), {set_aside} values of {enc_g.size} in segments "
+          f"with an unequal logit set aside; K1 vs plain on the CPU's logits "
+          f"{k1_ulps!r} ulps; categorical cells differing {mism} outside "
+          f"ties, {tied} where a side ties  [{card}]", flush=True)
+    if mism:
+        raise AssertionError(f"{mism} categorical cells differ card vs CPU "
+                             "outside bf16 ties")
+    if not k1_ulps <= 1.0:
+        raise AssertionError(f"K1 bf16 on equal logits: {k1_ulps} ulps")
+    if not ulps <= 1.0:
+        raise AssertionError(f"bf16 encoded rows card vs CPU: {ulps} ulps "
+                             "where the logits are equal")
+    if not raw_equal >= 0.99:
+        raise AssertionError(f"only {raw_equal} of the bf16 logits are "
+                             "equal card vs CPU")
+    return {"encoded_max_abs_err": err, "encoded_max_ulps": ulps,
+            "encoded_values_set_aside": set_aside,
+            "logits_max_ulps": raw_ulps, "logits_equal_share": raw_equal,
+            "k1_on_equal_logits_ulps": k1_ulps,
+            "categorical_cells_tied_differently": tied}
+
+
+def precision_serve(synth16, synth32, meta, encoders, rows: int, seed: int,
+                    card: str, root: str) -> dict:
+    """The bf16 trained model and the f32 one (one layout) served through
+    the HTTP service in turns (f32, bf16, bf16, f32): p50 and rows/s,
+    chunked bytes == one-shot bytes; K1's bf16 sampling variant once per
+    chunk and no other; then the card against the CPU."""
+    arts = {}
+    for prec, synth in (("f32", synth32), ("bf16", synth16)):
+        arts[prec] = write_artifact(os.path.join(root, f"serve_{prec}"),
+                                    synth.to_saved(), meta, encoders)
+    engine = SamplingEngine(open_model(arts["bf16"], device="cuda"))
+    B = engine.cfg.batch_size
+    # serve_phase's requests: 1 + 5 of `rows`, 3 offset chunks, 600 rows
+    thirds = (rows // 3, rows // 3, rows - 2 * (rows // 3))
+    reqs = [(rows, 0)] * 6 + [(n, sum(thirds[:i])) for i, n in
+                              enumerate(thirds)] + [(600, 0)]
+    chunks = sum(len(engine._chunk_plan(o // B, -(-(o % B + n) // B)))
+                 for n, o in reqs)
+    turns = []
+    for prec in ("f32", "bf16", "bf16", "f32"):
+        activate_cuda.reset_launches()
+        res = serve_phase(arts[prec], rows, seed, card)
+        launches = _variant_launches()
+        if prec == "bf16":
+            want = {"K1": {"f32": 0, "bf16": chunks, "bf16_train": 0},
+                    "K2": {"f32": 0, "bf16": 0}}
+            if launches != want:
+                raise AssertionError(f"bf16 serving launches {launches} != "
+                                     f"{want}")
+        turns.append({"precision": prec, **res, "launches": launches})
+    ref = bf16_reference(arts["bf16"], seed, card)
+    for prec in ("f32", "bf16"):
+        shutil.rmtree(arts[prec], ignore_errors=True)
+    print(f"precision serve: {rows}-row requests in turns "
+          f"{[(t['precision'], t['p50_ms'], t['rows_per_s']) for t in turns]}"
+          f" (precision, p50 ms, rows/s); bf16 K1 launches per turn "
+          f"{chunks} = one per chunk  [{card}]", flush=True)
+    return {"turns": turns, "chunks_per_turn": chunks, "reference": ref,
+            "chunk_rows": engine._chunk_plan(0, -(-rows // B))[0][1] * B}
+
+
+def precision_phase(seed: int, card: str, root: str, rows: int,
+                    synth32, f32_training: dict, init,
+                    f32_round: dict) -> dict:
+    """Mixed precision on the card: the flags, the trainer, the federated
+    round and serving in bf16 (each main path with every launch count set
+    to 0 just before it and read just after), then each bf16 variant held
+    against its plain version at the shapes those paths give it."""
+    resolve_precision("bf16")
+    flags = precision_flags()
+    print(f"precision flags: {flags}  [{card}]", flush=True)
+    if flags["allow_bf16_reduced_precision_reduction"] is not False:
+        raise AssertionError("bf16 GEMMs may reduce in bf16")
+    if flags["matmul_allow_tf32"] or flags["cudnn_allow_tf32"]:
+        raise AssertionError("TF32 is on for float32 products")
+    synth16, meta, encoders, train = precision_train(seed, card, f32_training)
+    fed = precision_federated(init, seed, card, root, f32_round)
+    serve = precision_serve(synth16, synth32, meta, encoders, rows, seed,
+                            card, root)
+    _, _, columns = intrusion_layout(np.random.default_rng(seed))
+    serving_spec = SegmentSpec.from_output_info(output_info(columns))
+    fed_spec = SegmentSpec.from_output_info(init.output_info)
+    B = steps.TrainConfig().batch_size
+    fwd, train_fwd, bwd = "fwd_bf16", "fwd_train_bf16", "bwd_bf16"
+    shapes = check_bf16_kernels([
+        ("served", synth16.spec, serve["chunk_rows"], (fwd,)),
+        ("serving", serving_spec, 8000, (fwd,)),
+        ("lanes", serving_spec, 64000, (fwd,)),
+        ("train", synth16.spec, B, (fwd, train_fwd, bwd)),
+        ("stacked", fed_spec, FED_CLIENTS * B, (fwd, train_fwd, bwd)),
+        ("misaligned2B", serving_spec, B, (fwd, train_fwd, bwd)),
+        ("misaligned4B", serving_spec, B, (fwd, train_fwd, bwd)),
+    ], card)
+    paths = {"training": train["launches"], "federated": fed["launches"],
+             "serving": serve["turns"][1]["launches"]}
+    return {"flags": flags, "training": train, "federated": fed,
+            "serving": serve, "shapes": shapes, "launches_by_path": paths}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2878,6 +3366,14 @@ def main(argv=None) -> int:
                            (("fed_monitor", MONITOR_ROWS),), extra=False)
     fed_launches = federated["round"]["launches"]
     mark("federated_kernel_checks")
+    prec_root = tempfile.mkdtemp(prefix="chip_smoke_bf16_", dir=build_root)
+    try:
+        precision = precision_phase(args.seed, card, prec_root, args.rows,
+                                    synth, training, trainer.init,
+                                    federated["round"])
+    finally:
+        shutil.rmtree(prec_root, ignore_errors=True)
+    mark("precision")
     print(f"wall seconds by phase {json.dumps(wall)}, "
           f"{sum(wall.values())!r} in all  [{card}]", flush=True)
 
@@ -2941,10 +3437,30 @@ def main(argv=None) -> int:
         entry("fused_gumbel_activation_bwd_dated", bwd, "federated dated",
               bwd_shapes, "dated_train", dated["launches"]["train"]["K2"]),
     ]
+    # slice 9's bf16 variants: their launches on the bf16 paths (training,
+    # the federated round, serving), each path counted on its own
+    by_path = precision.pop("launches_by_path")
+    bf16_shapes = precision.pop("shapes")
+    for name, variant, kernel, replaces, main_case in (
+            ("fused_gumbel_activation_fwd_bf16", "fwd_bf16", "K1", fwd,
+             "served"),
+            ("fused_gumbel_activation_fwd_train_bf16", "fwd_train_bf16",
+             "K1", fwd, "train"),
+            ("fused_gumbel_activation_bwd_bf16", "bwd_bf16", "K2", bwd,
+             "train")):
+        counts = {path: launches[kernel][
+            "bf16_train" if variant == "fwd_train_bf16" else "bf16"]
+            for path, launches in by_path.items()}
+        kernels.append({
+            **entry(name, replaces, "bf16 training, federated and serving",
+                    bf16_shapes[variant], main_case, sum(counts.values())),
+            "launches_by_path": counts,
+            "bytes_per_element": BF16_VARIANTS[variant][1]})
     print(json.dumps({"training": training}))
     print(json.dumps({"federated": federated}))
     print(json.dumps({"durability": durability}))
     print(json.dumps({"canary": canary, "dated": dated}))
+    print(json.dumps({"precision": precision}))
     print(card)
     print(json.dumps({"kernels": kernels, "serving": serving,
                       "fleet": fleet}))

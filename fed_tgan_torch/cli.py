@@ -20,6 +20,8 @@ layout:
   that ``serve --promote canary`` scores new generations against;
 - ``--date-format col=FORMAT ...`` splits each date column into
   categorical parts for training and rejoins it in every written CSV;
+- ``--precision bf16`` trains (either mode) in bf16 with float32 islands,
+  and the saved artifact serves in bf16;
 - with ``--monitor-every K``, ``<out>/monitor_similarity.csv`` (appended
   to on ``--resume``);
 - with ``--save-every K``, crash-safe training checkpoints in
@@ -46,7 +48,6 @@ import numpy as np
 # flag -> (argparse keywords, ROADMAP item); a value other than the
 # default is refused with exit code 2
 NOT_PORTED = {
-    "--precision": (dict(type=str, default="f32"), "A.15"),
     "--similarity": (dict(type=str, default="exact"), "A.16"),
     "--init-cache": (dict(type=str, default=None), "A.16"),
     "--elastic-capacity": (dict(type=int, default=0), "A.16"),
@@ -171,6 +172,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fault-injection plan, e.g. 'kill_client:rank=3,"
                         "round=2;crash_checkpoint:save=2' (also read from "
                         "FED_TGAN_TORCH_FAULTS)")
+    p.add_argument("--precision", type=str, default="f32",
+                   choices=("f32", "bf16"),
+                   help="f32 (default) or bf16: generator and discriminator "
+                        "in bfloat16 with float32 islands (batch norm, the "
+                        "gradient penalty's norm, the loss means, the Gumbel "
+                        "logits, decode) and a bf16 aggregation step; master "
+                        "weights and Adam state stay float32.  A resumed "
+                        "run keeps its checkpoint's precision")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     for flag, (kw, item) in NOT_PORTED.items():
@@ -352,7 +361,8 @@ def main(argv=None) -> int:
         allow_zero_step_clients=args.allow_zero_step_clients,
         aggregator=args.aggregator, update_gate=not args.no_update_gate,
         gate_norm_factor=args.gate_norm_factor,
-        update_clip=args.update_clip, trim_ratio=args.trim_ratio)
+        update_clip=args.update_clip, trim_ratio=args.trim_ratio,
+        precision=args.precision)
     if args.mode == "standalone":
         return _run_standalone(args, name, kwargs, tables, columns, cfg,
                                device)

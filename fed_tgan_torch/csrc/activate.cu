@@ -19,9 +19,10 @@
 //
 // What bounds them on an H100 SXM
 //
-// Memory.  Per element each kernel reads two floats and writes one: 12
-// bytes.  K1 does ~10 float operations per element (2 logf, 1 expf, a
-// divide), K2 ~5, so at 3.35 TB/s and 67 TFLOP/s the bytes bound both.  A
+// Memory.  Per element each float32 kernel reads two floats and writes
+// one: 12 bytes (the bf16 variants: 8, or 12 for K1 with its residual).
+// K1 does ~10 float operations per element (2 logf, 1 expf, a divide), K2
+// ~5, so at 3.35 TB/s and 67 TFLOP/s the bytes bound both.  A
 // 128-step serving chunk (64,000 x 282) moves 217 MB, ~65 us; a 500-row
 // training call moves 1.7 MB, ~0.5 us, so there the launch and the latency
 // of the kernel's dependent steps set the time.  Past its load and store,
@@ -70,15 +71,37 @@
 // The store pass writes o[e] from thread e % T: a warp writes 128
 // contiguous bytes and reads shared memory without bank conflicts.
 //
+// The bf16 variants (mixed precision, fed_tgan_torch/runtime/precision.py)
+//
+// Under bf16 compute JAX casts K1's operand to float32 before its float32
+// kernel and rounds the result back to bf16 (activate_pallas.py:142-144,
+// 197); its backward reads the float32 forward output as the residual and
+// a bf16 cotangent, and rounds dx to bf16.  The kernels here are templates
+// over the element type T of the first operand and of the result: x or dy
+// is read as T (staged as T), every step runs in float32, and the result
+// is rounded to nearest even once, in the store pass.  The Gumbel uniforms
+// and K2's residual stay float32.  Three bf16 instantiations: K1 for
+// sampling (reads 2 + 4 bytes, writes 2: 8 bytes an element), K1 for
+// training (also writes the float32 result, K2's residual: 12 bytes) and
+// K2 (reads 2 + 4, writes 2: 8 bytes).  The float32 instantiations are
+// the kernels as they were.  A bf16 tile can start on a 2-byte boundary,
+// which no cp.async size copies: its ragged ends are copied with ordinary
+// loads and stores, its aligned interior with 16-byte cp.async (8
+// elements).  Unstaged, the bf16 K1 keeps its float32 logits in the
+// residual buffer (a scratch the wrapper allocates when it samples).
+//
 // Accurate logf, expf and tanhf (no fast-math intrinsics: -log(-log(u))
 // near u -> 1 is where they lose digits).  No allocation and no
 // synchronisation: the wrapper (fed_tgan_torch/ops/activate_cuda.py)
 // allocates the output, computes the launch plan and passes PyTorch's
 // current stream.  Plain C interface, loaded with ctypes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -88,30 +111,56 @@ constexpr uint16_t kTanhBit = 0x8000;
 constexpr uint16_t kSegMask = 0x7fff;
 constexpr float kInvTau = 5.0f;  // 1 / tau, as the TPU kernels scale
 
+using bf16 = __nv_bfloat16;
+
 __device__ __forceinline__ float gumbel(float u) {
   return -logf(-logf(u + 1e-20f) + 1e-20f);
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// The result in T: itself, or rounded to the nearest bf16 (ties to even).
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (std::is_same<T, float>::value) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
+
 __host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
+
+// Elements of T in one 16-byte copy (kN), and its log2.
+template <typename T>
+struct Vec {
+  static constexpr int kN = 16 / (int)sizeof(T);
+  static constexpr int kLog = sizeof(T) == 4 ? 2 : 3;
+};
 
 // What a tile's passes read: the staged operand buffers (null when
 // unstaged), the (row, segment) results, and the tables, in shared memory
 // when staged and in global memory when not.
+template <typename T>
 struct Layout {
-  float* a;               // first operand (x, dy), shifted by its misalignment
+  T* a;                   // first operand (x, dy), shifted by its misalignment
   float* b;               // second operand (u, out)
   float2* seg;            // [R * S]: K1 (sum, 1 / sum), K2 (inner, unused)
   const int* start;       // [S + 1]
   const uint16_t* code;   // [D]
 };
 
-// Misalignment of a global float pointer in floats (0..3): the element at
-// flat index e sits on a 16-byte boundary iff (shift + e) % 4 == 0.
-__device__ __forceinline__ int shift_of(const float* p) {
-  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+// Misalignment of a global pointer in elements (0 .. kVec - 1): the
+// element at flat index e sits on a 16-byte boundary iff
+// (shift + e) % kVec == 0.
+template <typename T>
+__device__ __forceinline__ int shift_of(const T* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> (4 - Vec<T>::kLog)) &
+               (Vec<T>::kN - 1));
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
 }
@@ -122,43 +171,66 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                "l"(src));
 }
 
-// Issue the copy of n floats from src into dst + shift_of(src).
-__device__ __forceinline__ void issue_copy(float* dst, const float* src,
-                                           int n) {
+// One element of a ragged end: a 4-byte cp.async, or for a 2-byte element
+// (no cp.async size copies it) an ordinary load and store.
+template <typename T>
+__device__ __forceinline__ void copy_elem(T* dst, const T* src) {
+  if constexpr (sizeof(T) == 4) {
+    cp_async4(dst, src);
+  } else {
+    *dst = *src;
+  }
+}
+
+// Issue the copy of n elements from src into dst + shift_of(src).
+template <typename T>
+__device__ __forceinline__ void issue_copy(T* dst, const T* src, int n) {
   const int shift = shift_of(src);
   dst += shift;
-  const int head = min((4 - shift) & 3, n);
-  const int n_vec = (n - head) >> 2;
+  const int head = min((Vec<T>::kN - shift) & (Vec<T>::kN - 1), n);
+  const int n_vec = (n - head) >> Vec<T>::kLog;
   const int t = threadIdx.x;
-  if (t < head) cp_async4(dst + t, src + t);
+  if (t < head) copy_elem(dst + t, src + t);
   for (int v = t; v < n_vec; v += kThreads) {
-    const int e = head + 4 * v;
+    const int e = head + Vec<T>::kN * v;
     cp_async16(dst + e, src + e);
   }
-  const int tail = head + 4 * n_vec;
-  if (tail + t < n) cp_async4(dst + tail + t, src + tail + t);
+  const int tail = head + Vec<T>::kN * n_vec;
+  if (tail + t < n) copy_elem(dst + tail + t, src + tail + t);
+}
+
+// Bytes of the staged first operand's buffer: R * D elements of T plus
+// room for its misalignment, in whole 16-byte pieces.
+template <typename T>
+__host__ __device__ __forceinline__ int operand_bytes(int n) {
+  constexpr int v = Vec<T>::kN;
+  return (int)sizeof(T) * ((n + v - 1 + v - 1) & ~(v - 1));
 }
 
 // The staged shared-memory layout, mirrored by smem_bytes() in
-// activate_cuda.py: 2 operand buffers of round4(R * D + 3) floats, the
-// (row, segment) results (round4(2 * R * S) floats), the segment offsets
-// (round4(S + 1) ints), the per-dim codes (D uint16, copied in 16-byte
-// pieces).  Issues the copies of the tables (padded to 16 bytes on the
-// host) into it.
-__device__ __forceinline__ Layout stage_tables(float* smem,
-                                               const uint16_t* dim_code,
-                                               const int* seg_start,
-                                               int rows_per_tile, int dim,
-                                               int n_seg) {
-  const int buf = round4(rows_per_tile * dim + 3);
-  float* seg = smem + 2 * buf;
+// activate_cuda.py: the first operand's buffer (operand_bytes<T>(R * D)),
+// the second's of round4(R * D + 3) floats, the (row, segment) results
+// (round4(2 * R * S) floats), the segment offsets (round4(S + 1) ints),
+// the per-dim codes (D uint16, copied in 16-byte pieces).  Issues the
+// copies of the tables (padded to 16 bytes on the host) into it.
+template <typename T>
+__device__ __forceinline__ Layout<T> stage_tables(float* smem,
+                                                  const uint16_t* dim_code,
+                                                  const int* seg_start,
+                                                  int rows_per_tile, int dim,
+                                                  int n_seg) {
+  const int n = rows_per_tile * dim;
+  float* b = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) +
+                                      operand_bytes<T>(n));
+  float* seg = b + round4(n + 3);
   int* start = reinterpret_cast<int*>(seg + round4(2 * rows_per_tile * n_seg));
   uint16_t* code = reinterpret_cast<uint16_t*>(start + round4(n_seg + 1));
   for (int i = threadIdx.x; i < round4(n_seg + 1) / 4; i += kThreads)
     cp_async16(start + 4 * i, seg_start + 4 * i);
   for (int i = threadIdx.x; i < (dim + 7) / 8; i += kThreads)
     cp_async16(code + 8 * i, dim_code + 8 * i);
-  return {smem, smem + buf, reinterpret_cast<float2*>(seg), start, code};
+  return {reinterpret_cast<T*>(smem), b, reinterpret_cast<float2*>(seg), start,
+          code};
 }
 
 // Walks flat indices e = first, first + step, ... of a tile as (row, col)
@@ -197,7 +269,8 @@ __device__ __forceinline__ float2 denominator(float sum) {
 // K1's pass over (row, segment) pairs: tanh(x) in place of v on a tanh
 // pair; on a softmax pair the max m of its noisy logits v, then exp(v - m)
 // in place of v, summed in order, and the guarded sum with its reciprocal.
-__device__ __forceinline__ void pair_softmax(const Layout& l, const float* x,
+template <typename T>
+__device__ __forceinline__ void pair_softmax(const Layout<T>& l, const T* x,
                                              float* v, int rows, int dim,
                                              int n_seg) {
   Walker w(threadIdx.x, kThreads, n_seg);
@@ -206,7 +279,7 @@ __device__ __forceinline__ void pair_softmax(const Layout& l, const float* x,
     const int b = a + l.start[w.col + 1] - l.start[w.col];
     if (a == b) continue;
     if (l.code[l.start[w.col]] & kTanhBit) {
-      for (int i = a; i < b; ++i) v[i] = tanhf(x[i]);
+      for (int i = a; i < b; ++i) v[i] = tanhf(to_f32(x[i]));
       continue;
     }
     float m = -INFINITY;
@@ -223,7 +296,8 @@ __device__ __forceinline__ void pair_softmax(const Layout& l, const float* x,
 }
 
 // K2's pass over pairs: the sum of dy * out over each softmax pair.
-__device__ __forceinline__ void pair_inner(const Layout& l, const float* dy,
+template <typename T>
+__device__ __forceinline__ void pair_inner(const Layout<T>& l, const T* dy,
                                            const float* out, int rows,
                                            int dim, int n_seg) {
   Walker w(threadIdx.x, kThreads, n_seg);
@@ -233,30 +307,29 @@ __device__ __forceinline__ void pair_inner(const Layout& l, const float* dy,
     if (a == b || (l.code[l.start[w.col]] & kTanhBit)) continue;
     float inner = 0.f;
 #pragma unroll 4
-    for (int i = a; i < b; ++i) inner += dy[i] * out[i];
+    for (int i = a; i < b; ++i) inner += to_f32(dy[i]) * out[i];
     l.seg[p].x = inner;
   }
 }
 
-// Store pass: value(e, row, col) for every flat element e < n of the tile,
-// written to o[e] by thread e % kThreads: a warp writes 128 contiguous
-// bytes and reads shared memory without bank conflicts.  (Groups of 4
-// written as one float4 read shared memory at a stride of 4 floats, 4-way
-// conflicted, and measured slower.)
+// Store pass: store(e, row, col) for every flat element e < n of the tile,
+// called by thread e % kThreads: a warp writes contiguous bytes and reads
+// shared memory without bank conflicts.  (Groups of 4 written as one
+// float4 read shared memory at a stride of 4 floats, 4-way conflicted, and
+// measured slower.)
 template <typename F>
-__device__ __forceinline__ void store_tile(float* o, int n, int dim,
-                                           F value) {
+__device__ __forceinline__ void store_tile(int n, int dim, F store) {
   Walker w(threadIdx.x, kThreads, dim);
   for (int e = threadIdx.x; e < n; e += kThreads, w.next())
-    o[e] = value(e, w.row, w.col);
+    store(e, w.row, w.col);
 }
 
 // The tile of block blockIdx.x, shared by both kernels.  Staged: copy the
 // tables and the tile's two operands in, wait, run `compute` on the copies.
 // Unstaged: run `compute` on the operands in global memory.
-template <bool kStaged, typename Compute>
+template <typename T, bool kStaged, typename Compute>
 __device__ __forceinline__ void run_tile(
-    const float* __restrict__ a, const float* __restrict__ b,
+    const T* __restrict__ a, const float* __restrict__ b,
     const uint16_t* __restrict__ dim_code, const int* __restrict__ seg_start,
     int n_rows, int dim, int n_seg, int rows_per_tile, Compute compute) {
   extern __shared__ __align__(16) float smem[];
@@ -264,8 +337,8 @@ __device__ __forceinline__ void run_tile(
   const int rows = (int)min((long long)rows_per_tile, n_rows - row0);
   const size_t off = (size_t)row0 * dim;
   if constexpr (kStaged) {
-    const Layout l =
-        stage_tables(smem, dim_code, seg_start, rows_per_tile, dim, n_seg);
+    const Layout<T> l =
+        stage_tables<T>(smem, dim_code, seg_start, rows_per_tile, dim, n_seg);
     issue_copy(l.a, a + off, rows * dim);
     issue_copy(l.b, b + off, rows * dim);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -273,85 +346,128 @@ __device__ __forceinline__ void run_tile(
     __syncthreads();
     compute(l, l.a + shift_of(a + off), l.b + shift_of(b + off), rows, off);
   } else {
-    const Layout l{nullptr, nullptr, reinterpret_cast<float2*>(smem),
-                   seg_start, dim_code};
+    const Layout<T> l{nullptr, nullptr, reinterpret_cast<float2*>(smem),
+                      seg_start, dim_code};
     compute(l, a + off, b + off, rows, off);
   }
 }
 
-// Registers are capped at 32 a thread (8 blocks of 256 threads on one SM),
-// so that register use never keeps a block off an SM.
-template <bool kStaged>
+// K1.  `out` is T; `res` receives the float32 result when kResidual (the
+// bf16 training variant: K2's residual).  Unstaged, the noisy logits are
+// kept in global memory until the store pass rewrites them: in `out` for
+// float32, in `res` (a scratch when not kResidual) for bf16.  Registers
+// are capped at 32 a thread (8 blocks of 256 threads on one SM), so that
+// register use never keeps a block off an SM.
+template <typename T, bool kStaged, bool kResidual>
 __global__ void __launch_bounds__(kThreads, 2048 / kThreads)
-    activate_fwd_kernel(const float* __restrict__ x,
-                        const float* __restrict__ u,
+    activate_fwd_kernel(const T* __restrict__ x, const float* __restrict__ u,
                         const uint16_t* __restrict__ dim_code,
                         const int* __restrict__ seg_start,
-                        float* __restrict__ out, int n_rows, int dim,
-                        int n_seg, int rows_per_tile) {
-  run_tile<kStaged>(
+                        T* __restrict__ out, float* __restrict__ res,
+                        int n_rows, int dim, int n_seg, int rows_per_tile) {
+  run_tile<T, kStaged>(
       x, u, dim_code, seg_start, n_rows, dim, n_seg, rows_per_tile,
-      [&](const Layout& l, const float* xs, const float* us, int rows,
+      [&](const Layout<T>& l, const T* xs, const float* us, int rows,
           size_t off) {
         const int n = rows * dim;
         // the noisy logit (x + g) / tau, on every element alike (the pair
         // pass overwrites the tanh dims): in place of u's staged copy, or
-        // unstaged in out, which the store pass rewrites
-        float* ws = kStaged ? const_cast<float*>(us) : out + off;
+        // unstaged in global memory, which the store pass rewrites
+        float* ws;
+        if constexpr (kStaged) {
+          ws = const_cast<float*>(us);
+        } else if constexpr (std::is_same<T, float>::value) {
+          ws = out + off;
+        } else {
+          ws = res + off;
+        }
         for (int e = threadIdx.x; e < n; e += kThreads)
-          ws[e] = (xs[e] + gumbel(us[e])) * kInvTau;
+          ws[e] = (to_f32(xs[e]) + gumbel(us[e])) * kInvTau;
         __syncthreads();
         pair_softmax(l, xs, ws, rows, dim, n_seg);
         __syncthreads();
-        store_tile(out + off, n, dim, [&](int e, int row, int col) {
+        store_tile(n, dim, [&](int e, int row, int col) {
           const uint16_t c = l.code[col];
-          return (c & kTanhBit)
-                     ? ws[e]
-                     : divide(ws[e], l.seg[row * n_seg + (c & kSegMask)]);
+          const float v =
+              (c & kTanhBit)
+                  ? ws[e]
+                  : divide(ws[e], l.seg[row * n_seg + (c & kSegMask)]);
+          out[off + e] = from_f32<T>(v);
+          if constexpr (kResidual) res[off + e] = v;
         });
       });
 }
 
-template <bool kStaged>
+// K2: dy is T, the residual `out` float32, dx T.
+template <typename T, bool kStaged>
 __global__ void __launch_bounds__(kThreads, 2048 / kThreads)
-    activate_bwd_kernel(const float* __restrict__ dy,
+    activate_bwd_kernel(const T* __restrict__ dy,
                         const float* __restrict__ out,
                         const uint16_t* __restrict__ dim_code,
                         const int* __restrict__ seg_start,
-                        float* __restrict__ dx, int n_rows, int dim,
+                        T* __restrict__ dx, int n_rows, int dim,
                         int n_seg, int rows_per_tile) {
-  run_tile<kStaged>(
+  run_tile<T, kStaged>(
       dy, out, dim_code, seg_start, n_rows, dim, n_seg, rows_per_tile,
-      [&](const Layout& l, const float* gs, const float* ws, int rows,
+      [&](const Layout<T>& l, const T* gs, const float* ws, int rows,
           size_t off) {
         pair_inner(l, gs, ws, rows, dim, n_seg);
         __syncthreads();
-        store_tile(dx + off, rows * dim, dim, [&](int e, int row, int col) {
+        store_tile(rows * dim, dim, [&](int e, int row, int col) {
           const uint16_t c = l.code[col];
-          if (c & kTanhBit) return (1.f - ws[e] * ws[e]) * gs[e];
-          const float inner = l.seg[row * n_seg + (c & kSegMask)].x;
-          return ws[e] * (gs[e] - inner) * kInvTau;
+          const float g = to_f32(gs[e]);
+          float v;
+          if (c & kTanhBit) {
+            v = (1.f - ws[e] * ws[e]) * g;
+          } else {
+            const float inner = l.seg[row * n_seg + (c & kSegMask)].x;
+            v = ws[e] * (g - inner) * kInvTau;
+          }
+          dx[off + e] = from_f32<T>(v);
         });
       });
 }
 
-using KernelFn = void (*)(const float*, const float*, const uint16_t*,
-                          const int*, float*, int, int, int, int);
+int grid_of(int n_rows, int rows_per_tile) {
+  return (n_rows + rows_per_tile - 1) / rows_per_tile;
+}
 
-// Each kernel unstaged ([0]) and staged ([1]).
-const KernelFn kFwd[2] = {activate_fwd_kernel<false>,
-                          activate_fwd_kernel<true>};
-const KernelFn kBwd[2] = {activate_bwd_kernel<false>,
-                          activate_bwd_kernel<true>};
+// One block per tile of rows_per_tile rows; staged or unstaged.
+template <typename T, bool kResidual>
+int launch_fwd(const void* x, const float* u, const uint16_t* dim_code,
+               const int* seg_start, void* out, float* res, int n_rows,
+               int dim, int n_seg, int rows_per_tile, int staged,
+               int smem_bytes, cudaStream_t stream) {
+  const int tiles = grid_of(n_rows, rows_per_tile);
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (staged)
+    activate_fwd_kernel<T, true, kResidual>
+        <<<tiles, kThreads, smem_bytes, stream>>>(
+            xt, u, dim_code, seg_start, ot, res, n_rows, dim, n_seg,
+            rows_per_tile);
+  else
+    activate_fwd_kernel<T, false, kResidual>
+        <<<tiles, kThreads, smem_bytes, stream>>>(
+            xt, u, dim_code, seg_start, ot, res, n_rows, dim, n_seg,
+            rows_per_tile);
+  return (int)cudaGetLastError();
+}
 
-// One block per tile of rows_per_tile rows.
-int launch(KernelFn kernel, const float* a, const float* b,
-           const uint16_t* dim_code, const int* seg_start, float* out,
-           int n_rows, int dim, int n_seg, int rows_per_tile,
-           int smem_bytes, cudaStream_t stream) {
-  const int tiles = (n_rows + rows_per_tile - 1) / rows_per_tile;
-  kernel<<<tiles, kThreads, smem_bytes, stream>>>(
-      a, b, dim_code, seg_start, out, n_rows, dim, n_seg, rows_per_tile);
+template <typename T>
+int launch_bwd(const void* dy, const float* out, const uint16_t* dim_code,
+               const int* seg_start, void* dx, int n_rows, int dim, int n_seg,
+               int rows_per_tile, int staged, int smem_bytes,
+               cudaStream_t stream) {
+  const int tiles = grid_of(n_rows, rows_per_tile);
+  const T* gt = static_cast<const T*>(dy);
+  T* dt = static_cast<T*>(dx);
+  if (staged)
+    activate_bwd_kernel<T, true><<<tiles, kThreads, smem_bytes, stream>>>(
+        gt, out, dim_code, seg_start, dt, n_rows, dim, n_seg, rows_per_tile);
+  else
+    activate_bwd_kernel<T, false><<<tiles, kThreads, smem_bytes, stream>>>(
+        gt, out, dim_code, seg_start, dt, n_rows, dim, n_seg, rows_per_tile);
   return (int)cudaGetLastError();
 }
 
@@ -363,8 +479,18 @@ extern "C" {
 // 227 KB of dynamic shared memory and prefer shared memory over L1.
 // Returns the first cudaError_t that is not 0, else 0.
 int fed_tgan_activate_prepare() {
-  const KernelFn kernels[] = {kFwd[0], kFwd[1], kBwd[0], kBwd[1]};
-  for (KernelFn k : kernels) {
+  const void* kernels[] = {
+      (const void*)activate_fwd_kernel<float, false, false>,
+      (const void*)activate_fwd_kernel<float, true, false>,
+      (const void*)activate_fwd_kernel<bf16, false, false>,
+      (const void*)activate_fwd_kernel<bf16, true, false>,
+      (const void*)activate_fwd_kernel<bf16, false, true>,
+      (const void*)activate_fwd_kernel<bf16, true, true>,
+      (const void*)activate_bwd_kernel<float, false>,
+      (const void*)activate_bwd_kernel<float, true>,
+      (const void*)activate_bwd_kernel<bf16, false>,
+      (const void*)activate_bwd_kernel<bf16, true>};
+  for (const void* k : kernels) {
     cudaError_t err = cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err == cudaSuccess)
@@ -390,8 +516,35 @@ int fed_tgan_activate_fwd(const float* x, const float* u,
                           float* out, int n_rows, int dim, int n_seg,
                           int rows_per_tile, int staged, int smem_bytes,
                           void* stream) {
-  return launch(kFwd[staged != 0], x, u, dim_code, seg_start, out, n_rows,
-                dim, n_seg, rows_per_tile, smem_bytes, (cudaStream_t)stream);
+  return launch_fwd<float, false>(x, u, dim_code, seg_start, out, nullptr,
+                                  n_rows, dim, n_seg, rows_per_tile, staged,
+                                  smem_bytes, (cudaStream_t)stream);
+}
+
+// K1 for sampling under bf16: x and out bf16, u float32.  `scratch` is an
+// (n_rows, dim) float32 buffer for the unstaged plan's logits (may be null
+// when staged).
+int fed_tgan_activate_fwd_bf16(const void* x, const float* u,
+                               const uint16_t* dim_code, const int* seg_start,
+                               void* out, float* scratch, int n_rows, int dim,
+                               int n_seg, int rows_per_tile, int staged,
+                               int smem_bytes, void* stream) {
+  return launch_fwd<bf16, false>(x, u, dim_code, seg_start, out, scratch,
+                                 n_rows, dim, n_seg, rows_per_tile, staged,
+                                 smem_bytes, (cudaStream_t)stream);
+}
+
+// K1 for training under bf16: as fed_tgan_activate_fwd_bf16, and `res`
+// (n_rows, dim) float32 receives the result before its rounding.
+int fed_tgan_activate_fwd_train_bf16(const void* x, const float* u,
+                                     const uint16_t* dim_code,
+                                     const int* seg_start, void* out,
+                                     float* res, int n_rows, int dim,
+                                     int n_seg, int rows_per_tile, int staged,
+                                     int smem_bytes, void* stream) {
+  return launch_fwd<bf16, true>(x, u, dim_code, seg_start, out, res, n_rows,
+                                dim, n_seg, rows_per_tile, staged, smem_bytes,
+                                (cudaStream_t)stream);
 }
 
 // K2 on `stream`: dx of the activation from the upstream gradient dy and
@@ -402,8 +555,20 @@ int fed_tgan_activate_bwd(const float* dy, const float* out,
                           float* dx, int n_rows, int dim, int n_seg,
                           int rows_per_tile, int staged, int smem_bytes,
                           void* stream) {
-  return launch(kBwd[staged != 0], dy, out, dim_code, seg_start, dx, n_rows,
-                dim, n_seg, rows_per_tile, smem_bytes, (cudaStream_t)stream);
+  return launch_bwd<float>(dy, out, dim_code, seg_start, dx, n_rows, dim,
+                           n_seg, rows_per_tile, staged, smem_bytes,
+                           (cudaStream_t)stream);
+}
+
+// K2 under bf16: dy and dx bf16, the residual out float32.
+int fed_tgan_activate_bwd_bf16(const void* dy, const float* out,
+                               const uint16_t* dim_code, const int* seg_start,
+                               void* dx, int n_rows, int dim, int n_seg,
+                               int rows_per_tile, int staged, int smem_bytes,
+                               void* stream) {
+  return launch_bwd<bf16>(dy, out, dim_code, seg_start, dx, n_rows, dim, n_seg,
+                          rows_per_tile, staged, smem_bytes,
+                          (cudaStream_t)stream);
 }
 
 const char* fed_tgan_cuda_error_string(int err) {

@@ -15,10 +15,21 @@
   (``draw_keep`` draws them from a passed ``torch.Generator``), so a test
   can inject the JAX package's masks.
 
-The matrix products are plain ``nn.Linear``: the JAX package leaves them
+The matrix products are plain ``F.linear``: the JAX package leaves them
 to XLA too, outside any hand-written kernel.  Every layer initialises as
 torch's default, U(+-1/sqrt(fan_in)) for weights and biases, which is the
 JAX package's ``_linear_init``.
+
+Mixed precision (:mod:`fed_tgan_torch.runtime.precision`): every model
+computes in the dtype of its input.  Given bf16 rows it runs its linear
+layers on its float32 parameters cast to bf16 (autograd returns float32
+gradients through the cast), and BatchNorm is a float32 island: its input
+is cast to float32, normalised by the same float32 ``batch_norm`` the f32
+path runs (running statistics float32; weight and bias the bf16-rounded
+parameters, as JAX casts every parameter), the ReLU taken, and the result
+cast back.  The stacked models cast their flat ``(N, P)`` parameters once
+per forward and take views of the cast.  Given float32 rows every cast is
+the tensor itself: the f32 path runs what it ran before.
 
 The federated round trains every client at once, as the JAX program's
 ``vmap`` over clients does (``fed_tgan_tpu/train/federated.py:237-270``):
@@ -47,11 +58,36 @@ import torch.nn.functional as F
 from torch import nn
 
 from fed_tgan_torch.device import resolve_device
+from fed_tgan_torch.runtime.precision import as_dtype, f32_island
 
 BN_EPS = 1e-5  # torch BatchNorm1d defaults, as in the reference
 BN_MOMENTUM = 0.1
 LEAKY_SLOPE = 0.2
 DROPOUT_RATE = 0.5
+
+
+def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)`` in ``x``'s dtype: its parameters cast to it (the
+    parameters themselves when the dtypes agree)."""
+    return F.linear(x, as_dtype(layer.weight, x.dtype),
+                    as_dtype(layer.bias, x.dtype))
+
+
+def batch_norm_island(bn: nn.BatchNorm1d, h: torch.Tensor) -> torch.Tensor:
+    """``bn`` on ``h`` in the parameters' dtype (``bn(h)`` itself when
+    ``h`` has it); for a lower-precision ``h`` the affine weight and bias
+    are first rounded to ``h``'s dtype, as JAX casts every parameter, and
+    the module's running statistics and batch count move as ``bn(h)``
+    moves them."""
+    if h.dtype == bn.weight.dtype:
+        return bn(h)
+    if bn.training:
+        bn.num_batches_tracked.add_(1)
+    dt = bn.weight.dtype
+    return F.batch_norm(h.to(dt), bn.running_mean, bn.running_var,
+                        bn.weight.to(h.dtype).to(dt),
+                        bn.bias.to(h.dtype).to(dt), bn.training,
+                        bn.momentum, bn.eps)
 
 
 class Residual(nn.Module):
@@ -63,7 +99,8 @@ class Residual(nn.Module):
         self.bn = nn.BatchNorm1d(out_dim, eps=BN_EPS, momentum=BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.cat([torch.relu(self.bn(self.fc(x))), x], dim=1)
+        h = batch_norm_island(self.bn, linear(self.fc, x))
+        return torch.cat([as_dtype(torch.relu(h), x.dtype), x], dim=1)
 
 
 class Generator(nn.Module):
@@ -82,7 +119,7 @@ class Generator(nn.Module):
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         for block in self.blocks:
             z = block(z)
-        return self.out(z)
+        return linear(self.out, z)
 
 
 class Discriminator(nn.Module):
@@ -121,10 +158,10 @@ class Discriminator(nn.Module):
                              f"{self.pac}")
         h = x.reshape(x.shape[0] // self.pac, -1)
         for i, layer in enumerate(self.layers):
-            h = F.leaky_relu(layer(h), LEAKY_SLOPE)
+            h = F.leaky_relu(linear(layer, h), LEAKY_SLOPE)
             if keep is not None:
                 h = torch.where(keep[i], h / (1.0 - DROPOUT_RATE), 0.0)
-        return self.out(h)
+        return linear(self.out, h)
 
 
 # ------------------------------------------------------------ stacked clients
@@ -170,10 +207,11 @@ class _Stacked:
     def device(self) -> torch.device:
         return self.params.device
 
-    def leaves(self) -> dict:
+    def leaves(self, dtype: torch.dtype = torch.float32) -> dict:
         """``{name: (N, *shape) view of params}`` (one split, so the
-        gradient of ``params`` is one concatenation)."""
-        parts = self.params.split(self.sizes, dim=1)
+        gradient of ``params`` is one concatenation); for another
+        ``dtype``, views of one cast of ``params``."""
+        parts = as_dtype(self.params, dtype).split(self.sizes, dim=1)
         return {name: p.view(self.n, *shape)
                 for (name, shape), p in zip(self.shapes, parts)}
 
@@ -238,13 +276,16 @@ class StackedGenerator(_Stacked):
         return bn[start:start + size], bn[start + size:start + 2 * size]
 
     def __call__(self, z: torch.Tensor) -> torch.Tensor:
-        lv = self.leaves()
+        lv = self.leaves(z.dtype)
         for j in range(len(self.widths)):
             pre = f"blocks.{j}"
             h = stacked_linear(z, lv[f"{pre}.fc.weight"], lv[f"{pre}.fc.bias"])
-            h = stacked_batch_norm(h, lv[f"{pre}.bn.weight"],
-                                   lv[f"{pre}.bn.bias"], *self.running(j))
-            z = torch.cat([torch.relu(h), z], dim=2)
+            # a float32 island (each cast the tensor itself in f32)
+            h = stacked_batch_norm(f32_island(h),
+                                   f32_island(lv[f"{pre}.bn.weight"]),
+                                   f32_island(lv[f"{pre}.bn.bias"]),
+                                   *self.running(j))
+            z = torch.cat([as_dtype(torch.relu(h), z.dtype), z], dim=2)
         return stacked_linear(z, lv["out.weight"], lv["out.bias"])
 
     def _buffers(self, i: int, bn_state: torch.Tensor,
@@ -324,7 +365,7 @@ class StackedDiscriminator(_Stacked):
             raise ValueError(f"{x.shape[0]} rows are not {self.n} clients' "
                              f"batches divisible by pac {self.pac}")
         h = x.reshape(self.n, x.shape[0] // (self.n * self.pac), -1)
-        lv = self.leaves()
+        lv = self.leaves(x.dtype)
         for j in range(len(self.widths)):
             h = F.leaky_relu(stacked_linear(h, lv[f"layers.{j}.weight"],
                                             lv[f"layers.{j}.bias"]),
@@ -364,21 +405,29 @@ class StackedEvalGenerator:
     lanes, not for one lane and not at the Adult layout's.)  BatchNorm
     normalises with each lane's running statistics through one
     ``batch_norm(training=False)`` over (lane, feature) channels, and the
-    ReLU and the residual concatenation run once for every lane."""
+    ReLU and the residual concatenation run once for every lane.
 
-    def __init__(self, gens: Sequence[Generator]):
-        def stack(get):
-            return torch.stack([get(g).detach() for g in gens])
+    ``dtype`` is the lanes' compute dtype: the linear layers' weights are
+    cast to it once, here, and BatchNorm is the float32 island of
+    :class:`Generator` (weight and bias rounded to ``dtype``)."""
+
+    def __init__(self, gens: Sequence[Generator],
+                 dtype: torch.dtype = torch.float32):
+        def stack(get, dt=dtype):
+            return as_dtype(torch.stack([get(g).detach() for g in gens]), dt)
 
         self.n = len(gens)
+        self.dtype = dtype
         self.fc = [(stack(lambda g: g.blocks[j].fc.weight),
                     stack(lambda g: g.blocks[j].fc.bias))
                    for j in range(len(gens[0].blocks))]
         # (L * width,) per block: one channel per (lane, feature)
-        self.bn = [tuple(stack(lambda g: getattr(g.blocks[j].bn, k))
-                         .reshape(-1) for k in ("weight", "bias",
-                                                "running_mean",
-                                                "running_var"))
+        self.bn = [tuple(f32_island(stack(lambda g: getattr(g.blocks[j].bn,
+                                                            k))).reshape(-1)
+                         for k in ("weight", "bias"))
+                   + tuple(stack(lambda g: getattr(g.blocks[j].bn, k),
+                                 torch.float32).reshape(-1)
+                           for k in ("running_mean", "running_var"))
                    for j in range(len(gens[0].blocks))]
         self.out = (stack(lambda g: g.out.weight), stack(lambda g: g.out.bias))
 
@@ -389,16 +438,19 @@ class StackedEvalGenerator:
 
     def _block(self, z: torch.Tensor) -> torch.Tensor:
         for (w, b), (bn_w, bn_b, mean, var) in zip(self.fc, self.bn):
-            h = self._linear(z, w, b)
+            h = f32_island(self._linear(z, w, b))
             lanes, rows, feat = h.shape
             y = F.batch_norm(h.transpose(0, 1).reshape(rows, lanes * feat),
                              mean, var, bn_w, bn_b, training=False,
                              momentum=BN_MOMENTUM, eps=BN_EPS)
             h = y.view(rows, lanes, feat).transpose(0, 1)
-            z = torch.cat([torch.relu(h), z], dim=2)
+            z = torch.cat([as_dtype(torch.relu(h), z.dtype), z], dim=2)
         return self._linear(z, *self.out)
 
     def __call__(self, x: torch.Tensor, block_rows: int) -> torch.Tensor:
+        """Raw outputs in the compute dtype of the lanes' ``(L, rows,
+        input_dim)`` inputs ``x`` (cast to it here)."""
+        x = as_dtype(x, self.dtype)
         with torch.no_grad():
             return torch.cat([self._block(b)
                               for b in x.split(block_rows, dim=1)], dim=1)

@@ -13,6 +13,8 @@ from typing import Callable, Optional
 
 import torch
 
+from fed_tgan_torch.runtime.precision import as_dtype, f32_island
+
 GP_LAMBDA = 10.0
 
 
@@ -44,12 +46,21 @@ def gradient_penalty(d_fn: Callable[[torch.Tensor], torch.Tensor],
     differentiable with respect to what ``d_fn`` closes over.
 
     With ``clients`` = N the rows are N clients' batches, client-major,
-    and the result is (N,): each client's mean over its own groups."""
-    interp = slerp(alpha, real.detach(), fake.detach()).requires_grad_(True)
+    and the result is (N,): each client's mean over its own groups.
+
+    Under bf16 compute (``real``, ``fake`` bf16) the slerp and the
+    gradient's norm are float32 islands (``fed_tgan_tpu/models/losses.py:
+    53-65``): the interpolation is computed in float32 and cast to the
+    inputs' dtype, the critic and its double backward run in that dtype,
+    and the gradient is cast to float32 before its norm.  In f32 every
+    cast is the tensor itself."""
+    interp = as_dtype(slerp(alpha, f32_island(real.detach()),
+                            f32_island(fake.detach())),
+                      real.dtype).requires_grad_(True)
     (grads,) = torch.autograd.grad(d_fn(interp).sum(), interp,
                                    create_graph=True)
     norms = torch.linalg.vector_norm(
-        grads.reshape(-1, pac * real.shape[1]), dim=1)
+        f32_island(grads).reshape(-1, pac * real.shape[1]), dim=1)
     sq = (norms - 1.0) ** 2
     if clients is not None:
         return sq.reshape(clients, -1).mean(dim=1) * GP_LAMBDA

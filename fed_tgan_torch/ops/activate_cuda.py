@@ -9,20 +9,28 @@
 - ``fused_activate_bwd(dy, out, spec)`` (K2) is the analytic backward
   (``activate_pallas.py:102``), from the forward output alone.
 
+Each kernel has a float32 and a bf16 variant (mixed precision,
+:mod:`fed_tgan_torch.runtime.precision`): a bf16 ``x`` or ``dy`` is read as
+bf16, every step runs in float32, and the result is rounded to bf16 once.
+The uniforms and K2's residual stay float32.  K1 has two bf16 variants:
+sampling (writes the bf16 result) and training (also the float32 result,
+which K2 reads as JAX's custom VJP reads its float32 forward output).
+
 Routing: a tensor on the CPU takes the plain version
 (:func:`fed_tgan_torch.ops.segments.apply_activate` /
-``apply_activate_bwd``); a CUDA tensor always launches the kernel or
-raises.  The kernel is compiled from the source in
-this package with ``nvcc`` for ``sm_90a`` at first use, into
-``fed_tgan_torch/_build/``, and loaded with ``ctypes``.
+``apply_activate_bwd``); a CUDA tensor always launches the kernel of its
+dtypes or raises: the operand pairs taken are (float32, float32) and
+(bf16, float32), and nothing is cast to reach a variant.  The kernel is
+compiled from the source in this package with ``nvcc`` for ``sm_90a`` at
+first use, into ``fed_tgan_torch/_build/``, and loaded with ``ctypes``.
 
 Both kernels give each block a tile of ``rows_per_tile`` consecutive
 rows, copied into shared memory asynchronously (rows too wide for that
 run unstaged, one per block).  :func:`launch_plan` chooses the tile and
-the shared memory from ``(N, D, S)`` on the host, so the CPU tests can
-check it.  The per-dim codes and segment offsets the kernels read are
-copied to the card once per spec object and device, and the plans are
-cached per shape.
+the shared memory from ``(N, D, S)`` and the first operand's element
+size on the host, so the CPU tests can check it.  The per-dim codes and
+segment offsets the kernels read are copied to the card once per spec
+object and device, and the plans are cached per shape.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import subprocess
 import threading
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,8 +53,8 @@ from torch.autograd.function import once_differentiable
 
 from fed_tgan_torch.ops.segments import (
     SegmentSpec,
-    apply_activate,
     apply_activate_bwd,
+    apply_activate_residual,
 )
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -99,9 +108,13 @@ def build() -> tuple[str, str]:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()[0])
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("fed_tgan_activate_fwd", "fed_tgan_activate_bwd"):
+    for name, n_ptr in (("fed_tgan_activate_fwd", 5),
+                        ("fed_tgan_activate_bwd", 5),
+                        ("fed_tgan_activate_bwd_bf16", 5),
+                        ("fed_tgan_activate_fwd_bf16", 6),
+                        ("fed_tgan_activate_fwd_train_bf16", 6)):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr] + [i32] * 6 + [ptr]
+        fn.argtypes = [ptr] * n_ptr + [i32] * 6 + [ptr]
         fn.restype = i32
     lib.fed_tgan_activate_prepare.restype = i32
     lib.fed_tgan_activate_threads.restype = i32
@@ -154,18 +167,28 @@ def _round4(n: int) -> int:
     return (n + 3) & ~3
 
 
+def _operand_bytes(n: int, itemsize: int) -> int:
+    """``operand_bytes<T>`` in activate.cu: n elements of ``itemsize``
+    bytes plus room for the tile's misalignment, in whole 16 bytes."""
+    v = 16 // itemsize
+    return itemsize * ((n + 2 * (v - 1)) // v * v)
+
+
 def smem_bytes(rows_per_tile: int, dim: int, n_segments: int,
-               staged: bool = True) -> int:
+               staged: bool = True, itemsize: int = 4) -> int:
     """Dynamic shared memory of one block, as ``stage_tables()`` in
-    activate.cu lays it out: 2 operand buffers of R*D floats (+3 for the
-    tile's misalignment), the (row, segment) results (2 floats each), the
-    segment offsets and the per-dim codes; unstaged, the results alone."""
+    activate.cu lays it out: the first operand's buffer of R*D elements of
+    ``itemsize`` bytes (4: float32, 2: bf16) and the second's of R*D
+    floats (each with room for the tile's misalignment), the (row,
+    segment) results (2 floats each), the segment offsets and the per-dim
+    codes; unstaged, the results alone."""
     results = _round4(2 * rows_per_tile * n_segments)
     if not staged:
         return 4 * results
-    floats = (2 * _round4(rows_per_tile * dim + 3) + results
+    floats = (_round4(rows_per_tile * dim + 3) + results
               + _round4(n_segments + 1))
-    return 4 * floats + (-(-2 * dim // 16)) * 16
+    return (_operand_bytes(rows_per_tile * dim, itemsize) + 4 * floats
+            + (-(-2 * dim // 16)) * 16)
 
 
 def blocks_per_sm(smem: int) -> int:
@@ -190,10 +213,12 @@ class LaunchPlan:
 
 
 def launch_plan(n_rows: int, dim: int, n_segments: int,
-                sms: int = H100_SMS) -> LaunchPlan:
+                sms: int = H100_SMS, itemsize: int = 4) -> LaunchPlan:
     """The launch of either kernel over ``n_rows`` rows of width ``dim``
-    in ``n_segments`` segments on a card of ``sms`` SMs: one block of
-    :data:`THREADS` threads per tile of R rows.
+    in ``n_segments`` segments on a card of ``sms`` SMs, the first operand
+    of ``itemsize`` bytes an element (4: float32, 2: bf16; the second is
+    always float32): one block of :data:`THREADS` threads per tile of R
+    rows.
 
     R starts at the smaller of what keeps a tile's two operands near
     :data:`TILE_BYTES` and ``n_rows // sms`` (so that every SM gets a tile:
@@ -212,18 +237,20 @@ def launch_plan(n_rows: int, dim: int, n_segments: int,
     if 8 * dim > SMEM_BLOCK:
         raise ValueError(f"rows of width {dim}: the kernels take rows of at "
                          f"most {SMEM_BLOCK // 8} floats")
-    if smem_bytes(1, dim, n_segments) > SMEM_BLOCK:
-        smem = smem_bytes(1, dim, n_segments, staged=False)
+    smem_of = functools.partial(smem_bytes, dim=dim, n_segments=n_segments,
+                                itemsize=itemsize)
+    if smem_of(1) > SMEM_BLOCK:
+        smem = smem_of(1, staged=False)
         return LaunchPlan(1, n_rows, smem, blocks_per_sm(smem), staged=False)
-    rows = max(1, min(TILE_BYTES // (8 * dim), n_rows // sms))
-    while smem_bytes(rows, dim, n_segments) > SMEM_BLOCK:
+    rows = max(1, min(TILE_BYTES // ((4 + itemsize) * dim), n_rows // sms))
+    while smem_of(rows) > SMEM_BLOCK:
         rows -= 1
     for r in range(rows, 0, -1):
-        per_sm = blocks_per_sm(smem_bytes(r, dim, n_segments))
+        per_sm = blocks_per_sm(smem_of(r))
         if -(-n_rows // r) >= sms * per_sm:
             rows = r
             break
-    smem = smem_bytes(rows, dim, n_segments)
+    smem = smem_of(rows)
     return LaunchPlan(rows, -(-n_rows // rows), smem, blocks_per_sm(smem),
                       staged=True)
 
@@ -259,22 +286,29 @@ def _prepared(spec: SegmentSpec, index: int) -> _Prepared:
 
 
 def plan_for(a: torch.Tensor, spec: SegmentSpec) -> LaunchPlan:
-    """The plan a launch over the CUDA tensor ``a`` (N, spec.dim) takes."""
+    """The plan a launch over the CUDA tensor ``a`` (N, spec.dim; its
+    dtype picks the variant) takes."""
     sms = _prepared(spec, a.get_device()).sms
-    return _plan(a.shape[0], spec.dim, spec.n_segments, sms)
+    return _plan(a.shape[0], spec.dim, spec.n_segments, sms,
+                 a.element_size())
+
+
+# the operand dtype pairs the kernels take: (x or dy, u or out)
+DTYPE_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32))
 
 
 def _check_rows(name: str, spec: SegmentSpec, a: torch.Tensor,
                 b: torch.Tensor) -> None:
-    """What both kernels take: two float32, contiguous (N, spec.dim) CUDA
-    tensors on one device.  (Device indices, not device objects: this runs
-    on every launch.)"""
+    """What both kernels take: two contiguous (N, spec.dim) CUDA tensors
+    on one device, of a pair in :data:`DTYPE_PAIRS`.  (Device indices, not
+    device objects: this runs on every launch.)"""
     if not a.is_cuda:
         raise ValueError(f"{name}: unsupported device {a.device}")
     if b.get_device() != a.get_device():
         raise ValueError(f"{name}: operands on {a.device} and {b.device}")
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {a.dtype}, {b.dtype}")
+    if (a.dtype, b.dtype) not in DTYPE_PAIRS:
+        raise TypeError(f"{name}: no variant for {a.dtype}, {b.dtype} "
+                        "(float32 or bfloat16, then float32)")
     if a.dim() != 2 or a.shape[1] != spec.dim or b.shape != a.shape:
         raise ValueError(f"{name}: expected operands of shape (N, {spec.dim}),"
                          f" got {tuple(a.shape)} and {tuple(b.shape)}")
@@ -283,10 +317,14 @@ def _check_rows(name: str, spec: SegmentSpec, a: torch.Tensor,
 
 
 def _launch(fn_name: str, a: torch.Tensor, b: torch.Tensor,
-            spec: SegmentSpec) -> torch.Tensor:
-    """Run ``fn_name`` of the library on ``a`` and ``b`` into a new tensor,
-    on the current stream of their device, with :func:`launch_plan`'s
-    plan; raises if the launch fails."""
+            spec: SegmentSpec, res: Optional[torch.Tensor] = None,
+            scratch: bool = False) -> torch.Tensor:
+    """Run ``fn_name`` of the library on ``a`` and ``b`` into a new tensor
+    of ``a``'s dtype, on the current stream of their device, with
+    :func:`launch_plan`'s plan; raises if the launch fails.  ``res`` (the
+    bf16 K1's float32 result) is passed after the output; with
+    ``scratch`` the bf16 sampling K1 gets a float32 scratch for an
+    unstaged plan (null when staged)."""
     out = torch.empty_like(a)
     n_rows = a.shape[0]
     if n_rows == 0:
@@ -294,9 +332,19 @@ def _launch(fn_name: str, a: torch.Tensor, b: torch.Tensor,
     lib = _library()
     index = a.get_device()
     prep = _prepared(spec, index)
-    plan = _plan(n_rows, spec.dim, spec.n_segments, prep.sms)
+    plan = _plan(n_rows, spec.dim, spec.n_segments, prep.sms,
+                 a.element_size())
+    extra = ()
+    if res is not None:
+        extra = (res.data_ptr(),)
+    elif scratch:
+        # held until the launch is queued: freed earlier, another thread's
+        # tensor on this stream could take its memory first
+        tmp = (None if plan.staged else torch.empty(
+            a.shape, dtype=torch.float32, device=a.device))
+        extra = (None if tmp is None else tmp.data_ptr(),)
     args = (a.data_ptr(), b.data_ptr(), prep.codes_ptr, prep.start_ptr,
-            out.data_ptr(), n_rows, spec.dim, spec.n_segments,
+            out.data_ptr(), *extra, n_rows, spec.dim, spec.n_segments,
             plan.rows_per_tile, int(plan.staged), plan.smem_bytes,
             torch._C._cuda_getCurrentRawStream(index))
     if index == torch.cuda.current_device():
@@ -312,14 +360,31 @@ def _launch(fn_name: str, a: torch.Tensor, b: torch.Tensor,
 _COUNT_LOCK = threading.Lock()
 
 
-def _activate(x: torch.Tensor, spec: SegmentSpec,
-              u: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return apply_activate(x, spec, u)
-    _check_rows("fused_apply_activate", spec, x, u)
-    out = _launch("fed_tgan_activate_fwd", x, u, spec)
+def _count(wrapper, variant: str) -> None:
     with _COUNT_LOCK:
-        fused_apply_activate.launches += 1
+        wrapper.launches += 1
+        wrapper.variant_launches[variant] += 1
+
+
+def _activate(x: torch.Tensor, spec: SegmentSpec, u: torch.Tensor,
+              residual: bool = False):
+    """K1 on ``x``: its result, or with ``residual`` ``(result, the float32
+    result before rounding)`` (the same tensor for a float32 ``x``)."""
+    if x.device.type == "cpu":
+        out, res = apply_activate_residual(x, spec, u)
+        return (out, res) if residual else out
+    _check_rows("fused_apply_activate", spec, x, u)
+    if x.dtype == torch.float32:
+        out = _launch("fed_tgan_activate_fwd", x, u, spec)
+        _count(fused_apply_activate, "f32")
+        return (out, out) if residual else out
+    if residual:
+        res = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        out = _launch("fed_tgan_activate_fwd_train_bf16", x, u, spec, res=res)
+        _count(fused_apply_activate, "bf16_train")
+        return out, res
+    out = _launch("fed_tgan_activate_fwd_bf16", x, u, spec, scratch=True)
+    _count(fused_apply_activate, "bf16")
     return out
 
 
@@ -327,51 +392,69 @@ class ActivateFunction(torch.autograd.Function):
     """The activation with K2 as its backward.  First order only: the
     gradient penalty never differentiates through the activation (the D
     step detaches the fake batch), so K2 needs no derivative of its own.
-    The uniforms ``u`` never require a gradient."""
+    The uniforms ``u`` never require a gradient.  Under bf16 the forward
+    is the training variant of K1 and saves its float32 result; the
+    backward reads a bf16 ``dy`` against it and returns a bf16 ``dx``."""
 
     @staticmethod
     def forward(ctx, x, spec, u):
-        out = _activate(x, spec, u)
+        out, res = _activate(x, spec, u, residual=True)
         ctx.spec = spec
-        ctx.save_for_backward(out)
+        ctx.save_for_backward(res)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        (out,) = ctx.saved_tensors
-        return fused_activate_bwd(dy.contiguous(), out, ctx.spec), None, None
+        (res,) = ctx.saved_tensors
+        return fused_activate_bwd(dy.contiguous(), res, ctx.spec), None, None
 
 
 def fused_apply_activate(x: torch.Tensor, spec: SegmentSpec,
                          u: torch.Tensor) -> torch.Tensor:
-    """Activation of the raw generator output ``x`` (N, spec.dim) with the
-    Gumbel uniforms ``u`` (N, spec.dim); returns a new (N, spec.dim)
-    float32 tensor.  CPU tensors take the plain version; CUDA tensors
-    launch K1 (one launch, counted in ``launches``) or raise.  When ``x``
-    requires a gradient the result's backward is K2
-    (:class:`ActivateFunction`)."""
+    """Activation of the raw generator output ``x`` (N, spec.dim; float32
+    or bf16) with the float32 Gumbel uniforms ``u`` (N, spec.dim); returns
+    a new (N, spec.dim) tensor of ``x``'s dtype.  CPU tensors take the
+    plain version; CUDA tensors launch K1 (one launch, counted in
+    ``launches`` and in ``variant_launches`` under ``"f32"``, ``"bf16"``
+    or ``"bf16_train"``) or raise.  When ``x`` requires a gradient the
+    result's backward is K2 (:class:`ActivateFunction`)."""
     if x.requires_grad and torch.is_grad_enabled():
         return ActivateFunction.apply(x, spec, u)
     return _activate(x, spec, u)
 
 
 fused_apply_activate.launches = 0
+fused_apply_activate.variant_launches = {"f32": 0, "bf16": 0, "bf16_train": 0}
 
 
 def fused_activate_bwd(dy: torch.Tensor, out: torch.Tensor,
                        spec: SegmentSpec) -> torch.Tensor:
     """The activation's gradient with respect to ``x`` from the upstream
-    gradient ``dy`` and the forward output ``out`` (both (N, spec.dim)
-    float32).  CPU tensors take the plain version; CUDA tensors launch K2
-    (one launch, counted in ``launches``) or raise."""
+    gradient ``dy`` (float32 or bf16) and the float32 forward output
+    ``out`` (both (N, spec.dim)), in ``dy``'s dtype.  CPU tensors take the
+    plain version; CUDA tensors launch K2 (one launch, counted in
+    ``launches`` and in ``variant_launches``) or raise."""
     if dy.device.type == "cpu":
         return apply_activate_bwd(dy, out, spec)
     _check_rows("fused_activate_bwd", spec, dy, out)
-    dx = _launch("fed_tgan_activate_bwd", dy, out, spec)
-    with _COUNT_LOCK:
-        fused_activate_bwd.launches += 1
+    if dy.dtype == torch.float32:
+        dx = _launch("fed_tgan_activate_bwd", dy, out, spec)
+        _count(fused_activate_bwd, "f32")
+    else:
+        dx = _launch("fed_tgan_activate_bwd_bf16", dy, out, spec)
+        _count(fused_activate_bwd, "bf16")
     return dx
 
 
 fused_activate_bwd.launches = 0
+fused_activate_bwd.variant_launches = {"f32": 0, "bf16": 0}
+
+
+def reset_launches() -> None:
+    """Every launch count of both wrappers to 0."""
+    with _COUNT_LOCK:
+        for wrapper in (fused_apply_activate, fused_activate_bwd):
+            wrapper.launches = 0
+            for k in wrapper.variant_launches:
+                wrapper.variant_launches[k] = 0

@@ -8,8 +8,10 @@ vector is the concatenation of every softmax segment.
 ``apply_activate`` and ``apply_activate_bwd`` are the plain PyTorch
 versions of the activation and its gradient: the CPU route of
 :mod:`fed_tgan_torch.ops.activate_cuda` and the references its CUDA
-kernels are held against on the card.  ``cond_loss`` is the training
-side.
+kernels are held against on the card.  Under bf16 compute both read bf16
+and compute in float32 (the Gumbel logits are a float32 island) and round
+their result once.  ``cond_loss`` is the training side; its logits are a
+float32 island too.
 """
 
 from __future__ import annotations
@@ -89,16 +91,15 @@ def gumbel(u: torch.Tensor) -> torch.Tensor:
     return -torch.log(-torch.log(u + 1e-20) + 1e-20)
 
 
-def apply_activate(x: torch.Tensor, spec: SegmentSpec,
-                   u: torch.Tensor) -> torch.Tensor:
-    """tanh on scalar dims, Gumbel-softmax (tau=0.2) within every softmax
-    segment, in float32 (float64 for a float64 ``x``); ``u`` holds the
-    uniforms behind the Gumbel noise.
-
-    Each segment is stabilised by its OWN max: a row-global max would let
-    a far-away large logit push a whole segment's ``exp`` into float32
-    underflow.  A zero denominator is guarded as the TPU kernel does."""
-    dtype = torch.promote_types(x.dtype, torch.float32)
+def apply_activate_residual(x: torch.Tensor, spec: SegmentSpec,
+                            u: torch.Tensor) -> tuple:
+    """:func:`apply_activate` and its float32 (float64 for a float64
+    ``x``) result before the rounding to ``x.dtype``: ``(out, res)``.
+    ``res`` is what the backward reads, as JAX's custom VJP keeps the
+    kernel's float32 output as its residual (``activate_pallas.py:167``);
+    for a float32 ``x`` both are the same tensor."""
+    in_dtype = x.dtype
+    dtype = torch.promote_types(in_dtype, torch.float32)
     x = x.to(dtype)
     n = x.shape[0]
     noisy = (x + gumbel(u.to(dtype))) / GUMBEL_TAU
@@ -112,7 +113,23 @@ def apply_activate(x: torch.Tensor, spec: SegmentSpec,
     denom = seg_sum.scatter_add(1, ids, e).gather(1, ids)
     soft = e / (denom + (denom == 0))
     is_tanh = torch.as_tensor(spec.is_tanh_dim, device=x.device)
-    return torch.where(is_tanh, torch.tanh(x), soft)
+    res = torch.where(is_tanh, torch.tanh(x), soft)
+    return res.to(in_dtype), res
+
+
+def apply_activate(x: torch.Tensor, spec: SegmentSpec,
+                   u: torch.Tensor) -> torch.Tensor:
+    """tanh on scalar dims, Gumbel-softmax (tau=0.2) within every softmax
+    segment, computed in float32 (float64 for a float64 ``x``) and
+    returned in ``x.dtype``: a bf16 ``x`` gets its result rounded to
+    nearest once, as JAX's ``astype`` after its float32 kernel
+    (``activate_pallas.py:197``); ``u`` holds the float32 uniforms behind
+    the Gumbel noise.
+
+    Each segment is stabilised by its OWN max: a row-global max would let
+    a far-away large logit push a whole segment's ``exp`` into float32
+    underflow.  A zero denominator is guarded as the TPU kernel does."""
+    return apply_activate_residual(x, spec, u)[0]
 
 
 def apply_activate_bwd(dy: torch.Tensor, out: torch.Tensor,
@@ -121,15 +138,19 @@ def apply_activate_bwd(dy: torch.Tensor, out: torch.Tensor,
     from the forward output alone (the plain version of kernel K2,
     ``fed_tgan_tpu/ops/activate_pallas.py:102``): on softmax dims
     ``out * (dy - segsum(dy * out)) / tau``, on tanh dims
-    ``(1 - out^2) * dy``."""
+    ``(1 - out^2) * dy``.  A bf16 ``dy`` is computed in float32 against
+    the float32 residual ``out`` and the result rounded to bf16, as JAX's
+    cotangent passes through its float32 kernel."""
+    dtype = torch.promote_types(dy.dtype, out.dtype)
+    g = dy.to(dtype)
     n = dy.shape[0]
     ids = torch.as_tensor(spec.segment_ids, dtype=torch.long,
                           device=dy.device).expand(n, -1)
-    inner = torch.zeros((n, spec.n_segments), dtype=dy.dtype,
-                        device=dy.device).scatter_add(1, ids, dy * out)
-    dx_soft = out * (dy - inner.gather(1, ids)) / GUMBEL_TAU
+    inner = torch.zeros((n, spec.n_segments), dtype=dtype,
+                        device=dy.device).scatter_add(1, ids, g * out)
+    dx_soft = out * (g - inner.gather(1, ids)) / GUMBEL_TAU
     is_tanh = torch.as_tensor(spec.is_tanh_dim, device=dy.device)
-    return torch.where(is_tanh, (1.0 - out * out) * dy, dx_soft)
+    return torch.where(is_tanh, (1.0 - out * out) * g, dx_soft).to(dy.dtype)
 
 
 @functools.lru_cache(maxsize=64)
@@ -165,9 +186,11 @@ def cond_loss(data: torch.Tensor, spec: SegmentSpec, cond_vec: torch.Tensor,
 
     ``data`` (batch, dim) raw generator output, ``cond_vec`` (batch,
     n_opt), ``mask`` (batch, n_discrete) with a 1 at each row's
-    conditioned column.  The float32 logsumexp is stabilised by a detached
-    per-column max.  With ``clients`` = N the rows are N clients' batches,
-    client-major, and the result is (N,): each client's own loss."""
+    conditioned column.  The logits are cast to float32 first (a bf16
+    ``data`` too: a float32 island), and the logsumexp is stabilised by a
+    detached per-column max.  With ``clients`` = N the rows are N clients'
+    batches, client-major, and the result is (N,): each client's own
+    loss."""
     data = data.float()
     tables = cond_tables(spec, data.device)
     dims, col_ids = tables["discrete_dims"], tables["cond_column_ids"]

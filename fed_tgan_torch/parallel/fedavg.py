@@ -9,12 +9,20 @@ device.  ``prev`` is the global pre-round state, one tensor per leaf
 without the client axis.
 
 - :func:`weighted_average`: ``sum_i w_i * leaf_i`` in float32.
+- :func:`weighted_delta_average`: the bf16 mode's aggregation
+  (``fed_tgan_tpu/parallel/fedavg.py:59-113``): the float32 weighted delta
+  against the previous weights, rounded once to the payload dtype, cast
+  back and added to the float32 previous weights.  On one card nothing
+  crosses a wire, so the rounding saves no bytes here: it is kept because
+  it changes the averaged weights, which must be what JAX computes.
 - :func:`robust_aggregate`: the update gate (non-finite deltas and a
   two-sided median-based norm outlier test), the survivors' renormalized
   weights, then one of ``weighted | clipped | trimmed | median``.  When
   every live client passes the gate, the effective weights are the
   original ones, so ``weighted`` equals :func:`weighted_average` bit for
-  bit on a clean round.
+  bit on a clean round.  ``payload_dtype`` rounds what each aggregator
+  gathers or sums (``fedavg.py:242-296``); the gate's norms stay
+  float32.
 
 Medians average the two middle values and skip NaN, as ``jnp.nanmedian``
 does (``torch.median`` would return the lower one).
@@ -22,7 +30,7 @@ does (``torch.median`` would return the lower one).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -79,6 +87,39 @@ def weighted_average(stacks: Sequence[torch.Tensor],
             for s in stacks]
 
 
+def weighted_delta_average(prev: Sequence[torch.Tensor],
+                           new: Sequence[torch.Tensor], weights: torch.Tensor,
+                           payload_dtype: torch.dtype = torch.bfloat16,
+                           renormalize: bool = False) -> list[torch.Tensor]:
+    """``prev + round(sum_i w_i * (new_i - prev))`` per leaf: the float32
+    weighted delta rounded once to ``payload_dtype``, then added to the
+    float32 previous weights ``prev`` (one tensor per leaf, no client
+    axis), so the rounding is confined to one round's step.  Equal to
+    :func:`weighted_average` when the weights sum to 1, up to that
+    rounding; ``renormalize`` divides the step by the weights' sum."""
+    w = weights.to(torch.float32)
+    wsum = torch.clamp(w.sum(), min=EPS) if renormalize else None
+    out = []
+    for p, n in zip(prev, new):
+        p32 = p.to(torch.float32)
+        d = n.to(torch.float32) - p32[None]
+        step = torch.tensordot(w, d, dims=1).to(payload_dtype).to(
+            torch.float32)
+        if wsum is not None:
+            step = step / wsum
+        out.append((p32 + step).to(n.dtype))
+    return out
+
+
+def _payload(x: torch.Tensor, payload_dtype: Optional[torch.dtype]
+             ) -> torch.Tensor:
+    """``x`` as the aggregator receives it: rounded to ``payload_dtype``
+    (None: as is), in float32."""
+    if payload_dtype is not None:
+        x = x.to(payload_dtype)
+    return x.to(torch.float32)
+
+
 def delta_norms(prev: Sequence[torch.Tensor], new: Sequence[torch.Tensor]):
     """``(finite, norm)`` per client over all leaves: whether its delta is
     finite everywhere, and the L2 norm of its finite entries, summed leaf
@@ -98,13 +139,19 @@ def robust_aggregate(prev: Sequence[torch.Tensor],
                      new: Sequence[torch.Tensor], weights: torch.Tensor,
                      steps: torch.Tensor, aggregator: str = "weighted",
                      update_gate: bool = True, gate_norm_factor: float = 10.0,
-                     update_clip: float = 3.0, trim_ratio: float = 0.2):
+                     update_clip: float = 3.0, trim_ratio: float = 0.2,
+                     payload_dtype: Optional[torch.dtype] = None):
     """Gate and aggregate stacked client leaves; returns ``(agg,
     quarantined)``: the global leaves and the (n_clients,) bool mask of
     live clients the gate rejected.  ``weights`` (n_clients,) is 0 for a
     dropped client; ``steps`` (n_clients,) counts each client's local
     steps this round (a zero-step client ships a zero delta and is never
-    a norm outlier).  All of it stays on the device."""
+    a norm outlier).  All of it stays on the device.
+
+    ``payload_dtype`` (bf16 mode) rounds the aggregated payload: the
+    weighted and clipped steps (re-anchored on the float32 ``prev``), and
+    the leaves the trimmed mean and the median read.  The gate's norms
+    stay float32: a poisoned update must not hide behind the rounding."""
     if aggregator not in AGGREGATORS:
         raise ValueError(f"unknown aggregator {aggregator!r}; "
                          "expected weighted|clipped|trimmed|median")
@@ -133,29 +180,32 @@ def robust_aggregate(prev: Sequence[torch.Tensor],
            zip(prev, new)]
 
     if aggregator == "weighted":
-        agg = weighted_average(san, w_eff)
+        agg = (weighted_average(san, w_eff) if payload_dtype is None else
+               weighted_delta_average(prev, san, w_eff, payload_dtype))
     elif aggregator == "clipped":
         safe_med = torch.where(torch.isfinite(med) & (med > 0), med, 1.0)
         scale = torch.clamp(update_clip * safe_med / torch.clamp(norm, min=EPS),
                             max=1.0)
         cw = w_eff * scale
-        agg = [(p.to(torch.float32) + torch.tensordot(
-            cw, x.to(torch.float32) - p.to(torch.float32)[None], dims=1)
-               ).to(x.dtype) for p, x in zip(prev, san)]
+        agg = [(p.to(torch.float32) + _payload(torch.tensordot(
+            cw, x.to(torch.float32) - p.to(torch.float32)[None], dims=1),
+            payload_dtype)).to(x.dtype) for p, x in zip(prev, san)]
     elif aggregator == "trimmed":
         m = valid.sum()
         t = torch.minimum(torch.floor(trim_ratio * m.to(torch.float32))
                           .to(m.dtype), torch.clamp((m - 1) // 2, min=0))
         agg = []
         for x in san:
-            g = torch.where(_expand(valid, x), x.to(torch.float32), torch.inf)
+            g = torch.where(_expand(valid, x), _payload(x, payload_dtype),
+                            torch.inf)
             g = torch.sort(g, dim=0).values
             idx = _expand(torch.arange(x.shape[0], device=x.device), x)
             keep = (idx >= t) & (idx < m - t)
             total = torch.where(keep, g, 0.0).sum(dim=0)
             agg.append((total / torch.clamp(m - 2 * t, min=1)).to(x.dtype))
     else:
-        agg = [nanmedian(torch.where(_expand(valid, x), x.to(torch.float32),
+        agg = [nanmedian(torch.where(_expand(valid, x),
+                                     _payload(x, payload_dtype),
                                      torch.nan)).to(x.dtype) for x in san]
     # a gate that rejected everyone keeps the previous global state
     agg = [torch.where(any_valid, a, p.to(a.dtype)) for a, p in zip(agg, prev)]

@@ -2,8 +2,9 @@
 
 ``<models>/synthesizer_torch/`` holds
 
-- ``config.json``: format version, the ``TrainConfig`` fields,
-  ``output_info``, ``key_offset`` and the column list (name, kind);
+- ``config.json``: format version, the ``TrainConfig`` fields (its
+  ``precision`` among them), ``output_info``, ``key_offset`` and the
+  column list (name, kind);
 - ``weights.npz``: the generator's ``state_dict`` (``generator.*``), the
   conditional sampler tables (``cond.p_train``, ``cond.p_empirical``) and
   the decode tables (``col_NNNNN.means`` / ``.stds`` or ``.codes``).
@@ -27,7 +28,10 @@ Federated training checkpoints (:func:`save_federated` /
   ``state_dict`` (BatchNorm running statistics included), both Adam
   states, and the state of its ``torch.Generator``.
 
-A loaded trainer continues bit for bit where the saved one stood.  Saves
+A loaded trainer continues bit for bit where the saved one stood, in the
+checkpoint's precision (its ``TrainConfig`` wins over the caller's, as in
+the JAX package, whose ``load_federated`` rebuilds the trainer from the
+checkpointed config alone).  Saves
 are crash-safe: staged in a sibling temp directory, every file fsynced,
 then a ``COMPLETE`` marker, then published by atomic renames that rotate
 the previous checkpoints to ``<path>.1`` ... ``<path>.K-1``; a crash at any
@@ -55,9 +59,10 @@ from fed_tgan_torch.features.transformer import (
 )
 from fed_tgan_torch.models.ctgan import Generator
 from fed_tgan_torch.ops.segments import SegmentSpec
+from fed_tgan_torch.runtime.precision import resolve_precision
 from fed_tgan_torch.testing.faults import FaultInjected, active_plan
 from fed_tgan_torch.train.sampler import CondSampler
-from fed_tgan_torch.train.steps import TrainConfig, require_f32
+from fed_tgan_torch.train.steps import TrainConfig
 
 SYNTH_DIR = "synthesizer_torch"
 FORMAT_VERSION = 1
@@ -76,11 +81,13 @@ log = logging.getLogger("fed_tgan_torch.checkpoint")
 class SavedSynthesizer:
     """Everything sampling needs: eval-mode generator, conditional
     sampler, decode columns, config, layout and the sampling-key offset
-    of the model's source (so a converted artifact keeps its stream)."""
+    of the model's source (so a converted artifact keeps its stream).
+    The generator's weights are float32 in either precision; a bf16
+    model (``cfg.precision``) samples in bf16 (:attr:`compute_dtype`)."""
 
     def __init__(self, generator: Generator, cond: CondSampler, columns: list,
                  cfg: TrainConfig, key_offset: int = 17):
-        require_f32(cfg)
+        self.compute_dtype = resolve_precision(cfg.precision).compute_dtype
         self.generator = generator.eval()
         self.cond = cond
         self.columns = list(columns)

@@ -410,11 +410,12 @@ def demo_frame(rows: int = 200, seed: int = 0) -> dict:
 def build_demo_artifact(out_dir: str, rows: int = 200, seed: int = 0,
                         epochs: int = 1, batch_size: int = 50,
                         embedding_dim: int = 16, name: str = "demo",
-                        device="cuda") -> str:
+                        device="cuda", precision: str = "f32") -> str:
     """Train a tiny standalone model on :func:`demo_frame` on ``device``
-    and write it under ``out_dir/models`` (meta and encoders, the
-    synthesizer last), with reference statistics of the training table;
-    returns ``out_dir``."""
+    in ``precision`` (``fed_tgan_tpu/serve/demo.py:38-65``: it rides into
+    the artifact, which then serves in it) and write it under
+    ``out_dir/models`` (meta and encoders, the synthesizer last), with
+    reference statistics of the training table; returns ``out_dir``."""
     from fed_tgan_torch.data.ingest import TablePreprocessor
     from fed_tgan_torch.federation.init import harmonize_categories
     from fed_tgan_torch.serve.canary import (
@@ -431,7 +432,8 @@ def build_demo_artifact(out_dir: str, rows: int = 200, seed: int = 0,
     meta_dict, encoders, _ = harmonize_categories([pre.local_meta()])
     matrix, cat_idx, ord_idx = pre.encode(encoders)
     cfg = TrainConfig(batch_size=batch_size, embedding_dim=embedding_dim,
-                      gen_dims=(32, 32), dis_dims=(32, 32))
+                      gen_dims=(32, 32), dis_dims=(32, 32),
+                      precision=precision)
     synth = StandaloneSynthesizer(cfg, seed=seed, device=device)
     synth.fit(matrix, cat_idx, ord_idx, epochs=epochs)
     meta = pre.global_table_meta(meta_dict)

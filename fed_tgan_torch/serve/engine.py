@@ -16,7 +16,10 @@ power-of-two tail (``_chunk_plan``, as in JAX).  A chunk runs the
 generator over fixed ``batch_size``-row blocks (one matrix-product shape
 whatever the chunk size, so a row never depends on its neighbours), then
 the activation kernel once over all the chunk's rows, then the layout
-decode, and copies the (rows, n_columns) result to the host.
+decode, and copies the (rows, n_columns) result to the host.  A bf16
+model (``cfg.precision``) runs the generator and K1 in bf16; its encoded
+rows are cast to float32 before the decode (``fed_tgan_tpu/serve/
+engine.py:115-118``).
 
 Hot reload: :meth:`SamplingEngine.snapshot` captures one consistent
 serving state (:class:`EngineSnapshot`) under the engine's lock, and a
@@ -123,7 +126,8 @@ class SamplingEngine:
     def layout_key(model: LoadedModel) -> tuple:
         """Everything the shape of a sampling pass depends on, and
         nothing a model's values feed: equal keys mean the models' rows
-        can run side by side as lanes of one pass."""
+        can run side by side as lanes of one pass.  The precision is part
+        of it, so a bf16 and an f32 model never share a lane dispatch."""
         synth = model.synth
         cfg = synth.cfg
         return (tuple(synth.spec.output_info), decode_layout(synth.columns),
@@ -286,8 +290,10 @@ class SamplingEngine:
                                              pow2_tail=to_host):
             z, c, u = self.draw(snap, seed + key_offset, start, steps,
                                 condition, draws)
-            res = post(sample_step(snap.model.synth.generator, snap.spec, z,
-                                   c, u, block_rows=B), snap)
+            synth = snap.model.synth
+            res = post(sample_step(synth.generator, snap.spec, z, c, u,
+                                   block_rows=B, dtype=synth.compute_dtype),
+                       snap)
             if to_host:
                 res = ({k: v.cpu().numpy() for k, v in res.items()}
                        if isinstance(res, dict) else res.cpu().numpy())

@@ -69,6 +69,7 @@ from fed_tgan_torch.data.decode import decode_cells
 from fed_tgan_torch.models.ctgan import StackedEvalGenerator
 from fed_tgan_torch.ops.activate_cuda import fused_apply_activate
 from fed_tgan_torch.ops.decode import layout_decode, stack_tables
+from fed_tgan_torch.runtime.precision import f32_island
 from fed_tgan_torch.serve.engine import (
     ConditionError,
     EngineSnapshot,
@@ -212,8 +213,10 @@ class LaneGroup:
     order)."""
 
     def __init__(self, snaps: List[EngineSnapshot]):
+        # one layout key, so one precision for every lane
         self.generator = StackedEvalGenerator(
-            [s.model.synth.generator for s in snaps])
+            [s.model.synth.generator for s in snaps],
+            snaps[0].model.synth.compute_dtype)
         self.tables = stack_tables([s.tables for s in snaps])
 
     @staticmethod
@@ -627,9 +630,11 @@ class FleetService(BatchWorkers):
         raw = group.generator(x, block_rows=B)
         tick("generator")
         rows = steps * B
-        # one launch of the activation kernel over every lane's rows
-        enc = fused_apply_activate(raw.view(lanes * rows, spec.dim), spec,
-                                   u.view(lanes * rows, spec.dim))
+        # one launch of the activation kernel over every lane's rows, in
+        # the lanes' compute dtype; the rows float32 for the decode
+        enc = f32_island(fused_apply_activate(
+            raw.view(lanes * rows, spec.dim), spec,
+            u.view(lanes * rows, spec.dim)))
         tick("K1")
         return group, enc.view(lanes, rows, spec.dim)
 

@@ -39,9 +39,16 @@ update faults corrupt their client's update in every round of their window
 to the training watchdog before the sample hook runs, so a round the
 watchdog rejects is never checkpointed.
 
+Under ``precision="bf16"`` the clients' steps run in bf16 with float32
+islands (:mod:`fed_tgan_torch.runtime.precision`) and the aggregate is
+re-encoded: each round's weighted step rounded to bf16 and added to the
+float32 previous weights (``weighted_delta_average``, or the robust
+aggregators' ``payload_dtype``), which needs weights summing to 1 (checked
+at construction, as ``fed_tgan_tpu/train/federated.py:706-716``).
+
 Not ported yet, each rejected with the ROADMAP item it waits for: cohort
-sampling, buffered aggregation and EMA (A.17), bf16 (A.15); elastic
-capacity and several rounds per program are CLI-level and refused there.
+sampling, buffered aggregation and EMA (A.17); elastic capacity and
+several rounds per program are CLI-level and refused there.
 """
 
 from __future__ import annotations
@@ -64,8 +71,10 @@ from fed_tgan_torch.parallel.fedavg import (
     agg_leaves,
     robust_aggregate,
     weighted_average,
+    weighted_delta_average,
 )
 from fed_tgan_torch.runtime.checkpoint import SavedSynthesizer
+from fed_tgan_torch.runtime.precision import resolve_precision
 from fed_tgan_torch.serve.engine import SamplingEngine, step_seed
 from fed_tgan_torch.serve.registry import LoadedModel
 from fed_tgan_torch.testing.faults import active_plan, update_fault_window
@@ -97,9 +106,6 @@ Draws = Callable[[int, int, int], StepDraws]
 
 def require_federated(cfg: TrainConfig) -> None:
     """The federated options this port runs (see the module docstring)."""
-    if cfg.precision != "f32":
-        raise NotImplementedError(
-            f"precision={cfg.precision!r}: only f32 is ported (ROADMAP A.15)")
     for name, off, item in (("cohort", 0, "A.17"), ("aggregation", "sync",
                                                      "A.17"),
                             ("ema_decay", 0.0, "A.17")):
@@ -191,6 +197,14 @@ class FederatedTrainer:
         self.gens = [torch.Generator(device=self.device).manual_seed(
             step_seed(seed, i)) for i in range(self.n_clients)]
         self.weights = np.asarray(init.weights, dtype=np.float32)
+        if (self.cfg.precision == "bf16"
+                and not np.isclose(self.weights.sum(), 1.0, atol=1e-4)):
+            # the bf16 delta path re-anchors on prev and assumes
+            # sum(w) == 1 (parallel/fedavg.py::weighted_delta_average)
+            raise ValueError(
+                f"similarity weights sum to {self.weights.sum():.6f}, not 1: "
+                "the bf16 delta-encoded aggregation requires normalized "
+                "weights (renormalize init.weights first)")
         self._strikes = np.zeros(self.n_clients, dtype=np.int64)
         self.dropped_clients: set[int] = set()
 
@@ -255,12 +269,16 @@ class FederatedTrainer:
             new = corrupt_updates(prev, new, update_fault)
         w = torch.as_tensor(self.weights, device=self.device)
         cfg = self.cfg
+        payload = resolve_precision(cfg.precision).payload_dtype
         if cfg.update_gate or cfg.aggregator != "weighted" or update_fault:
             agg, quar = robust_aggregate(
                 prev, new, w, torch.as_tensor(self.steps, device=self.device),
                 aggregator=cfg.aggregator, update_gate=cfg.update_gate,
                 gate_norm_factor=cfg.gate_norm_factor,
-                update_clip=cfg.update_clip, trim_ratio=cfg.trim_ratio)
+                update_clip=cfg.update_clip, trim_ratio=cfg.trim_ratio,
+                payload_dtype=payload)
+        elif payload is not None:
+            agg = weighted_delta_average(prev, new, w, payload)
         else:
             agg = weighted_average(new, w)
             quar = torch.zeros(self.n_clients, dtype=torch.bool,

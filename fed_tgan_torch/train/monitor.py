@@ -5,7 +5,9 @@
 federation's aggregated generator through the port's sampling path (the
 generator, kernel K1, the exact layout decode), scores them against
 constants of the real table on the device, and brings back Avg_JSD,
-Avg_WD and the per-column values in one host copy.
+Avg_WD and the per-column values in one host copy.  A bf16 trainer's
+probe samples in bf16 and scores float32 rows (the decode and the scores
+are float32 islands).
 
 The metrics are the offline ones (``eval/similarity``):
 

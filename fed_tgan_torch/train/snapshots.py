@@ -18,7 +18,9 @@ and does the host work, so it overlaps the next round:
 Either way the file is byte-equal to the stdlib writer's
 (``plain_csv_bytes(decode_columns(decode.assemble(parts), ...))``), and
 the compiled formatter runs without the GIL.  On CPU tensors the same code
-runs with a plain copy and no event.
+runs with a plain copy and no event.  A bf16 trainer's snapshot samples
+in bf16 (the generator and K1 in the model's compute dtype) and its rows
+are float32 before the decode, as ``make_sample_many`` decodes in f32.
 
 At most :data:`MAX_PENDING` snapshots are in flight, each with its own set
 of host buffers, reused by later snapshots: a new one waits for the oldest.

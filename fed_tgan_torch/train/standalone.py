@@ -5,7 +5,9 @@ Server/dtds/synthesizers/ctgan.py:309-488).
 
 ``fit`` runs mixture fit -> encode -> samplers -> init -> epochs, all on
 one device; ``sample`` goes through the serving engine's chunked sampler,
-and ``to_saved`` gives the artifact that ``serve`` loads.
+and ``to_saved`` gives the artifact that ``serve`` loads.  With
+``TrainConfig(precision="bf16")`` the steps and the sampling compute in
+bf16 with float32 islands; the weights and Adam moments stay float32.
 """
 
 from __future__ import annotations

@@ -16,6 +16,13 @@ Every random tensor of a step is one :class:`StepDraws` value:
 :func:`draw_step` fills it from a ``torch.Generator`` on the device, and
 the tests fill it from the JAX package's key layout.
 
+Mixed precision (``TrainConfig.precision``, :mod:`fed_tgan_torch.runtime.
+precision`): the generator's inputs and the real batch are cast to the
+compute dtype (bf16) at the start of each update, the models compute in
+it, and the loss means are float32 islands.  The master parameters, the
+BatchNorm state and every Adam moment stay float32: the gradients come back
+float32 through the casts.  In f32 every cast is the tensor itself.
+
 The federated round trains every client at once:
 :func:`stacked_train_step` is :func:`train_step` over the clients of a
 :class:`StackedModels` (stacked modules, :class:`StackedAdam` with a step
@@ -46,6 +53,11 @@ from fed_tgan_torch.models.ctgan import (
 from fed_tgan_torch.models.losses import gradient_penalty
 from fed_tgan_torch.ops.activate_cuda import fused_apply_activate
 from fed_tgan_torch.ops.segments import SegmentSpec, cond_loss
+from fed_tgan_torch.runtime.precision import (
+    as_dtype,
+    f32_island,
+    resolve_precision,
+)
 from fed_tgan_torch.train.sampler import (
     CondSampler,
     RowSampler,
@@ -86,13 +98,6 @@ class TrainConfig:
     cohort: int = 0
     aggregation: str = "sync"
     staleness_discount: float = 0.5
-
-
-def require_f32(cfg: TrainConfig) -> None:
-    """The port runs in float32 only; bf16 is not ported yet."""
-    if cfg.precision != "f32":
-        raise NotImplementedError(
-            f"precision={cfg.precision!r}: only f32 is ported")
 
 
 # ------------------------------------------------------------- optimizers
@@ -180,9 +185,9 @@ class Models:
 
 
 def require_trainable(cfg: TrainConfig) -> None:
-    """The training options this port runs: float32, no EMA, at least one
-    critic update per generator step."""
-    require_f32(cfg)
+    """The training options this port runs: a known precision, no EMA, at
+    least one critic update per generator step."""
+    resolve_precision(cfg.precision)
     if cfg.ema_decay:
         raise NotImplementedError("ema_decay: EMA is not ported yet")
     if cfg.d_steps < 1:
@@ -411,6 +416,7 @@ def d_update(models: Models, data: torch.Tensor, cond: CondSampler,
              rows: RowSampler, d: DDraws):
     """One critic update; returns ``(loss_d, pen)``."""
     spec, pac = models.spec, models.cfg.pac
+    pol = resolve_precision(models.cfg.precision)
     G, D = models.generator, models.discriminator
     if spec.n_discrete:
         c1, _, col, opt = cond.train_from_draws(d.col, d.r)
@@ -421,15 +427,15 @@ def d_update(models: Models, data: torch.Tensor, cond: CondSampler,
         gen_in = d.z
     real = data[row_idx]
     with torch.no_grad():  # train-mode BN: the running statistics move
-        fake = fused_apply_activate(G(gen_in), spec, d.u)
+        fake = fused_apply_activate(G(pol.cast(gen_in)), spec, d.u)
     if spec.n_discrete:
-        fake_cat = torch.cat([fake, c1], dim=1)
-        real_cat = torch.cat([real, c1[d.perm]], dim=1)
+        fake_cat = torch.cat([fake, pol.cast(c1)], dim=1)
+        real_cat = pol.cast(torch.cat([real, c1[d.perm]], dim=1))
     else:
-        fake_cat, real_cat = fake, real
+        fake_cat, real_cat = fake, pol.cast(real)
     y_fake = D(fake_cat, keep=d.keep_fake)
     y_real = D(real_cat, keep=d.keep_real)
-    loss_d = y_fake.mean() - y_real.mean()
+    loss_d = f32_island(y_fake).mean() - f32_island(y_real).mean()
     pen = gradient_penalty(lambda x: D(x, keep=d.keep_gp), real_cat,
                            fake_cat, d.alpha, pac=pac)
     _set_grads(list(D.parameters()), loss_d, pen)
@@ -442,16 +448,17 @@ def g_loss(models: Models, cond: CondSampler, g: GDraws) -> torch.Tensor:
     """The generator's loss, with its graph: ``-mean(D(fake)) +
     cond_loss``, the generator in train mode."""
     spec = models.spec
+    pol = resolve_precision(models.cfg.precision)
     G, D = models.generator, models.discriminator
     if spec.n_discrete:
         c1, m1, _, _ = cond.train_from_draws(g.col, g.r)
         gen_in = torch.cat([g.z, c1], dim=1)
     else:
         gen_in = g.z
-    raw = G(gen_in)
+    raw = G(pol.cast(gen_in))
     act = fused_apply_activate(raw, spec, g.u)  # K1 forward, K2 backward
-    d_in = torch.cat([act, c1], dim=1) if spec.n_discrete else act
-    loss_g = -D(d_in, keep=g.keep).mean()
+    d_in = torch.cat([act, pol.cast(c1)], dim=1) if spec.n_discrete else act
+    loss_g = -f32_island(D(d_in, keep=g.keep)).mean()
     if spec.n_discrete:
         loss_g = loss_g + cond_loss(raw, spec, c1, m1)
     return loss_g
@@ -705,6 +712,7 @@ def _stacked_d_update(stack: StackedModels, data: torch.Tensor,
     """Every client's critic update (:func:`d_update`); returns its
     ``(loss_d, pen)`` (N,) each."""
     spec, cfg, n = stack.spec, stack.cfg, stack.n
+    pol = resolve_precision(cfg.precision)
     G, D = stack.generator, stack.discriminator
     B = cfg.batch_size
     z = d.z.reshape(n * B, -1)
@@ -718,18 +726,20 @@ def _stacked_d_update(stack: StackedModels, data: torch.Tensor,
         gen_in = z
     real = data[row_idx]
     with torch.no_grad():  # train-mode BN: the running statistics move
-        raw = G(gen_in.view(n, B, -1)).reshape(n * B, -1)
+        raw = G(pol.cast(gen_in).view(n, B, -1)).reshape(n * B, -1)
         fake = fused_apply_activate(raw, spec, d.u.reshape(n * B, -1))
     if spec.n_discrete:
         c1_perm = c1.view(n, B, -1).gather(
             1, d.perm[:, :, None].expand(-1, -1, c1.shape[1]))
-        fake_cat = torch.cat([fake, c1], dim=1)
-        real_cat = torch.cat([real, c1_perm.reshape(n * B, -1)], dim=1)
+        fake_cat = torch.cat([fake, pol.cast(c1)], dim=1)
+        real_cat = pol.cast(torch.cat([real, c1_perm.reshape(n * B, -1)],
+                                      dim=1))
     else:
-        fake_cat, real_cat = fake, real
+        fake_cat, real_cat = fake, pol.cast(real)
     y_fake = D(fake_cat, keep=d.keep_fake)
     y_real = D(real_cat, keep=d.keep_real)
-    loss_d = y_fake.mean(dim=(1, 2)) - y_real.mean(dim=(1, 2))
+    loss_d = (f32_island(y_fake).mean(dim=(1, 2))
+              - f32_island(y_real).mean(dim=(1, 2)))
     pen = gradient_penalty(lambda x: D(x, keep=d.keep_gp), real_cat,
                            fake_cat, d.alpha.reshape(n * B, 1), pac=cfg.pac,
                            clients=n)
@@ -743,6 +753,7 @@ def _stacked_g_update(stack: StackedModels, cond: StackedCondSampler,
     """Every client's generator update (:func:`g_update`); returns its
     ``loss_g`` (N,)."""
     spec, cfg, n = stack.spec, stack.cfg, stack.n
+    pol = resolve_precision(cfg.precision)
     G, D = stack.generator, stack.discriminator
     B = cfg.batch_size
     z = g.z.reshape(n * B, -1)
@@ -751,10 +762,10 @@ def _stacked_g_update(stack: StackedModels, cond: StackedCondSampler,
         gen_in = torch.cat([z, c1], dim=1)
     else:
         gen_in = z
-    raw = G(gen_in.view(n, B, -1)).reshape(n * B, -1)
+    raw = G(pol.cast(gen_in).view(n, B, -1)).reshape(n * B, -1)
     act = fused_apply_activate(raw, spec, g.u.reshape(n * B, -1))
-    d_in = torch.cat([act, c1], dim=1) if spec.n_discrete else act
-    loss_g = -D(d_in, keep=g.keep).mean(dim=(1, 2))
+    d_in = torch.cat([act, pol.cast(c1)], dim=1) if spec.n_discrete else act
+    loss_g = -f32_island(D(d_in, keep=g.keep)).mean(dim=(1, 2))
     if spec.n_discrete:
         loss_g = loss_g + cond_loss(raw, spec, c1, m1, clients=n)
     (grad,) = _grads([G.params], loss_g.sum())
@@ -767,7 +778,8 @@ def _stacked_g_update(stack: StackedModels, cond: StackedCondSampler,
 
 def sample_step(generator: Generator, spec: SegmentSpec, z: torch.Tensor,
                 cond_vec: Optional[torch.Tensor], u: torch.Tensor,
-                block_rows: int) -> torch.Tensor:
+                block_rows: int,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Activated generator output for explicit draws: noise ``z``
     (rows, embedding_dim), conditional vectors ``cond_vec`` (rows, n_opt;
     None when the table has no softmax segment) and Gumbel uniforms ``u``
@@ -777,8 +789,14 @@ def sample_step(generator: Generator, spec: SegmentSpec, z: torch.Tensor,
     must be a multiple): every block is then the same matrix-product shape
     whatever ``rows`` is, so a row's value never depends on how many rows
     were computed beside it.  The activation is row-wise and runs once
-    over all rows."""
+    over all rows.
+
+    The generator and K1 compute in ``dtype`` (the model's compute dtype);
+    the rows come back float32 (``make_sample_step``, ``steps.py:
+    406-426``): decode is a float32 island, and a bf16 row cast to float32
+    keeps its rounded values, ties included."""
     x = z if cond_vec is None else torch.cat([z, cond_vec], dim=1)
+    x = as_dtype(x, dtype)
     with torch.no_grad():
         raw = torch.cat([generator(b) for b in x.split(block_rows)])
-        return fused_apply_activate(raw, spec, u.contiguous())
+        return f32_island(fused_apply_activate(raw, spec, u.contiguous()))

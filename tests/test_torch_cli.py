@@ -10,6 +10,7 @@ on the same raw Intrusion-shaped CSV (600 rows, 3 clients).
   from its checkpoint and extends the monitor CSV;
 - the reference's drop-in flags ``-E_interval`` and ``-report`` are
   accepted and ignored;
+- ``--precision bf16`` trains, checkpoints and resumes in bf16;
 - a flag of a feature not ported yet, or a fault kind the port does not
   act on, exits with code 2 and names its ROADMAP item.
 """
@@ -104,7 +105,7 @@ def test_standalone_cli_matches_jax(data, tmp_path, capsys):
 @pytest.mark.parametrize("flag,item", [
     (["--cohort", "2"], "A.17"), (["--rounds-per-program", "4"], "A.17"),
     (["--faults", "straggle:rank=1,delay=2"], "A.17"),
-    (["--elastic-capacity", "8"], "A.16"), (["--precision", "bf16"], "A.15"),
+    (["--elastic-capacity", "8"], "A.16"),
     (["--mode", "mdgan"], "A.17"), (["--snapshot-format", "parquet"],
                                     "A.21"),
     (["--sanitize-nans"], "A.20"), (["--profile-rounds", "5"], "A.20"),
@@ -112,6 +113,31 @@ def test_standalone_cli_matches_jax(data, tmp_path, capsys):
 def test_unported_flags_exit_2(data, tmp_path, capsys, flag, item):
     assert port_cli.main(argv(data, tmp_path, "--device", "cpu", *flag)) == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_precision_bf16_runs_a_round_and_resumes_in_it(data, tmp_path,
+                                                       capsys):
+    """``--precision bf16`` (refused until the precision slice) trains a
+    bf16 federation to exit 0, its checkpoint and artifact carry the
+    precision, and a resume keeps the checkpoint's precision whatever the
+    flag says, as the JAX CLI does."""
+    out = tmp_path / "out"
+    common = ["--device", "cpu", "--save-every", "1", "--save-model"]
+    assert port_cli.main(argv(data, out, "--precision", "bf16",
+                              *common)) == 0
+    assert "final Avg_JSD=" in capsys.readouterr().out
+    host = json.load(open(out / "checkpoint" / "host.json"))
+    assert host["cfg"]["precision"] == "bf16"
+    art = json.load(open(out / "models" / "synthesizer_torch"
+                         / "config.json"))
+    assert art["cfg"]["precision"] == "bf16"
+    resumed = [a if a != "2" or prev != "-epochs" else "3"
+               for prev, a in zip([None] + argv(data, out), argv(data, out))]
+    assert port_cli.main(resumed + common + ["--resume"]) == 0
+    assert "at round 2" in capsys.readouterr().out
+    host = json.load(open(out / "checkpoint" / "host.json"))
+    assert host["cfg"]["precision"] == "bf16"
+    assert host["completed_epochs"] == 3
 
 
 def test_reference_drop_in_flags_are_accepted(data, tmp_path, capsys):

@@ -233,13 +233,25 @@ def test_round_snapshot_and_artifact(jinit, tmp_path):
 
 @pytest.mark.parametrize("kw,item", [({"cohort": 2}, "A.17"),
                                      ({"aggregation": "buffered"}, "A.17"),
-                                     ({"ema_decay": 0.9}, "A.17"),
-                                     ({"precision": "bf16"}, "A.15")])
+                                     ({"ema_decay": 0.9}, "A.17")])
 def test_unported_options_are_refused(jinit, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         port_fed.FederatedTrainer(federated_init_from_jax(jinit),
                                   steps.TrainConfig(**SMALL, **kw),
                                   device="cpu")
+
+
+def test_bf16_needs_weights_summing_to_one(jinit):
+    """bf16 (refused until the precision slice) builds a trainer; with
+    weights that do not sum to 1 it raises the JAX trainer's ValueError
+    (``fed_tgan_tpu/train/federated.py:706-716``), f32 does not."""
+    init = federated_init_from_jax(jinit)
+    cfg = steps.TrainConfig(**SMALL, precision="bf16")
+    port_fed.FederatedTrainer(init, cfg, device="cpu")
+    init.weights = np.asarray(init.weights) * 1.5
+    with pytest.raises(ValueError, match="bf16 delta-encoded aggregation"):
+        port_fed.FederatedTrainer(init, cfg, device="cpu")
+    port_fed.FederatedTrainer(init, steps.TrainConfig(**SMALL), device="cpu")
 
 
 def test_zero_step_client_needs_opt_in(jinit):

@@ -13,6 +13,7 @@ import torch
 
 from fed_tgan_torch.data.decode import decode_cells
 from fed_tgan_torch.features.transformer import output_info
+from fed_tgan_torch.ops import activate_cuda
 from fed_tgan_torch.ops.activate_cuda import (
     fused_activate_bwd,
     fused_apply_activate,
@@ -23,6 +24,7 @@ from fed_tgan_torch.ops.segments import (
     SegmentSpec,
     apply_activate,
     apply_activate_bwd,
+    apply_activate_residual,
 )
 from fed_tgan_torch.serve.demo import build_random_artifact, intrusion_layout
 from fed_tgan_torch.serve.engine import SamplingEngine
@@ -704,3 +706,158 @@ def test_canary_launches_k1_once_per_shadow_sample(cuda, tmp_path):
         assert svc.gate.last_decision["promoted"] is promoted
         n = svc.gate.shadow_samples - drawn
         assert n >= 1 and fused_apply_activate.launches - k1 == n
+
+
+# ------------------------------------------------------ the bf16 variants
+
+
+def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each value of ``v`` (0 at 0)."""
+    a = v.float().abs()
+    e = torch.floor(torch.log2(torch.where(a > 0, a, torch.ones_like(a))))
+    return torch.where(a > 0, torch.exp2(e - 7), torch.zeros_like(a))
+
+
+def _offset(t: torch.Tensor, k: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` starting ``k`` elements past a 16-byte
+    boundary (``k`` = 1 puts a bf16 operand 2 bytes off, 2 puts it 4)."""
+    st = torch.empty(t.numel() + k, device=t.device, dtype=t.dtype)
+    st[k:].copy_(t.flatten())
+    view = st[k:].view_as(t)
+    assert view.data_ptr() % 16 == (k * t.element_size()) % 16
+    return view
+
+
+def _bf16_variants(spec, x, u, dy):
+    """The three bf16 variants on (x, u) and (dy, K1's float32 result),
+    each against its plain version: results within one bf16 ulp (K2's
+    also within the float32 kernels' 1e-5 where dy - sum cancels), the
+    float32 residual within 1e-5.  Returns (out, res, dx)."""
+    before = (dict(fused_apply_activate.variant_launches),
+              dict(fused_activate_bwd.variant_launches))
+    out = fused_apply_activate(x, spec, u)
+    out_t, res = activate_cuda._activate(x, spec, u, residual=True)
+    dx = fused_activate_bwd(dy, res, spec)
+    torch.cuda.synchronize()
+    assert (out.dtype, out_t.dtype, res.dtype, dx.dtype) == (
+        torch.bfloat16, torch.bfloat16, torch.float32, torch.bfloat16)
+    k1, k2 = (fused_apply_activate.variant_launches,
+              fused_activate_bwd.variant_launches)
+    assert (k1["bf16"] - before[0]["bf16"],
+            k1["bf16_train"] - before[0]["bf16_train"],
+            k2["bf16"] - before[1]["bf16"]) == (1, 1, 1)
+    want, want_res = apply_activate_residual(x, spec, u)
+    for got in (out, out_t):
+        assert ((got.float() - want.float()).abs()
+                <= _bf16_ulp(want)).all()
+    assert (res - want_res).abs().max().item() <= ATOL
+    want_dx = apply_activate_bwd(dy, res, spec)
+    assert ((dx.float() - want_dx.float()).abs()
+            <= _bf16_ulp(want_dx) + ATOL).all()
+    return out, res, dx
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2], ids=["aligned", "2B", "4B"])
+@pytest.mark.parametrize("rows", [1, 5, 500, 2000, 8000])
+def test_bf16_variants_match_plain(cuda, rows, offset):
+    """K1 (sampling and training) and K2 in bf16 at the main path's row
+    counts, the bf16 operands aligned, 2 bytes and 4 bytes off a 16-byte
+    boundary (``cp.async`` has no 2-byte size: the ragged ends take plain
+    loads); misaligned results equal aligned ones bit for bit."""
+    spec = _spec()
+    x, u, dy = _inputs(spec, rows, 20 + rows, cuda)
+    x, dy = x.to(torch.bfloat16), dy.to(torch.bfloat16)
+    aligned = _bf16_variants(spec, x, u, dy)
+    if offset:
+        got = _bf16_variants(spec, _offset(x, offset), _offset(u, 1),
+                             _offset(dy, offset))
+        for a, b in zip(got, aligned):
+            assert torch.equal(a, b)
+
+
+def test_bf16_variants_wide_and_unstaged(cuda):
+    """The 70-wide segment at 64,000 rows and the widest rows (run
+    unstaged: the sampling K1 keeps its logits in a float32 scratch)."""
+    for info, rows in (([(1, "tanh"), (70, "softmax"), (1, "tanh"),
+                         (3, "softmax")], 64000),
+                       ([(1, "tanh"), (29056 - 71, "softmax"),
+                         (70, "softmax")], 3)):
+        spec = _spec(info)
+        x, u, dy = _inputs(spec, rows, 30, cuda)
+        x = x.to(torch.bfloat16)
+        assert plan_for(x, spec).staged == (rows > 3)
+        _bf16_variants(spec, x, u, dy.to(torch.bfloat16))
+
+
+def test_bf16_wrappers_refuse_other_dtype_pairs(cuda):
+    """A CUDA tensor of another dtype pair raises: nothing is cast to
+    reach a variant."""
+    spec = _spec()
+    x, u, dy = _inputs(spec, 4, 31, cuda)
+    for a, b in ((x.half(), u), (x.bfloat16(), u.bfloat16()),
+                 (x, u.bfloat16())):
+        with pytest.raises(TypeError):
+            fused_apply_activate(a, spec, b)
+    with pytest.raises(TypeError):
+        fused_activate_bwd(dy.bfloat16(), u.bfloat16(), spec)
+    with pytest.raises(TypeError):
+        fused_activate_bwd(dy, u.bfloat16(), spec)
+
+
+def test_bf16_variants_replay_in_a_cuda_graph(cuda):
+    """The bf16 K1 (training variant) then K2 captured once and replayed
+    on new inputs give what eager launches give."""
+    spec = _spec()
+    x, u, dy = _inputs(spec, 500, 40, cuda)
+    x, dy = x.to(torch.bfloat16), dy.to(torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            _, r = activate_cuda._activate(x, spec, u, residual=True)
+            fused_activate_bwd(dy, r, spec)
+            fused_apply_activate(x, spec, u)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, res = activate_cuda._activate(x, spec, u, residual=True)
+        dx = fused_activate_bwd(dy, res, spec)
+        sampled = fused_apply_activate(x, spec, u)
+    for seed in (41, 42):
+        fx, fu, fdy = _inputs(spec, 500, seed, cuda)
+        x.copy_(fx)
+        u.copy_(fu)
+        dy.copy_(fdy)
+        graph.replay()
+        want_out, want_res, want_dx = _bf16_variants(spec, x, u, dy)
+        assert torch.equal(out, want_out) and torch.equal(res, want_res)
+        assert torch.equal(dx, want_dx) and torch.equal(sampled, want_out)
+
+
+def test_bf16_training_on_card_repeats_bit_for_bit(cuda):
+    """Two small bf16 trainings on the card from one seed end bit-equal;
+    each step launches the bf16 sampling K1 (critic), the training K1 and
+    K2 (generator) once, and no float32 variant; masters stay float32."""
+    from fed_tgan_torch.serve.demo import intrusion_like_table
+
+    m, cat, _, _ = intrusion_like_table(600, 0)
+    cfg = steps.TrainConfig(embedding_dim=32, gen_dims=(64, 64),
+                            dis_dims=(64, 64), batch_size=100,
+                            precision="bf16")
+    runs = []
+    for _ in range(2):
+        activate_cuda.reset_launches()
+        synth = StandaloneSynthesizer(cfg, seed=3, device=cuda).fit(
+            m, cat, epochs=2)
+        torch.cuda.synchronize()
+        assert fused_apply_activate.variant_launches == {
+            "f32": 0, "bf16": 12, "bf16_train": 12}
+        assert fused_activate_bwd.variant_launches == {"f32": 0, "bf16": 12}
+        params = [p.detach().clone() for p in
+                  [*synth.models.generator.parameters(),
+                   *synth.models.discriminator.parameters()]]
+        assert all(p.dtype == torch.float32 for p in params)
+        runs.append(params)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    one = synth.sample_encoded(1500, seed=2)
+    assert one.dtype == np.float32 and np.isfinite(one).all()

@@ -97,7 +97,8 @@ def test_port_package_lists_every_slice_module():
                  "train.monitor", "train.watchdog", "data.fastcsv",
                  "obs.registry", "serve.metrics", "serve.fleet",
                  "serve.pool", "serve.frontdoor", "obs.slo",
-                 "serve.canary", "federation.sketch", "data.dates"):
+                 "serve.canary", "federation.sketch", "data.dates",
+                 "runtime.precision"):
         assert f"fed_tgan_torch.{name}" in mods
 
 

@@ -271,8 +271,9 @@ def test_bad_configs_raise():
         steps.init_models(spec, steps.TrainConfig(**SMALL, d_steps=0), device="cpu")
     with pytest.raises(NotImplementedError):
         steps.init_models(spec, steps.TrainConfig(**SMALL, ema_decay=0.9), device="cpu")
-    with pytest.raises(NotImplementedError):
-        steps.init_models(spec, steps.TrainConfig(**SMALL, precision="bf16"), device="cpu")
+    with pytest.raises(ValueError, match="precision"):
+        steps.init_models(spec, steps.TrainConfig(**SMALL, precision="f16"),
+                          device="cpu")
 
 
 def test_epoch_with_own_draws_is_finite_and_seeded():
