@@ -141,6 +141,30 @@ Phases, each fatal on failure:
    operands 2 and 4 bytes off a 16-byte boundary, with times, plan and
    the bound at 8 (12) bytes an element.
 
+15. onboarding at population scale (``onboard_phase``): N = 64 and 256
+   IID Intrusion-shaped clients of 200 rows; per N a cold init with exact
+   similarity, a cold ``--similarity sketch`` init into a fresh init
+   cache and a warm restore (seconds by phase, clients/s, rows/s, peak
+   device memory): sketch weights within 5e-3 of exact, with the same
+   argmax where the exact top two are further apart than twice the
+   delta, the warm restore bit-identical; a ``corrupt_cache:nth=1``
+   store detected and refitted to the same weights; at N = 256 one
+   client's columns fitted alone equal to their fit in the batch of all
+   256 bit for bit, and 64 newcomers registered (seconds);
+16. elastic membership (``churn_phase``): the CLI in this process on the
+   federated round's CSV, 4 clients, ``--elastic-capacity 8``, 8 rounds,
+   a join of 2 at round 3, client 1 leaving at round 5, client 0 drifting
+   at round 6, a drift window every 2 rounds, a 10,000-row snapshot and
+   a save every round under the watchdog: population 4 -> 6, client 1
+   dropped, the drift caught and the weights recomputed within one
+   window, the last snapshot finite, two runs bit-equal, K1/K2 launches
+   exact at (8 x 500, D); then s/round of the same 4 clients at capacity
+   8 and at capacity 0 in turns (what the padded slots cost), and K1/K2
+   against their plain versions at the elastic shape.
+
+``--onboard N [N ...]`` runs phase 15 alone at the populations given (the
+JAX sweep's N = 1024 is measured so).
+
 ``--ab TREE`` runs none of the phases: it builds the kernels of the
 ``fed_tgan_torch`` package under TREE (for example a ``git archive`` of an
 earlier commit, ``chip_smoke.py`` included) and times them against this
@@ -153,12 +177,14 @@ this one, each turn a process of its own; and prints one
 Prints the card's name and power limit beside every number, a JSON line
 with the training numbers, one with the federated round's, one with the
 durable round's, one with the canary's and the dated phase's, one with
-the precision phase's, the card's
+the precision phase's, one with the onboarding and churn phases', the
+card's
 line, a JSON line with the kernels' numbers (one entry per kernel and
 path: K1 serving, K1 in the fleet, K1 and K2 training, K1 and K2
 federated, K1 in the similarity monitor, K1 and K2 in the ragged round, K1
 in the canary's shadow samples, K1 serving a dated model, K1 and K2 in
-the dated training, and the three bf16 variants),
+the dated training, K1 and K2 in the elastic rounds, and the three bf16
+variants),
 and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no result line, when CUDA is not available.
@@ -173,6 +199,7 @@ import csv
 import dataclasses
 import io
 import json
+import logging
 import math
 import os
 import shutil
@@ -3209,6 +3236,354 @@ def precision_phase(seed: int, card: str, root: str, rows: int,
             "serving": serve, "shapes": shapes, "launches_by_path": paths}
 
 
+# ------------------------------------------------- onboarding and churn
+
+# the JAX onboarding sweep's configuration (``BENCH_r13.json``): N IID
+# clients of 200 rows; the smoke runs N = 64 and 256 (1,024 through
+# ``--onboard 1024``), and registers 64 newcomers into the 256
+ONBOARD_POPULATIONS, ONBOARD_ROWS, ONBOARD_NEWCOMERS = (64, 256), 200, 64
+# the exact init's host WD passes grow with N x total rows: compared up to
+# the JAX sweep's largest comparator population
+EXACT_MAX = 256
+# the churn run: the federated round's CSV and clients, 8 slots, 8 rounds,
+# a 10,000-row snapshot and a save every round, a drift window every 2
+CHURN_CAPACITY, CHURN_ROUNDS, CHURN_SNAPSHOT_ROWS, CHURN_EVERY = 8, 8, 10_000, 2
+CHURN_FAULTS = ("join:round=3,count=2;leave:client=1,round=5;"
+                "drift:client=0,round=6,shift=2.0")
+GMM_FIELDS = ("means", "stds", "weights", "mean_precision", "dof", "stick_a",
+              "stick_b")
+
+
+def _onboard_clients(n: int, seed: int) -> list:
+    """``n`` IID Intrusion-shaped clients of ``ONBOARD_ROWS`` raw rows."""
+    from fed_tgan_torch.serve.demo import intrusion_like_raw
+
+    kw = preprocessor_kwargs(PRESETS["intrusion"])
+    shards = shard_table(intrusion_like_raw(n * ONBOARD_ROWS, seed), n,
+                         "iid", seed=seed)
+    return [TablePreprocessor(table=t, name="Intrusion", **kw)
+            for t in shards]
+
+
+def _timed_init(clients, seed: int, **kw):
+    """``federated_initialize`` on the card, timed, with the peak device
+    memory it allocated."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    init = federated_initialize(clients, seed=seed, device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = sum(c.n_rows for c in clients)
+    return init, {"s": wall, "clients_per_s": len(clients) / wall,
+                  "rows_per_s": rows / wall, "phases_s": dict(init.timings),
+                  "peak_device_mib":
+                  torch.cuda.max_memory_allocated() / 2 ** 20}
+
+
+def _same_init(what: str, a, b) -> None:
+    if not (len(a.client_matrices) == len(b.client_matrices)
+            and all(np.array_equal(x, y) for x, y in
+                    zip(a.client_matrices, b.client_matrices))
+            and np.array_equal(a.weights, b.weights)
+            and a.output_info == b.output_info):
+        raise AssertionError(f"{what}: matrices, weights or output_info "
+                             "differ")
+
+
+def _cache_ops(cache) -> dict:
+    ops: dict = {}
+    for e in cache.events:
+        key = f"{e['op']}_{e['scope']}"
+        ops[key] = ops.get(key, 0) + int(e["count"])
+    return ops
+
+
+def _sketch_vs_exact(n: int, exact, cold, t_exact: dict, card: str) -> dict:
+    """The sketch init's weights against the exact init's: within 5e-3,
+    and the same argmax wherever the exact weights' top two lie further
+    apart than twice the delta (IID clients' weights tie to sampling
+    noise)."""
+    delta = float(np.abs(exact.weights - cold.weights).max())
+    top2 = np.sort(exact.weights)[-2:]
+    gap = float(top2[1] - top2[0])
+    same = bool(exact.weights.argmax() == cold.weights.argmax())
+    if not delta < 5e-3 or (gap > 2 * delta and not same):
+        raise AssertionError(f"N={n}: sketch weights {delta} from exact "
+                             f"(bound 5e-3), or another argmax with a "
+                             f"top-two gap {gap} > 2 x {delta}")
+    print(f"onboard N={n}: cold exact {t_exact['s']!r} s "
+          f"({t_exact['clients_per_s']!r} clients/s, "
+          f"{t_exact['rows_per_s']!r} rows/s; {t_exact['phases_s']}); sketch "
+          f"vs exact weights max delta {delta!r} (bound 5e-3), same argmax "
+          f"{same} (exact top-two gap {gap!r})  [{card}]", flush=True)
+    return {"exact": t_exact, "sketch_vs_exact_max_weight_delta": delta,
+            "exact_top2_gap": gap, "same_argmax": same}
+
+
+def onboard_phase(root: str, seed: int, card: str,
+                  populations=ONBOARD_POPULATIONS) -> dict:
+    """Device-side init and onboarding at population scale, for each N:
+    a cold sketch init into a fresh init cache and a warm restore
+    (bit-identical matrices, weights, layout); up to ``EXACT_MAX``, a
+    cold exact init and the sketch's weights against it
+    (:func:`_sketch_vs_exact`); at the smallest N, a ``corrupt_cache:nth=1`` store detected
+    and refitted by a later init over the same shards; at the largest N,
+    one shard fitted alone equal bit for bit to its fit in the batch of
+    all N shards, and 64 newcomers registered into the resident N."""
+    from fed_tgan_torch.features.bgm import fit_columns, fit_shards
+    from fed_tgan_torch.federation.init_cache import InitCache
+    from fed_tgan_torch.federation.streaming import OnboardingSession
+
+    report = {}
+    for n in populations:
+        grow = n == max(populations)
+        clients = _onboard_clients(n + (ONBOARD_NEWCOMERS if grow else 0),
+                                   seed)
+        clients, newcomers = clients[:n], clients[n:]
+        cache = InitCache(os.path.join(root, f"cache_{n}"))
+        cold, t_cold = _timed_init(clients, seed, similarity="sketch",
+                                   cache=cache)
+        warm, t_warm = _timed_init(clients, seed, similarity="sketch",
+                                   cache=cache)
+        _same_init(f"N={n} warm restore", cold, warm)
+        entry = {"sketch_cold": t_cold, "warm": t_warm,
+                 "cache_ops": _cache_ops(cache)}
+        print(f"onboard N={n} x {ONBOARD_ROWS} rows: cold sketch "
+              f"{t_cold['s']!r} s ({t_cold['clients_per_s']!r} clients/s, "
+              f"{t_cold['rows_per_s']!r} rows/s; {t_cold['phases_s']}), "
+              f"peak device memory {t_cold['peak_device_mib']!r} MiB; warm "
+              f"{t_warm['s']!r} s ({t_warm['phases_s']}), bit-identical; "
+              f"cache {entry['cache_ops']}  [{card}]", flush=True)
+        if n <= EXACT_MAX:
+            exact, t_exact = _timed_init(clients, seed, similarity="exact")
+            entry.update(_sketch_vs_exact(n, exact, cold, t_exact, card))
+        if n == min(populations):
+            croot = os.path.join(root, f"corrupt_{n}")
+            install_plan(FaultPlan.parse("corrupt_cache:nth=1"))
+            try:
+                federated_initialize(clients, seed=seed, device="cuda",
+                                     similarity="sketch", cache=croot)
+            finally:
+                install_plan(None)
+            # another init over the same shards reads the client entries:
+            # the truncated one is refitted, to the same bits
+            ccache = InitCache(croot)
+            refit = federated_initialize(clients, seed=seed, device="cuda",
+                                         similarity="sketch", cache=ccache,
+                                         transform_matrices=False)
+            ops = _cache_ops(ccache)
+            if (ops.get("corrupt_client") != 1
+                    or ops.get("hit_client") != n - 1
+                    or not np.array_equal(refit.weights, cold.weights)):
+                raise AssertionError(f"corrupt_cache:nth=1 not detected and "
+                                     f"refitted to the same weights: {ops}")
+            entry["corrupt_cache"] = ops
+            print(f"onboard N={n}: corrupt_cache:nth=1 detected and refitted "
+                  f"({ops}); weights equal the cold run's  [{card}]",
+                  flush=True)
+        if grow:
+            cont = cold.onboarding["cont_idx"]
+            enc = [c.encode(cold.encoders)[0] for c in clients]
+            shards = [[m[:, j] for j in cont] for m in enc]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = fit_shards(shards, device="cuda")
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            k = n // 2
+            alone = fit_columns(shards[k], device="cuda")
+            for a, b in zip(alone, batch[k]):
+                for f in GMM_FIELDS:
+                    if not np.array_equal(getattr(a, f), getattr(b, f)):
+                        raise AssertionError(
+                            f"client {k}'s fit alone differs from its fit "
+                            f"in the batch of {n} ({f})")
+            session = OnboardingSession(warm, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grown = session.register_clients(newcomers)
+            torch.cuda.synchronize()
+            reg_s = time.perf_counter() - t0
+            if (len(grown.client_matrices) != n + len(newcomers)
+                    or not np.isclose(grown.weights.sum(), 1.0)):
+                raise AssertionError("registration did not grow the init")
+            entry.update({"fit_shards_s": fit_s, "register_s": reg_s,
+                          "register_clients_per_s": len(newcomers) / reg_s})
+            print(f"onboard N={n}: fit_shards of {n} x {len(cont)} columns "
+                  f"{fit_s!r} s; client {k} fitted alone == in the batch, "
+                  f"bit for bit; register_clients of {len(newcomers)} "
+                  f"newcomers into {n}: {reg_s!r} s  [{card}]", flush=True)
+        report[f"n{n}"] = entry
+    return report
+
+
+class EventLog(logging.Handler):
+    """Collects the event dicts the port logs (``{"type": ...}``) while
+    the journal waits for ROADMAP A.20."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.events: list = []
+
+    def emit(self, record) -> None:
+        # logging keeps a lone mapping argument as ``args`` itself
+        if isinstance(record.args, dict) and "type" in record.args:
+            self.events.append(record.args)
+
+
+def _churn_cli(root: str, csv_path: str, seed: int, tag: str) -> dict:
+    """The CLI in this process with the churn plan; returns its launches,
+    events, wall and output directory."""
+    from fed_tgan_torch.cli import main as cli_main
+
+    out = os.path.join(root, f"churn_{tag}")
+    argv = ["--mode", "fedavg", "--datapath", csv_path,
+            "--dataset", "intrusion", "--n-clients", str(FED_CLIENTS),
+            "-epochs", str(CHURN_ROUNDS), "--sample-rows",
+            str(CHURN_SNAPSHOT_ROWS), "--out-dir", out, "--seed", str(seed),
+            "--elastic-capacity", str(CHURN_CAPACITY), "--drift-every",
+            str(CHURN_EVERY), "--save-every", "1", "--ckpt-keep",
+            str(CHURN_ROUNDS), "--watchdog", "--faults", CHURN_FAULTS]
+    handler = EventLog()
+    loggers = [logging.getLogger(n) for n in ("fed_tgan_torch.federation",
+                                              "fed_tgan_torch.train")]
+    for lg in loggers:
+        lg.addHandler(handler)
+        lg.setLevel(logging.INFO)
+    stdout = io.StringIO()
+    fused_apply_activate.launches = 0
+    fused_activate_bwd.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(stdout):
+            rc = cli_main(argv)
+    finally:
+        install_plan(None)
+        os.environ.pop("FED_TGAN_TORCH_FAULTS", None)
+        for lg in loggers:
+            lg.removeHandler(handler)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"churn CLI exited {rc}: "
+                             f"{stdout.getvalue()[-3000:]}")
+    return {"out": out, "wall_s": wall, "events": handler.events,
+            "launches": {"K1": fused_apply_activate.launches,
+                         "K2": fused_activate_bwd.launches},
+            "stdout": stdout.getvalue()}
+
+
+def _checkpoint_arrays(path: str) -> tuple:
+    with open(os.path.join(path, "host.json")) as f:
+        host = json.load(f)
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        return host, {k: z[k] for k in z.files}
+
+
+def churn_phase(root: str, seed: int, card: str) -> dict:
+    """Elastic membership at full width through the CLI, in this process
+    (its launches counted): the federated round's 20,000-row CSV over 4
+    clients, ``--elastic-capacity 8``, 8 rounds, a join of 2 at round 3, a
+    departure of client 1 at round 5 and a drift of client 0 at round 6,
+    a drift window every 2 rounds, a save every round under the watchdog.
+    The population goes 4 -> 6 with client 1 dropped; the window after
+    the drift alarms for client 0 and its weights are recomputed in it;
+    the last snapshot is finite; a second run ends bit-equal; K1 and K2
+    launch exactly ``max(steps) * (d_steps + 1) + chunks`` and
+    ``max(steps)`` times a round at (8 * 500, D).  Then s/round of the
+    same 4 clients at capacity 8 and at capacity 0, in turns."""
+    csv_path = os.path.join(root, "churn.csv")
+    write_intrusion_csv(csv_path, FED_ROWS, seed)
+    runs = [_churn_cli(root, csv_path, seed, tag) for tag in ("a", "b")]
+    run = runs[0]
+    ck = os.path.join(run["out"], "checkpoint")
+    host, arrays = _checkpoint_arrays(ck)
+    rows = host["init"]["rows_per_client"]
+    if len(rows) != FED_CLIENTS + 2 or host["dropped_clients"] != [1]:
+        raise AssertionError(f"population {len(rows)} (want "
+                             f"{FED_CLIENTS + 2}), dropped "
+                             f"{host['dropped_clients']} (want [1])")
+    if host["capacity"] != CHURN_CAPACITY:
+        raise AssertionError(f"capacity {host['capacity']}")
+    windows = [e for e in run["events"] if e["type"] == "drift_window"]
+    alarms = [e for e in run["events"] if e["type"] == "drift_alarm"]
+    drift_round = 5  # drift:round=6 lands at the start of 0-based round 5
+    caught = [w for w in windows if 0 in w.get("drifted", [])]
+    if not caught or caught[0]["round"] > drift_round + CHURN_EVERY \
+            or caught[0].get("recompute_lag_rounds") != 0:
+        raise AssertionError(f"drift of client 0 not caught within one "
+                             f"window: {windows}")
+    # the saves around the catching window: the weights moved in it
+    gens = list_resumable(ck, max_rotations=CHURN_ROUNDS)
+    by_round = {}
+    for g in gens:
+        h, _ = _checkpoint_arrays(g)
+        by_round[h["completed_epochs"]] = h["weights"]
+    w_round = caught[0]["round"]
+    if by_round.get(w_round) == by_round.get(w_round + 1):
+        raise AssertionError(f"weights not recomputed in the window of "
+                             f"round {w_round}")
+    restored = load_federated(ck, device="cuda")
+    spec = restored.spec
+    meta = restored.init.global_meta
+    snap = os.path.join(run["out"], "Intrusion_result",
+                        f"Intrusion_synthesis_epoch_{CHURN_ROUNDS - 1}.csv")
+    with open(snap, "rb") as f:
+        blob = f.read()
+    head = blob.split(b"\n", 1)[0].decode().split(",")
+    check_csv(blob, CHURN_SNAPSHOT_ROWS, True,
+              [i for i, c in enumerate(head) if c in meta.continuous_columns])
+    # the bit-exact rule: two runs from one seed end equal
+    _, arrays_b = _checkpoint_arrays(os.path.join(runs[1]["out"],
+                                                  "checkpoint"))
+    if arrays.keys() != arrays_b.keys() or not all(
+            np.array_equal(arrays[k], arrays_b[k]) for k in arrays):
+        raise AssertionError("two churn runs from one seed differ")
+    # launches: every round max(steps) stacked steps over all 8 slots
+    cfg = steps.TrainConfig()
+    B = cfg.batch_size
+    steps_per_round = max(r // B for r in rows)
+    chunks = len(restored._sampler()._chunk_plan(
+        0, -(-CHURN_SNAPSHOT_ROWS // B), pow2_tail=False))
+    per_round = {"K1": steps_per_round * (cfg.d_steps + 1) + chunks,
+                 "K2": steps_per_round}
+    want = {k: CHURN_ROUNDS * v for k, v in per_round.items()}
+    for r in runs:
+        if r["launches"] != want:
+            raise AssertionError(f"churn launches {r['launches']} != {want}")
+    # what the padded slots cost: the same 4 clients at capacity 8 and 0
+    init = _fed_init(csv_path, FED_CLIENTS, seed, "cuda")
+    turns = {}
+    for cap in (CHURN_CAPACITY, 0, 0, CHURN_CAPACITY):
+        tr = FederatedTrainer(init, cfg, seed=seed, device="cuda",
+                              capacity=cap)
+        tr.fit(3)
+        turns.setdefault(cap, []).extend(tr.epoch_times[1:])
+    ratio = statistics.median(turns[CHURN_CAPACITY]) / statistics.median(
+        turns[0])
+    report = {"wall_s": [r["wall_s"] for r in runs],
+              "population": len(rows), "dropped": host["dropped_clients"],
+              "windows": windows, "alarms": alarms,
+              "launches": run["launches"], "launches_per_round": per_round,
+              "s_per_round": {"capacity_8": turns[CHURN_CAPACITY],
+                              "capacity_0": turns[0]},
+              "padded_cost_ratio_p50": ratio,
+              "train_rows": CHURN_CAPACITY * B, "spec": spec}
+    print(f"churn: CLI --elastic-capacity {CHURN_CAPACITY} --faults "
+          f"{CHURN_FAULTS!r}, {CHURN_ROUNDS} rounds: exit 0 in "
+          f"{[r['wall_s'] for r in runs]!r} s; population {FED_CLIENTS} -> "
+          f"{len(rows)}, dropped {host['dropped_clients']}; drift of client "
+          f"0 caught in the window of round {caught[0]['round']} (drift at "
+          f"round {drift_round}), weights recomputed there; windows "
+          f"{[(w['round'], w.get('drifted')) for w in windows]}; two runs "
+          f"bit-equal; launches {run['launches']} (== {want}, "
+          f"{per_round} a round at ({CHURN_CAPACITY * B}, {spec.dim})); "
+          f"s/round capacity 8 {turns[CHURN_CAPACITY]!r} vs capacity 0 "
+          f"{turns[0]!r} (p50 ratio {ratio!r})  [{card}]", flush=True)
+    return report
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3216,6 +3591,10 @@ def main(argv=None) -> int:
     ap.add_argument("--ab", metavar="TREE",
                     help="instead of the phases: time the kernels of the "
                     "fed_tgan_torch package under TREE against this one's")
+    ap.add_argument("--onboard", metavar="N", type=int, nargs="+",
+                    help="instead of the phases: the onboarding phase at "
+                    "these populations only (N = 1024: the JAX sweep's "
+                    "largest)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3242,6 +3621,22 @@ def main(argv=None) -> int:
     for line in log.splitlines():
         if "ptxas" in line:
             print(f"  {line.strip()}")
+
+    if args.onboard:
+        root = tempfile.mkdtemp(prefix="chip_smoke_onboard_",
+                                dir=os.path.join(REPO, "fed_tgan_torch",
+                                                 "_build"))
+        try:
+            onboard = onboard_phase(root, args.seed, card,
+                                    tuple(args.onboard))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        print(json.dumps({"onboard": onboard}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     if args.ab:
         kernels_ab = ab_phase(args.ab, main_shapes(args.seed), card)
@@ -3374,6 +3769,20 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(prec_root, ignore_errors=True)
     mark("precision")
+    churn_root = tempfile.mkdtemp(prefix="chip_smoke_churn_", dir=build_root)
+    try:
+        onboard = onboard_phase(churn_root, args.seed, card)
+        mark("onboard")
+        churn = churn_phase(churn_root, args.seed, card)
+    finally:
+        shutil.rmtree(churn_root, ignore_errors=True)
+    # both kernels at the elastic step's shape: every slot's batch
+    elastic_rows = (("elastic", churn["train_rows"]),)
+    churn_spec = churn.pop("spec")
+    shapes += check_kernel(churn_spec, card, elastic_rows, extra=False)
+    bwd_shapes += check_bwd_kernel(churn_spec, card, elastic_rows,
+                                   extra=False)
+    mark("churn")
     print(f"wall seconds by phase {json.dumps(wall)}, "
           f"{sum(wall.values())!r} in all  [{card}]", flush=True)
 
@@ -3437,6 +3846,15 @@ def main(argv=None) -> int:
         entry("fused_gumbel_activation_bwd_dated", bwd, "federated dated",
               bwd_shapes, "dated_train", dated["launches"]["train"]["K2"]),
     ]
+    # slice 10's elastic rounds: every slot's rows at each stacked step
+    kernels += [
+        entry("fused_gumbel_activation_fwd_elastic", fwd,
+              "federated elastic", shapes, "elastic",
+              churn["launches"]["K1"]),
+        entry("fused_gumbel_activation_bwd_elastic", bwd,
+              "federated elastic", bwd_shapes, "elastic",
+              churn["launches"]["K2"]),
+    ]
     # slice 9's bf16 variants: their launches on the bf16 paths (training,
     # the federated round, serving), each path counted on its own
     by_path = precision.pop("launches_by_path")
@@ -3461,6 +3879,7 @@ def main(argv=None) -> int:
     print(json.dumps({"durability": durability}))
     print(json.dumps({"canary": canary, "dated": dated}))
     print(json.dumps({"precision": precision}))
+    print(json.dumps({"onboard": onboard, "churn": churn}))
     print(card)
     print(json.dumps({"kernels": kernels, "serving": serving,
                       "fleet": fleet}))

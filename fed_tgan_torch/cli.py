@@ -6,9 +6,10 @@
         --n-clients 4 -epochs 3 --sample-every 1 --sample-rows 40000
         --eval --save-model --out-dir OUT [--device cuda|cpu]
 
-takes the JAX CLI's flags (without ``--backend`` / ``--n-virtual-devices``;
-``--device`` picks the card, the default, or the CPU) and writes its
-layout:
+takes the JAX CLI's flags (``--device`` picks the card, the default, or
+the CPU; ``--backend gpu|cpu`` is its JAX spelling, and
+``--n-virtual-devices`` is ignored: every client is stacked on one
+device) and writes its layout:
 
 - ``<out>/<name>_result/<name>_synthesis_epoch_<e>.csv`` per snapshot
   round (``<name>_synthesis_standalone.csv`` in ``--mode standalone``);
@@ -30,7 +31,18 @@ layout:
   newest valid one, ``--epochs`` counting total rounds;
 - ``--watchdog`` rolls back to the last good checkpoint on a loss
   explosion or a similarity regression; ``--faults SPEC`` installs a
-  fault plan (``fed_tgan_torch.testing.faults``).
+  fault plan (``fed_tgan_torch.testing.faults``);
+- ``--similarity sketch`` scores the init's WD on the device from the
+  mixtures' CDFs; ``--init-cache DIR`` restores or stores the init's
+  content-hashed fits and state;
+- ``--elastic-capacity N`` pads the trainer to N slots; a plan with
+  ``join:``, ``leave:`` or ``drift:`` faults runs the rounds through the
+  elastic federation (``fed_tgan_torch.federation.elastic``), newcomers
+  drawn from the input table;
+- the reference's ``-rank``/``-world_size``/``-ip``/``-port``: without
+  ``-ip`` one process runs every client (``-world_size W`` means ``W - 1``
+  clients, a rank other than 0 has nothing to do); ``-date_dic`` is
+  ``--date-format``.
 
 A flag of a feature not ported yet, or a fault kind the port does not act
 on, exits with code 2 and names the ROADMAP item it waits for.
@@ -48,18 +60,11 @@ import numpy as np
 # flag -> (argparse keywords, ROADMAP item); a value other than the
 # default is refused with exit code 2
 NOT_PORTED = {
-    "--similarity": (dict(type=str, default="exact"), "A.16"),
-    "--init-cache": (dict(type=str, default=None), "A.16"),
-    "--elastic-capacity": (dict(type=int, default=0), "A.16"),
     "--cohort": (dict(type=int, default=0), "A.17"),
     "--population": (dict(type=int, default=None), "A.17"),
     "--aggregation": (dict(type=str, default="sync"), "A.17"),
     "--ema-decay": (dict(type=float, default=0.0), "A.17"),
     "--rounds-per-program": (dict(type=int, default=1), "A.17"),
-    "--rank": (dict(type=int, default=None), "A.18"),
-    "--world_size": (dict(type=int, default=None), "A.18"),
-    "--ip": (dict(type=str, default=None), "A.18"),
-    "--port": (dict(type=int, default=None), "A.18"),
     "--obs-port": (dict(type=int, default=None), "A.20"),
     "--journal": (dict(type=str, default=None), "A.20"),
     "--profile-dir": (dict(type=str, default=None), "A.20"),
@@ -112,6 +117,34 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["sklearn", "jax"],
                    help="jax (default): the batched variational fit, here "
                         "in torch on the device; sklearn is not ported")
+    p.add_argument("--similarity", type=str, default="exact",
+                   choices=["exact", "sketch"],
+                   help="init similarity: exact = the reference's sampled "
+                        "WD over every client; sketch = the mixtures' CDF "
+                        "distance on the device and a budgeted pooled refit")
+    p.add_argument("--init-cache", type=str, default=None, metavar="DIR",
+                   help="content-hashed init cache: client fits and the "
+                        "whole harmonized state keyed on shard "
+                        "fingerprints; a warm run restores bit-identical "
+                        "encoded output without refitting")
+    p.add_argument("--elastic-capacity", type=int, default=0,
+                   help="trainer slots for elastic membership (join:, "
+                        "leave:, drift: faults); newcomers land in padded "
+                        "slots, grown to a power of two on overflow; 0 = "
+                        "the population exactly")
+    p.add_argument("--drift-every", type=int, default=5,
+                   help="rounds between the elastic federation's drift "
+                        "windows under a churn plan (DriftConfig."
+                        "detect_every; 0 = no windows); the JAX CLI has "
+                        "no flag and uses the default 5")
+    p.add_argument("--backend", type=str, default=None,
+                   metavar="{cpu,gpu}",
+                   help="the JAX CLI's platform flag: cpu or gpu map onto "
+                        "--device cpu|cuda; tpu and plugin:<name> are "
+                        "refused")
+    p.add_argument("--n-virtual-devices", type=int, default=None,
+                   help="accepted and ignored: every client is stacked on "
+                        "one device")
     p.add_argument("--batch-size", type=int, default=500)
     p.add_argument("--embedding-dim", type=int, default=128)
     p.add_argument("--lr-schedule", choices=["constant", "cosine", "linear"],
@@ -164,7 +197,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rollbacks before the run aborts")
     p.add_argument("--watchdog-lr-reanneal", type=float, default=0.5,
                    help="learning-rate multiplier applied on each rollback")
-    p.add_argument("--date-format", type=str, nargs="*", default=None,
+    p.add_argument("-date_dic", "--date-format", type=str, nargs="*",
+                   default=None,
                    dest="date_format", metavar="COL=FORMAT",
                    help="date columns and their formats, e.g. "
                         "when=YYYY-MM-DD stamp=yymmdd|YYYY-MM-DD")
@@ -182,6 +216,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "run keeps its checkpoint's precision")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    # the reference's world bookkeeping: without -ip, one process runs
+    # every client (-world_size W means W - 1 clients)
+    p.add_argument("-rank", "--rank", type=int, default=None)
+    p.add_argument("-world_size", "--world_size", type=int, default=None)
+    p.add_argument("-ip", "--ip", type=str, default=None)
+    p.add_argument("-port", "--port", type=int, default=None)
     for flag, (kw, item) in NOT_PORTED.items():
         p.add_argument(flag, **kw, help=f"not ported yet (ROADMAP {item})")
     return p
@@ -193,7 +233,15 @@ def _refused(args, parser) -> str | None:
         return (f"--mode {args.mode} is not ported yet (ROADMAP "
                 f"{NOT_PORTED_MODES[args.mode]})")
     if args.bgm_backend == "sklearn":
-        return "--bgm-backend sklearn: sklearn is not part of the port"
+        return ("--bgm-backend sklearn is not ported yet (ROADMAP A.24): "
+                "sklearn is not on the card's host")
+    if args.rank is not None and args.ip:
+        return ("-rank with -ip (the multi-process init protocol) is not "
+                "ported yet (ROADMAP A.18); omit -ip to run every client "
+                "in this process")
+    if args.backend is not None and args.backend not in ("cpu", "gpu"):
+        return (f"--backend {args.backend}: the port runs on a CUDA card "
+                "or the CPU (--backend gpu|cpu, or --device cuda|cpu)")
     for flag, (kw, item) in NOT_PORTED.items():
         dest = flag.lstrip("-").replace("-", "_")
         if getattr(args, dest) != parser.get_default(dest):
@@ -313,6 +361,15 @@ def main(argv=None) -> int:
     if refused:
         print(f"error: {refused}", file=sys.stderr)
         return 2
+    if args.rank is not None and args.rank != 0:
+        print("fed_tgan_torch runs every client in one process; rank "
+              f"{args.rank} has no separate process to start. Launch only "
+              "rank 0 (or omit -rank).")
+        return 0
+    if args.backend is not None:
+        args.device = {"cpu": "cpu", "gpu": "cuda"}[args.backend]
+    if args.n_clients is None and args.world_size:
+        args.n_clients = args.world_size - 1
 
     from fed_tgan_torch.data.csvio import read_csv
     from fed_tgan_torch.data.sharding import shard_table
@@ -408,6 +465,16 @@ def _resume(args, name, kwargs, ckpt_dir, device) -> int:
                   "pass --datapath/--client-data to evaluate a resumed run")
     if not args.quiet:
         print(f"resumed from {src} at round {trainer.completed_epochs}")
+    from fed_tgan_torch.testing.faults import active_plan
+
+    plan = active_plan()
+    if plan is not None and plan.has_churn():
+        # raw client shards are not checkpointed, so the elastic layer
+        # cannot rebuild its population view on a resumed run
+        print("error: join:/leave:/drift: faults cannot drive a resumed "
+              "run (raw client shards are not checkpointed); start a "
+              "fresh run with --faults instead", file=sys.stderr)
+        return 2
     return _run_training(args, name, kwargs, trainer, init, tables, ckpt_dir)
 
 
@@ -448,10 +515,25 @@ def _run_standalone(args, name, kwargs, tables, columns, cfg, device) -> int:
     return 0
 
 
+def draw_newcomer_rows(tables: list, count: int, shard_rows: int,
+                       random_state: int) -> list:
+    """``count`` newcomer tables drawn from the clients' raw ``tables``
+    (``fed_tgan_tpu/cli.py:990-1001``): ``pd.concat(frames).sample(n,
+    random_state=...)`` as pandas draws it, a ``RandomState`` choice
+    without replacement, then the drawn rows dealt out ``i::count``."""
+    pool = {c: np.concatenate([t[c] for t in tables]) for c in tables[0]}
+    n_pool = len(next(iter(pool.values())))
+    locs = np.random.RandomState(random_state).choice(
+        n_pool, size=min(count * shard_rows, n_pool), replace=False)
+    drawn = {c: v[locs] for c, v in pool.items()}
+    return [{c: v[i::count] for c, v in drawn.items()} for i in range(count)]
+
+
 def _run_federated(args, name, kwargs, tables, columns, cfg, device,
                    t_init, ckpt_dir) -> int:
     from fed_tgan_torch.data.ingest import TablePreprocessor
     from fed_tgan_torch.federation.init import federated_initialize
+    from fed_tgan_torch.testing.faults import active_plan
     from fed_tgan_torch.train.federated import FederatedTrainer
 
     clients = [TablePreprocessor(table=t, name=name, selected_columns=columns,
@@ -460,26 +542,56 @@ def _run_federated(args, name, kwargs, tables, columns, cfg, device,
         print(f"{len(clients)} clients, rows per shard: "
               f"{[c.n_rows for c in clients]}")
     init = federated_initialize(clients, seed=args.seed,
-                                weighted=not args.uniform, device=device)
+                                weighted=not args.uniform, device=device,
+                                similarity=args.similarity,
+                                cache=args.init_cache)
     trainer = FederatedTrainer(init, cfg, seed=args.seed,
                                min_clients=args.min_clients or 1,
                                quarantine_strikes=args.quarantine_strikes,
-                               device=device, decode=args.decode)
+                               device=device, decode=args.decode,
+                               capacity=args.elastic_capacity)
     if not args.quiet:
         phases = ", ".join(f"{k} {v:.3f}s" for k, v in
                            {**init.timings, **trainer.timings}.items())
         print(f"init done in {time.time() - t_init:.1f}s ({phases}); "
               f"aggregation weights: {np.round(init.weights, 4).tolist()}")
-    return _run_training(args, name, kwargs, trainer, init, tables, ckpt_dir)
+    elastic = newcomer_factory = None
+    plan = active_plan()
+    if plan is not None and plan.has_churn():
+        from fed_tgan_torch.federation.elastic import (
+            DriftConfig,
+            ElasticFederation,
+        )
+        from fed_tgan_torch.federation.streaming import OnboardingSession
+
+        elastic = ElasticFederation(
+            trainer, OnboardingSession(init, device=device), clients,
+            config=DriftConfig(detect_every=args.drift_every))
+        # newcomers are round-seeded draws from the input table, so a
+        # rerun draws the same ones
+        shard_rows = max(1, sum(c.n_rows for c in clients)
+                         // max(len(clients), 1))
+
+        def newcomer_factory(count, rnd):
+            return [TablePreprocessor(table=t, name=name,
+                                      selected_columns=columns, **kwargs)
+                    for t in draw_newcomer_rows(
+                        tables, count, shard_rows,
+                        args.seed * 100003 + rnd)]
+
+    return _run_training(args, name, kwargs, trainer, init, tables, ckpt_dir,
+                         elastic=elastic, newcomer_factory=newcomer_factory)
 
 
-def _run_training(args, name, kwargs, trainer, init, tables,
-                  ckpt_dir) -> int:
+def _run_training(args, name, kwargs, trainer, init, tables, ckpt_dir,
+                  elastic=None, newcomer_factory=None) -> int:
     """The rounds and what follows them (``fed_tgan_tpu/cli.py:1125-1402``):
     per round the hook runs snapshot -> monitor -> watchdog read ->
     checkpoint, so a round the watchdog rejects is never saved.
     ``tables`` (the training data) is None on a resumed run without
-    ``--eval``, which then runs no monitor and no evaluation."""
+    ``--eval``, which then runs no monitor and no evaluation.  With
+    ``elastic`` (a churn plan) the elastic federation runs the rounds and
+    the watchdog inside them."""
     from fed_tgan_torch.data.csvio import read_csv
     from fed_tgan_torch.runtime.checkpoint import save_federated
     from fed_tgan_torch.train.monitor import MonitorLog, SimilarityMonitor
@@ -549,7 +661,12 @@ def _run_training(args, name, kwargs, trainer, init, tables,
     fit_kwargs = dict(log_every=0 if args.quiet else max(1, remaining // 10),
                       sample_hook=hook if due else None, hook_epochs=due)
     with mon_log, snapshot:
-        if watchdog is not None:
+        if elastic is not None:
+            elastic.watchdog = watchdog
+            trainer = elastic.run(remaining, fit_kwargs=fit_kwargs,
+                                  ckpt_dir=ckpt_dir,
+                                  newcomer_factory=newcomer_factory)
+        elif watchdog is not None:
             trainer = fit_with_watchdog(trainer, remaining, watchdog,
                                         ckpt_dir, fit_kwargs=fit_kwargs)
         else:

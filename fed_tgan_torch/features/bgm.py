@@ -17,6 +17,13 @@ on the device, as the JAX package's ``bgm_jax`` does:
 - stick-breaking expected weights; a mode is active when its weight
   exceeds 0.005.
 
+Columns are fitted in shape buckets as ``bgm_jax._fit_flat`` does (rows
+and batch padded to powers of two, a cap on one dispatch's elements), and
+every sum runs in a fixed order, so a column's fit is bit for bit the same
+whatever it is batched with: the init cache (:mod:`fed_tgan_torch.
+federation.init_cache`) relies on that.  :func:`fit_shards` fits a whole
+cohort's ragged client x column structure at once.
+
 One deviation from the JAX package: a column shorter than ``n_components``
 is fitted with ``n_components = len(column)`` by the same batched fit,
 where the JAX package hands it to sklearn.
@@ -39,6 +46,12 @@ WEIGHT_CONCENTRATION_PRIOR = 0.001
 N_KMEANS_ITERS = 20
 MAX_ITER = 100
 REG_COVAR = 1e-6
+# shape buckets of the batched fit (``bgm_jax.py:41-47``): rows pad to a
+# power of two, the batch to a power of two, and one dispatch holds at
+# most this many (batch x rows) float32 elements
+_ROWS_FLOOR = 64
+_BATCH_FLOOR = 8
+_MAX_BATCH_ELEMENTS = 1 << 25
 
 
 def _digamma(a: np.ndarray) -> np.ndarray:
@@ -99,20 +112,76 @@ class ColumnGMM:
                           p=self.weights / self.weights.sum())
         return rng.normal(self.means[comp], self.stds[comp])
 
+    def to_dict(self) -> dict:
+        """JSON-able lists, the JAX package's ``ColumnGMM.to_dict``
+        layout."""
+        return {name: np.asarray(getattr(self, name)).tolist()
+                for name in _FIELDS}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ColumnGMM":
+        return cls(**{name: np.asarray(d[name], dtype=bool if name ==
+                                       "active" else np.float64)
+                      for name in _FIELDS})
+
+
+_FIELDS = ("means", "stds", "weights", "active", "mean_precision", "dof",
+           "stick_a", "stick_b")
+
+
+def _pow2_at_least(n: int, floor: int) -> int:
+    p = floor
+    while p < n:
+        p <<= 1
+    return p
+
+
+def _row_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 1 of ``t`` (C, N, ...), N a power of two, as a fixed
+    pairwise tree of elementwise adds: each column's bits depend on its
+    own entries only, whatever the batch around it (a library reduction
+    may pick another strategy, and another order, when C changes)."""
+    n = t.shape[1]
+    if n & (n - 1):
+        raise ValueError(f"row axis {n} is not a power of two")
+    while n > 1:
+        n //= 2
+        t = t[:, :n] + t[:, n:2 * n]
+    return t[:, 0]
+
+
+def _k_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last (components) axis, left to right."""
+    acc = t[..., 0]
+    for k in range(1, t.shape[-1]):
+        acc = acc + t[..., k]
+    return acc
+
+
+def _k_scan(t: torch.Tensor, op) -> torch.Tensor:
+    """Inclusive scan over the last axis with ``op``, left to right."""
+    out = [t[..., 0]]
+    for k in range(1, t.shape[-1]):
+        out.append(op(out[-1], t[..., k]))
+    return torch.stack(out, dim=-1)
+
 
 def _fit_batch(x: torch.Tensor, mask: torch.Tensor, n_components: int,
                max_iter: int, reg_covar: float, wc_prior: float):
     """Variational DP-GMM of every row of ``x`` (C, N) float32, where
-    ``mask`` (C, N) marks the valid entries (``bgm_jax._fit_batch``).
+    ``mask`` (C, N) marks the valid entries and N is a power of two
+    (``bgm_jax._fit_batch``).  Every sum runs in a fixed order
+    (:func:`_row_sum`, :func:`_k_sum`, :func:`_k_scan`), so a column's fit
+    is bit for bit the same alone and among any batch of its row bucket.
     Returns (means, stds, weights, mean_precision, dof, stick_a, stick_b),
     each (C, n_components)."""
     K, (C, N) = n_components, x.shape
     dev, f32 = x.device, torch.float32
     ks = torch.arange(K, device=dev)
-    n_valid = mask.sum(1).clamp_min(1.0)
-    mean0 = (x * mask).sum(1) / n_valid
+    n_valid = _row_sum(mask).clamp_min(1.0)
+    mean0 = _row_sum(x * mask) / n_valid
     # sklearn's default covariance prior is the (ddof=1) sample variance
-    var0 = (((x - mean0[:, None]) ** 2 * mask).sum(1)
+    var0 = (_row_sum((x - mean0[:, None]) ** 2 * mask)
             / (n_valid - 1.0).clamp_min(1.0)).clamp_min(reg_covar)
     xk3, mask3 = x[:, :, None], mask[:, :, None]
 
@@ -129,8 +198,8 @@ def _fit_batch(x: torch.Tensor, mask: torch.Tensor, n_components: int,
 
     for _ in range(N_KMEANS_ITERS):
         onehot = nearest_onehot(centers)
-        cnt = onehot.sum(1)
-        new = (onehot * xk3).sum(1) / cnt.clamp_min(1e-12)
+        cnt = _row_sum(onehot)
+        new = _row_sum(onehot * xk3) / cnt.clamp_min(1e-12)
         centers = torch.where(cnt > 0, new, centers)
     resp = nearest_onehot(centers)
 
@@ -138,11 +207,12 @@ def _fit_batch(x: torch.Tensor, mask: torch.Tensor, n_components: int,
     zero_col = torch.zeros((C, 1), device=dev)
 
     def m_step(resp):
-        nk = resp.sum(1) + tiny
-        xk = (resp * xk3).sum(1) / nk
-        sk = (resp * (xk3 - xk[:, None, :]) ** 2).sum(1) / nk + reg_covar
+        nk = _row_sum(resp) + tiny
+        xk = _row_sum(resp * xk3) / nk
+        sk = _row_sum(resp * (xk3 - xk[:, None, :]) ** 2) / nk + reg_covar
         a = 1.0 + nk  # stick-breaking Beta posteriors
-        rev = nk.flip(1).cumsum(1).flip(1)  # rev[k] = sum_{j >= k} n_j
+        # rev[k] = sum_{j >= k} n_j
+        rev = _k_scan(nk.flip(1), torch.add).flip(1)
         b = wc_prior + torch.cat([rev[:, 1:], zero_col], dim=1)
         mean_prec = 1.0 + nk  # mean_precision_prior 1
         means = (mean0[:, None] + nk * xk) / mean_prec
@@ -161,19 +231,23 @@ def _fit_batch(x: torch.Tensor, mask: torch.Tensor, n_components: int,
         log_prob = log_gauss + 0.5 * (log_lambda - 1.0 / mean_prec)[:, None, :]
         dsum = torch.special.digamma(a + b)
         log_w = torch.special.digamma(a) - dsum + torch.cat(
-            [zero_col, torch.cumsum(torch.special.digamma(b) - dsum, 1)[:, :-1]],
+            [zero_col,
+             _k_scan(torch.special.digamma(b) - dsum, torch.add)[:, :-1]],
             dim=1)
         wlp = log_prob + log_w[:, None, :]
-        return torch.exp(wlp - torch.logsumexp(wlp, 2, keepdim=True)) * mask3
+        # logsumexp over the components: max, then a fixed-order sum
+        top = wlp.amax(dim=2, keepdim=True)
+        lse = top + torch.log(_k_sum(torch.exp(wlp - top)))[:, :, None]
+        return torch.exp(wlp - lse) * mask3
 
     for _ in range(max_iter):
         resp = e_step(*m_step(resp))
     a, b, mean_prec, means, dof, cov = m_step(resp)
 
     sticks = torch.cat([torch.ones((C, 1), device=dev),
-                        torch.cumprod(b / (a + b), 1)[:, :-1]], dim=1)
+                        _k_scan(b / (a + b), torch.mul)[:, :-1]], dim=1)
     weights = a / (a + b) * sticks
-    weights = weights / weights.sum(1, keepdim=True)
+    weights = weights / _k_sum(weights)[:, None]
     return means, torch.sqrt(cov), weights, mean_prec, dof, a, b
 
 
@@ -182,32 +256,62 @@ def fit_columns(columns: Sequence[np.ndarray], n_components: int = N_CLUSTERS,
                 reg_covar: float = REG_COVAR,
                 wc_prior: float = WEIGHT_CONCENTRATION_PRIOR,
                 device="cuda") -> list[ColumnGMM]:
-    """Fit one mixture per 1-D column on ``device``: one masked batch per
-    component count (columns shorter than ``n_components`` use their
-    length)."""
+    """Fit one mixture per 1-D column on ``device``, in shape-bucketed
+    batches (``bgm_jax._fit_flat``): rows pad to the next power of two
+    (floor 64), a batch pads to a power of two (floor 8) with fully
+    masked columns, and one dispatch holds at most ``1 << 25`` (batch x
+    rows) elements.  A column's fit does not depend on the columns it is
+    batched with (:func:`_fit_batch`).  A column shorter than
+    ``n_components`` is fitted with one component per row."""
     device = resolve_device(device)
     cols = [np.asarray(c, dtype=np.float32).reshape(-1) for c in columns]
-    groups: dict[int, list[int]] = {}
+    buckets: dict[tuple, list[int]] = {}
     for i, c in enumerate(cols):
-        groups.setdefault(max(1, min(n_components, len(c))), []).append(i)
+        k = max(1, min(n_components, len(c)))
+        buckets.setdefault((k, _pow2_at_least(len(c), _ROWS_FLOOR)),
+                           []).append(i)
     out: list = [None] * len(cols)
-    for k, idxs in groups.items():
-        n = max(len(cols[i]) for i in idxs)
-        xs = np.zeros((len(idxs), n), dtype=np.float32)
-        masks = np.zeros((len(idxs), n), dtype=np.float32)
-        for row, i in enumerate(idxs):
-            xs[row, :len(cols[i])] = cols[i]
-            masks[row, :len(cols[i])] = 1.0
-        fitted = _fit_batch(torch.as_tensor(xs, device=device),
-                            torch.as_tensor(masks, device=device), k,
-                            max_iter, reg_covar, wc_prior)
-        # one copy to the host for all seven results
-        means, stds, weights, mean_prec, dof, a, b = torch.stack(
-            fitted).cpu().double().numpy()
-        for row, i in enumerate(idxs):
-            out[i] = ColumnGMM(
-                means=means[row], stds=np.maximum(stds[row], 1e-9),
-                weights=weights[row], active=weights[row] > eps,
-                mean_precision=mean_prec[row], dof=dof[row],
-                stick_a=a[row], stick_b=b[row])
+    for (k, rows), idxs in sorted(buckets.items()):
+        max_chunk = max(_BATCH_FLOOR, _MAX_BATCH_ELEMENTS // rows)
+        for lo in range(0, len(idxs), max_chunk):
+            chunk = idxs[lo:lo + max_chunk]
+            padded = min(_pow2_at_least(len(chunk), _BATCH_FLOOR), max_chunk)
+            xs = np.zeros((padded, rows), dtype=np.float32)
+            masks = np.zeros((padded, rows), dtype=np.float32)
+            for row, i in enumerate(chunk):
+                xs[row, :len(cols[i])] = cols[i]
+                masks[row, :len(cols[i])] = 1.0
+            fitted = _fit_batch(torch.as_tensor(xs, device=device),
+                                torch.as_tensor(masks, device=device), k,
+                                max_iter, reg_covar, wc_prior)
+            # one copy to the host for all seven results
+            means, stds, weights, mean_prec, dof, a, b = torch.stack(
+                fitted).cpu().double().numpy()
+            for row, i in enumerate(chunk):
+                out[i] = ColumnGMM(
+                    means=means[row], stds=np.maximum(stds[row], 1e-9),
+                    weights=weights[row], active=weights[row] > eps,
+                    mean_precision=mean_prec[row], dof=dof[row],
+                    stick_a=a[row], stick_b=b[row])
     return out
+
+
+def fit_shards(shard_columns: Sequence[Sequence[np.ndarray]],
+               n_components: int = N_CLUSTERS, eps: float = WEIGHT_EPS,
+               max_iter: int = MAX_ITER, reg_covar: float = REG_COVAR,
+               wc_prior: float = WEIGHT_CONCENTRATION_PRIOR,
+               device="cuda") -> list[list[ColumnGMM]]:
+    """Every continuous column of every client shard in one bucketed
+    :func:`fit_columns` (``bgm_jax.fit_shards_jax``): ``shard_columns[i]``
+    is client i's list of 1-D columns, and the result has the same ragged
+    structure."""
+    flat: list[np.ndarray] = []
+    offsets = [0]
+    for shard in shard_columns:
+        flat.extend(np.asarray(c, dtype=np.float32).reshape(-1)
+                    for c in shard)
+        offsets.append(len(flat))
+    fitted = fit_columns(flat, n_components, eps, max_iter, reg_covar,
+                         wc_prior, device=device) if flat else []
+    return [fitted[offsets[i]:offsets[i + 1]]
+            for i in range(len(shard_columns))]

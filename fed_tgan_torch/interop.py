@@ -444,17 +444,18 @@ def convert_jax_checkpoint(src_dir: str, dst_dir: str) -> str:
     over: the JAX key chain.  A threefry key has no torch counterpart, so
     each client's ``torch.Generator`` starts from ``step_seed(seed,
     client)`` as in a fresh port trainer, and the resumed run draws other
-    numbers than the JAX run would have.  EMA and elastic checkpoints are
-    refused (not ported)."""
+    numbers than the JAX run would have.  An elastic checkpoint keeps its
+    ``capacity`` (every slot's models and Adam state, padded ones
+    included).  EMA checkpoints are refused (not ported)."""
     from fed_tgan_torch.runtime.checkpoint import save_federated
     from fed_tgan_torch.train.federated import FederatedTrainer
 
     host = _unpickle(os.path.join(src_dir, "host.pkl"))
     if host.get("kind") != "federated":
         raise ValueError(f"{src_dir} is not a JAX federated checkpoint")
-    if host.get("ema") or host.get("capacity"):
-        raise NotImplementedError("EMA (ROADMAP A.17) and elastic (A.16) "
-                                  "checkpoints are not ported yet")
+    if host.get("ema"):
+        raise NotImplementedError("EMA checkpoints (ROADMAP A.17) are not "
+                                  "ported yet")
     cfg = config_from_dict(_state(host["cfg"]))
     init = federated_init_from_jax(_namespace(host["init"]))
     spec = SegmentSpec.from_output_info(init.output_info)
@@ -465,7 +466,8 @@ def convert_jax_checkpoint(src_dir: str, dst_dir: str) -> str:
             len(cfg.dis_dims), cfg.lr_schedule != "constant")
     trainer = FederatedTrainer(
         init, cfg, seed=host["seed"], device="cpu",
-        models=client_models_from_jax(bundle, spec, cfg, "cpu"))
+        models=client_models_from_jax(bundle, spec, cfg, "cpu"),
+        capacity=int(host.get("capacity") or 0))
     _load_adam(trainer.stack, bundle, cfg)
     trainer.weights = np.asarray(host["weights"], dtype=np.float32)
     trainer._strikes = np.asarray(host["strikes"], dtype=np.int64)

@@ -21,12 +21,15 @@ Federated training checkpoints (:func:`save_federated` /
 
 - ``host.json``: format version, the ``TrainConfig``, seed, round counter,
   round times, weights, quarantine strikes, dropped clients, ``run_name``,
-  the trainer's options, and the ``FederatedInit``'s meta, encoders and
-  column layout;
+  the trainer's options (the elastic ``capacity`` among them, as JAX
+  keeps it: a resumed elastic run rebuilds the same padded stacks), and
+  the ``FederatedInit``'s meta, encoders, column layout and onboarding
+  indices;
 - ``arrays.npz``: the ``FederatedInit``'s arrays (client matrices,
-  mixtures, scores) and per client its generator and discriminator
-  ``state_dict`` (BatchNorm running statistics included), both Adam
-  states, and the state of its ``torch.Generator``.
+  mixtures, scores, the onboarding references) and per slot (every
+  client, then an elastic trainer's padded slots) its generator and
+  discriminator ``state_dict`` (BatchNorm running statistics included),
+  both Adam states, and the state of its ``torch.Generator``.
 
 A loaded trainer continues bit for bit where the saved one stood, in the
 checkpoint's precision (its ``TrainConfig`` wins over the caller's, as in
@@ -342,6 +345,15 @@ def _init_parts(init) -> tuple[dict, dict]:
     for name in ("weights", "jsd", "wd", "jsd_raw", "wd_raw"):
         if getattr(init, name) is not None:
             arrays[f"init.{name}"] = np.asarray(getattr(init, name))
+    ob = init.onboarding
+    if ob is not None:
+        host["onboarding"] = {k: ob[k] for k in ("cont_idx", "cat_idx",
+                                                 "params")}
+        host["onboarding"]["n_cat_counts"] = len(ob["cat_counts"])
+        for k in ("mix_means", "mix_stds", "mix_weights"):
+            arrays[f"init.ob.{k}"] = np.asarray(ob[k])
+        for c, vec in enumerate(ob["cat_counts"]):
+            arrays[f"init.ob.cat_counts{c}"] = np.asarray(vec)
     for i, tf in enumerate(init.transformers):
         for j, (col, gmm) in enumerate(zip(tf.columns, tf.gmms)):
             key = f"init.tf_{i:03d}.col_{j:05d}"
@@ -377,6 +389,17 @@ def _init_from(host: dict, data):
         tf._finalize()
         transformers.append(tf)
     opt = lambda k: data[k] if k in data.files else None
+    onboarding = None
+    if "onboarding" in host:
+        ob = host["onboarding"]
+        onboarding = {
+            "jsd_raw": data["init.jsd_raw"], "wd_raw": data["init.wd_raw"],
+            "cat_counts": [data[f"init.ob.cat_counts{c}"]
+                           for c in range(ob["n_cat_counts"])],
+            **{k: data[f"init.ob.{k}"]
+               for k in ("mix_means", "mix_stds", "mix_weights")},
+            "cont_idx": list(ob["cont_idx"]), "cat_idx": list(ob["cat_idx"]),
+            "params": dict(ob["params"])}
     return FederatedInit(
         global_meta=TableMeta.from_json_dict(host["global_meta"]),
         encoders=[CategoryEncoder.from_dict(e) for e in host["encoders"]],
@@ -386,7 +409,7 @@ def _init_from(host: dict, data):
         weights=data["init.weights"], jsd=data["init.jsd"],
         wd=data["init.wd"], rows_per_client=list(host["rows_per_client"]),
         jsd_raw=opt("init.jsd_raw"), wd_raw=opt("init.wd_raw"),
-        timings=dict(host["timings"]))
+        timings=dict(host["timings"]), onboarding=onboarding)
 
 
 def save_federated(trainer, path: str, run_name: str | None = None,
@@ -406,7 +429,7 @@ def save_federated(trainer, path: str, run_name: str | None = None,
                                   ("opt_d", stack.opt_d,
                                    stack.discriminator))]
     clients = []
-    for i in range(trainer.n_clients):
+    for i in range(stack.n):  # every slot: the clients, then the padding
         pre = f"client_{i:03d}"
         for part, states in parts:
             for k, v in states[i].items():
@@ -433,6 +456,7 @@ def save_federated(trainer, path: str, run_name: str | None = None,
         "kind": "federated_torch",
         "cfg": config_to_dict(trainer.cfg),
         "seed": trainer.seed,
+        "capacity": trainer.capacity if trainer.elastic else 0,
         "min_clients": trainer.min_clients,
         "quarantine_strikes": trainer.quarantine_strikes,
         "decode": trainer.decode.mode,
@@ -495,7 +519,7 @@ def load_federated(path: str, device="cuda"):
             _init_from(host["init"], data), config_from_dict(host["cfg"]),
             seed=host["seed"], min_clients=host["min_clients"],
             quarantine_strikes=host["quarantine_strikes"], device=device,
-            decode=host["decode"])
+            decode=host["decode"], capacity=host.get("capacity", 0))
         done = host["completed_epochs"]
         stack = trainer.stack
         for part, module in (("generator", stack.generator),
@@ -503,7 +527,7 @@ def load_federated(path: str, device="cuda"):
             names = list(module.client_state(0))
             module.load_state_dicts([
                 {k: data[f"client_{i:03d}.{part}.{k}"] for k in names}
-                for i in range(trainer.n_clients)])
+                for i in range(stack.n)])
         for part, opt, module in (("opt_g", stack.opt_g, stack.generator),
                                   ("opt_d", stack.opt_d,
                                    stack.discriminator)):

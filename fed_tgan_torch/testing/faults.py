@@ -4,7 +4,7 @@
 A :class:`FaultPlan` parses the JAX package's spec grammar: ``;``-separated
 faults, ``,``-separated ``key=value`` arguments, every kind of
 :attr:`FaultPlan.VALID_KINDS`.  An unknown kind fails fast.  The port acts
-on six kinds:
+on ten kinds:
 
 - ``kill_client:rank=R,round=E`` — client ``R`` (1-based) is dropped at
   the start of round ``E`` (1-based), once;
@@ -20,13 +20,26 @@ on six kinds:
   factor positionally) — the ``N``-th published sampling artifact
   (``save_synthesizer``) has the generator's first linear weight scaled by
   ``F`` in place after the publish (:func:`degrade_checkpoint`): loadable,
-  with a new fingerprint, and only the canary's scoring can tell.
+  with a new fingerprint, and only the canary's scoring can tell;
+- ``corrupt_cache:nth=N`` — the ``N``-th init-cache entry stored in this
+  process (default the first) is truncated after its atomic publish; the
+  digest check must catch it on the next read and force a refit;
+- ``join:round=E[,count=N]`` — ``N`` (default 1) newcomers join at the
+  start of round ``E`` (1-based), through the elastic federation
+  (:mod:`fed_tgan_torch.federation.elastic`);
+- ``leave:client=C,round=E`` — client ``C`` (0-based) departs at the start
+  of round ``E``; the survivors' weights renormalize;
+- ``drift:client=C,round=E[,shift=S]`` — client ``C``'s shard is silently
+  swapped for :func:`drift_frame` of it (continuous columns moved by ``S``
+  standard deviations, categorical mass rotated) at the start of round
+  ``E``; only the drift detector's windows can catch it.
 
-The other kinds parse, but a plan holding one is refused by
-:func:`install_plan` and :func:`active_plan` (:func:`require_ported`), so
-none parses and then quietly does nothing: the transport faults wait for
-ROADMAP A.18, the cache and churn faults for A.16 and stragglers for
-A.17.
+The churn kinds are host events between rounds: :meth:`FaultPlan.
+churn_events` lists a round's, :meth:`FaultPlan.next_churn_round` the next
+round that has one.  The other kinds parse, but a plan holding one is
+refused by :func:`install_plan` and :func:`active_plan`
+(:func:`require_ported`), so none parses and then quietly does nothing:
+the transport faults wait for ROADMAP A.18 and stragglers for A.17.
 
 Plans come from the ``--faults`` CLI flag or the
 ``FED_TGAN_TORCH_FAULTS`` environment variable.  The trainer and the
@@ -50,9 +63,7 @@ ENV_VAR = "FED_TGAN_TORCH_FAULTS"
 
 # kind -> the ROADMAP item the port waits for before it can act on it
 NOT_PORTED_KINDS = {
-    "delay_msg": "A.18", "sever_conn": "A.18",
-    "corrupt_cache": "A.16", "join": "A.16", "leave": "A.16",
-    "drift": "A.16", "straggle": "A.17",
+    "delay_msg": "A.18", "sever_conn": "A.18", "straggle": "A.17",
 }
 
 
@@ -95,6 +106,7 @@ class FaultPlan:
     def __post_init__(self) -> None:
         self._lock = threading.Lock()
         self._save_calls = 0
+        self._cache_stores = 0
         self._snapshot_saves = 0
         self._killed = False
         self.kinds: list[str] = []  # the kinds of the parsed spec, in order
@@ -147,6 +159,45 @@ class FaultPlan:
                         self.crash_save, path)
             raise FaultInjected(f"checkpoint save crashed mid-write: {path}")
 
+    def on_cache_store(self, path: str) -> bool:
+        """Called after an init-cache payload is published; truncates the
+        ``corrupt_cache_nth`` stored file in place to half its size (the
+        store itself reports success).  Returns whether the fault
+        fired."""
+        if self.corrupt_cache_nth <= 0:
+            return False
+        with self._lock:
+            self._cache_stores += 1
+            fire = self._cache_stores == self.corrupt_cache_nth
+        if not fire:
+            return False
+        log.warning("FAULT: corrupting init-cache store #%d (%s)",
+                    self.corrupt_cache_nth, path)
+        size = os.path.getsize(path)
+        with open(path, "r+b") as f:
+            f.truncate(max(1, size // 2))
+        return True
+
+    def has_churn(self) -> bool:
+        return bool(self.joins or self.leaves or self.drifts)
+
+    def churn_events(self, e0: int) -> list:
+        """The membership events due at the start of 0-based round
+        ``e0``: ``("join", count)``, ``("leave", client)`` and ``("drift",
+        client, shift)``, joins first, then leaves, then drifts."""
+        due: list = []
+        due += [("join", n) for r, n in self.joins if r - 1 == e0]
+        due += [("leave", c) for r, c in self.leaves if r - 1 == e0]
+        due += [("drift", c, s) for r, c, s in self.drifts if r - 1 == e0]
+        return due
+
+    def next_churn_round(self, e0: int) -> Optional[int]:
+        """The smallest 0-based round ``>= e0`` with a churn event, or
+        None."""
+        rounds = [r - 1 for r, *_ in (*self.joins, *self.leaves,
+                                      *self.drifts) if r - 1 >= e0]
+        return min(rounds) if rounds else None
+
     def on_snapshot_publish(self, path: str) -> bool:
         """Called after ``save_synthesizer`` publishes ``path``; degrades
         the ``degrade_nth`` published artifact in place (the save still
@@ -162,6 +213,67 @@ class FaultPlan:
                     self.degrade_nth, self.degrade_factor, path)
         degrade_checkpoint(path, self.degrade_factor)
         return True
+
+
+def _pandas_std(values: np.ndarray) -> float:
+    """``Series.std()`` (ddof 1, NaN skipped) by pandas' two-pass
+    formula, so the value's bits are pandas'."""
+    v = values.astype(np.float64)
+    mask = np.isnan(v)
+    count = float(len(v) - mask.sum())
+    d = count - 1.0
+    if d <= 0:
+        return float("nan")
+    vals = np.where(mask, 0.0, v)
+    avg = vals.sum(dtype=np.float64) / count
+    sqr = (avg - vals) ** 2
+    sqr[mask] = 0.0
+    return float(np.sqrt(sqr.sum(dtype=np.float64) / d))
+
+
+def _str_cells(values: np.ndarray) -> np.ndarray:
+    """``Series.astype(str)`` of a raw column: a missing cell is
+    ``"nan"``, as pandas writes it."""
+    from fed_tgan_torch.data.csvio import cell_strings
+
+    return np.array(["nan" if v is None else v
+                     for v in cell_strings(values).tolist()], dtype=object)
+
+
+def drift_frame(table: dict, shift: float, seed: int) -> dict:
+    """A shard ``{column: values}`` drifted deterministically, schema
+    kept (``fed_tgan_tpu/testing/faults.py:388-420``, with the same numpy
+    calls, so the result equals JAX's on the same shard): a numeric column
+    with more than 2 distinct values moves by ``shift`` standard
+    deviations (1 when the std is 0), cast back to its dtype; any other
+    column keeps its vocabulary, and each row flips to the next value of
+    its sorted string vocabulary with probability ``min(0.8, 0.35 *
+    |shift|)``, one ``default_rng(seed)`` draw a row per such column in
+    column order."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, col in table.items():
+        col = np.asarray(col)
+        present = col[~np.isnan(col)] if col.dtype.kind == "f" else col
+        if col.dtype.kind in "iuf" and len(np.unique(present)) > 2:
+            std = _pandas_std(col)
+            out[name] = (col + shift * (std if std > 0 else 1.0)
+                         ).astype(col.dtype)
+            continue
+        cells = _str_cells(col)
+        vals = sorted(set(cells.tolist()))
+        nxt = {v: vals[(i + 1) % len(vals)] for i, v in enumerate(vals)}
+        flip = rng.random(len(col)) < min(0.8, 0.35 * abs(shift))
+        drifted = cells.copy()
+        if flip.any():
+            drifted[flip] = [nxt[v] for v in drifted[flip].tolist()]
+        if col.dtype.kind == "O":
+            out[name] = drifted
+        elif col.dtype.kind == "U":
+            out[name] = np.asarray(drifted.tolist())
+        else:  # as pandas' astype from strings: bool by truthiness
+            out[name] = drifted.astype(col.dtype)
+    return out
 
 
 def degrade_checkpoint(path: str, factor: float) -> str:
@@ -217,8 +329,9 @@ def _apply(plan: FaultPlan, name: str, args: dict, spec: str) -> None:
         plan.degrade_factor = float(args["factor"])
         plan.degrade_nth = int(args.get("nth", 1))
     elif name == "join":
-        _need(spec, name, args, ("round",), "join:round=5 or "
-              "join:round=5,count=2")
+        if "round" not in args:  # JAX's wording: an unscheduled join
+            raise ValueError(f"join needs a round in spec {spec!r} "
+                             "(join:round=5 or join:round=5,count=2)")
         plan.joins.append((int(args["round"]),
                            max(1, int(args.get("count", 1)))))
     elif name == "leave":

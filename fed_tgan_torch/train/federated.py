@@ -46,9 +46,21 @@ float32 previous weights (``weighted_delta_average``, or the robust
 aggregators' ``payload_dtype``), which needs weights summing to 1 (checked
 at construction, as ``fed_tgan_tpu/train/federated.py:706-716``).
 
+Elastic membership (``capacity=N``, ``fed_tgan_tpu/train/federated.py:
+614-657, 898-1120``): the stacks hold ``N`` slots, the clients first and
+then padded slots with zero weight and zero steps, whose sampler tables
+are client 0's over zero data rows and whose models hold the global
+parameters (every aggregate is written into every slot) with untouched
+Adam state.  A padded slot is computed in every stacked step (static
+shapes) and changes nothing.  The stacked data's per-slot stride is the
+power of two at or above the longest shard.  :meth:`admit_clients` lands
+newcomers in padded slots and grows the capacity to the next power of two
+on overflow, the new slots copies of slot 0 as JAX's are;
+:meth:`update_client_shard` swaps one client's rows (drift).
+
 Not ported yet, each rejected with the ROADMAP item it waits for: cohort
-sampling, buffered aggregation and EMA (A.17); elastic capacity and
-several rounds per program are CLI-level and refused there.
+sampling, buffered aggregation and EMA (A.17); several rounds per program
+is CLI-level and refused there.
 """
 
 from __future__ import annotations
@@ -116,16 +128,25 @@ def require_federated(cfg: TrainConfig) -> None:
     require_trainable(cfg)
 
 
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
 def build_client_stacks(init: FederatedInit, cfg: TrainConfig,
-                        spec: SegmentSpec, device) -> tuple:
+                        spec: SegmentSpec, device, slots: int = 0,
+                        stride: int = 0) -> tuple:
     """Per-client tables stacked on the clients axis
     (``fed_tgan_tpu/train/federated.py:102-135``): ``(cond, rows, data,
-    steps, server_cond)``.  ``data`` is (N * max_rows, dim), each shard
-    padded to ``max_rows``; ``steps`` (N,) is the reference's
-    ``len(train) // batch_size`` per client (distributed.py:304).  A
-    shard smaller than one batch trains 0 steps, which the reference
-    silently allows: here that needs ``cfg.allow_zero_step_clients``."""
+    steps, server_cond)``.  ``data`` is (slots * stride, dim), each shard
+    padded to ``stride`` (default its longest shard); ``steps`` (slots,)
+    is the reference's ``len(train) // batch_size`` per client
+    (distributed.py:304).  Slots past the clients (``slots`` > N) train
+    0 steps over zero rows with client 0's sampler tables
+    (``_pad_population``, ``:898-933``).  A shard smaller than one batch
+    trains 0 steps, which the reference silently allows: here that needs
+    ``cfg.allow_zero_step_clients``."""
     mats = [np.asarray(m, dtype=np.float32) for m in init.client_matrices]
+    pad = max(0, slots - len(mats))
     steps = np.asarray([len(m) // cfg.batch_size for m in mats],
                        dtype=np.int64)
     if (steps == 0).any() and not cfg.allow_zero_step_clients:
@@ -135,14 +156,15 @@ def build_client_stacks(init: FederatedInit, cfg: TrainConfig,
             "rows (reference behavior: they would train 0 steps); rebalance "
             "shards, shrink the batch, or opt in with "
             "TrainConfig(allow_zero_step_clients=True)")
-    stride = max(1, max(len(m) for m in mats))
-    data = np.zeros((len(mats) * stride, spec.dim), dtype=np.float32)
+    stride = max(stride, 1, max(len(m) for m in mats))
+    data = np.zeros(((len(mats) + pad) * stride, spec.dim), dtype=np.float32)
     for i, m in enumerate(mats):
         data[i * stride:i * stride + len(m)] = m
-    cond = StackedCondSampler.stack([CondSampler.from_data(m, spec, device)
-                                     for m in mats])
-    rows = StackedRowSampler.stack([RowSampler.from_data(m, spec, device)
-                                    for m in mats], stride)
+    conds = [CondSampler.from_data(m, spec, device) for m in mats]
+    rows = [RowSampler.from_data(m, spec, device) for m in mats]
+    cond = StackedCondSampler.stack(conds + conds[:1] * pad)
+    rows = StackedRowSampler.stack(rows + rows[:1] * pad, stride)
+    steps = np.concatenate([steps, np.zeros(pad, dtype=np.int64)])
     # generation draws from the pooled empirical frequencies (the
     # reference server rebuilds Cond on the full table)
     server_cond = CondSampler.from_data(np.concatenate(mats), spec, device)
@@ -154,15 +176,17 @@ class FederatedTrainer:
     """Federated training from a finished :class:`FederatedInit`, on
     ``device`` (the card unless the caller asks for the CPU).
 
-    ``models`` (tests) replaces the initial per-client models, which are
-    otherwise one ``init_models(spec, cfg, seed)`` copied to every client;
-    ``draws`` (tests) replaces every step's draws."""
+    ``capacity`` > 0 makes the trainer elastic (the module docstring):
+    that many slots, at least the population.  ``models`` (tests,
+    interop) replaces the initial models, one per client or per slot,
+    which are otherwise one ``init_models(spec, cfg, seed)`` copied to
+    every slot; ``draws`` (tests) replaces every step's draws."""
 
     def __init__(self, init: FederatedInit, config: Optional[TrainConfig] = None,
                  seed: int = 0, min_clients: int = 1,
                  quarantine_strikes: int = 3, device="cuda",
                  decode: str = "packed8", models: Optional[list] = None,
-                 draws: Optional[Draws] = None):
+                 draws: Optional[Draws] = None, capacity: int = 0):
         self.init = init
         self.cfg = config or TrainConfig()
         require_federated(self.cfg)
@@ -172,31 +196,38 @@ class FederatedTrainer:
         self.quarantine_strikes = quarantine_strikes
         self.draws = draws
         self.n_clients = len(init.client_matrices)
+        if capacity and capacity < self.n_clients:
+            raise ValueError(
+                f"capacity={capacity} below the resident population "
+                f"{self.n_clients}: elastic slots can only add headroom")
+        self.elastic = bool(capacity)
+        self.capacity = capacity or self.n_clients
         self.spec = SegmentSpec.from_output_info(init.output_info)
 
         t0 = time.perf_counter()
-        (self.conds, self.rows, self.data, self.steps,
-         self.server_cond) = build_client_stacks(init, self.cfg, self.spec,
-                                                 self.device)
+        longest = max(len(m) for m in init.client_matrices)
+        self._stride = _next_pow2(longest) if self.elastic else longest
+        self._pack(init)
         self.timings = {"shard_packing": time.perf_counter() - t0}
 
         if models is None:
             models = [init_models(self.spec, self.cfg, seed, self.device)
-                      ] * self.n_clients
-        if len(models) != self.n_clients:
+                      ] * self.capacity
+        if len(models) == self.n_clients < self.capacity:
+            models = list(models) + [models[0]] * (self.capacity
+                                                   - self.n_clients)
+        if len(models) != self.capacity:
             raise ValueError(f"{len(models)} models for {self.n_clients} "
-                             "clients")
+                             f"clients in {self.capacity} slots")
         self.stack = stack_models(models)
-        # one client's dropout masks; the step's draws, every client's slice
+        # one client's dropout masks; the step's draws, every slot's slice
         self._keep = [s[1:] for s in self.stack.discriminator.keep_shapes(
             self.cfg.batch_size)]
-        self._draws = stacked_draws(self.spec, self.cfg, self.n_clients,
-                                    self._keep, self.device)
-        self._client_draws = [client_draws(self._draws, i)
-                              for i in range(self.n_clients)]
-        self.gens = [torch.Generator(device=self.device).manual_seed(
-            step_seed(seed, i)) for i in range(self.n_clients)]
-        self.weights = np.asarray(init.weights, dtype=np.float32)
+        self.gens: list = []
+        self._slot_draws()
+        self.weights = np.concatenate([
+            np.asarray(init.weights, dtype=np.float32),
+            np.zeros(self.capacity - self.n_clients, dtype=np.float32)])
         if (self.cfg.precision == "bf16"
                 and not np.isclose(self.weights.sum(), 1.0, atol=1e-4)):
             # the bf16 delta path re-anchors on prev and assumes
@@ -205,7 +236,7 @@ class FederatedTrainer:
                 f"similarity weights sum to {self.weights.sum():.6f}, not 1: "
                 "the bf16 delta-encoded aggregation requires normalized "
                 "weights (renormalize init.weights first)")
-        self._strikes = np.zeros(self.n_clients, dtype=np.int64)
+        self._strikes = np.zeros(self.capacity, dtype=np.int64)
         self.dropped_clients: set[int] = set()
 
         self.columns = init.transformers[0].columns
@@ -218,6 +249,32 @@ class FederatedTrainer:
         self.last_metrics: Optional[np.ndarray] = None
         self.last_quarantined: Optional[np.ndarray] = None
         self.run_name: Optional[str] = None  # set by load_federated
+
+    def _pack(self, init: FederatedInit, server_cond: bool = True) -> None:
+        """Stack ``init``'s shards into the trainer's slots (dropped
+        clients at 0 steps); ``server_cond=False`` keeps the generation
+        sampler (a drifted shard does not change it, as in JAX)."""
+        cond, rows, data, steps, srv = build_client_stacks(
+            init, self.cfg, self.spec, self.device, self.capacity,
+            self._stride)
+        self.conds, self.rows, self.data = cond, rows, data
+        dropped = list(getattr(self, "dropped_clients", ()))
+        steps[dropped] = 0
+        self.steps = steps
+        if server_cond:
+            self.server_cond = srv
+            self._engine = None
+
+    def _slot_draws(self) -> None:
+        """The stacked draw buffers and a generator per slot (a new slot's
+        seeded as a fresh trainer's slot of that index)."""
+        self._draws = stacked_draws(self.spec, self.cfg, self.capacity,
+                                    self._keep, self.device)
+        self._client_draws = [client_draws(self._draws, i)
+                              for i in range(self.capacity)]
+        self.gens += [torch.Generator(device=self.device).manual_seed(
+            step_seed(self.seed, i))
+            for i in range(len(self.gens), self.capacity)]
 
     @property
     def models(self) -> list:
@@ -241,7 +298,7 @@ class FederatedTrainer:
         n_max = int(steps.max(initial=0))
         active = torch.as_tensor(np.arange(n_max)[:, None] < steps[None],
                                  device=self.device)
-        metrics = torch.zeros((self.n_clients, len(METRICS)),
+        metrics = torch.zeros((self.capacity, len(METRICS)),
                               device=self.device)
         for s in range(n_max):
             # each client draws on its own steps only, into its slice
@@ -281,7 +338,7 @@ class FederatedTrainer:
             agg = weighted_delta_average(prev, new, w, payload)
         else:
             agg = weighted_average(new, w)
-            quar = torch.zeros(self.n_clients, dtype=torch.bool,
+            quar = torch.zeros(self.capacity, dtype=torch.bool,
                                device=self.device)
         for x, a in zip(agg_leaves(self.stack), agg):
             x.copy_(a)
@@ -289,7 +346,7 @@ class FederatedTrainer:
 
     def run_round(self, e: int, update_fault=None):
         """One round: local steps, aggregation; returns ``(metrics
-        (n_clients, 3), quarantined (n_clients,) bool)`` on the host and
+        (capacity, 3), quarantined (capacity,) bool)`` on the host and
         records the local / aggregate split (the device synchronised
         between them)."""
         t0 = time.perf_counter()
@@ -304,7 +361,7 @@ class FederatedTrainer:
         t2 = time.perf_counter()
         self.round_split["local_steps"].append(t1 - t0)
         self.round_split["aggregate"].append(t2 - t1)
-        n = self.n_clients
+        n = self.capacity
         self.last_metrics = host[:n * len(METRICS)].reshape(n, len(METRICS))
         self.last_quarantined = host[n * len(METRICS):] > 0.5
         return self.last_metrics, self.last_quarantined
@@ -356,7 +413,7 @@ class FederatedTrainer:
         update fault applies in the rounds of its window.
 
         ``health_cb(round, metrics)`` gets ``loss_d``, ``pen`` and
-        ``loss_g`` as (1, n_clients) host arrays and ``quarantined``, after
+        ``loss_g`` as (1, capacity) host arrays and ``quarantined``, after
         the strikes and before the sample hook; an exception it raises
         ends the call with the round's state in place and the round not
         counted."""
@@ -430,18 +487,96 @@ class FederatedTrainer:
                     survivors)
 
     def update_weights(self, weights: np.ndarray) -> None:
-        """Install new similarity weights; dropped clients stay at 0 and
-        the survivors renormalize."""
+        """Install new similarity weights (one per client, or per slot);
+        dropped clients stay at 0 and the survivors renormalize."""
         w = np.asarray(weights, dtype=np.float32)
+        if w.shape[0] == self.n_clients < len(self.weights):
+            w = np.concatenate([w, np.zeros(len(self.weights)
+                                            - self.n_clients, np.float32)])
         if w.shape != self.weights.shape:
             raise ValueError(f"weights shape {w.shape} does not match the "
                              f"population {self.weights.shape}")
         self.weights = renormalize_weights(w, self._alive())
 
     def _alive(self) -> np.ndarray:
-        alive = np.ones(self.n_clients, dtype=bool)
+        """Per slot: not dropped (a padded slot is alive at weight 0)."""
+        alive = np.ones(len(self.weights), dtype=bool)
         alive[list(self.dropped_clients)] = False
         return alive
+
+    def admit_clients(self, new_init: FederatedInit,
+                      reason: str = "join") -> "FederatedTrainer":
+        """Admit newcomers between rounds (``fed_tgan_tpu/train/
+        federated.py:935-1046``).  ``new_init`` is the grown init from
+        ``OnboardingSession.register_clients``: the residents first, then
+        the newcomers.  Inside the capacity they land in padded slots,
+        which already hold the global parameters and untouched Adam
+        state; past it the capacity grows to the next power of two, the
+        new slots copies of slot 0 (``repacked``).  The stacks are
+        rebuilt from ``new_init`` (the row stride grows to the next power
+        of two when a shard needs it) and its weights installed, dropped
+        clients kept at 0.  Each newcomer is logged as a
+        ``client_joined`` event dict, kept in :attr:`last_admission`."""
+        if not self.elastic:
+            raise RuntimeError(
+                "admit_clients needs an elastic trainer: construct "
+                "FederatedTrainer(..., capacity=N) with headroom slots")
+        n_total = len(new_init.client_matrices)
+        if n_total <= self.n_clients:
+            raise ValueError(
+                f"new_init holds {n_total} shards, not more than the "
+                f"{self.n_clients} residents: nothing to admit")
+        t0 = time.perf_counter()
+        repacked = n_total > self.capacity
+        if repacked:
+            grow = _next_pow2(n_total) - self.capacity
+            self.stack = stack_models(
+                [self.stack.to_models(i) for i in range(self.capacity)]
+                + [self.stack.to_models(0)] * grow)
+            self.capacity += grow
+            self._strikes = np.concatenate(
+                [self._strikes, np.zeros(grow, dtype=np.int64)])
+            self._slot_draws()
+        longest = max(len(m) for m in new_init.client_matrices)
+        if longest > self._stride:
+            self._stride = _next_pow2(longest)
+            repacked = True
+        first_new = self.n_clients
+        self.init = new_init
+        self.n_clients = n_total
+        self._pack(new_init)
+        self.weights = np.zeros(self.capacity, dtype=np.float32)
+        self.update_weights(np.asarray(new_init.weights, dtype=np.float32))
+        self.timings["shard_packing"] = time.perf_counter() - t0
+        self.last_admission = [{
+            "type": "client_joined", "client": idx,
+            "round": self.completed_epochs, "population": n_total,
+            "capacity": self.capacity,
+            "weight": round(float(self.weights[idx]), 8),
+            "rows": int(len(new_init.client_matrices[idx])),
+            "repacked": repacked, "reason": reason}
+            for idx in range(first_new, n_total)]
+        for event in self.last_admission:
+            log.info("%s", event)
+        return self
+
+    def update_client_shard(self, idx: int, matrix: np.ndarray) -> None:
+        """Swap client ``idx``'s training rows between rounds (drift,
+        ``fed_tgan_tpu/train/federated.py:1048-1120``): its sampler
+        tables, data rows and step count follow the new shard; its model
+        slice and the generation sampler stay."""
+        if not 0 <= idx < self.n_clients:
+            raise IndexError(f"client index {idx} out of range")
+        matrix = np.asarray(matrix, dtype=np.float32)
+        if len(matrix) // self.cfg.batch_size == 0 \
+                and not self.cfg.allow_zero_step_clients:
+            raise ValueError(f"drifted shard for client {idx} holds fewer "
+                             f"than batch_size={self.cfg.batch_size} rows")
+        if len(matrix) > self._stride:
+            self._stride = (_next_pow2(len(matrix)) if self.elastic
+                            else len(matrix))
+        self.init.client_matrices[idx] = matrix
+        self._pack(self.init, server_cond=False)
 
     # ------------------------------------------------------------ sampling
 

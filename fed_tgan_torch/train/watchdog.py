@@ -15,8 +15,10 @@ monitor's Avg_JSD, and raises :class:`WatchdogAlarm` on
 newest valid checkpoint (the next-older one when the restored run alarms
 again within a round), multiplies the learning rate by ``lr_reanneal``
 and goes on, at most ``max_rollbacks`` times before it aborts with
-``RuntimeError``.  The drift hook (``observe_drift``) waits for the
-streaming federation (ROADMAP A.16); alarms and rollbacks are logged as
+``RuntimeError``.  :meth:`TrainingWatchdog.observe_drift` takes the
+elastic federation's drift windows and names the clients whose drift
+persisted ``drift_patience`` windows; it never raises (rolling the model
+back cannot undrift a shard).  Alarms and rollbacks are logged as
 warnings (metrics and the journal wait for A.20).
 """
 
@@ -42,6 +44,7 @@ class WatchdogConfig:
     similarity_patience: int = 3      # consecutive bad monitor reads
     max_rollbacks: int = 2            # rollbacks before a clean abort
     lr_reanneal: float = 0.5          # lr multiplier on each rollback
+    drift_patience: int = 2           # consecutive drifted windows/client
 
 
 class TrainingWatchdog:
@@ -52,11 +55,13 @@ class TrainingWatchdog:
         self.rollbacks = 0
         self._best_jsd: Optional[float] = None
         self._bad_streak = 0
+        self._drift_streaks: dict = {}
 
     def reset_window(self) -> None:
-        """Forget the in-flight streak (after a rollback); the rollback
+        """Forget the in-flight streaks (after a rollback); the rollback
         count bounds the whole run and stays."""
         self._bad_streak = 0
+        self._drift_streaks.clear()
 
     def health_cb(self, first_round: int, metrics: dict) -> None:
         """Inspect the host metric arrays of the rounds from
@@ -102,6 +107,22 @@ class TrainingWatchdog:
                     f"{self.cfg.similarity_factor}) at round {round_idx}")
         else:
             self._bad_streak = 0
+
+    def observe_drift(self, round_idx: int, drifted) -> list:
+        """One detection window's drifted clients; returns those drifted
+        ``drift_patience`` windows in a row (the caller charges them a
+        quarantine strike).  A window without a client clears its
+        streak.  Never raises."""
+        hit = {int(c) for c in drifted}
+        for c in list(self._drift_streaks):
+            if c not in hit:
+                del self._drift_streaks[c]
+        sustained = []
+        for c in sorted(hit):
+            self._drift_streaks[c] = self._drift_streaks.get(c, 0) + 1
+            if self._drift_streaks[c] >= self.cfg.drift_patience:
+                sustained.append(c)
+        return sustained
 
 
 def fit_with_watchdog(trainer, epochs: int, watchdog: TrainingWatchdog,

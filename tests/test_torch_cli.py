@@ -9,7 +9,11 @@ on the same raw Intrusion-shaped CSV (600 rows, 3 clients).
 - ``--monitor-every``/``--save-every`` then ``--resume``: the run goes on
   from its checkpoint and extends the monitor CSV;
 - the reference's drop-in flags ``-E_interval`` and ``-report`` are
-  accepted and ignored;
+  accepted and ignored, ``-date_dic``, ``-rank``, ``-world_size`` and
+  ``-port`` accepted with JAX's single-process meaning (``-rank 0
+  -world_size 3`` trains 2 clients with JAX's weights);
+- ``--similarity sketch --init-cache`` restores a warm init, and
+  ``--elastic-capacity`` runs join/leave/drift faults;
 - ``--precision bf16`` trains, checkpoints and resumes in bf16;
 - a flag of a feature not ported yet, or a fault kind the port does not
   act on, exits with code 2 and names its ROADMAP item.
@@ -17,6 +21,7 @@ on the same raw Intrusion-shaped CSV (600 rows, 3 clients).
 
 import csv
 import json
+import os
 import pickle
 import re
 
@@ -105,11 +110,12 @@ def test_standalone_cli_matches_jax(data, tmp_path, capsys):
 @pytest.mark.parametrize("flag,item", [
     (["--cohort", "2"], "A.17"), (["--rounds-per-program", "4"], "A.17"),
     (["--faults", "straggle:rank=1,delay=2"], "A.17"),
-    (["--elastic-capacity", "8"], "A.16"),
     (["--mode", "mdgan"], "A.17"), (["--snapshot-format", "parquet"],
                                     "A.21"),
     (["--sanitize-nans"], "A.20"), (["--profile-rounds", "5"], "A.20"),
-    (["--init-only"], "A.18"), (["--params-out", "D"], "A.18")])
+    (["--init-only"], "A.18"), (["--params-out", "D"], "A.18"),
+    (["-ip", "1.2.3.4", "-rank", "0"], "A.18"),
+    (["--bgm-backend", "sklearn"], "A.24")])
 def test_unported_flags_exit_2(data, tmp_path, capsys, flag, item):
     assert port_cli.main(argv(data, tmp_path, "--device", "cpu", *flag)) == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
@@ -142,16 +148,94 @@ def test_precision_bf16_runs_a_round_and_resumes_in_it(data, tmp_path,
 
 def test_reference_drop_in_flags_are_accepted(data, tmp_path, capsys):
     """``-E_interval`` and ``-report`` are accepted and ignored, as the
-    reference and the JAX CLI do."""
-    assert port_cli.main(argv(data, tmp_path, "--device", "cpu", "-epochs",
-                              "1", "-E_interval", "5", "-report")) == 0
+    reference and the JAX CLI do; so are the reference's single-dash
+    ``-date_dic``, ``-rank 0`` and ``-port`` without ``-ip`` (one
+    process), and JAX's ``--backend cpu`` (``--device cpu``) and
+    ``--n-virtual-devices``."""
+    assert port_cli.main(argv(data, tmp_path, "-epochs", "1", "-E_interval",
+                              "5", "-report", "-date_dic", "-rank", "0",
+                              "-port", "5", "--backend", "cpu",
+                              "--n-virtual-devices", "2")) == 0
     assert "final Avg_JSD=" in capsys.readouterr().out
+
+
+def test_rank0_world_size3_trains_two_clients_as_jax(data, tmp_path, capsys):
+    """``-rank 0 -world_size 3`` without ``-ip`` trains ``W - 1 = 2``
+    clients in one process, with the JAX CLI's aggregation weights on the
+    same CSV (printed to 4 decimals; the two fits agree within 1e-3); a
+    rank other than 0 has nothing to start and exits 0."""
+    common = ["--datapath", data, "--dataset", "intrusion", "-rank", "0",
+              "-world_size", "3", "-epochs", "1", "--sample-rows", "60",
+              "--batch-size", "50", "--embedding-dim", "16", "--seed", "1"]
+    pat = re.compile(r"(\d+) clients, rows per shard.*?aggregation weights: "
+                     r"(\[[^\]]*\])", re.S)
+
+    def clients_and_weights(text):
+        m = pat.search(text)
+        return int(m.group(1)), np.asarray(json.loads(m.group(2)))
+
+    assert jax_cli.main(common + ["--out-dir", str(tmp_path / "jax"),
+                                  "--backend", "cpu"]) == 0
+    jn, jw = clients_and_weights(capsys.readouterr().out)
+    assert port_cli.main(common + ["--out-dir", str(tmp_path / "port"),
+                                   "--device", "cpu"]) == 0
+    n, w = clients_and_weights(capsys.readouterr().out)
+    assert n == jn == 2
+    np.testing.assert_allclose(w, jw, atol=1e-3)
+    assert port_cli.main(common[:4] + ["-rank", "1"]) == 0
+    assert "rank 1 has no separate process" in capsys.readouterr().out
+    assert port_cli.main(common + ["--backend", "tpu"]) == 2
+    assert "--backend tpu" in capsys.readouterr().err
+
+
+def test_sketch_with_init_cache_runs_and_restores(data, tmp_path, capsys):
+    """``--similarity sketch --init-cache DIR`` exits 0; a second run
+    restores the init from the cache and writes the same snapshot bytes."""
+    cache = str(tmp_path / "cache")
+    snaps = []
+    for run in ("cold", "warm"):
+        out = tmp_path / run
+        assert port_cli.main(argv(data, out, "--device", "cpu", "-epochs",
+                                  "1", "--similarity", "sketch",
+                                  "--init-cache", cache)) == 0
+        text = capsys.readouterr().out
+        assert "final Avg_JSD=" in text
+        assert ("cache_restore" in text) == (run == "warm")
+        snaps.append(open(out / "Intrusion_result"
+                          / "Intrusion_synthesis_epoch_0.csv", "rb").read())
+    assert snaps[0] == snaps[1]
+
+
+CHURN = ("join:round=2,count=2;leave:client=1,round=2;"
+         "drift:client=0,round=2,shift=2.0")
+
+
+def test_elastic_churn_runs_and_refuses_a_resume(data, tmp_path, capsys):
+    """``--elastic-capacity 8`` with join/leave/drift faults exits 0: the
+    population grows 3 -> 5 and client 1 leaves (the checkpoint says so);
+    resuming with a churn plan exits 2, as JAX's CLI does."""
+    from fed_tgan_torch.testing.faults import ENV_VAR, install_plan
+
+    out = tmp_path / "out"
+    extra = ["--device", "cpu", "-epochs", "3", "--elastic-capacity", "8",
+             "--drift-every", "1", "--save-every", "1", "--watchdog"]
+    try:  # the CLI installs its plan process-wide, and exports it
+        assert port_cli.main(argv(data, out, *extra, "--faults", CHURN)) == 0
+        text = capsys.readouterr().out
+        assert "final Avg_JSD=" in text and "3 rounds in" in text
+        host = json.load(open(out / "checkpoint" / "host.json"))
+        assert host["capacity"] == 8 and host["dropped_clients"] == [1]
+        assert len(host["init"]["rows_per_client"]) == 5
+        assert port_cli.main(argv(data, out, *extra, "--resume",
+                                  "--faults", CHURN)) == 2
+        assert "cannot drive a resumed run" in capsys.readouterr().err
+    finally:
+        install_plan(None)
+        os.environ.pop(ENV_VAR, None)
 
 
 @pytest.mark.parametrize("spec,item", [
     ("delay_msg:ms=5", "A.18"), ("sever_conn:rank=1,after=1", "A.18"),
-    ("corrupt_cache", "A.16"), ("join:round=2", "A.16"),
-    ("leave:client=1,round=2", "A.16"), ("drift:client=1,round=2", "A.16"),
     ("straggle:rank=1,delay=2", "A.17"),
     ("kill_client:rank=1,round=1;delay_msg:ms=5", "A.18")])
 def test_unported_fault_kinds_exit_2(data, tmp_path, capsys, spec, item):

@@ -861,3 +861,64 @@ def test_bf16_training_on_card_repeats_bit_for_bit(cuda):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     one = synth.sample_encoded(1500, seed=2)
     assert one.dtype == np.float32 and np.isfinite(one).all()
+
+
+# ------------------------------------------------- onboarding and churn
+
+
+@pytest.mark.parametrize("mates", [7, 300, 5631])
+def test_bucketed_fit_is_independent_of_its_batch_on_the_card(cuda, mates):
+    """One column fitted alone and among ``mates`` columns of its row
+    bucket (5,631: an N = 256 cohort's 22 columns but one) gives the same
+    bits on the card: every sum of the fit runs in a fixed order."""
+    from fed_tgan_torch.features.bgm import fit_columns
+
+    rng = np.random.default_rng(mates)
+    col = np.concatenate([rng.normal(-2, 0.5, 90), rng.normal(4, 1, 110)])
+    others = [rng.normal(rng.uniform(-5, 5), 1, 200) for _ in range(mates)]
+    alone = fit_columns([col], device="cuda")[0]
+    among = fit_columns(others[:3] + [col] + others[3:], device="cuda")[3]
+    for f in ("means", "stds", "weights", "mean_precision", "dof",
+              "stick_a", "stick_b"):
+        assert np.array_equal(getattr(alone, f), getattr(among, f)), f
+
+
+@pytest.mark.parametrize("slots", [4, 8])
+def test_kernels_at_the_elastic_shape(cuda, slots):
+    """K1 and K2 over ``slots`` x 500 rows of the Intrusion layout (an
+    elastic trainer's stacked step at capacity ``slots``) against their
+    plain versions."""
+    spec = _spec()
+    rows = slots * 500
+    g = torch.Generator(device=cuda).manual_seed(slots)
+    x = torch.randn((rows, spec.dim), generator=g, device=cuda) * 2.0
+    u = torch.rand((rows, spec.dim), generator=g, device=cuda)
+    dy = torch.randn((rows, spec.dim), generator=g, device=cuda)
+    out = fused_apply_activate(x, spec, u)
+    assert (out - apply_activate(x, spec, u)).abs().max().item() <= ATOL
+    got = fused_activate_bwd(dy, out, spec)
+    assert (got - apply_activate_bwd(dy, out, spec)).abs().max().item() \
+        <= ATOL
+
+
+def test_elastic_rounds_repeat_bit_for_bit_with_exact_launches(cuda):
+    """An elastic trainer (capacity 8 over the ragged federation's 3
+    clients) launches K1 max(steps) * (d_steps + 1) and K2 max(steps)
+    times a round over all 8 slots' rows, and two runs from one seed end
+    equal."""
+    from fed_tgan_torch.train.federated import FederatedTrainer
+
+    init, cfg = _ragged_federation()
+    fused_apply_activate.launches = 0
+    fused_activate_bwd.launches = 0
+    a = FederatedTrainer(init, cfg, seed=0, device="cuda", capacity=8).fit(2)
+    n = int(a.steps.max())
+    assert fused_apply_activate.launches == 2 * n * (cfg.d_steps + 1)
+    assert fused_activate_bwd.launches == 2 * n
+    b = FederatedTrainer(init, cfg, seed=0, device="cuda", capacity=8).fit(2)
+    for x, y in ((a.stack.generator.params, b.stack.generator.params),
+                 (a.stack.generator.bn_state, b.stack.generator.bn_state),
+                 (a.stack.discriminator.params, b.stack.discriminator.params),
+                 (a.stack.opt_g.exp_avg_sq, b.stack.opt_g.exp_avg_sq)):
+        assert torch.equal(x, y)
+    assert (a.last_metrics[3:] == 0).all()

@@ -98,7 +98,8 @@ def test_port_package_lists_every_slice_module():
                  "obs.registry", "serve.metrics", "serve.fleet",
                  "serve.pool", "serve.frontdoor", "obs.slo",
                  "serve.canary", "federation.sketch", "data.dates",
-                 "runtime.precision"):
+                 "runtime.precision", "federation.init_cache",
+                 "federation.streaming", "federation.elastic"):
         assert f"fed_tgan_torch.{name}" in mods
 
 
@@ -445,3 +446,39 @@ def test_canary_and_dates_run_with_jax_sklearn_and_pandas_blocked(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip() == "ok"
+
+
+def test_onboarding_and_churn_cli_runs_with_jax_sklearn_and_pandas_blocked(
+        tmp_path):
+    """The CLI's ``--similarity sketch --init-cache`` init and an elastic
+    run with join, leave and drift faults on the CPU in a fresh
+    interpreter where jax, the JAX package, pandas, pyarrow and sklearn
+    cannot be imported; a second run restores the init from the cache."""
+    data = str(tmp_path / "intr.csv")
+    argv = ["--mode", "fedavg", "--datapath", data, "--dataset", "intrusion",
+            "--n-clients", "2", "-epochs", "3", "--sample-rows", "60",
+            "--batch-size", "40", "--embedding-dim", "8", "--quiet",
+            "--device", "cpu", "--similarity", "sketch", "--init-cache",
+            str(tmp_path / "cache"), "--elastic-capacity", "4",
+            "--drift-every", "1", "--faults",
+            "join:round=2,count=1;leave:client=0,round=3;"
+            "drift:client=1,round=2,shift=2.0"]
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from fed_tgan_torch import cli\n"
+        "from fed_tgan_torch.serve.demo import write_intrusion_csv\n"
+        f"write_intrusion_csv({data!r}, 240, 0)\n"
+        "for out in ('a', 'b'):\n"
+        f"    assert cli.main({argv!r} + ['--out-dir', {str(tmp_path)!r}\n"
+        "                                + '/' + out]) == 0\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+    assert len(os.listdir(tmp_path / "cache")) == 4  # 2 clients, 1 global
