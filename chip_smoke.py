@@ -162,6 +162,27 @@ Phases, each fatal on failure:
    8 and at capacity 0 in turns (what the padded slots cost), and K1/K2
    against their plain versions at the elastic shape.
 
+17. round-scale federation and MD-GAN (``round_scale_phases``), each
+   through the CLI in this process (launches counted) at full width:
+   ``cohort_phase`` (32 IID clients of 1,000 rows, ``--population 32
+   --cohort 8``, 4 rounds with a 10,000-row snapshot each: K1 5 and K2 2
+   launches a round at (4000, D), the save after round 2 resumed bit-equal
+   to 4 straight rounds with every slot's Adam count what its cohorts
+   give it, two runs bit-equal; then s/round at cohort 8 of 32, full participation of 32 and 8 resident
+   clients in turns, and peak device memory); ``buffered_phase`` (the
+   federated round's 4 clients, ``--aggregation buffered --faults
+   straggle:rank=2,delay=2,round=2,until=3``: the deltas land at rounds 4
+   and 5 with discount weight x 0.25; without the fault bit-equal to
+   sync); ``ema_phase`` (``--ema-decay 0.99``, 4 rounds, a save each: the
+   snapshot's bytes and the artifact are the debiased EMA's, the save
+   after round 2 resumes bit-equal); ``rounds_per_program_phase`` (8
+   hook-free rounds at K = 4 and K = 1 in turns: bit-equal, 2 host copies
+   against 8, s/round); ``mdgan_phase`` (``--mode mdgan``, 3 rounds: K1 2
+   a step plus 1 a snapshot chunk and K2 1 a step at (2000, D), 2 rounds +
+   ``--resume`` bit-equal to 3, one step card vs CPU on injected draws,
+   s/round beside fedavg's in turns); then K1 and K2 against their plain
+   versions at (4000, D) and (2000, D).
+
 ``--onboard N [N ...]`` runs phase 15 alone at the populations given (the
 JAX sweep's N = 1024 is measured so).
 
@@ -177,14 +198,14 @@ this one, each turn a process of its own; and prints one
 Prints the card's name and power limit beside every number, a JSON line
 with the training numbers, one with the federated round's, one with the
 durable round's, one with the canary's and the dated phase's, one with
-the precision phase's, one with the onboarding and churn phases', the
-card's
+the precision phase's, one with the onboarding and churn phases', one
+with the round-scale phases', the card's
 line, a JSON line with the kernels' numbers (one entry per kernel and
 path: K1 serving, K1 in the fleet, K1 and K2 training, K1 and K2
 federated, K1 in the similarity monitor, K1 and K2 in the ragged round, K1
 in the canary's shadow samples, K1 serving a dated model, K1 and K2 in
-the dated training, K1 and K2 in the elastic rounds, and the three bf16
-variants),
+the dated training, K1 and K2 in the elastic rounds, K1 and K2 in the
+cohort rounds and in MD-GAN, and the three bf16 variants),
 and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no result line, when CUDA is not available.
@@ -3584,6 +3605,445 @@ def churn_phase(root: str, seed: int, card: str) -> dict:
 
 
 
+# --------------------------------------------------- slice 11: round scale
+
+# the cohort federation: 32 IID clients of 1,000 rows (2 steps each), 8
+# sampled a round, a 10,000-row snapshot a round
+COHORT_CLIENTS, COHORT_ROWS, COHORT_C, COHORT_ROUNDS = 32, 1000, 8, 4
+ROUND_SNAPSHOT_ROWS = 10_000
+BUFFERED_FAULT = "straggle:rank=2,delay=2,round=2,until=3"
+BUFFERED_ROUNDS = 5
+EMA_DECAY, EMA_ROUNDS = 0.99, 4
+RPP_ROUNDS, RPP_K = 8, 4
+MDGAN_ROUNDS = 3
+
+
+def _cli_run(argv: list) -> dict:
+    """The training CLI in this process (its launches counted): K1/K2
+    launches, the event dicts the trainer logged, stdout and wall
+    seconds; fails unless it exits 0."""
+    from fed_tgan_torch.cli import main as cli_main
+
+    handler = EventLog()
+    logger = logging.getLogger("fed_tgan_torch.train")
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    stdout = io.StringIO()
+    activate_cuda.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(stdout):
+            rc = cli_main(argv)
+    finally:
+        install_plan(None)
+        os.environ.pop("FED_TGAN_TORCH_FAULTS", None)
+        logger.removeHandler(handler)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"CLI {argv} exited {rc}: "
+                             f"{stdout.getvalue()[-3000:]}")
+    return {"launches": {"K1": fused_apply_activate.launches,
+                         "K2": fused_activate_bwd.launches},
+            "events": handler.events, "stdout": stdout.getvalue(),
+            "wall_s": wall}
+
+
+def _fed_argv(csv_path: str, out: str, seed: int, cache: str,
+              clients: int, epochs: int, *extra) -> list:
+    return ["--datapath", csv_path, "--dataset", "intrusion",
+            "--n-clients", str(clients), "-epochs", str(epochs),
+            "--sample-rows", str(ROUND_SNAPSHOT_ROWS), "--out-dir", out,
+            "--seed", str(seed), "--init-cache", cache, *extra]
+
+
+def _same_checkpoint(what: str, a: str, b: str) -> None:
+    """Two checkpoints hold equal arrays (weights, BatchNorm and Adam
+    state, every generator's state, the EMA)."""
+    ha, xa = _checkpoint_arrays(a)
+    hb, xb = _checkpoint_arrays(b)
+    bad = sorted(k for k in set(xa) | set(xb)
+                 if k not in xa or k not in xb
+                 or not np.array_equal(xa[k], xb[k]))
+    if bad or ha["completed_epochs"] != hb["completed_epochs"]:
+        raise AssertionError(f"{what}: {len(bad)} arrays differ "
+                             f"({bad[:5]}), rounds {ha['completed_epochs']} "
+                             f"vs {hb['completed_epochs']}")
+
+
+def _chunks(trainer, rows: int) -> int:
+    """K1 launches of one sample of ``rows`` rows (one a chunk)."""
+    return len(trainer._sampler()._chunk_plan(
+        0, -(-rows // trainer.cfg.batch_size), pow2_tail=False))
+
+
+def _turns(make, labels: list, rounds: int) -> tuple[dict, dict]:
+    """s/round of each label's trainer (``make(label)``), in the order
+    given (turns), the first round of each run left out (warm-up); and
+    the trainers of each label."""
+    out, trainers = {}, {}
+    for label in labels:
+        tr = make(label)
+        tr.fit(rounds)
+        torch.cuda.synchronize()
+        out.setdefault(label, []).extend(tr.epoch_times[1:])
+        trainers.setdefault(label, []).append(tr)
+    return out, trainers
+
+
+def _stack_state(tr) -> list:
+    """A stacked trainer's weights, BatchNorm, Adam state and
+    generators."""
+    st = tr.stack
+    return [st.generator.params, st.generator.bn_state,
+            st.discriminator.params, st.opt_g.exp_avg, st.opt_g.exp_avg_sq,
+            st.opt_g.count, st.opt_d.exp_avg, st.opt_d.exp_avg_sq,
+            st.opt_d.count] + [g.get_state() for g in tr.gens]
+
+
+def cohort_phase(root: str, seed: int, card: str) -> dict:
+    """Cohort sampling at full width: 32 IID clients of 1,000 rows, 8
+    sampled a round, 4 rounds through the CLI with a snapshot a round: K1
+    ``2 * steps + chunks`` and K2 ``steps`` launches a round over the
+    cohort's (8 x 500, D) rows; the save after round 2 resumed for 2
+    rounds ends bit-equal to the straight run, every slot's Adam count
+    what its cohorts give it, two runs in this process bit-equal.  Then s/round at cohort 8 of 32, full participation of 32 and
+    8 resident clients, in turns, and the peak device memory of 32
+    resident slots."""
+    csv_path = os.path.join(root, "cohort.csv")
+    write_intrusion_csv(csv_path, COHORT_CLIENTS * COHORT_ROWS, seed)
+    cache = os.path.join(root, "cohort_cache")
+    kw = preprocessor_kwargs(PRESETS["intrusion"])
+    shards = shard_table(read_csv(csv_path), COHORT_CLIENTS, "iid",
+                         seed=seed)
+    t0 = time.perf_counter()
+    init32 = federated_initialize(
+        [TablePreprocessor(table=t, name="Intrusion", **kw) for t in shards],
+        seed=seed, device="cuda", cache=cache)
+    init_s = time.perf_counter() - t0
+    # 8 resident clients: the first 8 of the 32, their weights renormalized
+    init8 = dataclasses.replace(
+        init32, client_matrices=init32.client_matrices[:COHORT_C],
+        transformers=init32.transformers[:COHORT_C],
+        weights=init32.weights[:COHORT_C] / init32.weights[:COHORT_C].sum(),
+        rows_per_client=init32.rows_per_client[:COHORT_C])
+    cohort = ["--population", str(COHORT_CLIENTS), "--cohort",
+              str(COHORT_C), "--save-every", "2", "--ckpt-keep", "2"]
+    straight = _cli_run(_fed_argv(
+        csv_path, os.path.join(root, "cohort_a"), seed, cache,
+        COHORT_CLIENTS, COHORT_ROUNDS, *cohort))
+    ck = os.path.join(root, "cohort_a", "checkpoint")
+    # the save after round 2, resumed in a directory of its own
+    half = os.path.join(root, "cohort_b")
+    shutil.copytree(ck + ".1", os.path.join(half, "checkpoint"))
+    resumed = _cli_run(_fed_argv(csv_path, half, seed, cache,
+                                 COHORT_CLIENTS, COHORT_ROUNDS, *cohort,
+                                 "--resume"))
+    _same_checkpoint("cohort 4 rounds vs 2 + resume + 2", ck,
+                     os.path.join(half, "checkpoint"))
+    tr = load_federated(ck, device="cuda")
+    B = tr.cfg.batch_size
+    steps_per = COHORT_ROWS // B
+    ids = [tr.cohort_ids(e) for e in range(COHORT_ROUNDS)]
+    want_counts = np.zeros(COHORT_CLIENTS, dtype=np.int64)
+    for row in ids:
+        want_counts[row] += steps_per
+    if not np.array_equal(tr.stack.opt_g.count.cpu().numpy(), want_counts):
+        raise AssertionError(f"Adam counts {tr.stack.opt_g.count.tolist()} "
+                             f"are not the cohorts' {want_counts.tolist()}")
+    per_round = {"K1": steps_per * 2 + _chunks(tr, ROUND_SNAPSHOT_ROWS),
+                 "K2": steps_per}
+    want = {k: COHORT_ROUNDS * v for k, v in per_round.items()}
+    if straight["launches"] != want:
+        raise AssertionError(f"cohort launches {straight['launches']} != "
+                             f"{want}")
+    resumed_want = {k: (COHORT_ROUNDS - 2) * v for k, v in per_round.items()}
+    if resumed["launches"] != resumed_want:
+        raise AssertionError(f"resumed launches {resumed['launches']} != "
+                             f"{resumed_want}")
+    cfg = steps.TrainConfig()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    full = FederatedTrainer(init32, cfg, seed=seed, device="cuda").fit(1)
+    peak_full = torch.cuda.max_memory_allocated() - base
+    del full
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    FederatedTrainer(init32, dataclasses.replace(cfg, cohort=COHORT_C),
+                     seed=seed, device="cuda").fit(1)
+    peak_cohort = torch.cuda.max_memory_allocated() - base
+
+    def make(label):
+        init = init8 if label == "resident_8" else init32
+        c = dataclasses.replace(cfg, cohort=COHORT_C if label ==
+                                "cohort_8_of_32" else 0)
+        return FederatedTrainer(init, c, seed=seed, device="cuda")
+
+    order = ["cohort_8_of_32", "full_32", "resident_8", "resident_8",
+             "full_32", "cohort_8_of_32"]
+    turns, runs = _turns(make, order, 4)
+    _require_equal("two cohort runs", *(_stack_state(t) for t in
+                                        runs["cohort_8_of_32"]))
+    p50 = {k: statistics.median(v) for k, v in turns.items()}
+    report = {"clients": COHORT_CLIENTS, "cohort": COHORT_C,
+              "rows_per_client": COHORT_ROWS, "init_s": init_s,
+              "cli_wall_s": straight["wall_s"],
+              "launches": straight["launches"],
+              "launches_per_round": per_round, "cohorts": [
+                  r.tolist() for r in ids],
+              "s_per_round": turns, "s_per_round_p50": p50,
+              "peak_mem_bytes": {"full_32": peak_full,
+                                 "cohort_8_of_32": peak_cohort},
+              "train_rows": COHORT_C * B, "spec": tr.spec}
+    print(f"cohort: CLI --population {COHORT_CLIENTS} --cohort {COHORT_C}, "
+          f"{COHORT_ROUNDS} rounds: exit 0 in {straight['wall_s']!r} s "
+          f"(init {init_s!r} s in process, then cached); launches "
+          f"{straight['launches']} (== {want}, {per_round} a round at "
+          f"({COHORT_C * B}, {tr.spec.dim})); 2 rounds + --resume + 2 "
+          f"rounds bit-equal to 4 straight, Adam counts = the cohorts'; two "
+          f"in-process runs bit-equal; "
+          f"cohorts {report['cohorts']}; s/round in turns {turns!r} (p50 "
+          f"{p50!r}); peak device memory of a round of 32 resident slots "
+          f"{peak_full} B, of a cohort round {peak_cohort} B  [{card}]",
+          flush=True)
+    return report
+
+
+def buffered_phase(root: str, seed: int, card: str) -> dict:
+    """Buffered aggregation through the CLI on the federated round's 4
+    clients: ``--aggregation buffered --faults straggle:rank=2,delay=2,
+    round=2,until=3`` for 5 rounds, the two deltas landing at rounds 4
+    and 5 (1-based) with discount ``weight * 0.5^2``; the same run with no
+    fault equal to ``--aggregation sync`` bit for bit."""
+    csv_path = os.path.join(root, "fed.csv")
+    cache = os.path.join(root, "fed_cache")
+    outs = {}
+    for tag, extra in (("straggle", ["--aggregation", "buffered",
+                                     "--faults", BUFFERED_FAULT]),
+                       ("buffered", ["--aggregation", "buffered"]),
+                       ("sync", [])):
+        outs[tag] = os.path.join(root, f"buffered_{tag}")
+        run = _cli_run(_fed_argv(
+            csv_path, outs[tag], seed, cache, FED_CLIENTS, BUFFERED_ROUNDS,
+            "--sample-every", "0", "--save-every", str(BUFFERED_ROUNDS),
+            *extra))
+        if tag == "straggle":
+            straggle = run
+    _same_checkpoint("buffered without a straggler vs sync",
+                     os.path.join(outs["buffered"], "checkpoint"),
+                     os.path.join(outs["sync"], "checkpoint"))
+    host, _ = _checkpoint_arrays(os.path.join(outs["straggle"], "checkpoint"))
+    w = host["weights"][1]
+    landed = [(e["origin"], e["round"], e["staleness"], e["discount"])
+              for e in straggle["events"] if e.get("type") == "aggregate"]
+    if [x[:3] for x in landed] != [(1, 3, 2), (2, 4, 2)] or not all(
+            math.isclose(x[3], w * 0.25, rel_tol=1e-6) for x in landed):
+        raise AssertionError(f"buffered arrivals {landed}, weight {w}")
+    print(f"buffered: CLI --aggregation buffered --faults {BUFFERED_FAULT!r}"
+          f", {BUFFERED_ROUNDS} rounds: exit 0 in {straggle['wall_s']!r} s; "
+          f"client 1's deltas (origin, round, staleness, discount) "
+          f"{landed} (weight {w!r} x 0.25); without the fault bit-equal to "
+          f"--aggregation sync  [{card}]", flush=True)
+    return {"arrivals": landed, "weight": w, "wall_s": straggle["wall_s"]}
+
+
+def ema_phase(root: str, seed: int, card: str) -> dict:
+    """``--ema-decay 0.99`` through the CLI, 4 rounds with a snapshot and
+    a save each: the last snapshot's bytes are the debiased EMA's rows
+    (not the raw aggregate's), the ``--save-model`` artifact's generator
+    is ``_global_model()``, and the save after round 2 resumed for 2
+    rounds ends bit-equal to the straight run, EMA included."""
+    from fed_tgan_torch.runtime.checkpoint import SYNTH_DIR, load_synthesizer
+
+    csv_path = os.path.join(root, "fed.csv")
+    out = os.path.join(root, "ema")
+    run = _cli_run(_fed_argv(csv_path, out, seed,
+                             os.path.join(root, "fed_cache"), FED_CLIENTS,
+                             EMA_ROUNDS, "--ema-decay", str(EMA_DECAY),
+                             "--save-every", "1", "--ckpt-keep",
+                             str(EMA_ROUNDS), "--save-model"))
+    ck = os.path.join(out, "checkpoint")
+    tr = load_federated(ck, device="cuda")
+    if tr._ema_updates != EMA_ROUNDS:
+        raise AssertionError(f"EMA updates {tr._ema_updates}")
+    art = load_synthesizer(os.path.join(out, "models", SYNTH_DIR), "cuda")
+    ema = tr._global_model()
+    saved = art.generator.state_dict()
+    if any(not torch.equal(saved[k], v) for k, v in ema.items()):
+        raise AssertionError("the artifact's generator is not the EMA")
+    last = EMA_ROUNDS - 1
+    meta, enc = tr.init.global_meta, tr.init.encoders
+    want = plain_csv_bytes(decode_columns(tr.decode.assemble(
+        tr.sample_parts(ROUND_SNAPSHOT_ROWS, seed=seed + last)), meta, enc))
+    snap = os.path.join(out, "Intrusion_result",
+                        f"Intrusion_synthesis_epoch_{last}.csv")
+    with open(snap, "rb") as f:
+        if f.read() != want:
+            raise AssertionError("the last snapshot is not the EMA's rows")
+    raw = tr.sample_encoded(2000, seed=1, use_ema=False)
+    smooth = tr.sample_encoded(2000, seed=1)
+    if np.allclose(raw, smooth):
+        raise AssertionError("EMA and raw generators sample alike")
+    gens = {_checkpoint_arrays(g)[0]["completed_epochs"]: g
+            for g in list_resumable(ck, max_rotations=EMA_ROUNDS)}
+    mid = load_federated(gens[2], device="cuda").fit(EMA_ROUNDS - 2)
+    for a, b in zip([*mid.ema, mid.stack.generator.params,
+                     mid.stack.discriminator.params,
+                     mid.stack.opt_d.exp_avg_sq],
+                    [*tr.ema, tr.stack.generator.params,
+                     tr.stack.discriminator.params,
+                     tr.stack.opt_d.exp_avg_sq]):
+        if not torch.equal(a, b):
+            raise AssertionError("EMA resume after round 2 differs")
+    print(f"ema: CLI --ema-decay {EMA_DECAY}, {EMA_ROUNDS} rounds with a "
+          f"save each: exit 0 in {run['wall_s']!r} s; the artifact's "
+          f"generator == _global_model() (debiased by 1/(1 - "
+          f"{EMA_DECAY}^{EMA_ROUNDS})); the last snapshot's bytes are the "
+          f"EMA's rows; the save after round 2 resumed bit-equal, EMA "
+          f"included  [{card}]", flush=True)
+    return {"wall_s": run["wall_s"], "ema_updates": tr._ema_updates}
+
+
+def rounds_per_program_phase(init, seed: int, card: str) -> dict:
+    """8 hook-free rounds of the federated round's 4 clients in chunks of
+    4 and of 1: bit-equal, 2 host copies against 8, launches exact; then
+    s/round of each in turns (4, 1, 1, 4)."""
+    cfg = steps.TrainConfig()
+    runs, copies = {}, {}
+    activate_cuda.reset_launches()
+    for k in (RPP_K, 1, 1, RPP_K):
+        tr = FederatedTrainer(init, cfg, seed=seed, device="cuda")
+        t0 = time.perf_counter()
+        tr.fit(RPP_ROUNDS, max_rounds_per_call=k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.setdefault(k, []).append((tr, wall / RPP_ROUNDS))
+        copies.setdefault(k, []).append(tr.host_copies)
+    n = int(runs[1][0][0].steps.max())
+    want = {"K1": 4 * RPP_ROUNDS * n * 2, "K2": 4 * RPP_ROUNDS * n}
+    launches = {"K1": fused_apply_activate.launches,
+                "K2": fused_activate_bwd.launches}
+    if launches != want:
+        raise AssertionError(f"rounds-per-program launches {launches} != "
+                             f"{want}")
+    if copies != {RPP_K: [RPP_ROUNDS // RPP_K] * 2, 1: [RPP_ROUNDS] * 2}:
+        raise AssertionError(f"host copies {copies}")
+    _require_equal(f"K = {RPP_K} vs K = 1", _trainer_state(runs[RPP_K][0][0]),
+                   _trainer_state(runs[1][0][0]))
+    s_per = {f"K{k}": [w for _, w in v] for k, v in runs.items()}
+    print(f"rounds per program: {RPP_ROUNDS} hook-free rounds at K = {RPP_K}"
+          f" bit-equal to K = 1; host copies {copies}; launches {launches}; "
+          f"s/round in turns {s_per!r}  [{card}]", flush=True)
+    return {"host_copies": copies, "s_per_round": s_per,
+            "launches": launches}
+
+
+def mdgan_phase(root: str, init, seed: int, card: str) -> dict:
+    """``--mode mdgan`` through the CLI on the federated round's 4
+    clients, 3 rounds with a snapshot and a save each: K1 ``2 * steps +
+    chunks`` and K2 ``steps`` launches a round over (4 x 500, D), the 4
+    discriminators apart, the shared generator without a clients axis, a
+    run of 2 rounds + ``--resume`` bit-equal to 3 straight, two runs in
+    this process bit-equal.  Then one
+    step's generator update on the card against the CPU from the same
+    weights and injected draws (``step_reference_phase``'s tolerances),
+    and s/round beside fedavg's on the same clients, in turns."""
+    from fed_tgan_torch.train.mdgan import MDGANTrainer
+
+    csv_path = os.path.join(root, "fed.csv")
+    cache = os.path.join(root, "fed_cache")
+    a, b = (os.path.join(root, f"mdgan_{t}") for t in ("a", "b"))
+    common = ["--mode", "mdgan", "--save-every", "1"]
+    run = _cli_run(_fed_argv(csv_path, a, seed, cache, FED_CLIENTS,
+                             MDGAN_ROUNDS, *common))
+    _cli_run(_fed_argv(csv_path, b, seed, cache, FED_CLIENTS, 2, *common))
+    _cli_run(_fed_argv(csv_path, b, seed, cache, FED_CLIENTS, MDGAN_ROUNDS,
+                       *common, "--resume"))
+    _same_checkpoint("mdgan 3 rounds vs 2 + resume + 1",
+                     os.path.join(a, "checkpoint"),
+                     os.path.join(b, "checkpoint"))
+    tr = load_federated(os.path.join(a, "checkpoint"), device="cuda")
+    n_steps = int(tr.steps.max())
+    per_round = {"K1": 2 * n_steps + _chunks(tr, ROUND_SNAPSHOT_ROWS),
+                 "K2": n_steps}
+    want = {k: MDGAN_ROUNDS * v for k, v in per_round.items()}
+    if run["launches"] != want:
+        raise AssertionError(f"mdgan launches {run['launches']} != {want}")
+    d = tr.disc.stack.params
+    if tr.gen.params.shape[0] != 1 or any(
+            torch.equal(d[0], d[i]) for i in range(1, d.shape[0])):
+        raise AssertionError("MD-GAN models: shared G or distinct D lost")
+
+    # one step on the card against the CPU
+    cfg = steps.TrainConfig()
+    spec = tr.spec
+    host_models = steps.init_models(spec, cfg, seed + 5, "cpu")
+    gen = torch.Generator().manual_seed(seed + 6)
+    draws = [steps.draw_step(gen, host_models) for _ in range(FED_CLIENTS)]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        one = MDGANTrainer(init, cfg, seed=seed, device=dev,
+                           models=steps.init_models(spec, cfg, seed + 5, dev),
+                           draws=lambda e, i, s, dev=dev: draws[i].to(dev))
+        one.steps = np.ones(FED_CLIENTS, dtype=np.int64)
+        one.fit(1)
+        res[dev] = [x.detach().cpu().numpy() for x in (
+            one.gen.params, one.gen.opt.grad, one.disc.stack.params,
+            one.disc.opt.grad)] + [one.last_metrics]
+    (gp_c, gg_c, dp_c, dg_c, met_c), (gp_h, gg_h, dp_h, dg_h, met_h) = (
+        res["cuda"], res["cpu"])
+    if not np.allclose(met_c, met_h, rtol=1e-4, atol=1e-6):
+        raise AssertionError(f"mdgan losses card {met_c} vs CPU {met_h}")
+    grad_err = max(_close("G gradient", gg_c, gg_h, 1e-5, 1e-3)[0],
+                   _close("D gradient", dg_c, dg_h, 1e-5, 1e-3)[0])
+    par_err, skipped = 0.0, 0
+    for pc, ph, gh in ((gp_c, gp_h, gg_h), (dp_c, dp_h, dg_h)):
+        err, n = _close("parameter", pc, ph, 1e-6, 0.0,
+                        skip=np.abs(gh) < 1e-6)
+        par_err, skipped = max(par_err, err), skipped + n
+
+    def make(label):
+        cls = MDGANTrainer if label == "mdgan" else FederatedTrainer
+        return cls(init, cfg, seed=seed, device="cuda")
+
+    turns, runs = _turns(make, ["mdgan", "fedavg", "fedavg", "mdgan"], 3)
+    _require_equal("two MD-GAN runs", *([
+        t.gen.params, t.gen.state, t.gen.opt.exp_avg_sq, t.disc.stack.params,
+        t.disc.opt.exp_avg] + [g.get_state() for g in t.gens]
+        for t in runs["mdgan"]))
+    print(f"mdgan: CLI --mode mdgan, {MDGAN_ROUNDS} rounds: exit 0 in "
+          f"{run['wall_s']!r} s; launches {run['launches']} (== {want}, "
+          f"{per_round} a round at ({FED_CLIENTS * cfg.batch_size}, "
+          f"{spec.dim})); 2 rounds + --resume bit-equal to 3 straight, two "
+          f"in-process runs bit-equal; G "
+          f"{tuple(tr.gen.params.shape)}, 4 discriminators apart; one step "
+          f"card vs CPU: losses within rtol 1e-4, gradients max abs diff "
+          f"{grad_err!r} (atol 1e-5 + rtol 1e-3), parameters {par_err!r} "
+          f"(atol 1e-6, {skipped} tiny-gradient entries set aside); s/round "
+          f"in turns {turns!r}  [{card}]", flush=True)
+    return {"wall_s": run["wall_s"], "launches": run["launches"],
+            "launches_per_round": per_round, "grad_max_diff": grad_err,
+            "param_max_diff": par_err, "tiny_grad_entries": skipped,
+            "s_per_round": turns, "train_rows": FED_CLIENTS * cfg.batch_size,
+            "spec": spec}
+
+
+def round_scale_phases(root: str, init, seed: int, card: str) -> dict:
+    """Slice 11's phases, their wall seconds each."""
+    write_intrusion_csv(os.path.join(root, "fed.csv"), FED_ROWS, seed)
+    out, wall = {}, {}
+    for name, fn in (
+            ("cohort", lambda: cohort_phase(root, seed, card)),
+            ("buffered", lambda: buffered_phase(root, seed, card)),
+            ("ema", lambda: ema_phase(root, seed, card)),
+            ("rounds_per_program",
+             lambda: rounds_per_program_phase(init, seed, card)),
+            ("mdgan", lambda: mdgan_phase(root, init, seed, card))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        wall[name] = time.perf_counter() - t0
+    out["wall_s"] = wall
+    return out
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3783,6 +4243,20 @@ def main(argv=None) -> int:
     bwd_shapes += check_bwd_kernel(churn_spec, card, elastic_rows,
                                    extra=False)
     mark("churn")
+    rs_root = tempfile.mkdtemp(prefix="chip_smoke_rounds_", dir=build_root)
+    try:
+        round_scale = round_scale_phases(rs_root, trainer.init, args.seed,
+                                         card)
+    finally:
+        shutil.rmtree(rs_root, ignore_errors=True)
+    # both kernels at the cohort step's shape (8 sampled clients' batches)
+    # and at the MD-GAN step's (every client's batch)
+    for path in ("cohort", "mdgan"):
+        rows = ((path, round_scale[path]["train_rows"]),)
+        sp = round_scale[path].pop("spec")
+        shapes += check_kernel(sp, card, rows, extra=False)
+        bwd_shapes += check_bwd_kernel(sp, card, rows, extra=False)
+    mark("round_scale")
     print(f"wall seconds by phase {json.dumps(wall)}, "
           f"{sum(wall.values())!r} in all  [{card}]", flush=True)
 
@@ -3855,6 +4329,18 @@ def main(argv=None) -> int:
               "federated elastic", bwd_shapes, "elastic",
               churn["launches"]["K2"]),
     ]
+    # slice 11: the cohort round's steps (8 sampled clients' rows) and the
+    # MD-GAN step (every client's rows)
+    kernels += [
+        entry("fused_gumbel_activation_fwd_cohort", fwd, "federated cohort",
+              shapes, "cohort", round_scale["cohort"]["launches"]["K1"]),
+        entry("fused_gumbel_activation_bwd_cohort", bwd, "federated cohort",
+              bwd_shapes, "cohort", round_scale["cohort"]["launches"]["K2"]),
+        entry("fused_gumbel_activation_fwd_mdgan", fwd, "mdgan", shapes,
+              "mdgan", round_scale["mdgan"]["launches"]["K1"]),
+        entry("fused_gumbel_activation_bwd_mdgan", bwd, "mdgan", bwd_shapes,
+              "mdgan", round_scale["mdgan"]["launches"]["K2"]),
+    ]
     # slice 9's bf16 variants: their launches on the bf16 paths (training,
     # the federated round, serving), each path counted on its own
     by_path = precision.pop("launches_by_path")
@@ -3880,6 +4366,7 @@ def main(argv=None) -> int:
     print(json.dumps({"canary": canary, "dated": dated}))
     print(json.dumps({"precision": precision}))
     print(json.dumps({"onboard": onboard, "churn": churn}))
+    print(json.dumps({"round_scale": round_scale}))
     print(card)
     print(json.dumps({"kernels": kernels, "serving": serving,
                       "fleet": fleet}))

@@ -39,6 +39,14 @@ device) and writes its layout:
   ``join:``, ``leave:`` or ``drift:`` faults runs the rounds through the
   elastic federation (``fed_tgan_torch.federation.elastic``), newcomers
   drawn from the input table;
+- ``--population N --cohort C`` trains and aggregates C sampled clients
+  a round; ``--aggregation buffered`` lands a scripted straggler's delta
+  (``--faults straggle:rank=R,delay=D``) later, discounted;
+  ``--ema-decay d`` samples, monitors and saves the debiased EMA of the
+  aggregated generator; ``--rounds-per-program K`` runs hook-free
+  stretches in chunks of K rounds with one host copy each;
+- ``--mode mdgan`` trains one shared generator against a discriminator
+  per client (``fed_tgan_torch.train.mdgan``);
 - the reference's ``-rank``/``-world_size``/``-ip``/``-port``: without
   ``-ip`` one process runs every client (``-world_size W`` means ``W - 1``
   clients, a rank other than 0 has nothing to do); ``-date_dic`` is
@@ -60,11 +68,6 @@ import numpy as np
 # flag -> (argparse keywords, ROADMAP item); a value other than the
 # default is refused with exit code 2
 NOT_PORTED = {
-    "--cohort": (dict(type=int, default=0), "A.17"),
-    "--population": (dict(type=int, default=None), "A.17"),
-    "--aggregation": (dict(type=str, default="sync"), "A.17"),
-    "--ema-decay": (dict(type=float, default=0.0), "A.17"),
-    "--rounds-per-program": (dict(type=int, default=1), "A.17"),
     "--obs-port": (dict(type=int, default=None), "A.20"),
     "--journal": (dict(type=str, default=None), "A.20"),
     "--profile-dir": (dict(type=str, default=None), "A.20"),
@@ -75,7 +78,6 @@ NOT_PORTED = {
     "--params-out": (dict(type=str, default=None), "A.18"),
     "--snapshot-format": (dict(type=str, default=None), "A.21"),
 }
-NOT_PORTED_MODES = {"mdgan": "A.17"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -105,6 +107,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-report", "--report", action="store_true",
                    help="accepted and ignored, as the reference does")
     p.add_argument("--n-clients", type=int, default=None)
+    p.add_argument("--population", type=int, default=None,
+                   help="the resident client population N (an alias of "
+                        "--n-clients, named for cohort runs)")
+    p.add_argument("--cohort", type=int, default=0,
+                   help="clients sampled per round (C): each round trains "
+                        "and aggregates C of the N resident clients, drawn "
+                        "from (seed, round), with the similarity weights "
+                        "renormalized over the cohort.  0 (default) or "
+                        "C = N = full participation")
+    p.add_argument("--aggregation", type=str, default="sync",
+                   choices=["sync", "buffered"],
+                   help="sync = every participant's update lands in its own "
+                        "round (default).  buffered = scripted stragglers "
+                        "(--faults straggle:rank=R,delay=D) leave the "
+                        "round's barrier and their deltas land D rounds "
+                        "later, discounted by 0.5^staleness; with no "
+                        "straggler, bit-identical to sync")
     p.add_argument("--shard-strategy", type=str, default="iid",
                    choices=["iid", "contiguous", "label_sorted", "dirichlet"])
     p.add_argument("--alpha", type=float, default=0.5, help="dirichlet skew")
@@ -149,6 +168,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--embedding-dim", type=int, default=128)
     p.add_argument("--lr-schedule", choices=["constant", "cosine", "linear"],
                    default="constant")
+    p.add_argument("--ema-decay", type=float, default=0.0,
+                   help="per-round EMA of the aggregated generator (fedavg "
+                        "mode); snapshots, the monitor and saved models use "
+                        "the debiased EMA.  0 = off (the reference)")
+    p.add_argument("--rounds-per-program", type=int, default=1,
+                   help="rounds per chunk: a hook-free stretch of K rounds "
+                        "is queued on the device back to back with one "
+                        "copy of its results to the host; bit-identical to "
+                        "K chunks of one round.  Hook rounds (--sample-every"
+                        "/--save-every/--monitor-every) end a chunk")
     p.add_argument("--sample-rows", type=int, default=40000)
     p.add_argument("--sample-every", type=int, default=1,
                    help="rounds between snapshots; 0 = only at the end")
@@ -229,9 +258,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refused(args, parser) -> str | None:
     """The first flag of a feature not ported yet, as a message."""
-    if args.mode in NOT_PORTED_MODES:
-        return (f"--mode {args.mode} is not ported yet (ROADMAP "
-                f"{NOT_PORTED_MODES[args.mode]})")
     if args.bgm_backend == "sklearn":
         return ("--bgm-backend sklearn is not ported yet (ROADMAP A.24): "
                 "sklearn is not on the card's host")
@@ -357,6 +383,7 @@ def main(argv=None) -> int:
         parser.error(f"--batch-size {args.batch_size}: must be a positive "
                      "multiple of pac=10 (the discriminator packs rows in "
                      "groups of 10)")
+    _check_round_flags(args, parser)
     refused = _refused(args, parser) or _install_faults(args.faults)
     if refused:
         print(f"error: {refused}", file=sys.stderr)
@@ -382,9 +409,9 @@ def main(argv=None) -> int:
         return 2
     ckpt_dir = args.ckpt_dir or os.path.join(args.out_dir, "checkpoint")
     if args.resume:
-        if args.mode != "fedavg":
-            print("error: --resume continues a --mode fedavg checkpoint",
-                  file=sys.stderr)
+        if args.mode == "standalone":
+            print("error: --resume continues a --mode fedavg or mdgan "
+                  "checkpoint", file=sys.stderr)
             return 2
         return _resume(args, name, kwargs, ckpt_dir, device)
     t_init = time.time()
@@ -419,12 +446,46 @@ def main(argv=None) -> int:
         aggregator=args.aggregator, update_gate=not args.no_update_gate,
         gate_norm_factor=args.gate_norm_factor,
         update_clip=args.update_clip, trim_ratio=args.trim_ratio,
-        precision=args.precision)
+        precision=args.precision, cohort=args.cohort,
+        aggregation=args.aggregation, ema_decay=args.ema_decay)
     if args.mode == "standalone":
         return _run_standalone(args, name, kwargs, tables, columns, cfg,
                                device)
     return _run_federated(args, name, kwargs, tables, columns, cfg, device,
                           t_init, ckpt_dir)
+
+
+def _check_round_flags(args, parser) -> None:
+    """The round-scale flags' parser errors, in JAX's words
+    (``fed_tgan_tpu/cli.py:764-790``); ``--population`` becomes
+    ``--n-clients``."""
+    if not 0.0 <= args.ema_decay < 1.0:
+        parser.error(f"--ema-decay {args.ema_decay}: must be in [0, 1)")
+    if args.rounds_per_program < 1:
+        parser.error(f"--rounds-per-program {args.rounds_per_program}: "
+                     "must be >= 1")
+    if args.ema_decay > 0 and args.mode != "fedavg":
+        parser.error("--ema-decay is only supported in fedavg mode "
+                     "(single-program or multi-process), not "
+                     "mdgan/standalone")
+    if args.population is not None:
+        if args.n_clients is not None and args.n_clients != args.population:
+            parser.error(f"--population {args.population} conflicts with "
+                         f"--n-clients {args.n_clients} (they are aliases; "
+                         "pass one)")
+        args.n_clients = args.population
+    if args.cohort < 0:
+        parser.error(f"--cohort {args.cohort}: must be >= 0")
+    multihost_launch = args.rank is not None and bool(args.ip)
+    if args.cohort and (args.mode != "fedavg" or multihost_launch):
+        parser.error("--cohort needs the in-process fedavg trainer (the "
+                     "cohort is sampled across the packed client axis; the "
+                     "multihost harness holds one client per process)")
+    if args.aggregation == "buffered" and (args.mode != "fedavg"
+                                           or multihost_launch):
+        parser.error("--aggregation buffered needs the in-process fedavg "
+                     "trainer (buffered deltas are re-applied by the host "
+                     "training loop)")
 
 
 def _install_faults(spec) -> str | None:
@@ -535,7 +596,13 @@ def _run_federated(args, name, kwargs, tables, columns, cfg, device,
     from fed_tgan_torch.federation.init import federated_initialize
     from fed_tgan_torch.testing.faults import active_plan
     from fed_tgan_torch.train.federated import FederatedTrainer
+    from fed_tgan_torch.train.mdgan import MDGANTrainer
 
+    plan = active_plan()
+    if plan is not None and plan.has_churn() and args.mode != "fedavg":
+        print("error: join:/leave:/drift: faults drive the elastic "
+              "membership layer, which needs --mode fedavg")
+        return 2
     clients = [TablePreprocessor(table=t, name=name, selected_columns=columns,
                                  **kwargs) for t in tables]
     if not args.quiet:
@@ -545,18 +612,20 @@ def _run_federated(args, name, kwargs, tables, columns, cfg, device,
                                 weighted=not args.uniform, device=device,
                                 similarity=args.similarity,
                                 cache=args.init_cache)
-    trainer = FederatedTrainer(init, cfg, seed=args.seed,
-                               min_clients=args.min_clients or 1,
-                               quarantine_strikes=args.quarantine_strikes,
-                               device=device, decode=args.decode,
-                               capacity=args.elastic_capacity)
+    if args.mode == "mdgan":
+        trainer = MDGANTrainer(init, cfg, seed=args.seed, device=device,
+                               decode=args.decode)
+    else:
+        trainer = FederatedTrainer(
+            init, cfg, seed=args.seed, min_clients=args.min_clients or 1,
+            quarantine_strikes=args.quarantine_strikes, device=device,
+            decode=args.decode, capacity=args.elastic_capacity)
     if not args.quiet:
         phases = ", ".join(f"{k} {v:.3f}s" for k, v in
                            {**init.timings, **trainer.timings}.items())
         print(f"init done in {time.time() - t_init:.1f}s ({phases}); "
               f"aggregation weights: {np.round(init.weights, 4).tolist()}")
     elastic = newcomer_factory = None
-    plan = active_plan()
     if plan is not None and plan.has_churn():
         from fed_tgan_torch.federation.elastic import (
             DriftConfig,
@@ -618,8 +687,14 @@ def _run_training(args, name, kwargs, trainer, init, tables, ckpt_dir,
                     for c in tables[0]}
             monitor = SimilarityMonitor(init.global_meta, init.encoders, real,
                                         seed=args.seed, device=trainer.device)
+    from fed_tgan_torch.train.mdgan import MDGANTrainer
+
+    fused = not isinstance(trainer, MDGANTrainer)  # rounds in chunks
     watchdog = None
-    if args.watchdog:
+    if args.watchdog and not fused:
+        print("note: --watchdog is not supported for this trainer; "
+              "ignoring")
+    elif args.watchdog:
         watchdog = TrainingWatchdog(WatchdogConfig(
             loss_threshold=args.watchdog_loss_threshold,
             similarity_factor=args.watchdog_similarity_factor,
@@ -660,6 +735,20 @@ def _run_training(args, name, kwargs, trainer, init, tables, ckpt_dir,
            if snapshot_due(e) or save_due(e) or mon_due(e)]
     fit_kwargs = dict(log_every=0 if args.quiet else max(1, remaining // 10),
                       sample_hook=hook if due else None, hook_epochs=due)
+    rpp = args.rounds_per_program
+    if rpp > 1 and not fused:
+        print("note: --rounds-per-program is not supported for this "
+              "trainer; ignoring")
+    elif fused:
+        # a hook-free stretch of K rounds is one chunk; the hook rounds in
+        # hook_epochs end chunks (fed_tgan_tpu/cli.py:1248-1270)
+        fit_kwargs["max_rounds_per_call"] = rpp
+        cadences = [c for c in (args.sample_every, args.save_every,
+                                args.monitor_every) if c]
+        if rpp > 1 and cadences and min(cadences) < rpp:
+            print(f"note: hook cadence (every {min(cadences)} rounds) "
+                  f"is below --rounds-per-program {rpp}; hooks force "
+                  "program boundaries, capping the effective fusion")
     with mon_log, snapshot:
         if elastic is not None:
             elastic.watchdog = watchdog

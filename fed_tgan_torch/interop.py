@@ -368,11 +368,15 @@ def _namespace(obj):
 
 
 def _bundle_from_leaves(leaves, n_blocks: int, n_layers: int,
-                        scheduled: bool) -> SimpleNamespace:
+                        scheduled: bool, kind: str = "federated",
+                        ema: bool = False) -> SimpleNamespace:
     """A JAX ``ModelBundle`` from its flattened leaves: ``params_g``,
     ``state_g``, ``params_d`` (sorted dict keys), then per optimizer the
     Adam ``count``, ``mu`` and ``nu`` trees and, for a decaying schedule,
-    the schedule's own count."""
+    the schedule's own count; with ``ema`` the EMA's ``(params_g,
+    state_g)`` after it.  ``kind="mdgan"`` reads an MD-GAN checkpoint's
+    ``(GeneratorBundle(params, state, opt), DiscriminatorBundle(params,
+    opt))`` into the same fields."""
     it = iter(leaves)
     take = lambda: next(it)
 
@@ -399,16 +403,28 @@ def _bundle_from_leaves(leaves, n_blocks: int, n_layers: int,
             take()  # the schedule's count, equal to Adam's
         return count, mu, nu
 
-    params_g = gen_tree()
-    state_g = {"blocks": [{"mean": take(), "var": take()}
-                          for _ in range(n_blocks)]}
-    params_d = dis_tree()
-    opt_g, opt_d = adam(gen_tree), adam(dis_tree)
+    def state_tree():
+        return {"blocks": [{"mean": take(), "var": take()}
+                           for _ in range(n_blocks)]}
+
+    if kind == "mdgan":
+        params_g, state_g, opt_g = gen_tree(), state_tree(), adam(gen_tree)
+        params_d, opt_d = dis_tree(), adam(dis_tree)
+    else:
+        params_g, state_g, params_d = gen_tree(), state_tree(), dis_tree()
+        opt_g, opt_d = adam(gen_tree), adam(dis_tree)
+    ema_trees = (gen_tree(), state_tree()) if ema else None
     if next(it, None) is not None:
         raise ValueError("the checkpoint holds more leaves than a "
-                         "ModelBundle of this config")
+                         f"{kind} checkpoint of this config")
     return SimpleNamespace(params_g=params_g, state_g=state_g,
-                           params_d=params_d, opt_g=opt_g, opt_d=opt_d)
+                           params_d=params_d, opt_g=opt_g, opt_d=opt_d,
+                           ema=ema_trees)
+
+
+def _flat(module) -> torch.Tensor:
+    """A module's parameters, flattened and joined in their order."""
+    return torch.cat([p.detach().reshape(-1) for p in module.parameters()])
 
 
 def _load_adam(stack, bundle: SimpleNamespace, cfg: TrainConfig) -> None:
@@ -439,23 +455,25 @@ def convert_jax_checkpoint(src_dir: str, dst_dir: str) -> str:
     Carried over: the ``FederatedInit``; every client's parameters and
     BatchNorm state (:func:`client_models_from_jax`); its optax Adam
     ``mu`` / ``nu`` / ``count`` as torch's ``exp_avg`` / ``exp_avg_sq`` /
-    ``step``, with the LR schedule at that count; the weights, quarantine
-    strikes, dropped clients, round counter and round times.  Not carried
-    over: the JAX key chain.  A threefry key has no torch counterpart, so
-    each client's ``torch.Generator`` starts from ``step_seed(seed,
-    client)`` as in a fresh port trainer, and the resumed run draws other
-    numbers than the JAX run would have.  An elastic checkpoint keeps its
-    ``capacity`` (every slot's models and Adam state, padded ones
-    included).  EMA checkpoints are refused (not ported)."""
+    ``step``, with the LR schedule at that count; the generator EMA and
+    its update count; the weights, quarantine strikes, dropped clients,
+    round counter and round times.  A JAX ``mdgan`` checkpoint becomes an
+    :class:`~fed_tgan_torch.train.mdgan.MDGANTrainer` checkpoint: the
+    shared generator, its Adam, every client's discriminator and Adam.
+    Not carried over: the JAX key chain.  A threefry key has no torch
+    counterpart, so each client's ``torch.Generator`` starts from
+    ``step_seed(seed, client)`` as in a fresh port trainer, and the
+    resumed run draws other numbers than the JAX run would have: other
+    step draws, and other cohorts (the port derives a round's cohort from
+    ``(seed, round)``, JAX from its key chain).  An elastic checkpoint
+    keeps its ``capacity`` (every slot's models and Adam state, padded
+    ones included)."""
     from fed_tgan_torch.runtime.checkpoint import save_federated
-    from fed_tgan_torch.train.federated import FederatedTrainer
 
     host = _unpickle(os.path.join(src_dir, "host.pkl"))
-    if host.get("kind") != "federated":
+    kind = host.get("kind")
+    if kind not in ("federated", "mdgan"):
         raise ValueError(f"{src_dir} is not a JAX federated checkpoint")
-    if host.get("ema"):
-        raise NotImplementedError("EMA checkpoints (ROADMAP A.17) are not "
-                                  "ported yet")
     cfg = config_from_dict(_state(host["cfg"]))
     init = federated_init_from_jax(_namespace(host["init"]))
     spec = SegmentSpec.from_output_info(init.output_info)
@@ -463,17 +481,11 @@ def convert_jax_checkpoint(src_dir: str, dst_dir: str) -> str:
         n = sum(1 for k in data.files if k.startswith("leaf_"))
         bundle = _bundle_from_leaves(
             [data[f"leaf_{i:05d}"] for i in range(n)], len(cfg.gen_dims),
-            len(cfg.dis_dims), cfg.lr_schedule != "constant")
-    trainer = FederatedTrainer(
-        init, cfg, seed=host["seed"], device="cpu",
-        models=client_models_from_jax(bundle, spec, cfg, "cpu"),
-        capacity=int(host.get("capacity") or 0))
-    _load_adam(trainer.stack, bundle, cfg)
-    trainer.weights = np.asarray(host["weights"], dtype=np.float32)
-    trainer._strikes = np.asarray(host["strikes"], dtype=np.int64)
-    trainer.dropped_clients = {int(i) for i in host.get("dropped_clients")
-                               or ()}
-    trainer.steps = np.where(trainer._alive(), trainer.steps, 0)
+            len(cfg.dis_dims), cfg.lr_schedule != "constant", kind,
+            ema=bool(host.get("ema")))
+    trainer = (_mdgan_from_jax(init, cfg, host, bundle, spec)
+               if kind == "mdgan"
+               else _federated_from_jax(init, cfg, host, bundle, spec))
     trainer.completed_epochs = int(host["completed_epochs"])
     trainer.epoch_times = [float(t) for t in host["epoch_times"]]
     for k, v in (host.get("phase_times") or {}).items():
@@ -481,3 +493,54 @@ def convert_jax_checkpoint(src_dir: str, dst_dir: str) -> str:
             trainer.phase_times[k] = [float(t) for t in v]
     save_federated(trainer, dst_dir, run_name=host.get("run_name"))
     return dst_dir
+
+
+def _federated_from_jax(init, cfg, host, bundle, spec):
+    from fed_tgan_torch.train.federated import FederatedTrainer
+
+    trainer = FederatedTrainer(
+        init, cfg, seed=host["seed"], device="cpu",
+        models=client_models_from_jax(bundle, spec, cfg, "cpu"),
+        capacity=int(host.get("capacity") or 0))
+    _load_adam(trainer.stack, bundle, cfg)
+    if bundle.ema is not None:
+        params_g, state_g = bundle.ema
+        gen = generator_from_jax(params_g, state_g)
+        trainer.ema[0].copy_(_flat(gen))
+        trainer.ema[1].copy_(torch.cat([
+            t for b in gen.blocks for t in (b.bn.running_mean,
+                                            b.bn.running_var)]))
+        trainer._ema_updates = int(host.get("ema_updates", 0))
+    trainer.weights = np.asarray(host["weights"], dtype=np.float32)
+    trainer._strikes = np.asarray(host["strikes"], dtype=np.int64)
+    trainer.dropped_clients = {int(i) for i in host.get("dropped_clients")
+                               or ()}
+    trainer.steps = np.where(trainer._alive(), trainer.steps, 0)
+    return trainer
+
+
+def _mdgan_from_jax(init, cfg, host, bundle, spec):
+    """An ``MDGANTrainer`` holding a JAX MD-GAN checkpoint's state: the
+    shared generator (no client axis) and its Adam, the stacked
+    discriminators and theirs."""
+    from fed_tgan_torch.train.mdgan import MDGANTrainer
+
+    n = np.shape(bundle.params_d["out"]["b"])[0]
+    trainer = MDGANTrainer(init, cfg, seed=host["seed"], device="cpu",
+                           models=Models.build(
+                               generator_from_jax(bundle.params_g,
+                                                  bundle.state_g),
+                               discriminator_from_jax(
+                                   _index(bundle.params_d, 0), cfg.pac),
+                               spec, cfg))
+    dis = [discriminator_from_jax(_index(bundle.params_d, i), cfg.pac)
+           for i in range(n)]
+    trainer.disc.stack.load_state_dicts([d.state_dict() for d in dis])
+    count, mu, nu = bundle.opt_g
+    trainer.gen.opt.load(np.asarray(count).reshape(1).astype(np.int64), *(
+        _flat(generator_from_jax(t, bundle.state_g))[None] for t in (mu, nu)))
+    count, mu, nu = bundle.opt_d
+    trainer.disc.opt.load(np.asarray(count).astype(np.int64), *(
+        torch.stack([_flat(discriminator_from_jax(_index(t, i), cfg.pac))
+                     for i in range(n)]) for t in (mu, nu)))
+    return trainer

@@ -307,8 +307,40 @@ class StackedGenerator(_Stacked):
     def unstack(self, i: int) -> Generator:
         """Client ``i``'s generator as a module of its own (a copy), in
         train mode."""
-        return _module(Generator, self.dims, self.device,
-                       self.client_state(i))
+        return self.module(self.client_state(i))
+
+    def flat_state(self, params: torch.Tensor, bn: torch.Tensor,
+                   num_batches: torch.Tensor) -> dict:
+        """A ``Generator.state_dict()`` from one client's flat weights
+        ``params`` (P,), running statistics ``bn`` (2 * sum(widths),
+        block by block: mean, then variance) and batch count (views)."""
+        state = {name: p.view(shape) for (name, shape), p in
+                 zip(self.shapes, params.split(self.sizes))}
+        start = 0
+        for j, h in enumerate(self.widths):
+            for key in ("running_mean", "running_var"):
+                state[f"blocks.{j}.bn.{key}"] = bn[start:start + h]
+                start += h
+            state[f"blocks.{j}.bn.num_batches_tracked"] = num_batches
+        return state
+
+    def module(self, state: dict) -> Generator:
+        """A train-mode generator of this stack's shape holding ``state``
+        (a ``Generator.state_dict()``), a copy."""
+        return _module(Generator, self.dims, self.device, state)
+
+    def bn_index(self, idx: torch.Tensor) -> torch.Tensor:
+        """Where clients ``idx`` (C,) sit in :attr:`bn_state`: the (2 * C *
+        sum(widths),) positions of their running statistics, in the layout
+        of a stack of those C clients (``bn_state[bn_index(idx)]`` is that
+        stack's ``bn_state``)."""
+        parts, start = [], 0
+        for h in self.widths:
+            cols = (idx[:, None] * h + torch.arange(h, device=idx.device)
+                    ).reshape(-1)
+            parts += [start + cols, start + self.n * h + cols]
+            start += 2 * self.n * h
+        return torch.cat(parts)
 
     @torch.no_grad()
     def load_state_dicts(self, states: list) -> None:

@@ -29,7 +29,11 @@ Federated training checkpoints (:func:`save_federated` /
   mixtures, scores, the onboarding references) and per slot (every
   client, then an elastic trainer's padded slots) its generator and
   discriminator ``state_dict`` (BatchNorm running statistics included),
-  both Adam states, and the state of its ``torch.Generator``.
+  both Adam states, and the state of its ``torch.Generator``; with
+  ``ema_decay`` > 0 the generator EMA (``ema.params``, ``ema.state``)
+  and its update count.  An MD-GAN trainer saves as kind
+  ``mdgan_torch``: the shared generator and its Adam, the stacked
+  discriminators and theirs, each client's generator state.
 
 A loaded trainer continues bit for bit where the saved one stood, in the
 checkpoint's precision (its ``TrainConfig`` wins over the caller's, as in
@@ -417,8 +421,14 @@ def save_federated(trainer, path: str, run_name: str | None = None,
     """Write a full-resume checkpoint of a port ``FederatedTrainer`` to
     the directory ``path``; ``run_name`` (the run's output identity) rides
     along.  Crash-safe (see the module docstring); ``keep`` > 1 retains
-    the previous K-1 checkpoints as ``path.1`` ..."""
+    the previous K-1 checkpoints as ``path.1`` ...  An
+    :class:`~fed_tgan_torch.train.mdgan.MDGANTrainer` is saved as kind
+    ``mdgan_torch`` (:func:`_mdgan_parts`)."""
     init_host, arrays = _init_parts(trainer.init)
+    if hasattr(trainer, "gen"):
+        host = _mdgan_parts(trainer, arrays)
+        host.update(init=init_host, run_name=run_name)
+        return _write_checkpoint(path, host, arrays, keep)
     n_done = len(trainer.epoch_times)
     stack = trainer.stack
     parts = (("generator", stack.generator.state_dicts()),
@@ -472,7 +482,18 @@ def save_federated(trainer, path: str, run_name: str | None = None,
         "run_name": run_name,
         "clients": clients,
         "init": init_host,
+        # the generator EMA (cfg.ema_decay > 0) and its update count
+        "ema_updates": trainer._ema_updates,
     }
+    if trainer.ema is not None:
+        arrays["ema.params"], arrays["ema.state"] = (
+            t.cpu().numpy() for t in trainer.ema)
+    _write_checkpoint(path, host, arrays, keep)
+
+
+def _write_checkpoint(path: str, host: dict, arrays: dict,
+                      keep: int) -> None:
+    """Stage ``host.json`` and ``arrays.npz``, seal, publish."""
     tmp = _stage_dir(path)
     try:
         with open(os.path.join(tmp, _HOST), "w") as f:
@@ -509,11 +530,13 @@ def load_federated(path: str, device="cuda"):
     device = resolve_device(device)
     with open(os.path.join(path, _HOST)) as f:
         host = json.load(f)
-    if host.get("kind") != "federated_torch":
+    if host.get("kind") not in ("federated_torch", "mdgan_torch"):
         raise ValueError(f"{path} is not a port federated checkpoint")
     if host["version"] > FEDERATED_VERSION:
         raise ValueError(f"checkpoint version {host['version']} is newer "
                          f"than supported {FEDERATED_VERSION}")
+    if host["kind"] == "mdgan_torch":
+        return _load_mdgan(path, host, device)
     with np.load(os.path.join(path, _ARRAYS)) as data:
         trainer = FederatedTrainer(
             _init_from(host["init"], data), config_from_dict(host["cfg"]),
@@ -553,6 +576,13 @@ def load_federated(path: str, device="cuda"):
                             device.type)
                 trainer.gens[i].manual_seed(
                     step_seed(step_seed(trainer.seed, i), done))
+        if trainer.ema is not None:
+            if "ema.params" not in data.files:
+                raise ValueError(f"{path}: cfg.ema_decay > 0 but the "
+                                 "checkpoint carries no EMA")
+            for t, key in zip(trainer.ema, ("ema.params", "ema.state")):
+                t.copy_(torch.as_tensor(data[key]))
+            trainer._ema_updates = int(host.get("ema_updates", 0))
     trainer.completed_epochs = done
     trainer.epoch_times = list(host["epoch_times"])
     for k, v in host["phase_times"].items():
@@ -561,5 +591,71 @@ def load_federated(path: str, device="cuda"):
     trainer._strikes = np.asarray(host["strikes"], dtype=np.int64)
     trainer.dropped_clients = set(host["dropped_clients"])
     trainer.steps = np.where(trainer._alive(), trainer.steps, 0)
+    trainer.run_name = host["run_name"]
+    return trainer
+
+
+def _mdgan_parts(trainer, arrays: dict) -> dict:
+    """An MD-GAN trainer's state into ``arrays`` (the shared generator's
+    flat weights, running statistics, batch count and Adam; the stacked
+    discriminators and their Adam; each client's generator state); returns
+    its host fields (``fed_tgan_tpu/runtime/checkpoint.py:225-356``, kind
+    ``mdgan``)."""
+    for name, bundle, params in (("gen", trainer.gen, trainer.gen.params),
+                                 ("disc", trainer.disc,
+                                  trainer.disc.stack.params)):
+        arrays[f"{name}.params"] = params.detach().cpu().numpy()
+        for key in ("count", "exp_avg", "exp_avg_sq", "grad"):
+            arrays[f"{name}.opt.{key}"] = getattr(bundle.opt,
+                                                  key).cpu().numpy()
+    arrays["gen.state"] = trainer.gen.state.cpu().numpy()
+    arrays["gen.batches"] = trainer.gen.batches.cpu().numpy()
+    for i, g in enumerate(trainer.gens):
+        arrays[f"client_{i:03d}.rng"] = g.get_state().numpy()
+    n_done = len(trainer.epoch_times)
+    return {
+        "version": FEDERATED_VERSION, "kind": "mdgan_torch",
+        "cfg": config_to_dict(trainer.cfg), "seed": trainer.seed,
+        "decode": trainer.decode.mode,
+        "completed_epochs": trainer.completed_epochs,
+        "epoch_times": list(trainer.epoch_times),
+        "phase_times": {k: list(v)[:n_done]
+                        for k, v in trainer.phase_times.items()},
+        "rng_device": trainer.device.type,
+    }
+
+
+def _load_mdgan(path: str, host: dict, device):
+    """An ``MDGANTrainer`` rebuilt from :func:`_mdgan_parts`' output."""
+    from fed_tgan_torch.serve.engine import step_seed
+    from fed_tgan_torch.train.mdgan import MDGANTrainer
+
+    with np.load(os.path.join(path, _ARRAYS)) as data:
+        trainer = MDGANTrainer(
+            _init_from(host["init"], data), config_from_dict(host["cfg"]),
+            seed=host["seed"], device=device, decode=host["decode"])
+        done = host["completed_epochs"]
+        with torch.no_grad():
+            for name, bundle, params in (
+                    ("gen", trainer.gen, trainer.gen.params),
+                    ("disc", trainer.disc, trainer.disc.stack.params)):
+                params.copy_(torch.as_tensor(data[f"{name}.params"]))
+                for key in ("count", "exp_avg", "exp_avg_sq", "grad"):
+                    getattr(bundle.opt, key).copy_(
+                        torch.as_tensor(data[f"{name}.opt.{key}"]))
+            trainer.gen.state.copy_(torch.as_tensor(data["gen.state"]))
+            trainer.gen.batches.copy_(torch.as_tensor(data["gen.batches"]))
+        for i, g in enumerate(trainer.gens):
+            if host["rng_device"] == device.type:
+                g.set_state(torch.as_tensor(data[f"client_{i:03d}.rng"]))
+            else:
+                log.warning("client %d: generator state saved on %s, loaded "
+                            "on %s; reseeded", i, host["rng_device"],
+                            device.type)
+                g.manual_seed(step_seed(step_seed(trainer.seed, i), done))
+    trainer.completed_epochs = done
+    trainer.epoch_times = list(host["epoch_times"])
+    for k, v in host["phase_times"].items():
+        trainer.phase_times[k] = list(v)
     trainer.run_name = host["run_name"]
     return trainer

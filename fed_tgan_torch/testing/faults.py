@@ -32,14 +32,19 @@ on ten kinds:
 - ``drift:client=C,round=E[,shift=S]`` — client ``C``'s shard is silently
   swapped for :func:`drift_frame` of it (continuous columns moved by ``S``
   standard deviations, categorical mass rotated) at the start of round
-  ``E``; only the drift detector's windows can catch it.
+  ``E``; only the drift detector's windows can catch it;
+- ``straggle:rank=R,delay=D[,round=E][,until=U]`` — client ``R`` (1-based)
+  straggles over rounds [E, U] (U=0: forever): under buffered aggregation
+  it leaves each such round's barrier and its delta lands ``D`` rounds
+  later, discounted (:func:`straggle_window`); under sync aggregation the
+  fault does nothing, as in JAX.
 
 The churn kinds are host events between rounds: :meth:`FaultPlan.
 churn_events` lists a round's, :meth:`FaultPlan.next_churn_round` the next
 round that has one.  The other kinds parse, but a plan holding one is
 refused by :func:`install_plan` and :func:`active_plan`
 (:func:`require_ported`), so none parses and then quietly does nothing:
-the transport faults wait for ROADMAP A.18 and stragglers for A.17.
+the transport faults wait for ROADMAP A.18.
 
 Plans come from the ``--faults`` CLI flag or the
 ``FED_TGAN_TORCH_FAULTS`` environment variable.  The trainer and the
@@ -62,9 +67,7 @@ log = logging.getLogger("fed_tgan_torch.faults")
 ENV_VAR = "FED_TGAN_TORCH_FAULTS"
 
 # kind -> the ROADMAP item the port waits for before it can act on it
-NOT_PORTED_KINDS = {
-    "delay_msg": "A.18", "sever_conn": "A.18", "straggle": "A.17",
-}
+NOT_PORTED_KINDS = {"delay_msg": "A.18", "sever_conn": "A.18"}
 
 
 class FaultInjected(RuntimeError):
@@ -371,20 +374,42 @@ def update_fault_window(
     """The update fault of a chunk of ``size`` rounds from the 0-based
     round ``e0``: ``(fault, clipped_size)``, ``fault = (kind, client_idx0,
     factor)`` when every round of the clipped chunk lies in the fault's
-    window, else None; the chunk is clipped at the window's edges.  The
-    port's trainer asks one round at a time."""
+    window, else None; the chunk is clipped at the window's edges."""
     if plan is None or not plan.update_kind:
         return None, size
-    lo = plan.update_round - 1
-    hi = plan.update_until - 1 if plan.update_until else None
+    active, size = _window(plan.update_round, plan.update_until, e0, size)
+    fault = ((plan.update_kind, plan.update_rank - 1, plan.update_factor)
+             if active else None)
+    return fault, size
+
+
+def straggle_window(
+    plan: Optional[FaultPlan], e0: int, size: int
+) -> tuple[Optional[tuple[int, int]], int]:
+    """The straggler of a chunk of ``size`` rounds from the 0-based round
+    ``e0`` (``fed_tgan_tpu/testing/faults.py:361-385``), by the window
+    contract of :func:`update_fault_window`: ``(straggler,
+    clipped_size)``, ``straggler = (client_idx0, delay_rounds)`` when every
+    round of the clipped chunk lies in the straggle window, else None."""
+    if plan is None or not plan.straggle_rank:
+        return None, size
+    active, size = _window(plan.straggle_round, plan.straggle_until, e0,
+                           size)
+    return ((plan.straggle_rank - 1, plan.straggle_delay) if active
+            else None), size
+
+
+def _window(first: int, until: int, e0: int, size: int) -> tuple[bool, int]:
+    """Whether 0-based round ``e0`` lies in the 1-based window [first,
+    until] (until 0: open-ended), and ``size`` clipped at the first edge
+    inside the chunk, so the window never flips mid-chunk."""
+    lo = first - 1
+    hi = until - 1 if until else None
     for edge in sorted(x for x in (lo, (hi + 1) if hi is not None else None)
                        if x is not None and e0 < x < e0 + size):
         size = edge - e0
         break
-    active = e0 >= lo and (hi is None or e0 <= hi)
-    fault = ((plan.update_kind, plan.update_rank - 1, plan.update_factor)
-             if active else None)
-    return fault, size
+    return e0 >= lo and (hi is None or e0 <= hi), size
 
 
 _active: Optional[FaultPlan] = None

@@ -1,6 +1,6 @@
 """The federated trainer: every client stacked on one device
 (counterpart of ``fed_tgan_tpu/train/federated.py:102-135, 166-458,
-1123-1190, 1256-1600, 1604-1669``).
+1123-1190, 1203-1600, 1604-1669``).
 
 A round, as the JAX program computes it (``vmap(run_one)`` over the
 clients of a ``lax.scan`` of ``max_steps`` masked steps):
@@ -24,9 +24,47 @@ clients of a ``lax.scan`` of ``max_steps`` masked steps):
   aggregate is written into every client's slice.  Adam moments and
   learning-rate schedules stay per client across rounds: the JAX program
   replicates parameters, never optimizer state (``federated.py:409-413``);
-- the round's metrics and the gate's quarantine mask come to the host in
-  one copy; clients the gate rejects ``quarantine_strikes`` times are
-  dropped (down to ``min_clients``) and the weights renormalized.
+- clients the gate rejects ``quarantine_strikes`` times are dropped (down
+  to ``min_clients``) and the weights renormalized.
+
+Rounds run in chunks (``fit(max_rounds_per_call=K)``, the CLI's
+``--rounds-per-program``): the rounds of a chunk are queued on the device
+back to back, their metrics, quarantine masks and finite flag stay there,
+and the chunk makes one copy to the host; strikes and evictions follow
+the chunk, as JAX's host code applies them after its fused program.  The
+hook rounds, the ``kill_client`` round, the update-fault and straggle
+windows and buffered arrivals each end a chunk.  A chunk of K rounds
+computes what K chunks of one round compute, bit for bit.
+
+Cohort sampling (``cfg.cohort`` = C, ``0 < C < slots``,
+``federated.py:187-198, 326-407``): each round trains and aggregates C
+slots drawn from ``(seed, round)`` (:meth:`FederatedTrainer.cohort_ids`,
+or an injected ``cohort_fn``).  Their models, BatchNorm state, Adam state
+and sampler tables are gathered into a C-slot working stack allocated
+once (the data rows stay where they are: the gathered row tables point
+at them), the working stack runs the masked steps, the cohort's weights
+renormalize as ``w / max(sum(w), 1e-12)``, and the aggregate is written
+into every slot after the cohort's local state is scattered back with
+``index_copy_``.  Only sampled clients draw, each from its own generator,
+into its position of the working stack.  ``C = 0`` or ``C = slots`` is
+full participation.
+
+Buffered aggregation (``cfg.aggregation = "buffered"``, ``federated.py:
+204-210, 309-324, 1203-1254``): in a ``straggle`` fault's window a chunk
+is one round; the straggler trains but leaves the round's barrier (its
+weight masked to 0, the others renormalized; ``self.weights`` stays),
+its float32 delta over ``(params_g, params_d, state_g)`` is queued and
+lands at the start of round ``origin + max(1, delay)``, scaled by
+``weight * staleness_discount ** staleness``, in every slot; a non-finite
+delta is a strike instead.  Without a straggler, buffered is sync.
+
+The generator EMA (``cfg.ema_decay`` = d > 0, ``federated.py:414-422,
+1604-1627``): a float32 tensor of the aggregated generator's weights and
+running statistics, zero at the start, ``d * ema + (1 - d) * avg`` after
+every round; :meth:`FederatedTrainer._global_model` debiases it by ``1 /
+(1 - d ** n)`` once a round has been folded in, and every sampling
+surface (snapshots, ``sample_encoded``, the monitor, ``to_saved``) reads
+it.
 
 Snapshots sample the aggregated generator through the slice-1
 ``SamplingEngine`` with the JAX trainer's sampling-key offset 29, decoded
@@ -35,7 +73,7 @@ by the packed8 layout unless another is asked for.
 The active fault plan (:mod:`fed_tgan_torch.testing.faults`) acts on the
 round: ``kill_client`` drops its client at the start of its round, and the
 update faults corrupt their client's update in every round of their window
-(:func:`corrupt_updates`).  ``fit(health_cb=)`` hands each round's losses
+(:func:`corrupt_updates`).  ``fit(health_cb=)`` hands each chunk's losses
 to the training watchdog before the sample hook runs, so a round the
 watchdog rejects is never checkpointed.
 
@@ -52,15 +90,16 @@ then padded slots with zero weight and zero steps, whose sampler tables
 are client 0's over zero data rows and whose models hold the global
 parameters (every aggregate is written into every slot) with untouched
 Adam state.  A padded slot is computed in every stacked step (static
-shapes) and changes nothing.  The stacked data's per-slot stride is the
+shapes) and changes nothing; a cohort draws over every slot, padded ones
+included, as JAX's does.  The stacked data's per-slot stride is the
 power of two at or above the longest shard.  :meth:`admit_clients` lands
 newcomers in padded slots and grows the capacity to the next power of two
 on overflow, the new slots copies of slot 0 as JAX's are;
 :meth:`update_client_shard` swaps one client's rows (drift).
 
-Not ported yet, each rejected with the ROADMAP item it waits for: cohort
-sampling, buffered aggregation and EMA (A.17); several rounds per program
-is CLI-level and refused there.
+Events the JAX package journals (``aggregate`` and ``quarantine`` of
+buffered mode) are dicts in :attr:`FederatedTrainer.events`, logged at
+INFO, until ROADMAP A.20's journal.
 """
 
 from __future__ import annotations
@@ -89,7 +128,11 @@ from fed_tgan_torch.runtime.checkpoint import SavedSynthesizer
 from fed_tgan_torch.runtime.precision import resolve_precision
 from fed_tgan_torch.serve.engine import SamplingEngine, step_seed
 from fed_tgan_torch.serve.registry import LoadedModel
-from fed_tgan_torch.testing.faults import active_plan, update_fault_window
+from fed_tgan_torch.testing.faults import (
+    active_plan,
+    straggle_window,
+    update_fault_window,
+)
 from fed_tgan_torch.train.sampler import (
     CondSampler,
     RowSampler,
@@ -97,6 +140,7 @@ from fed_tgan_torch.train.sampler import (
     StackedRowSampler,
 )
 from fed_tgan_torch.train.steps import (
+    StackedModels,
     StepDraws,
     TrainConfig,
     client_draws,
@@ -110,21 +154,23 @@ from fed_tgan_torch.train.steps import (
 
 KEY_OFFSET = 29  # the JAX trainer's sampling stream offset
 METRICS = ("loss_d", "pen", "loss_g")
+COHORT_STREAM = 0x636F686F7274  # the cohort draw's stream ("cohort")
 log = logging.getLogger("fed_tgan_torch.train")
 
 # (round, client, step) -> that step's draws; tests inject JAX draws here
 Draws = Callable[[int, int, int], StepDraws]
+# round -> the ids of the slots that round samples; tests inject JAX's
+CohortFn = Callable[[int], np.ndarray]
 
 
 def require_federated(cfg: TrainConfig) -> None:
-    """The federated options this port runs (see the module docstring)."""
-    for name, off, item in (("cohort", 0, "A.17"), ("aggregation", "sync",
-                                                     "A.17"),
-                            ("ema_decay", 0.0, "A.17")):
-        if getattr(cfg, name) != off:
-            raise NotImplementedError(
-                f"{name}={getattr(cfg, name)!r} is not ported yet "
-                f"(ROADMAP {item})")
+    """The federated options this port runs: a known aggregation mode
+    and what :func:`require_trainable` checks."""
+    if cfg.aggregation not in ("sync", "buffered"):
+        raise ValueError(
+            f"aggregation={cfg.aggregation!r}: expected sync|buffered")
+    if cfg.cohort < 0:
+        raise ValueError(f"cohort={cfg.cohort}: must be >= 0")
     require_trainable(cfg)
 
 
@@ -172,6 +218,23 @@ def build_client_stacks(init: FederatedInit, cfg: TrainConfig,
             server_cond)
 
 
+@dataclasses.dataclass
+class _Part:
+    """One round's participants: the stack they train in (the trainer's
+    own, or the cohort's working stack), their samplers and draw buffers,
+    and per position the client id and its local steps."""
+
+    stack: StackedModels
+    conds: StackedCondSampler
+    rows: StackedRowSampler
+    draws: StepDraws
+    client_draws: list
+    ids: np.ndarray               # (P,) slot of each position
+    steps: np.ndarray             # (P,) local steps of each position
+    steps_dev: torch.Tensor       # the same on the device
+    idx: Optional[torch.Tensor]   # the cohort's slots on the device
+
+
 class FederatedTrainer:
     """Federated training from a finished :class:`FederatedInit`, on
     ``device`` (the card unless the caller asks for the CPU).
@@ -180,13 +243,15 @@ class FederatedTrainer:
     that many slots, at least the population.  ``models`` (tests,
     interop) replaces the initial models, one per client or per slot,
     which are otherwise one ``init_models(spec, cfg, seed)`` copied to
-    every slot; ``draws`` (tests) replaces every step's draws."""
+    every slot; ``draws`` (tests) replaces every step's draws and
+    ``cohort_fn`` every round's cohort."""
 
     def __init__(self, init: FederatedInit, config: Optional[TrainConfig] = None,
                  seed: int = 0, min_clients: int = 1,
                  quarantine_strikes: int = 3, device="cuda",
                  decode: str = "packed8", models: Optional[list] = None,
-                 draws: Optional[Draws] = None, capacity: int = 0):
+                 draws: Optional[Draws] = None, capacity: int = 0,
+                 cohort_fn: Optional[CohortFn] = None):
         self.init = init
         self.cfg = config or TrainConfig()
         require_federated(self.cfg)
@@ -195,11 +260,16 @@ class FederatedTrainer:
         self.min_clients = min_clients
         self.quarantine_strikes = quarantine_strikes
         self.draws = draws
+        self.cohort_fn = cohort_fn
         self.n_clients = len(init.client_matrices)
         if capacity and capacity < self.n_clients:
             raise ValueError(
                 f"capacity={capacity} below the resident population "
                 f"{self.n_clients}: elastic slots can only add headroom")
+        if self.cfg.cohort and not 0 < self.cfg.cohort <= self.n_clients:
+            raise ValueError(
+                f"cohort={self.cfg.cohort} must be in 1..{self.n_clients} "
+                "(the resident client population)")
         self.elastic = bool(capacity)
         self.capacity = capacity or self.n_clients
         self.spec = SegmentSpec.from_output_info(init.output_info)
@@ -225,6 +295,7 @@ class FederatedTrainer:
             self.cfg.batch_size)]
         self.gens: list = []
         self._slot_draws()
+        self._work: Optional[tuple] = None  # the cohort's working stack
         self.weights = np.concatenate([
             np.asarray(init.weights, dtype=np.float32),
             np.zeros(self.capacity - self.n_clients, dtype=np.float32)])
@@ -238,6 +309,19 @@ class FederatedTrainer:
                 "weights (renormalize init.weights first)")
         self._strikes = np.zeros(self.capacity, dtype=np.int64)
         self.dropped_clients: set[int] = set()
+        # buffered mode's straggler deltas awaiting their arrival round
+        self._buffered: list[dict] = []
+        self._buffered_applied = 0
+        self.events: list[dict] = []
+        # the EMA of the aggregated generator: its flat weights and its
+        # running statistics (one slot's), zero until the first round
+        G = self.stack.generator
+        self._bn0 = self._slot0_bn()
+        self.ema = ([torch.zeros_like(G.params[0].detach()),
+                     torch.zeros_like(G.bn_state[self._bn0])]
+                    if self.cfg.ema_decay > 0.0 else None)
+        self._ema_updates = 0
+        self.host_copies = 0  # device-to-host copies of round results
 
         self.columns = init.transformers[0].columns
         self.decode = select_snapshot_decode(self.columns, decode)
@@ -248,6 +332,7 @@ class FederatedTrainer:
         self.completed_epochs = 0
         self.last_metrics: Optional[np.ndarray] = None
         self.last_quarantined: Optional[np.ndarray] = None
+        self.last_cohort: Optional[np.ndarray] = None
         self.run_name: Optional[str] = None  # set by load_federated
 
     def _pack(self, init: FederatedInit, server_cond: bool = True) -> None:
@@ -264,6 +349,12 @@ class FederatedTrainer:
         if server_cond:
             self.server_cond = srv
             self._engine = None
+
+    def _slot0_bn(self) -> torch.Tensor:
+        """Where slot 0's running statistics sit in the stack's
+        ``bn_state``."""
+        return self.stack.generator.bn_index(
+            torch.zeros(1, dtype=torch.long, device=self.device))
 
     def _slot_draws(self) -> None:
         """The stacked draw buffers and a generator per slot (a new slot's
@@ -289,94 +380,261 @@ class FederatedTrainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _local_steps(self, e: int) -> torch.Tensor:
-        """Every client's steps of round ``e``: ``max(steps)`` stacked
-        steps, client i's active while ``s < steps[i]``; returns the
-        (n_clients, 3) metrics of each client's last step (zeros without
-        a step)."""
-        steps = self.steps
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        """A host array on the device without waiting for the device's
+        queue: pinned and copied asynchronously on the card."""
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _to_host(self, t: torch.Tensor) -> np.ndarray:
+        """The one device-to-host copy of a chunk's results (counted in
+        :attr:`host_copies`)."""
+        self.host_copies += 1
+        return t.cpu().numpy()
+
+    @property
+    def cohort_size(self) -> int:
+        """C while a cohort is sampled (``0 < cfg.cohort < slots``), else
+        0: full participation."""
+        c = self.cfg.cohort
+        return c if 0 < c < self.capacity else 0
+
+    def cohort_ids(self, e: int) -> np.ndarray:
+        """The C slots round ``e`` samples: the injected ``cohort_fn``, or
+        the first C of a permutation of the slots from a generator seeded
+        with ``(seed, e)``, so a round's cohort depends on nothing but
+        those two (not on chunking, not on a resume)."""
+        if self.cohort_fn is not None:
+            ids = np.asarray(self.cohort_fn(e), dtype=np.int64)
+        else:
+            gen = torch.Generator().manual_seed(
+                step_seed(step_seed(self.seed, COHORT_STREAM), e))
+            ids = torch.randperm(self.capacity, generator=gen)[
+                :self.cohort_size].numpy()
+        if ids.shape != (self.cohort_size,) or len(set(ids.tolist())) \
+                != ids.size or ids.min() < 0 or ids.max() >= self.capacity:
+            raise ValueError(f"round {e}: cohort {ids.tolist()} is not "
+                             f"{self.cohort_size} distinct slots of "
+                             f"{self.capacity}")
+        return ids
+
+    def _full_part(self, steps_dev: Optional[torch.Tensor] = None) -> _Part:
+        """Every slot, in the trainer's own stack."""
+        if steps_dev is None:
+            steps_dev = self._upload(self.steps)
+        return _Part(self.stack, self.conds, self.rows, self._draws,
+                     self._client_draws, np.arange(self.capacity),
+                     self.steps, steps_dev, None)
+
+    def _cohort_part(self, ids: np.ndarray, idx: torch.Tensor,
+                     steps_dev: torch.Tensor) -> _Part:
+        """Slots ``ids`` gathered into the working stack (allocated on
+        first use; its shapes never change)."""
+        if self._work is None:
+            c = self.cohort_size
+            draws = stacked_draws(self.spec, self.cfg, c, self._keep,
+                                  self.device)
+            self._work = (self.stack.empty_like(c), draws,
+                          [client_draws(draws, j) for j in range(c)])
+        work, draws, cdraws = self._work
+        work.set_config(self.cfg)
+        work.gather(self.stack, idx)
+        return _Part(work, self.conds.take(idx), self.rows.take(idx), draws,
+                     cdraws, ids, self.steps[ids], steps_dev, idx)
+
+    def _local_steps(self, e: int, part: Optional[_Part] = None
+                     ) -> torch.Tensor:
+        """The participants' steps of round ``e`` (every slot by
+        default): ``max(steps)`` stacked steps, position j active while
+        ``s < steps[j]``; returns the (P, 3) metrics of each position's
+        last step (zeros without a step)."""
+        part = part or self._full_part()
+        steps = part.steps
         n_max = int(steps.max(initial=0))
-        active = torch.as_tensor(np.arange(n_max)[:, None] < steps[None],
-                                 device=self.device)
-        metrics = torch.zeros((self.capacity, len(METRICS)),
-                              device=self.device)
+        active = (torch.arange(n_max, device=self.device)[:, None]
+                  < part.steps_dev[None])
+        metrics = torch.zeros((len(steps), len(METRICS)), device=self.device)
         for s in range(n_max):
-            # each client draws on its own steps only, into its slice
-            for i in np.flatnonzero(s < steps):
-                dst = self._client_draws[i]
+            # each client draws on its own steps only, into its position
+            for j in np.flatnonzero(s < steps):
+                i = int(part.ids[j])
+                dst = part.client_draws[j]
                 if self.draws is not None:
-                    src = self.draws(e, int(i), s).tensors()
+                    src = self.draws(e, i, s).tensors()
                     for a, b in zip(dst.tensors(), src):
                         a.copy_(b)
                 else:
                     draw_into(self.gens[i], self.spec, self.cfg, self._keep,
                               self.device, dst)
-            metrics = stacked_train_step(self.stack, self.data, self.conds,
-                                         self.rows, self._draws, active[s],
+            metrics = stacked_train_step(part.stack, self.data, part.conds,
+                                         part.rows, part.draws, active[s],
                                          metrics)
         return metrics
 
-    @torch.no_grad()
-    def _aggregate(self, prev: list, update_fault=None):
-        """Gate and aggregate the clients' stacked leaves against
-        ``prev``, write the result into every client's slice; returns the
-        quarantine mask."""
-        new = agg_leaves(self.stack)
+    def _updates(self, prev: list, part: _Part, update_fault=None) -> list:
+        """The participants' stacked leaves after their local steps, the
+        update fault applied to its client's position (if it takes
+        part)."""
+        new = agg_leaves(part.stack)
         if update_fault is not None:
-            new = corrupt_updates(prev, new, update_fault)
-        w = torch.as_tensor(self.weights, device=self.device)
+            new = corrupt_updates(prev, new, update_fault,
+                                  np.flatnonzero(part.ids == update_fault[1]))
+        return new
+
+    @torch.no_grad()
+    def _aggregate(self, prev: list, update_fault=None,
+                   part: Optional[_Part] = None,
+                   weights: Optional[torch.Tensor] = None,
+                   new: Optional[list] = None) -> torch.Tensor:
+        """Gate and aggregate the participants' stacked leaves ``new``
+        (default :meth:`_updates`) against ``prev`` (every slot by
+        default, at :attr:`weights`), scatter a cohort's local state
+        back, write the result into every slot and fold it into the EMA;
+        returns the quarantine mask (P,)."""
+        part = part or self._full_part()
+        if new is None:
+            new = self._updates(prev, part, update_fault)
+        if weights is None:
+            weights = self._upload(self.weights)
+        w = weights
+        if part.idx is not None:  # renormalized over the cohort
+            w = w[part.idx]
+            w = w / torch.clamp(w.sum(), min=1e-12)
         cfg = self.cfg
         payload = resolve_precision(cfg.precision).payload_dtype
         if cfg.update_gate or cfg.aggregator != "weighted" or update_fault:
             agg, quar = robust_aggregate(
-                prev, new, w, torch.as_tensor(self.steps, device=self.device),
+                prev, new, w, part.steps_dev,
                 aggregator=cfg.aggregator, update_gate=cfg.update_gate,
                 gate_norm_factor=cfg.gate_norm_factor,
                 update_clip=cfg.update_clip, trim_ratio=cfg.trim_ratio,
                 payload_dtype=payload)
-        elif payload is not None:
-            agg = weighted_delta_average(prev, new, w, payload)
         else:
-            agg = weighted_average(new, w)
-            quar = torch.zeros(self.capacity, dtype=torch.bool,
+            agg = (weighted_delta_average(prev, new, w, payload)
+                   if payload is not None else weighted_average(new, w))
+            quar = torch.zeros(len(part.ids), dtype=torch.bool,
                                device=self.device)
+        if part.idx is not None:
+            part.stack.scatter(self.stack, part.idx)
         for x, a in zip(agg_leaves(self.stack), agg):
             x.copy_(a)
+        if self.ema is not None:
+            d = self.cfg.ema_decay
+            G = self.stack.generator
+            for e_, n in zip(self.ema, (G.params[0], G.bn_state[self._bn0])):
+                e_.copy_(d * e_ + (1.0 - d) * n)
+            self._ema_updates += 1
         return quar
 
     def run_round(self, e: int, update_fault=None):
-        """One round: local steps, aggregation; returns ``(metrics
-        (capacity, 3), quarantined (capacity,) bool)`` on the host and
-        records the local / aggregate split (the device synchronised
-        between them)."""
+        """One round as a chunk of its own: local steps, aggregation;
+        returns ``(metrics (P, 3), quarantined (P,) bool)`` on the host
+        (P the participants: every slot, or the cohort)."""
+        res = self._run_chunk(e, 1, update_fault, None)
+        return res["metrics"][0], res["quarantined"][0]
+
+    def _run_chunk(self, e: int, size: int, update_fault, straggle) -> dict:
+        """Rounds ``e`` .. ``e + size - 1`` queued on the device, their
+        results kept there and copied to the host once; returns the host
+        results (``metrics`` (K, P, 3), ``quarantined`` (K, P), ``finite``,
+        ``cohort`` (K, C) or None, ``delta`` of the straggler and whether
+        it is finite) and records the chunk's local / aggregate split."""
         t0 = time.perf_counter()
-        with torch.no_grad():  # every client holds the global state
-            prev = [x[0].clone() for x in agg_leaves(self.stack)]
-        metrics = self._local_steps(e)
-        self._sync()
-        t1 = time.perf_counter()
-        quar = self._aggregate(prev, update_fault)
-        host = torch.cat([metrics.flatten(),
-                          quar.to(torch.float32)]).cpu().numpy()
+        cohort = self.cohort_size
+        if cohort:
+            ids = np.stack([self.cohort_ids(x) for x in range(e, e + size)])
+            steps = self.steps[ids]
+        else:
+            ids = np.broadcast_to(np.arange(self.capacity),
+                                  (size, self.capacity))
+            steps = np.broadcast_to(self.steps, (size, self.capacity))
+        plan = self._upload(np.stack([ids, steps]).astype(np.int64))
+        w = self.weights
+        if straggle is not None:
+            # the straggler leaves this round's barrier: weight 0, the
+            # others renormalized; self.weights stays as it is
+            alive = self._alive()
+            alive[straggle[0]] = False
+            w = renormalize_weights(self.weights, alive)
+        weights = self._upload(w)
+        mets, quars, delta = [], [], None
+        t1 = t0
+        for r in range(size):
+            if cohort:
+                part = self._cohort_part(ids[r], plan[0, r], plan[1, r])
+            else:
+                part = self._full_part(plan[1, r])
+            with torch.no_grad():  # every slot holds the global state
+                prev = [x[0].clone() for x in agg_leaves(part.stack)]
+            metrics = self._local_steps(e + r, part)
+            if r == size - 1:  # the split: up to the last round's local
+                self._sync()   # steps, then its aggregation and the copy
+                t1 = time.perf_counter()
+            new = self._updates(prev, part, update_fault)
+            if straggle is not None:  # its delta, zero if not sampled
+                pos = np.flatnonzero(part.ids == straggle[0])
+                delta = [(x[int(pos[0])].float() - p.float()) if pos.size
+                         else torch.zeros(p.shape, device=self.device)
+                         for p, x in zip(prev, new)]
+            quar = self._aggregate(prev, update_fault, part, weights, new)
+            mets.append(metrics)
+            quars.append(quar)
+        mets, quars = torch.stack(mets), torch.stack(quars)
+        flags = [torch.isfinite(mets).all()]
+        if delta is not None:
+            flags.append(torch.stack([torch.isfinite(d).all()
+                                      for d in delta]).all())
+        host = self._to_host(torch.cat([
+            mets.flatten(), quars.to(torch.float32).flatten(),
+            torch.stack(flags).to(torch.float32)]))
         t2 = time.perf_counter()
         self.round_split["local_steps"].append(t1 - t0)
         self.round_split["aggregate"].append(t2 - t1)
-        n = self.capacity
-        self.last_metrics = host[:n * len(METRICS)].reshape(n, len(METRICS))
-        self.last_quarantined = host[n * len(METRICS):] > 0.5
-        return self.last_metrics, self.last_quarantined
+        n = mets.numel()
+        metrics = host[:n].reshape(mets.shape)
+        quar = host[n:n + quars.numel()].reshape(quars.shape) > 0.5
+        flags = host[n + quars.numel():] > 0.5
+        self.last_metrics, self.last_quarantined = metrics[-1], quar[-1]
+        self.last_cohort = ids[-1].copy() if cohort else None
+        return {"metrics": metrics, "quarantined": quar,
+                "finite": bool(flags[0]),
+                "cohort": ids.copy() if cohort else None,
+                "delta": delta,
+                "delta_finite": bool(flags[1]) if delta is not None else None}
 
-    def _strike(self, q: np.ndarray, metrics: np.ndarray, e: int) -> None:
-        """Count the gate's strikes and evict repeat offenders."""
+    def _strike(self, res: dict, e: int) -> None:
+        """Count the gate's strikes of a chunk from round ``e`` (charged
+        through the cohort's ids when one was sampled) and evict repeat
+        offenders."""
+        q = res["quarantined"]
         if not q.any():
             return
-        self._strikes += q.astype(np.int64)
-        for idx in np.flatnonzero(q):
-            tripped = ("nonfinite" if not np.isfinite(metrics[idx]).all()
+        ids = res["cohort"]
+        if ids is not None:
+            counts = np.zeros(len(self._strikes), dtype=np.int64)
+            np.add.at(counts, ids[q].ravel(), 1)
+        else:
+            counts = q.sum(axis=0).astype(np.int64)
+        self._strikes += counts
+        metrics, size = res["metrics"], len(q)
+        for idx in np.flatnonzero(counts):
+            sel = (q & (ids == idx)) if ids is not None else None
+            if sel is None:
+                sel = np.zeros_like(q)
+                sel[:, idx] = q[:, idx]
+            tripped = ("nonfinite" if not np.isfinite(metrics[sel]).all()
                        else "norm_outlier")
-            log.warning("update gate quarantined client %d in round %d "
-                        "(%s; strikes %d/%d)", idx, e, tripped,
-                        self._strikes[idx], self.quarantine_strikes)
+            if size == 1:
+                log.warning("update gate quarantined client %d in round %d "
+                            "(%s; strikes %d/%d)", idx, e, tripped,
+                            self._strikes[idx], self.quarantine_strikes)
+            else:
+                log.warning("update gate quarantined client %d for %d of "
+                            "rounds %d..%d (%s; strikes %d/%d)", idx,
+                            counts[idx], e, e + size - 1, tripped,
+                            self._strikes[idx], self.quarantine_strikes)
         for idx in np.flatnonzero(self._strikes >= self.quarantine_strikes):
             if int(idx) not in self.dropped_clients:
                 self.drop_client(int(idx), f"quarantined {self._strikes[idx]} "
@@ -385,7 +643,8 @@ class FederatedTrainer:
 
     @staticmethod
     def _warn_nonfinite(metrics: np.ndarray, q: np.ndarray, e: int) -> None:
-        """Warn of non-finite losses of a client the gate did not contain."""
+        """Warn of non-finite losses of a client the gate did not contain
+        (one round's (P, 3) metrics and (P,) mask)."""
         for j, name in enumerate(METRICS):
             if not (np.isfinite(metrics[:, j]) | q).all():
                 print(f"WARNING: non-finite {name} at round {e}: training "
@@ -400,23 +659,85 @@ class FederatedTrainer:
             self.drop_client(plan.kill_rank - 1,
                              f"fault-injected kill at round {e + 1}")
 
+    def _event(self, **fields) -> None:
+        self.events.append(fields)
+        log.info("%s", fields)
+
+    @torch.no_grad()
+    def _apply_buffered(self, e: int) -> None:
+        """Land every queued straggler delta due by round ``e`` in every
+        slot, scaled by ``weight * staleness_discount ** staleness``; a
+        delta of a dropped client is discarded, a non-finite one is a
+        strike and never applied (``federated.py:1203-1254``)."""
+        due = [u for u in self._buffered if u["arrival"] <= e]
+        if not due:
+            return
+        self._buffered = [u for u in self._buffered if u["arrival"] > e]
+        for upd in due:
+            idx = int(upd["client"])
+            if idx in self.dropped_clients:
+                continue
+            if not upd["finite"]:
+                self._strikes[idx] += 1
+                self._event(type="quarantine", client=idx, rounds=1, first=e,
+                            last=e, strikes=int(self._strikes[idx]),
+                            buffered=True)
+                continue
+            eff = float(upd["weight"]) * (
+                self.cfg.staleness_discount ** upd["staleness"])
+            for x, d in zip(agg_leaves(self.stack), upd["delta"]):
+                x.copy_((x.float() + d * eff).to(x.dtype))
+            self._buffered_applied += 1
+            self._event(type="aggregate", round=e, first=e,
+                        rounds_per_program=1, aggregator="buffered",
+                        clients=1, client=idx, origin=int(upd["origin"]),
+                        staleness=int(upd["staleness"]),
+                        discount=round(eff, 8))
+
+    def _chunk_size(self, e: int, end: int, firing: set, max_rounds: int,
+                    plan, update_fault):
+        """``(size, update fault, straggler)`` of the chunk from round
+        ``e`` (``federated.py:1314-1350``): up to the next hook round and
+        ``max_rounds``, clipped at the kill round, the update-fault and
+        straggle windows and the next buffered arrival."""
+        nxt = min((f for f in firing if f >= e), default=end - 1)
+        size = min(nxt - e + 1, max_rounds, end - e)
+        if plan is not None and plan.kill_rank \
+                and e + 1 < plan.kill_round <= e + size:
+            size = plan.kill_round - 1 - e
+        if update_fault is None:
+            update_fault, size = update_fault_window(plan, e, size)
+        straggle = None
+        if self.cfg.aggregation == "buffered":
+            straggle, size = straggle_window(plan, e, size)
+            if straggle is not None:
+                size = 1  # each straggling round's delta is queued
+        return size, update_fault, straggle
+
     def fit(self, epochs: int, log_every: int = 0, sample_hook=None,
-            hook_epochs=None, update_fault=None,
-            health_cb=None) -> "FederatedTrainer":
+            hook_epochs=None, update_fault=None, health_cb=None,
+            max_rounds_per_call: int = 1) -> "FederatedTrainer":
         """Run ``epochs`` rounds; ``sample_hook(epoch, self)`` after each
         round (or only the rounds in ``hook_epochs``).
 
-        ``update_fault`` ``(kind, client, factor)`` corrupts that client's
-        update after its local steps in every round of this call:
-        ``"nan"``, ``"scale"`` (``prev + factor * delta``) or ``"stuck"``
-        (the pre-round values).  Without it, the active fault plan's
-        update fault applies in the rounds of its window.
+        Rounds run in chunks of up to ``max_rounds_per_call`` (the module
+        docstring); a chunk ends at every hook round.  ``update_fault``
+        ``(kind, client, factor)`` corrupts that client's update after its
+        local steps in every round of this call: ``"nan"``, ``"scale"``
+        (``prev + factor * delta``) or ``"stuck"`` (the pre-round values).
+        Without it, the active fault plan's update fault applies in the
+        rounds of its window.
 
-        ``health_cb(round, metrics)`` gets ``loss_d``, ``pen`` and
-        ``loss_g`` as (1, capacity) host arrays and ``quarantined``, after
-        the strikes and before the sample hook; an exception it raises
-        ends the call with the round's state in place and the round not
-        counted."""
+        ``health_cb(first_round, metrics)`` gets each chunk's ``loss_d``,
+        ``pen`` and ``loss_g`` as (K, P) host arrays, ``quarantined`` and,
+        under a cohort, its ``cohort`` ids (K, C), after the strikes and
+        before the sample hook; an exception it raises ends the call with
+        the chunk's state in place and its rounds not counted.  Each round
+        of a chunk is charged the chunk's mean time, the last one the
+        residual and its hook."""
+        if max_rounds_per_call < 1:
+            raise ValueError(f"max_rounds_per_call={max_rounds_per_call}: "
+                             "must be >= 1")
         e = self.completed_epochs
         end = e + epochs
         if sample_hook is None:
@@ -428,32 +749,56 @@ class FederatedTrainer:
         while e < end:
             plan = active_plan()
             self._fault_kill(plan, e)
-            fault = (update_fault if update_fault is not None
-                     else update_fault_window(plan, e, 1)[0])
+            size, fault, straggle = self._chunk_size(
+                e, end, firing, max_rounds_per_call, plan, update_fault)
+            self._apply_buffered(e)
+            if self._buffered:  # the next arrival lands on a boundary
+                size = min(size, max(1, min(u["arrival"] for u in
+                                            self._buffered) - e))
             t0 = time.perf_counter()
-            metrics, q = self.run_round(e, fault)
-            self._warn_nonfinite(metrics, q, e)
-            self._strike(q, metrics, e)
+            res = self._run_chunk(e, size, fault, straggle)
+            if straggle is not None:
+                idx, delay = straggle
+                self._buffered.append({
+                    "client": int(idx), "origin": e,
+                    "arrival": e + max(1, int(delay)),
+                    "staleness": max(1, int(delay)),
+                    "weight": float(self.weights[idx]),
+                    "delta": res["delta"], "finite": res["delta_finite"]})
+            metrics, q = res["metrics"], res["quarantined"]
+            if not res["finite"]:
+                for r in range(size):
+                    self._warn_nonfinite(metrics[r], q[r], e + r)
+            self._strike(res, e)
             if health_cb is not None:
-                health_cb(e, {**{name: metrics[None, :, j]
-                                 for j, name in enumerate(METRICS)},
-                              "quarantined": q[None].astype(np.float32)})
-            t_round = time.perf_counter() - t0
-            self.phase_times["train_aggregate"].append(t_round)
-            self.phase_times["distribution"].append(0.0)
-            self.epoch_times.append(t_round)
-            self.completed_epochs += 1
-            if e in firing:
+                host = {name: metrics[:, :, j]
+                        for j, name in enumerate(METRICS)}
+                host["quarantined"] = q.astype(np.float32)
+                if res["cohort"] is not None:
+                    host["cohort"] = res["cohort"]
+                health_cb(e, host)
+            t_chunk = time.perf_counter() - t0
+            per_round = t_chunk / size
+            last = e + size - 1
+            for ei in range(e, e + size):
+                charge = (t_chunk - per_round * (size - 1) if ei == last
+                          else per_round)
+                self.phase_times["train_aggregate"].append(charge)
+                self.phase_times["distribution"].append(0.0)
+                self.epoch_times.append(charge)
+                self.completed_epochs += 1
+            if last in firing:
                 t1 = time.perf_counter()
-                sample_hook(e, self)
+                sample_hook(last, self)
                 t_hook = time.perf_counter() - t1
                 self.phase_times["distribution"][-1] = t_hook
-                self.epoch_times[-1] = t_round + t_hook
-            if log_every and e % log_every == 0:
-                m = metrics.mean(axis=0)
-                print(f"round {e}: loss_d={m[0]:.3f} pen={m[1]:.3f} "
+                self.epoch_times[-1] += t_hook
+            if log_every and any(x % log_every == 0
+                                 for x in range(e, e + size)):
+                m = metrics.reshape(-1, len(METRICS)).mean(axis=0)
+                print(f"round {last}: loss_d={m[0]:.3f} pen={m[1]:.3f} "
                       f"loss_g={m[2]:.3f} ({self.epoch_times[-1]:.3f}s/round)")
-            e += 1
+            e += size
         return self
 
     def set_lr(self, lr: float) -> None:
@@ -537,6 +882,7 @@ class FederatedTrainer:
             self._strikes = np.concatenate(
                 [self._strikes, np.zeros(grow, dtype=np.int64)])
             self._slot_draws()
+            self._bn0 = self._slot0_bn()
         longest = max(len(m) for m in new_init.client_matrices)
         if longest > self._stride:
             self._stride = _next_pow2(longest)
@@ -580,9 +926,29 @@ class FederatedTrainer:
 
     # ------------------------------------------------------------ sampling
 
-    def _sampler(self) -> SamplingEngine:
-        """The engine over the aggregated generator (client 0's copy,
-        refreshed on every call; all clients hold the aggregate)."""
+    def _global_model(self, use_ema: Optional[bool] = None) -> dict:
+        """The generator every sampling surface reads, as a ``Generator``
+        ``state_dict`` on the trainer's device: the debiased EMA
+        (``ema / (1 - d ** n)``) once a round has been folded into it, or
+        with ``use_ema=False`` (and before the first round) the
+        aggregate, slot 0's copy (``federated.py:1604-1627``)."""
+        if use_ema is None:
+            use_ema = self.ema is not None and self._ema_updates > 0
+        G = self.stack.generator
+        if not use_ema:
+            return {k: v.detach().clone() for k, v in
+                    G.client_state(0).items()}
+        if self.ema is None:
+            raise ValueError("EMA sampling requested but cfg.ema_decay=0")
+        if self._ema_updates == 0:
+            raise ValueError("EMA sampling requested before any round")
+        scale = 1.0 / (1.0 - self.cfg.ema_decay ** self._ema_updates)
+        params, bn = (x * scale for x in self.ema)
+        return G.flat_state(params, bn, G.num_batches[0].clone())
+
+    def _sampler(self, use_ema: Optional[bool] = None) -> SamplingEngine:
+        """The engine over :meth:`_global_model`'s generator (refreshed
+        on every call)."""
         if self._engine is None:
             synth = SavedSynthesizer(self.stack.generator.unstack(0),
                                      self.server_cond, self.columns, self.cfg,
@@ -591,12 +957,13 @@ class FederatedTrainer:
                 model_id="in-memory", synth=synth, meta=self.init.global_meta,
                 encoders=tuple(self.init.encoders), artifact=None))
         gen = self._engine.model.synth.generator
-        gen.load_state_dict(self.stack.generator.client_state(0))
+        gen.load_state_dict(self._global_model(use_ema))
         return self._engine
 
-    def sample_encoded(self, n: int, seed: int = 0) -> np.ndarray:
+    def sample_encoded(self, n: int, seed: int = 0,
+                       use_ema: Optional[bool] = None) -> np.ndarray:
         """``n`` activated rows of stream ``seed`` (encoded layout)."""
-        return self._sampler().sample_encoded(n, seed=seed)
+        return self._sampler(use_ema).sample_encoded(n, seed=seed)
 
     def sample_parts(self, n: int, seed: int = 0,
                      to_host: bool = True) -> dict:
@@ -611,10 +978,11 @@ class FederatedTrainer:
         return self.decode.assemble(self.sample_parts(n, seed))
 
     def to_saved(self) -> SavedSynthesizer:
-        """The aggregated model as a sampling artifact."""
-        return SavedSynthesizer(self.stack.generator.unstack(0),
-                                self.server_cond, self.columns, self.cfg,
-                                key_offset=KEY_OFFSET)
+        """The generator of :meth:`_global_model` as a sampling
+        artifact."""
+        return SavedSynthesizer(
+            self.stack.generator.module(self._global_model()),
+            self.server_cond, self.columns, self.cfg, key_offset=KEY_OFFSET)
 
     def write_timing(self, out_dir: str = ".") -> None:
         """``timestamp_experiment.csv`` (one wall-clock value per round)
@@ -632,22 +1000,26 @@ class FederatedTrainer:
                             self.phase_times["distribution"][i], t])
 
 
-def corrupt_updates(prev: list, new: list, fault) -> list:
+def corrupt_updates(prev: list, new: list, fault, positions=None) -> list:
     """``fault = (kind, client, factor)`` applied to that client's stacked
-    leaves: ``nan`` fills them with NaN, ``scale`` gives ``prev + factor *
-    (new - prev)``, ``stuck`` the pre-round values
+    leaves (at ``positions`` of the stack, default the client's own index;
+    none when the client is not among the round's participants): ``nan``
+    fills them with NaN, ``scale`` gives ``prev + factor * (new - prev)``,
+    ``stuck`` the pre-round values
     (``fed_tgan_tpu/train/federated.py:286-307``)."""
     kind, idx, factor = fault
     if kind not in ("nan", "scale", "stuck"):
         raise ValueError(f"unknown update fault {kind!r}")
+    pos = [idx] if positions is None else [int(p) for p in positions]
     out = []
     for p, x in zip(prev, new):
         x = x.clone()
-        if kind == "nan":
-            x[idx] = torch.nan
-        elif kind == "scale":
-            x[idx] = p + factor * (x[idx] - p)
-        else:
-            x[idx] = p
+        for i in pos:
+            if kind == "nan":
+                x[i] = torch.nan
+            elif kind == "scale":
+                x[i] = p + factor * (x[i] - p)
+            else:
+                x[i] = p
         out.append(x)
     return out

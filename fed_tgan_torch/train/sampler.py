@@ -197,6 +197,12 @@ class StackedCondSampler:
         base = torch.arange(len(samplers), device=p.device) * nd
         return cls(p_train=p, base=base, spec=samplers[0].spec)
 
+    def take(self, idx: torch.Tensor) -> "StackedCondSampler":
+        """The clients ``idx`` (C,) as a stack of their own, sharing this
+        one's tables."""
+        return StackedCondSampler(p_train=self.p_train, base=self.base[idx],
+                                  spec=self.spec)
+
     def train_from_draws(self, col: torch.Tensor, r: torch.Tensor):
         """:meth:`CondSampler.train_from_draws` for every client: ``col``
         (N, batch) int64, ``r`` (N, batch, 1), each client's row of
@@ -249,6 +255,16 @@ class StackedRowSampler:
                                        device=device),
                    row_base=torch.arange(len(samplers), device=device)
                    * stride, spec=samplers[0].spec)
+
+    def take(self, idx: torch.Tensor) -> "StackedRowSampler":
+        """The clients ``idx`` (C,) as a stack of their own over the same
+        stacked data: their groups' offsets and counts, their row counts
+        and bases, this one's row pool (its indices already point at each
+        client's own rows of the data)."""
+        return StackedRowSampler(
+            row_pool=self.row_pool, offsets=self.offsets[idx],
+            counts=self.counts[idx], n_rows=self.n_rows[idx],
+            row_base=self.row_base[idx], spec=self.spec)
 
     def sample_rows(self, col: torch.Tensor, opt: torch.Tensor,
                     u: torch.Tensor) -> torch.Tensor:

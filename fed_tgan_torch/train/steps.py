@@ -185,11 +185,12 @@ class Models:
 
 
 def require_trainable(cfg: TrainConfig) -> None:
-    """The training options this port runs: a known precision, no EMA, at
-    least one critic update per generator step."""
+    """The training options this port runs: a known precision, an EMA
+    decay in [0, 1) (the federated trainer's; the standalone one ignores
+    it, as JAX's does), at least one critic update per generator step."""
     resolve_precision(cfg.precision)
-    if cfg.ema_decay:
-        raise NotImplementedError("ema_decay: EMA is not ported yet")
+    if not 0.0 <= cfg.ema_decay < 1.0:
+        raise ValueError(f"ema_decay={cfg.ema_decay}: must be in [0, 1)")
     if cfg.d_steps < 1:
         raise ValueError(f"d_steps={cfg.d_steps}: need >= 1 critic update "
                          "per generator step")
@@ -609,6 +610,47 @@ class StackedModels:
         self.opt_g.set_config(cfg)
         self.opt_d.set_config(cfg)
 
+    def empty_like(self, n: int) -> "StackedModels":
+        """A stack of ``n`` zeroed slots of this stack's shapes, config and
+        device (a cohort's working stack, filled by :meth:`gather`)."""
+        G, D = self.generator, self.discriminator
+        G = StackedGenerator(n, *G.dims, device=G.device)
+        D = StackedDiscriminator(n, *D.dims, device=D.device)
+        cfg = self.cfg
+        return StackedModels(G, D, StackedAdam(G.params, cfg, cfg.l2scale),
+                             StackedAdam(D.params, cfg), self.spec, cfg)
+
+    @torch.no_grad()
+    def gather(self, full: "StackedModels", idx: torch.Tensor) -> None:
+        """Slots ``idx`` (this stack's n, on the device) of ``full`` into
+        this stack: weights, BatchNorm state and batch counts, Adam
+        moments, counts and kept gradients."""
+        G, fG = self.generator, full.generator
+        G.bn_state.copy_(fG.bn_state[fG.bn_index(idx)])
+        G.num_batches.copy_(fG.num_batches[idx])
+        for mine, theirs in ((G, fG), (self.discriminator,
+                                        full.discriminator)):
+            mine.params.copy_(theirs.params.index_select(0, idx))
+        for mine, theirs in ((self.opt_g, full.opt_g),
+                             (self.opt_d, full.opt_d)):
+            for name in ("exp_avg", "exp_avg_sq", "grad", "count"):
+                getattr(mine, name).copy_(
+                    getattr(theirs, name).index_select(0, idx))
+
+    @torch.no_grad()
+    def scatter(self, full: "StackedModels", idx: torch.Tensor) -> None:
+        """This stack's local state back into slots ``idx`` (unique) of
+        ``full`` with ``index_copy_``: Adam moments, counts, kept gradients
+        and BatchNorm batch counts.  The weights and running statistics
+        are not copied: the aggregate overwrites them in every slot."""
+        full.generator.num_batches.index_copy_(0, idx,
+                                               self.generator.num_batches)
+        for mine, theirs in ((self.opt_g, full.opt_g),
+                             (self.opt_d, full.opt_d)):
+            for name in ("exp_avg", "exp_avg_sq", "grad", "count"):
+                getattr(theirs, name).index_copy_(0, idx,
+                                                  getattr(mine, name))
+
     def unstack(self, i: int) -> tuple:
         """Client ``i``'s ``(Generator, Discriminator)``, copies."""
         return self.generator.unstack(i), self.discriminator.unstack(i)
@@ -752,6 +794,17 @@ def _stacked_g_update(stack: StackedModels, cond: StackedCondSampler,
                       g: GDraws, active: torch.Tensor) -> torch.Tensor:
     """Every client's generator update (:func:`g_update`); returns its
     ``loss_g`` (N,)."""
+    loss_g = stacked_g_loss(stack, cond, g)
+    (grad,) = _grads([stack.generator.params], loss_g.sum())
+    stack.opt_g.step(grad, active)
+    return loss_g.detach()
+
+
+def stacked_g_loss(stack: StackedModels, cond: StackedCondSampler,
+                   g: GDraws) -> torch.Tensor:
+    """Every client's generator loss (:func:`g_loss`), (N,) with its
+    graph: the stacked generator in train mode from its BatchNorm state,
+    K1 forward (K2 in the backward), each client's discriminator."""
     spec, cfg, n = stack.spec, stack.cfg, stack.n
     pol = resolve_precision(cfg.precision)
     G, D = stack.generator, stack.discriminator
@@ -768,9 +821,7 @@ def _stacked_g_update(stack: StackedModels, cond: StackedCondSampler,
     loss_g = -f32_island(D(d_in, keep=g.keep)).mean(dim=(1, 2))
     if spec.n_discrete:
         loss_g = loss_g + cond_loss(raw, spec, c1, m1, clients=n)
-    (grad,) = _grads([G.params], loss_g.sum())
-    stack.opt_g.step(grad, active)
-    return loss_g.detach()
+    return loss_g
 
 
 # --------------------------------------------------------------- sampling

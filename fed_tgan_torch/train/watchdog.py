@@ -66,12 +66,14 @@ class TrainingWatchdog:
     def health_cb(self, first_round: int, metrics: dict) -> None:
         """Inspect the host metric arrays of the rounds from
         ``first_round`` ((rounds, n_clients) each); raise on an explosion.
-        A ``quarantined`` entry excuses the same-shaped losses it marks."""
+        A ``quarantined`` entry excuses the same-shaped losses it marks; a
+        ``cohort`` entry (the sampled clients' ids) is bookkeeping, not
+        health."""
         q = None
         if "quarantined" in metrics:
             q = np.asarray(metrics["quarantined"]) > 0
         for name, leaf in metrics.items():
-            if name == "quarantined":
+            if name in ("quarantined", "cohort"):
                 continue
             arr = np.asarray(leaf)
             bad = ~np.isfinite(arr) | (np.abs(arr) > self.cfg.loss_threshold)
@@ -141,21 +143,39 @@ def fit_with_watchdog(trainer, epochs: int, watchdog: TrainingWatchdog,
     with ``RuntimeError``.
 
     Returns the final trainer: a rollback replaces the instance, so
-    reassign it.  ``on_rollback(trainer)`` runs after each reload.  The
-    JAX version also clamps its fused multi-round programs while a
-    rollback window is open; the port runs one round per dispatch, so
-    there is nothing to clamp."""
+    reassign it.  ``on_rollback(trainer)`` runs after each reload.
+
+    With ``fit_kwargs["max_rounds_per_call"]`` = K the trainer hands the
+    watchdog a chunk of up to K rounds at a time, so an alarm discards up
+    to K rounds.  After a rollback, until training has re-run the stretch
+    the alarming chunk covered, K is clamped to 1: the watchdog sees every
+    round and a due checkpoint lands after each
+    (``fed_tgan_tpu/train/watchdog.py:186-225``); past it the caller's K
+    resumes."""
     from fed_tgan_torch.runtime.checkpoint import list_resumable, load_federated
 
     fit_kwargs = dict(fit_kwargs or {})
     fit_kwargs["health_cb"] = watchdog.health_cb
     target = trainer.completed_epochs + epochs
+    base_rounds = int(fit_kwargs.get("max_rounds_per_call", 1))
     gen_skip = 0          # how many newest generations to skip over
     restore_round = None  # completed_epochs right after the last restore
+    clamp_until = None    # a rollback's window: one round a chunk below it
     while trainer.completed_epochs < target:
+        kw, stop = fit_kwargs, target
+        if clamp_until is not None:
+            if trainer.completed_epochs < clamp_until:
+                kw = {**fit_kwargs, "max_rounds_per_call": 1}
+                stop = min(clamp_until, target)
+            else:
+                clamp_until = None
         try:
-            trainer.fit(target - trainer.completed_epochs, **fit_kwargs)
+            trainer.fit(stop - trainer.completed_epochs, **kw)
         except WatchdogAlarm as alarm:
+            # completed_epochs stops at the chunk that alarmed: clamp
+            # through the stretch that chunk could have covered
+            clamp_until = max(clamp_until or 0,
+                              trainer.completed_epochs + base_rounds)
             watchdog.rollbacks += 1
             log.warning("watchdog alarm (%s); rollback %d/%d", alarm,
                         watchdog.rollbacks, watchdog.cfg.max_rollbacks)

@@ -108,10 +108,7 @@ def test_standalone_cli_matches_jax(data, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--cohort", "2"], "A.17"), (["--rounds-per-program", "4"], "A.17"),
-    (["--faults", "straggle:rank=1,delay=2"], "A.17"),
-    (["--mode", "mdgan"], "A.17"), (["--snapshot-format", "parquet"],
-                                    "A.21"),
+    (["--snapshot-format", "parquet"], "A.21"),
     (["--sanitize-nans"], "A.20"), (["--profile-rounds", "5"], "A.20"),
     (["--init-only"], "A.18"), (["--params-out", "D"], "A.18"),
     (["-ip", "1.2.3.4", "-rank", "0"], "A.18"),
@@ -236,7 +233,6 @@ def test_elastic_churn_runs_and_refuses_a_resume(data, tmp_path, capsys):
 
 @pytest.mark.parametrize("spec,item", [
     ("delay_msg:ms=5", "A.18"), ("sever_conn:rank=1,after=1", "A.18"),
-    ("straggle:rank=1,delay=2", "A.17"),
     ("kill_client:rank=1,round=1;delay_msg:ms=5", "A.18")])
 def test_unported_fault_kinds_exit_2(data, tmp_path, capsys, spec, item):
     assert port_cli.main(argv(data, tmp_path, "--device", "cpu",
@@ -349,3 +345,73 @@ def test_serving_commands_take_the_jax_flags_and_defaults():
         "row_pool_chunk_rows": 2048, "request_timeout": 120.0,
         "reload_interval": 5.0, "promote": "immediate", "lockwatch": False,
         "device": "cuda"}
+
+
+@pytest.mark.parametrize("extra", [
+    ["--population", "3", "--cohort", "2"],
+    ["--aggregation", "buffered", "--faults",
+     "straggle:rank=2,delay=1,round=1,until=1"],
+    ["--ema-decay", "0.9", "--save-model"],
+    ["--rounds-per-program", "2", "--sample-every", "0"],
+    ["--mode", "mdgan", "--save-model", "--save-every", "1"],
+], ids=["cohort", "buffered", "ema", "rounds_per_program", "mdgan"])
+def test_round_scale_flags_run(data, tmp_path, capsys, extra):
+    """The round-scale flags train to exit 0 (each refused with exit 2
+    before this slice), with an evaluated last snapshot."""
+    from fed_tgan_torch.testing.faults import ENV_VAR, install_plan
+
+    try:
+        assert port_cli.main(argv(data, tmp_path, "--device", "cpu",
+                                  *extra)) == 0
+    finally:
+        install_plan(None)
+        os.environ.pop(ENV_VAR, None)
+    out = capsys.readouterr().out
+    assert "final Avg_JSD=" in out and "2 rounds in" in out
+    assert (tmp_path / "Intrusion_result"
+            / "Intrusion_synthesis_epoch_1.csv").exists()
+    if "--save-model" in extra:
+        assert (tmp_path / "models" / "synthesizer_torch").is_dir()
+    if "mdgan" in extra:
+        host = json.load(open(tmp_path / "checkpoint" / "host.json"))
+        assert host["kind"] == "mdgan_torch"
+
+
+@pytest.mark.parametrize("extra", [
+    ["--ema-decay", "1.0"], ["--rounds-per-program", "0"],
+    ["--ema-decay", "0.5", "--mode", "mdgan"], ["--population", "4"],
+    ["--cohort", "-1"], ["--cohort", "2", "--mode", "mdgan"],
+    ["--aggregation", "buffered", "--mode", "standalone"],
+])
+def test_round_scale_parser_errors_match_jax(data, tmp_path, capsys, extra):
+    """Both CLIs refuse the same argv with exit 2 and the same error."""
+    errors = []
+    for main in (port_cli.main, jax_cli.main):
+        with pytest.raises(SystemExit) as exc:
+            main(argv(data, tmp_path, *extra))
+        assert exc.value.code == 2
+        errors.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert errors[0].split("error: ", 1)[1] == errors[1].split(
+        "error: ", 1)[1]
+
+
+def test_rounds_per_program_notes_a_capping_cadence(data, tmp_path, capsys):
+    """K above the hook cadence prints the JAX CLI's note and still runs
+    (``fed_tgan_tpu/cli.py:1248-1270``); a churn plan under ``--mode
+    mdgan`` exits 2 with JAX's message."""
+    assert port_cli.main(argv(data, tmp_path, "--device", "cpu",
+                              "--rounds-per-program", "4")) == 0
+    out = capsys.readouterr().out
+    assert ("note: hook cadence (every 1 rounds) is below "
+            "--rounds-per-program 4; hooks force program boundaries, "
+            "capping the effective fusion") in out
+    from fed_tgan_torch.testing.faults import ENV_VAR, install_plan
+
+    try:
+        assert port_cli.main(argv(data, tmp_path / "b", "--device", "cpu",
+                                  "--mode", "mdgan", "--faults",
+                                  "join:round=2,count=1")) == 2
+    finally:
+        install_plan(None)
+        os.environ.pop(ENV_VAR, None)
+    assert "needs --mode fedavg" in capsys.readouterr().out

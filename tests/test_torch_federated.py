@@ -231,16 +231,6 @@ def test_round_snapshot_and_artifact(jinit, tmp_path):
         tr.drop_client(0)
 
 
-@pytest.mark.parametrize("kw,item", [({"cohort": 2}, "A.17"),
-                                     ({"aggregation": "buffered"}, "A.17"),
-                                     ({"ema_decay": 0.9}, "A.17")])
-def test_unported_options_are_refused(jinit, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        port_fed.FederatedTrainer(federated_init_from_jax(jinit),
-                                  steps.TrainConfig(**SMALL, **kw),
-                                  device="cpu")
-
-
 def test_bf16_needs_weights_summing_to_one(jinit):
     """bf16 (refused until the precision slice) builds a trainer; with
     weights that do not sum to 1 it raises the JAX trainer's ValueError

@@ -922,3 +922,89 @@ def test_elastic_rounds_repeat_bit_for_bit_with_exact_launches(cuda):
                  (a.stack.opt_g.exp_avg_sq, b.stack.opt_g.exp_avg_sq)):
         assert torch.equal(x, y)
     assert (a.last_metrics[3:] == 0).all()
+
+
+# ------------------------------------------------------- round-scale paths
+
+
+@pytest.mark.parametrize("rows", [4000, 2000], ids=["cohort", "mdgan"])
+def test_kernels_at_the_cohort_and_mdgan_shapes(cuda, rows):
+    """K1 and K2 over a cohort of 8 clients' batches (4,000 rows) and 4
+    MD-GAN clients' batches (2,000 rows) of the Intrusion layout against
+    their plain versions."""
+    spec = _spec()
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    x = torch.randn((rows, spec.dim), generator=g, device=cuda) * 2.0
+    u = torch.rand((rows, spec.dim), generator=g, device=cuda)
+    dy = torch.randn((rows, spec.dim), generator=g, device=cuda)
+    out = fused_apply_activate(x, spec, u)
+    assert (out - apply_activate(x, spec, u)).abs().max().item() <= ATOL
+    got = fused_activate_bwd(dy, out, spec)
+    assert (got - apply_activate_bwd(dy, out, spec)).abs().max().item() \
+        <= ATOL
+
+
+def _population(n: int = 6, rows: int = 80):
+    from fed_tgan_torch.data.ingest import TablePreprocessor
+    from fed_tgan_torch.federation.init import federated_initialize
+
+    rng = np.random.default_rng(8)
+    tables = [{"x": rng.normal(0, 1, rows),
+               "c": rng.choice(["a", "b", "c"], rows).astype(object)}
+              for _ in range(n)]
+    init = federated_initialize(
+        [TablePreprocessor(table=t, categorical_columns=["c"])
+         for t in tables], device="cpu")
+    cfg = steps.TrainConfig(embedding_dim=8, gen_dims=(16,), dis_dims=(16,),
+                            batch_size=40, pac=4)
+    return init, cfg
+
+
+def _state(tr):
+    if hasattr(tr, "gen"):
+        return [tr.gen.params, tr.gen.state, tr.gen.opt.exp_avg_sq,
+                tr.disc.stack.params, tr.disc.opt.exp_avg]
+    st = tr.stack
+    return [st.generator.params, st.generator.bn_state,
+            st.discriminator.params, st.opt_g.exp_avg_sq, st.opt_d.exp_avg,
+            st.opt_d.count] + list(tr.ema or [])
+
+
+def test_cohort_rounds_repeat_bit_for_bit_with_exact_launches(cuda):
+    """A cohort of 3 of 6 with the EMA, 3 rounds in one chunk: K1 launches
+    2 and K2 once a step over the cohort's 3 x 40 rows; a second run in
+    chunks of one round ends equal (``torch.equal``), cohorts included."""
+    import dataclasses
+
+    from fed_tgan_torch.train.federated import FederatedTrainer
+
+    init, cfg = _population()
+    cfg = dataclasses.replace(cfg, cohort=3, ema_decay=0.9)
+    activate_cuda.reset_launches()
+    a = FederatedTrainer(init, cfg, seed=0, device="cuda")
+    a.fit(3, max_rounds_per_call=3)
+    assert fused_apply_activate.launches == 3 * 2 * 2
+    assert fused_activate_bwd.launches == 3 * 2
+    assert a.host_copies == 1
+    b = FederatedTrainer(init, cfg, seed=0, device="cuda").fit(3)
+    assert b.host_copies == 3
+    assert np.array_equal(a.last_cohort, b.last_cohort)
+    for x, y in zip(_state(a), _state(b)):
+        assert torch.equal(x, y)
+
+
+def test_mdgan_rounds_repeat_bit_for_bit_with_exact_launches(cuda):
+    """Two MD-GAN runs of two rounds from one seed end equal; K1 launches
+    twice and K2 once a step over every client's rows."""
+    from fed_tgan_torch.train.mdgan import MDGANTrainer
+
+    init, cfg = _population(4)
+    activate_cuda.reset_launches()
+    a = MDGANTrainer(init, cfg, seed=0, device="cuda").fit(2)
+    n = int(a.steps.max())
+    assert fused_apply_activate.launches == 2 * n * 2
+    assert fused_activate_bwd.launches == 2 * n
+    b = MDGANTrainer(init, cfg, seed=0, device="cuda").fit(2)
+    for x, y in zip(_state(a), _state(b)):
+        assert torch.equal(x, y)
+    assert not torch.equal(a.disc.stack.params[0], a.disc.stack.params[1])

@@ -2,6 +2,7 @@
 and neither its serving path nor its trainer needs pandas, pyarrow or
 sklearn."""
 
+import json
 import os
 import pkgutil
 import re
@@ -99,7 +100,8 @@ def test_port_package_lists_every_slice_module():
                  "serve.pool", "serve.frontdoor", "obs.slo",
                  "serve.canary", "federation.sketch", "data.dates",
                  "runtime.precision", "federation.init_cache",
-                 "federation.streaming", "federation.elastic"):
+                 "federation.streaming", "federation.elastic",
+                 "train.mdgan"):
         assert f"fed_tgan_torch.{name}" in mods
 
 
@@ -267,6 +269,7 @@ def test_federated_entry_points_default_to_the_card():
     from fed_tgan_torch.data.ingest import TablePreprocessor
     from fed_tgan_torch.federation.init import federated_initialize
     from fed_tgan_torch.train.federated import FederatedTrainer
+    from fed_tgan_torch.train.mdgan import MDGANTrainer
     from fed_tgan_torch.train.steps import TrainConfig
 
     table = {"x": np.arange(40.0),
@@ -277,10 +280,12 @@ def test_federated_entry_points_default_to_the_card():
                       batch_size=10, pac=5)
     if torch.cuda.is_available():
         assert FederatedTrainer(init, cfg).data[0].is_cuda
+        assert MDGANTrainer(init, cfg).data[0].is_cuda
         assert federated_initialize([pre]).weights.shape == (1,)
         return
     for call in (lambda: federated_initialize([pre]),
                  lambda: FederatedTrainer(init, cfg),
+                 lambda: MDGANTrainer(init, cfg),
                  lambda: cli.main(["--datapath", "none.csv"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -482,3 +487,41 @@ def test_onboarding_and_churn_cli_runs_with_jax_sklearn_and_pandas_blocked(
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
     assert len(os.listdir(tmp_path / "cache")) == 4  # 2 clients, 1 global
+
+
+def test_round_scale_cli_runs_with_jax_sklearn_and_pandas_blocked(tmp_path):
+    """The CLI's ``--cohort`` run (with buffered aggregation, a straggler,
+    the EMA and chunks of 2 rounds) and a ``--mode mdgan`` run on the CPU
+    in a fresh interpreter where jax, the JAX package, pandas, pyarrow and
+    sklearn cannot be imported."""
+    data = str(tmp_path / "intr.csv")
+    argv = ["--datapath", data, "--dataset", "intrusion", "--n-clients",
+            "3", "-epochs", "3", "--sample-rows", "60", "--batch-size",
+            "40", "--embedding-dim", "8", "--quiet", "--device", "cpu",
+            "--save-model"]
+    runs = [["--mode", "fedavg", "--cohort", "2", "--aggregation",
+             "buffered", "--faults", "straggle:rank=2,delay=1,round=2",
+             "--ema-decay", "0.9", "--rounds-per-program", "2"],
+            ["--mode", "mdgan", "--save-every", "1"]]
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from fed_tgan_torch import cli\n"
+        "from fed_tgan_torch.serve.demo import write_intrusion_csv\n"
+        f"write_intrusion_csv({data!r}, 240, 0)\n"
+        f"for i, extra in enumerate({runs!r}):\n"
+        f"    out = {str(tmp_path)!r} + f'/run{{i}}'\n"
+        f"    assert cli.main({argv!r} + extra + ['--out-dir', out]) == 0\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+    for i in range(2):
+        assert (tmp_path / f"run{i}" / "models" / "synthesizer_torch").is_dir()
+    host = json.load(open(tmp_path / "run1" / "checkpoint" / "host.json"))
+    assert host["kind"] == "mdgan_torch" and host["completed_epochs"] == 3

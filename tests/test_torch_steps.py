@@ -269,8 +269,8 @@ def test_bad_configs_raise():
                                             lr_decay_steps=3))
     with pytest.raises(ValueError):
         steps.init_models(spec, steps.TrainConfig(**SMALL, d_steps=0), device="cpu")
-    with pytest.raises(NotImplementedError):
-        steps.init_models(spec, steps.TrainConfig(**SMALL, ema_decay=0.9), device="cpu")
+    with pytest.raises(ValueError, match="ema_decay"):
+        steps.init_models(spec, steps.TrainConfig(**SMALL, ema_decay=1.0), device="cpu")
     with pytest.raises(ValueError, match="precision"):
         steps.init_models(spec, steps.TrainConfig(**SMALL, precision="f16"),
                           device="cpu")
