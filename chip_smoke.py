@@ -183,8 +183,31 @@ Phases, each fatal on failure:
    s/round beside fedavg's in turns); then K1 and K2 against their plain
    versions at (4000, D) and (2000, D).
 
+18. the multi-process federation (``multiprocess_phase``), slice 12's
+   main path: the federated round's CSV as 4 shard CSVs of 5,000 rows, a
+   world of rank 0 and 4 participants through the CLI (``-ip 127.0.0.1
+   -port P -rank r``; ranks 0 and 2-4 processes of their own, rank 1 in
+   this process so its launches count), 3 rounds at full width with a
+   40,000-row packed8 snapshot a round, aggregated by an all-gather over
+   the collective backend the topology picks (gloo: every participant
+   shares the one card): every rank exits 0, rank 0's cross-rank check
+   and the snapshots; the ranks' final generators equal, and equal to a
+   second world's; a 1-round world within the round tolerance of the
+   in-process CLI's first round on the same CSVs (``--client-data``;
+   whether bit-equal printed, and the difference after 3 rounds); the
+   init's weights equal to the in-process init's; that 1-round world's
+   save and ``--resume`` to 3 equal to the straight world (rank 1 under
+   ``torch.profiler`` for its K1/K2 launches in the round); a
+   ``kill_client:rank=2,round=2`` world in which every process exits
+   non-zero within its timeout; s/round per participant and rank 0's
+   wall beside the in-process stacked round's (turns world, in-process,
+   in-process, world), the all-gather's bytes and ms a round; then K1
+   and K2 against their plain versions at a participant's shape (500,
+   D).
+
 ``--onboard N [N ...]`` runs phase 15 alone at the populations given (the
-JAX sweep's N = 1024 is measured so).
+JAX sweep's N = 1024 is measured so); ``--multiprocess`` runs phase 18
+alone.
 
 ``--ab TREE`` runs none of the phases: it builds the kernels of the
 ``fed_tgan_torch`` package under TREE (for example a ``git archive`` of an
@@ -199,13 +222,15 @@ Prints the card's name and power limit beside every number, a JSON line
 with the training numbers, one with the federated round's, one with the
 durable round's, one with the canary's and the dated phase's, one with
 the precision phase's, one with the onboarding and churn phases', one
-with the round-scale phases', the card's
+with the round-scale phases', one with the multi-process world's, the
+card's
 line, a JSON line with the kernels' numbers (one entry per kernel and
 path: K1 serving, K1 in the fleet, K1 and K2 training, K1 and K2
 federated, K1 in the similarity monitor, K1 and K2 in the ragged round, K1
 in the canary's shadow samples, K1 serving a dated model, K1 and K2 in
 the dated training, K1 and K2 in the elastic rounds, K1 and K2 in the
-cohort rounds and in MD-GAN, and the three bf16 variants),
+cohort rounds and in MD-GAN, K1 and K2 in a multi-process participant,
+and the three bf16 variants),
 and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no result line, when CUDA is not available.
@@ -237,7 +262,7 @@ import numpy as np
 import torch
 
 from fed_tgan_torch.data import fastcsv
-from fed_tgan_torch.data.csvio import plain_csv_bytes, read_csv
+from fed_tgan_torch.data.csvio import plain_csv_bytes, read_csv, write_csv
 from fed_tgan_torch.data.decode import decode_cells, decode_columns
 from fed_tgan_torch.data.ingest import TablePreprocessor
 from fed_tgan_torch.data.sharding import shard_table
@@ -4044,6 +4069,341 @@ def round_scale_phases(root: str, init, seed: int, card: str) -> dict:
     out["wall_s"] = wall
     return out
 
+# slice 12's world: rank 0 and one participant per 5,000-row shard of the
+# federated round's CSV, 3 rounds, a 40,000-row snapshot a round
+MP_CLIENTS, MP_ROUNDS = 4, 3
+_mp_port = [20000 + (os.getpid() * 13) % 9000]
+
+
+def _free_ports() -> int:
+    """A port p with p and p + 1 free (the transport's and the process
+    group's store), below Linux's ephemeral range."""
+    import socket
+
+    while True:
+        p = _mp_port[0]
+        _mp_port[0] += 2
+        try:
+            for q in (p, p + 1):
+                with socket.socket() as sock:
+                    sock.bind(("127.0.0.1", q))
+            return p
+        except OSError:
+            continue
+
+
+def _mp_world(root: str, tag: str, shards: list, seed: int, epochs: int,
+              *extra, rank1_here: bool = True, env=None, profile=False,
+              timeout: float = 420.0) -> dict:
+    """A world of rank 0 and one participant per shard through the CLI
+    (``-ip 127.0.0.1 -port P -rank r``): rank 0 and ranks 2..N as
+    processes of their own; rank 1 in this process (``rank1_here``, its
+    K1/K2 launches counted, optionally under ``torch.profiler``) or as a
+    process too.  Every process is waited for within ``timeout`` seconds
+    and killed past it.  Returns each rank's exit code, stdout and
+    stderr, rank 1's ``_cli_run`` result, the profile's K1/K2 launches
+    and rank 1's device busy ms beside its wall, and the wall seconds."""
+    out = os.path.join(root, tag)
+    port = _free_ports()
+    common = ["--dataset", "intrusion", "-epochs", str(epochs),
+              "--sample-rows", str(SNAPSHOT_ROWS), "--seed", str(seed),
+              "--out-dir", out, "--params-out", os.path.join(out, "params"),
+              "-ip", "127.0.0.1", "-port", str(port), *extra]
+    argvs = [common + ["-rank", "0", "-world_size", str(len(shards) + 1)]]
+    argvs += [common + ["-rank", str(r), "-datapath", sh]
+              for r, sh in enumerate(shards, start=1)]
+    penv = {**os.environ, **(env or {}),
+            "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    os.makedirs(out, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for rank, argv in enumerate(argvs):
+        if rank == 1 and rank1_here:
+            continue
+        logs = [open(os.path.join(out, f"r{rank}.{k}"), "w+")
+                for k in ("out", "err")]
+        procs[rank] = (subprocess.Popen(
+            [sys.executable, "-m", "fed_tgan_torch", *argv], cwd=REPO,
+            env=penv, stdout=logs[0], stderr=logs[1]), logs)
+    here = events = None
+    try:
+        if rank1_here:
+            if profile:
+                from torch.autograd import DeviceType
+                from torch.profiler import ProfilerActivity, profile as prof
+
+                with prof(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as tr:
+                    here = _cli_run(argvs[1])
+                    torch.cuda.synchronize()
+                dev = [e for e in tr.events()
+                       if e.device_type == DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)]
+                events = {k: sum(1 for e in dev if name in e.name)
+                          for k, name in KERNEL_NAMES.items()}
+                # the device's busy time over rank 1's whole run (init,
+                # round, snapshot), against the run's wall
+                events["busy_ms"] = sum(e.time_range.elapsed_us()
+                                        for e in dev) / 1e3
+                events["wall_s"] = here["wall_s"]
+            else:
+                here = _cli_run(argvs[1])
+        deadline = t0 + timeout
+        for p, _ in procs.values():
+            p.wait(timeout=max(0.0, deadline - time.perf_counter()))
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    res = {"rcs": {}, "out": {}, "err": {}, "here": here, "events": events,
+           "wall_s": wall, "dir": out}
+    for rank, (p, logs) in procs.items():
+        res["rcs"][rank] = p.returncode
+        for k, f in zip(("out", "err"), logs):
+            f.seek(0)
+            res[k][rank] = f.read()
+            f.close()
+    if here is not None:
+        res["rcs"][1], res["out"][1], res["err"][1] = 0, here["stdout"], ""
+    return res
+
+
+def _world_ok(what: str, res: dict) -> None:
+    bad = {r: rc for r, rc in res["rcs"].items() if rc != 0}
+    if bad:
+        raise AssertionError(f"{what}: ranks {bad} exited non-zero: " + " | ".join(
+            res["err"].get(r, "")[-1500:] for r in bad))
+
+
+def _world_params(res: dict, n: int) -> list:
+    return [torch.load(os.path.join(res["dir"], "params",
+                                    f"params_rank{r}.pt"))
+            for r in range(1, n + 1)]
+
+
+def _num(pattern: str, text: str) -> float:
+    import re
+
+    m = re.search(pattern, text)
+    if m is None:
+        raise AssertionError(f"no {pattern!r} in {text[-1500:]!r}")
+    return float(m.group(1))
+
+
+def _round_tolerance(what: str, got: dict, want: dict) -> dict:
+    """``got`` against ``want`` (generator state dicts) by the round
+    tolerance of PERF.md §2 and the cohort tests: at least 99% of the
+    model's float entries within atol 1e-5 + rtol 1e-3; returns the max
+    abs error, the share within (the model's and its worst tensor's) and
+    whether the two are bit-equal."""
+    worst, inside, total, equal, low = 0.0, 0, 0, True, 1.0
+    for k, v in want.items():
+        a = np.asarray(got[k])
+        equal &= np.array_equal(a, v)
+        if a.dtype.kind != "f":
+            continue
+        close = np.abs(a - v) <= 1e-5 + 1e-3 * np.abs(v)
+        worst = max(worst, float(np.abs(a.astype(np.float64) - v).max()))
+        inside += int(close.sum())
+        total += close.size
+        low = min(low, float(close.mean()))
+    if inside < 0.99 * total:
+        raise AssertionError(f"{what}: {inside} of {total} entries within "
+                             "the round tolerance")
+    return {"max_abs_err": worst, "share_within": inside / total,
+            "worst_tensor_share": low, "bit_equal": bool(equal)}
+
+
+def _artifact_generator(out_dir: str) -> dict:
+    with np.load(os.path.join(out_dir, "models", "synthesizer_torch",
+                              "weights.npz")) as z:
+        return {k[len("generator."):]: z[k] for k in z.files
+                if k.startswith("generator.")}
+
+
+def multiprocess_phase(root: str, seed: int, card: str) -> dict:
+    """Slice 12's main path: the federated round's data as 4 shard CSVs
+    of 5,000 rows, a world of rank 0 and 4 participants through the CLI,
+    3 rounds at full width with a 40,000-row packed8 snapshot a round
+    (rank 1 in this process, its launches counted).  The ranks' final
+    generators equal, and equal to a second world's; a world's first
+    round against the in-process CLI's first round on the same 4 CSVs
+    (``--client-data``, same seed) within the round tolerance, whether
+    bit-equal printed (later rounds grow any rounding difference, as the
+    GAN does; the 3-round difference is printed); the init's weights
+    equal to the in-process init's; that 1-round world, its save and
+    ``--resume`` to 3 equal to the straight world; a ``kill_client`` world
+    aborting cleanly within its timeout; K1/K2 launches a round in rank 1
+    (counted, and under ``torch.profiler``); s/round per participant,
+    rank 0's wall, the all-gather's bytes and ms a round and the
+    collective backend, beside the in-process stacked round's s/round (in
+    turns: world, in-process, in-process, world)."""
+    from fed_tgan_torch.parallel import multihost as mh
+
+    table = read_csv(write_intrusion_csv(os.path.join(root, "mp.csv"),
+                                         FED_ROWS, seed))
+    shards = []
+    for i, part in enumerate(shard_table(table, MP_CLIENTS, "iid",
+                                         seed=seed)):
+        shards.append(os.path.join(root, f"shard{i + 1}.csv"))
+        write_csv(part, shards[-1])
+    install_plan(None)
+    out = {"clients": MP_CLIENTS, "rounds": MP_ROUNDS,
+           "rows_per_client": FED_ROWS // MP_CLIENTS}
+
+    def in_process(tag, rounds=MP_ROUNDS):
+        r = _cli_run(["--client-data", *shards, "--dataset", "intrusion",
+                      "-epochs", str(rounds), "--sample-rows",
+                      str(SNAPSHOT_ROWS), "--seed", str(seed), "--save-model",
+                      "--out-dir", os.path.join(root, tag)])
+        return r, _num(r"\(([\d.]+)s/round\)", r["stdout"])
+
+    # turns: world, in-process, in-process, world
+    mh.stats["bytes"].clear()
+    mh.stats["seconds"].clear()
+    w1 = _mp_world(root, "w1", shards, seed, MP_ROUNDS)
+    _world_ok("world", w1)
+    gather_bytes = list(mh.stats["bytes"])
+    gather_s = list(mh.stats["seconds"])
+    launches = w1["here"]["launches"]
+    _, s_in1 = in_process("in1")
+    _, s_in2 = in_process("in2")
+    w4 = _mp_world(root, "w4", shards, seed, MP_ROUNDS)
+    _world_ok("second world", w4)
+
+    text0 = w1["out"][0]
+    if f"final aggregated params identical across {MP_CLIENTS}" not in text0:
+        raise AssertionError(f"rank 0's equality check: {text0[-1500:]}")
+    backend = "gloo" if "collective backend gloo" in w1["out"][1] else (
+        "nccl" if "collective backend nccl" in w1["out"][1] else None)
+    params = _world_params(w1, MP_CLIENTS)
+    for r, pr in enumerate(params[1:], start=2):
+        _require_equal(f"rank {r} vs rank 1 generator",
+                       list(pr["generator"].values()),
+                       list(params[0]["generator"].values()))
+    _require_equal("two worlds from one seed",
+                   list(_world_params(w4, 1)[0]["generator"].values()),
+                   list(params[0]["generator"].values()))
+    result = os.path.join(w1["dir"], "Intrusion_result")
+    for e in range(MP_ROUNDS):
+        with open(os.path.join(result,
+                               f"Intrusion_synthesis_epoch_{e}.csv")) as f:
+            rows = f.read().splitlines()
+        if len(rows) != SNAPSHOT_ROWS + 1 or len(rows[0].split(",")) != 42:
+            raise AssertionError(f"snapshot {e}: {len(rows)} lines")
+    final = {k: v.numpy() for k, v in params[0]["generator"].items()}
+    want3 = _artifact_generator(os.path.join(root, "in1"))
+    after3 = {"max_abs_err": max(
+        float(np.abs(final[k].astype(np.float64) - v).max())
+        for k, v in want3.items() if v.dtype.kind == "f"),
+        "bit_equal": all(np.array_equal(final[k], v)
+                         for k, v in want3.items())}
+    # the init's weights against the in-process init's, bit for bit
+    kw = preprocessor_kwargs(PRESETS["intrusion"])
+    sel = kw.pop("selected_columns", None)
+    tables = [read_csv(p) for p in shards]
+    pres = [TablePreprocessor(table=t, name="Intrusion",
+                              selected_columns=list(sel or tables[0]), **kw)
+            for t in tables]
+    init = federated_initialize(pres, seed=seed)
+    world_w = ast.literal_eval(text0.split("weights=", 1)[1].splitlines()[0])
+    if not torch.equal(torch.tensor(world_w, dtype=torch.float64),
+                       torch.tensor(np.asarray(init.weights),
+                                    dtype=torch.float64)):
+        raise AssertionError(f"init weights {world_w} vs {init.weights}")
+    spec = SegmentSpec.from_output_info(init.output_info)
+    # 1 round and a save (rank 1 under the profiler), held against the
+    # in-process CLI's first round; then --resume to 3
+    w2 = _mp_world(root, "w2", shards, seed, 1, "--save-every", "1",
+                   profile=True)
+    _world_ok("1 round", w2)
+    in_process("in0", rounds=1)
+    first = _round_tolerance(
+        "world vs in-process after round 1",
+        {k: v.numpy() for k, v in
+         _world_params(w2, 1)[0]["generator"].items()},
+        _artifact_generator(os.path.join(root, "in0")))
+    w3 = _mp_world(root, "w2", shards, seed, MP_ROUNDS, "--save-every", "1",
+                   "--resume")
+    _world_ok("resume", w3)
+    for r, pr in enumerate(_world_params(w3, MP_CLIENTS), start=1):
+        _require_equal(f"rank {r} resumed vs straight",
+                       list(pr["generator"].values()),
+                       list(params[r - 1]["generator"].values()))
+    # a participant killed at round 2: every process ends, none hangs
+    wk = _mp_world(root, "kill", shards, seed, MP_ROUNDS, "--faults",
+                   "kill_client:rank=2,round=2", rank1_here=False,
+                   env={"FED_TGAN_TORCH_TRANSPORT_HEARTBEAT_TIMEOUT_MS":
+                        "10000", "FED_TGAN_TORCH_TRANSPORT_TRAIN_MS": "60000"},
+                   timeout=240)
+    rcs = wk["rcs"]
+    if not (rcs[2] == 17 and rcs[0] != 0 and all(
+            rcs[r] != 0 for r in range(1, MP_CLIENTS + 1))):
+        raise AssertionError(f"kill world exit codes {rcs}")
+    if "relaunch with --resume" not in wk["err"][0]:
+        raise AssertionError(f"kill world rank 0: {wk['err'][0][-1500:]}")
+
+    per_rank = {r: {k: _num(pat, w1["out"][r]) for k, pat in (
+        ("s_per_round", r"training complete: ([\d.e-]+)s/round"),
+        ("local_steps_s", r"local steps ([\d.e-]+)s"),
+        ("all_gather_ms", r"all-gather ([\d.e-]+) ms"),
+        ("snapshot_dispatch_s", r"snapshot dispatch ([\d.e-]+)s"))}
+        for r in range(1, MP_CLIENTS + 1)}
+    csv_s = ast.literal_eval(text0.split("snapshot CSVs written in ", 1)[1]
+                             .split(" s on", 1)[0])
+    world_wall = [_num(r"\(([\d.]+)s/round incl\. snapshots\)", w["out"][0])
+                  for w in (w1, w4)]
+    out.update({
+        "backend": backend, "init_s": _num(r"clients in ([\d.]+)s", text0),
+        "by_rank": per_rank, "rank0_csv_s": csv_s,
+        "world_wall_s_per_round": world_wall,
+        "in_process_s_per_round": [s_in1, s_in2],
+        "all_gather": {"bytes": gather_bytes[0] if gather_bytes else None,
+                       "ms": [1e3 * x for x in gather_s]},
+        "launches_rank1": launches,
+        "launches_per_round": {k: v / MP_ROUNDS for k, v in
+                               launches.items()},
+        "rank1_profile_one_round": w2["events"],
+        "vs_in_process_round1": first, "vs_in_process_round3": after3,
+        "kill": {"rcs": rcs, "wall_s": wk["wall_s"]},
+        "world_wall_s": [w1["wall_s"], w4["wall_s"]],
+        "resume_wall_s": [w2["wall_s"], w3["wall_s"]],
+        "train_rows": steps.TrainConfig().batch_size, "spec": spec})
+    print(f"multiprocess: {MP_CLIENTS} participants + rank 0, backend "
+          f"{backend}; init {out['init_s']!r} s; by rank {per_rank}; rank "
+          f"0's snapshot CSVs {csv_s} s (writer thread); "
+          f"rank 0 wall {world_wall} s/round incl. snapshots (worlds in "
+          f"turns 1 and 4) against the in-process stacked round "
+          f"{[s_in1, s_in2]} s/round (turns 2 and 3); all-gather "
+          f"{out['all_gather']['bytes']} bytes a round, "
+          f"{out['all_gather']['ms']} ms  [{card}]", flush=True)
+    print(f"multiprocess: K1/K2 launches in rank 1 over {MP_ROUNDS} rounds "
+          f"{launches} ({out['launches_per_round']} a round; one round under "
+          f"torch.profiler {w2['events']}); world vs in-process after round "
+          f"1 {first}, after {MP_ROUNDS} rounds {after3}; resume == straight; "
+          f"two worlds bit-equal; init weights bit-equal; kill world exit "
+          f"codes {rcs} in {wk['wall_s']!r} s  [{card}]", flush=True)
+    return out
+
+
+def _multiprocess_with_checks(build_root: str, seed: int, card: str):
+    """:func:`multiprocess_phase` in a scratch directory, then K1 and K2
+    against their plain versions at a participant's shape (one batch of
+    the federation's layout); returns the phase's numbers and both
+    kernels' results."""
+    mp_root = tempfile.mkdtemp(prefix="chip_smoke_mp_", dir=build_root)
+    try:
+        mp = multiprocess_phase(mp_root, seed, card)
+    finally:
+        shutil.rmtree(mp_root, ignore_errors=True)
+    rows = (("multiprocess", mp["train_rows"]),)
+    sp = mp.pop("spec")
+    return (mp, check_kernel(sp, card, rows, extra=False),
+            check_bwd_kernel(sp, card, rows, extra=False))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4055,6 +4415,9 @@ def main(argv=None) -> int:
                     help="instead of the phases: the onboarding phase at "
                     "these populations only (N = 1024: the JAX sweep's "
                     "largest)")
+    ap.add_argument("--multiprocess", action="store_true",
+                    help="instead of the phases: the multi-process world "
+                    "and its kernel checks only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4092,6 +4455,18 @@ def main(argv=None) -> int:
         finally:
             shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"onboard": onboard}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if args.multiprocess:
+        build_root = os.path.join(REPO, "fed_tgan_torch", "_build")
+        mp, mp_shapes, mp_bwd = _multiprocess_with_checks(build_root,
+                                                          args.seed, card)
+        print(json.dumps({"multiprocess": mp, "shapes": mp_shapes,
+                          "bwd_shapes": mp_bwd}))
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4257,6 +4632,11 @@ def main(argv=None) -> int:
         shapes += check_kernel(sp, card, rows, extra=False)
         bwd_shapes += check_bwd_kernel(sp, card, rows, extra=False)
     mark("round_scale")
+    multiprocess, mp_shapes, mp_bwd = _multiprocess_with_checks(
+        build_root, args.seed, card)
+    shapes += mp_shapes
+    bwd_shapes += mp_bwd
+    mark("multiprocess")
     print(f"wall seconds by phase {json.dumps(wall)}, "
           f"{sum(wall.values())!r} in all  [{card}]", flush=True)
 
@@ -4341,6 +4721,16 @@ def main(argv=None) -> int:
         entry("fused_gumbel_activation_bwd_mdgan", bwd, "mdgan", bwd_shapes,
               "mdgan", round_scale["mdgan"]["launches"]["K2"]),
     ]
+    # slice 12's multi-process world: one participant's steps (its own
+    # batch) and rank 1's snapshot chunks, counted in rank 1
+    kernels += [
+        entry("fused_gumbel_activation_fwd_multiprocess", fwd,
+              "federated multi-process", shapes, "multiprocess",
+              multiprocess["launches_rank1"]["K1"]),
+        entry("fused_gumbel_activation_bwd_multiprocess", bwd,
+              "federated multi-process", bwd_shapes, "multiprocess",
+              multiprocess["launches_rank1"]["K2"]),
+    ]
     # slice 9's bf16 variants: their launches on the bf16 paths (training,
     # the federated round, serving), each path counted on its own
     by_path = precision.pop("launches_by_path")
@@ -4367,6 +4757,7 @@ def main(argv=None) -> int:
     print(json.dumps({"precision": precision}))
     print(json.dumps({"onboard": onboard, "churn": churn}))
     print(json.dumps({"round_scale": round_scale}))
+    print(json.dumps({"multiprocess": multiprocess}))
     print(card)
     print(json.dumps({"kernels": kernels, "serving": serving,
                       "fleet": fleet}))

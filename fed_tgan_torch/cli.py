@@ -50,10 +50,20 @@ device) and writes its layout:
 - the reference's ``-rank``/``-world_size``/``-ip``/``-port``: without
   ``-ip`` one process runs every client (``-world_size W`` means ``W - 1``
   clients, a rank other than 0 has nothing to do); ``-date_dic`` is
-  ``--date-format``.
+  ``--date-format``;
+- with ``-ip`` the reference's multi-process launch: ``-rank 0
+  -world_size N+1`` is the server (the init protocol over the port's
+  transport on ``-port``, then the snapshot CSVs, timing files and the
+  cross-rank equality check), ``-rank r -datapath shard_r.csv`` a
+  participant that trains client r - 1 and aggregates through
+  ``torch.distributed`` on ``-port`` + 1 (:mod:`fed_tgan_torch.train.
+  multihost`); ``--init-only`` stops after the init protocol,
+  ``--params-out DIR`` writes each participant's final generator as
+  ``params_rank<r>.pt``, ``--save-every``/``--resume`` keep and continue
+  per-rank checkpoints.
 
-A flag of a feature not ported yet, or a fault kind the port does not act
-on, exits with code 2 and names the ROADMAP item it waits for.
+A flag of a feature not ported yet exits with code 2 and names the
+ROADMAP item it waits for.
 """
 
 from __future__ import annotations
@@ -74,8 +84,6 @@ NOT_PORTED = {
     "--sanitize": (dict(action="store_true"), "A.20"),
     "--sanitize-nans": (dict(action="store_true"), "A.20"),
     "--profile-rounds": (dict(type=int, default=3), "A.20"),
-    "--init-only": (dict(action="store_true"), "A.18"),
-    "--params-out": (dict(type=str, default=None), "A.18"),
     "--snapshot-format": (dict(type=str, default=None), "A.21"),
 }
 
@@ -243,6 +251,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "logits, decode) and a bf16 aggregation step; master "
                         "weights and Adam state stay float32.  A resumed "
                         "run keeps its checkpoint's precision")
+    p.add_argument("--init-only", action="store_true",
+                   help="multi-process launch (-ip): stop after the init "
+                        "protocol")
+    p.add_argument("--params-out", type=str, default=None, metavar="DIR",
+                   help="multi-process launch (-ip): each participant "
+                        "writes its final generator to "
+                        "DIR/params_rank<r>.pt")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     # the reference's world bookkeeping: without -ip, one process runs
@@ -261,10 +276,6 @@ def _refused(args, parser) -> str | None:
     if args.bgm_backend == "sklearn":
         return ("--bgm-backend sklearn is not ported yet (ROADMAP A.24): "
                 "sklearn is not on the card's host")
-    if args.rank is not None and args.ip:
-        return ("-rank with -ip (the multi-process init protocol) is not "
-                "ported yet (ROADMAP A.18); omit -ip to run every client "
-                "in this process")
     if args.backend is not None and args.backend not in ("cpu", "gpu"):
         return (f"--backend {args.backend}: the port runs on a CUDA card "
                 "or the CPU (--backend gpu|cpu, or --device cuda|cpu)")
@@ -387,6 +398,15 @@ def main(argv=None) -> int:
     refused = _refused(args, parser) or _install_faults(args.faults)
     if refused:
         print(f"error: {refused}", file=sys.stderr)
+        return 2
+    if args.rank is not None and args.ip and (args.rank > 0
+                                              or args.world_size):
+        # the reference's multi-process launch: rank 0 is the server,
+        # ranks 1..N the participants
+        return _run_multihost(args)
+    if args.rank == 0 and args.ip and not args.world_size:
+        print("multihost rank 0 needs -world_size (how many clients to wait "
+              "for)")
         return 2
     if args.rank is not None and args.rank != 0:
         print("fed_tgan_torch runs every client in one process; rank "
@@ -574,6 +594,145 @@ def _run_standalone(args, name, kwargs, tables, columns, cfg, device) -> int:
     if args.eval:
         _evaluate([table], raw, _eval_categorical_columns(kwargs))
     return 0
+
+
+def _run_multihost(args) -> int:
+    """The reference's multi-process launch (reference run(),
+    Server/dtds/distributed.py:838-891; ``fed_tgan_tpu/cli.py:383-530``):
+    rank 0 drives the init protocol over the port's transport and
+    participants 1..N take part with their ``-datapath`` shard; then,
+    unless ``--init-only``, every rank joins the process group and the
+    participants train ``-epochs`` rounds, rank 0 owning the snapshot CSVs
+    and the timing files."""
+    from fed_tgan_torch.data.csvio import read_csv
+    from fed_tgan_torch.data.ingest import TablePreprocessor
+    from fed_tgan_torch.device import resolve_device
+    from fed_tgan_torch.federation.distributed import (
+        client_initialize,
+        server_initialize,
+    )
+    from fed_tgan_torch.parallel import multihost
+    from fed_tgan_torch.runtime.transport import (
+        ClientTransport,
+        Deadlines,
+        ServerTransport,
+    )
+    from fed_tgan_torch.train.multihost import (
+        MultihostRun,
+        client_train,
+        server_train,
+    )
+    from fed_tgan_torch.train.steps import TrainConfig, lr_decay_horizon
+
+    if args.backend is not None:
+        args.device = {"cpu": "cpu", "gpu": "cuda"}[args.backend]
+    name, kwargs = _dataset_kwargs(args)
+    if name is None:
+        return 2
+    port = args.port or 7788  # the reference's default port
+    train_after = not args.init_only and args.epochs > 0
+    deadlines = Deadlines.from_env()
+    run = MultihostRun(
+        epochs=args.epochs, sample_every=args.sample_every,
+        sample_rows=args.sample_rows, seed=args.seed,
+        log_every=0 if args.quiet else max(1, args.epochs // 10),
+        save_every=args.save_every,
+        ckpt_dir=args.ckpt_dir or os.path.join(args.out_dir, "checkpoint"),
+        resume=args.resume, decode=args.decode or "packed8")
+
+    def join(world_size: int, device) -> None:
+        backend = multihost.initialize_multihost(
+            args.ip, port, world_size, args.rank, device, deadlines.train_ms)
+        if not args.quiet:
+            print(f"rank {args.rank}: world of {world_size} processes, "
+                  f"collective backend {backend}", flush=True)
+
+    try:
+        if args.rank == 0:
+            device = resolve_device(args.device)
+            with ServerTransport(port, args.world_size - 1,
+                                 deadlines=deadlines) as t:
+                t_init = time.time()
+                out = server_initialize(
+                    t, seed=args.seed, weighted=not args.uniform,
+                    run_name=name, min_clients=args.min_clients,
+                    device=device, similarity=args.similarity)
+                _write_meta(os.path.join(args.out_dir, "models"), name,
+                            out["global_meta"], out["encoders"])
+                print(f"multihost init complete: {args.world_size - 1} "
+                      f"clients in {time.time() - t_init:.2f}s, weights="
+                      f"{[float(w) for w in out['weights']]}", flush=True)
+                if not train_after:
+                    return 0
+                join(args.world_size, device)
+                t_train = time.time()
+                books = server_train(t, out, run, name, out_dir=args.out_dir,
+                                     quiet=args.quiet)
+                wall = time.time() - t_train
+                if not args.quiet:
+                    times = books["epoch_times"]
+                    n = max(len(times), 1)
+                    print(f"{len(times)} rounds in {sum(times):.1f}s "
+                          f"({sum(times) / n:.3f}s/round)")
+                    print(f"multihost training wall {wall:.2f}s "
+                          f"({wall / n:.3f}s/round incl. snapshots)")
+            return 0
+        device = multihost.participant_device(args.rank, args.device)
+        table = read_csv(args.datapath)
+        selected = kwargs.pop("selected_columns", None)
+        columns = list(selected) if selected else list(table)
+        missing = [c for c in columns if c not in table]
+        if missing:
+            print(f"rank {args.rank}: input is missing columns {missing}")
+            return 2
+        pre = TablePreprocessor(table=table, name=name,
+                                selected_columns=columns, **kwargs)
+        with ClientTransport(args.ip, port, args.rank,
+                             deadlines=deadlines) as t:
+            out = client_initialize(t, pre, seed=args.seed, device=device)
+            # the server's run name wins, whatever the shard files are called
+            name = out.get("run_name") or name
+            print(f"rank {args.rank} ({name}) init complete: "
+                  f"{out['matrix'].shape[0]} rows x {out['matrix'].shape[1]} "
+                  "encoded dims", flush=True)
+            if not train_after:
+                return 0
+            rows = [int(r) for r in out["rows_per_client"]]
+            join(args.world_size or len(rows) + 1, device)
+            cfg = TrainConfig(
+                batch_size=args.batch_size, embedding_dim=args.embedding_dim,
+                lr_schedule=args.lr_schedule,
+                lr_decay_steps=lr_decay_horizon(args.lr_schedule, args.epochs,
+                                                max(rows), args.batch_size),
+                allow_zero_step_clients=args.allow_zero_step_clients,
+                aggregator=args.aggregator,
+                update_gate=not args.no_update_gate,
+                gate_norm_factor=args.gate_norm_factor,
+                update_clip=args.update_clip, trim_ratio=args.trim_ratio,
+                precision=args.precision, ema_decay=args.ema_decay)
+            res = client_train(t, out, cfg, run, device=device)
+        if args.params_out:
+            import torch
+
+            os.makedirs(args.params_out, exist_ok=True)
+            as_t = lambda st: None if st is None else {  # noqa: E731
+                k: torch.from_numpy(v) for k, v in st.items()}
+            torch.save({"generator": as_t(res["params_g"]),
+                        "ema": as_t(res["ema"])},
+                       os.path.join(args.params_out,
+                                    f"params_rank{args.rank}.pt"))
+        if not args.quiet:
+            n = max(len(res["seconds"]), 1)
+            mean = {k: sum(res[k]) / n for k in ("seconds", "local_s",
+                                                 "gather_s", "snapshot_s")}
+            print(f"rank {args.rank} training complete: "
+                  f"{mean['seconds']!r}s/round (local steps "
+                  f"{mean['local_s']!r}s, all-gather "
+                  f"{1e3 * mean['gather_s']!r} ms, snapshot dispatch "
+                  f"{mean['snapshot_s']!r}s)", flush=True)
+        return 0
+    finally:
+        multihost.shutdown()
 
 
 def draw_newcomer_rows(tables: list, count: int, shard_rows: int,

@@ -12,11 +12,13 @@
   reference statistics) and writes the port's own format
   (:mod:`fed_tgan_torch.runtime.checkpoint`);
 - :func:`convert_jax_checkpoint` turns a JAX ``save_federated`` training
-  checkpoint into the port's, so a run trained in JAX resumes on the card.
+  checkpoint into the port's, so a run trained in JAX resumes on the card,
+  and a JAX multi-process participant's ``multihost_rank<r>.pkl`` into
+  the port's per-rank checkpoint (:mod:`fed_tgan_torch.train.multihost`).
 
-The JAX package is never imported: ``host.pkl`` is read with an
-unpickler that maps every ``fed_tgan_tpu.*`` and ``sklearn.*`` global to
-an inert stand-in that only keeps its state.
+The JAX package is never imported: a pickle is read with an unpickler
+that maps every ``fed_tgan_tpu.*``, ``optax.*`` and ``sklearn.*`` global
+to an inert stand-in that only keeps its arguments and state.
 """
 
 from __future__ import annotations
@@ -210,12 +212,17 @@ def cond_from_jax(cond, spec: SegmentSpec) -> CondSampler:
 
 
 class _StandIn:
-    """Inert stand-in for a pickled JAX-package or sklearn object: keeps
-    the constructor arguments and the pickled state, runs nothing."""
+    """Inert stand-in for a pickled JAX-package, optax or sklearn object:
+    keeps the constructor arguments (a named tuple's fields) and the
+    pickled state, runs nothing."""
+
+    def __new__(cls, *args, **kwargs):
+        obj = super().__new__(cls)
+        obj.args, obj.kwargs, obj.state = args, kwargs, None
+        return obj
 
     def __init__(self, *args, **kwargs):
-        self.args, self.kwargs = args, kwargs
-        self.state = None
+        pass
 
     def __setstate__(self, state):
         self.state = state
@@ -231,7 +238,7 @@ class _RemapUnpickler(pickle.Unpickler):
         self._stand_ins: dict = {}
 
     def find_class(self, module, name):
-        if module.split(".")[0] in ("fed_tgan_tpu", "sklearn"):
+        if module.split(".")[0] in ("fed_tgan_tpu", "sklearn", "optax"):
             key = f"{module}.{name}"
             if key not in self._stand_ins:
                 self._stand_ins[key] = type(name, (_StandIn,), {"origin": key})
@@ -467,9 +474,16 @@ def convert_jax_checkpoint(src_dir: str, dst_dir: str) -> str:
     step draws, and other cohorts (the port derives a round's cohort from
     ``(seed, round)``, JAX from its key chain).  An elastic checkpoint
     keeps its ``capacity`` (every slot's models and Adam state, padded
-    ones included)."""
+    ones included).
+
+    ``src_dir`` may also be a JAX participant's ``multihost_rank<r>.pkl``
+    (:func:`_convert_multihost`); ``dst_dir`` is then the port run's
+    checkpoint directory, and the per-rank checkpoint is written to
+    ``dst_dir/multihost_rank<r>``, whose path is returned."""
     from fed_tgan_torch.runtime.checkpoint import save_federated
 
+    if os.path.isfile(src_dir):
+        return _convert_multihost(src_dir, dst_dir)
     host = _unpickle(os.path.join(src_dir, "host.pkl"))
     kind = host.get("kind")
     if kind not in ("federated", "mdgan"):
@@ -544,3 +558,86 @@ def _mdgan_from_jax(init, cfg, host, bundle, spec):
         torch.stack([_flat(discriminator_from_jax(_index(t, i), cfg.pac))
                      for i in range(n)]) for t in (mu, nu)))
     return trainer
+
+
+def _jax_leaves(obj) -> list:
+    """The leaves of an unpickled JAX pytree in ``jax.tree.leaves`` order:
+    dicts by sorted key, sequences and named tuples (stand-ins) in
+    order."""
+    if isinstance(obj, (np.ndarray, np.generic)):
+        return [obj]
+    if isinstance(obj, dict):
+        return [x for k in sorted(obj) for x in _jax_leaves(obj[k])]
+    if isinstance(obj, (list, tuple)):
+        return [x for v in obj for x in _jax_leaves(v)]
+    if isinstance(obj, _StandIn):
+        return _jax_leaves(list(obj.args))
+    if obj is None:
+        return []
+    raise ValueError(f"unexpected pytree node {obj!r}")
+
+
+def _config_from_signature(sig: str) -> TrainConfig:
+    """A ``TrainConfig`` from the JAX package's ``config_signature``
+    (``TrainConfig(field=value, ...)``, defaults omitted)."""
+    import ast
+
+    call = ast.parse(sig, mode="eval").body
+    if not isinstance(call, ast.Call):
+        raise ValueError(f"not a config signature: {sig!r}")
+    return config_from_dict({kw.arg: ast.literal_eval(kw.value)
+                             for kw in call.keywords})
+
+
+def _convert_multihost(src: str, ckpt_dir: str) -> str:
+    """A JAX ``multihost_rank<r>.pkl`` (one participant's post-aggregation
+    models, Adam states, key chain, optional raw EMA) as the port's
+    per-rank checkpoint under ``ckpt_dir``.  The key chain does not carry
+    over: the rank's generator is reseeded from ``(seed, client,
+    round)``, as :func:`~fed_tgan_torch.runtime.checkpoint.load_federated`
+    reseeds on a device move."""
+    from fed_tgan_torch.models.ctgan import (
+        StackedDiscriminator,
+        StackedGenerator,
+    )
+    from fed_tgan_torch.serve.engine import step_seed
+    from fed_tgan_torch.train.multihost import (
+        MultihostRun,
+        _save_participant,
+    )
+    from fed_tgan_torch.train.steps import StackedAdam
+
+    state = _unpickle(src)
+    cfg = _config_from_signature(state["config"])
+    rank, seed, done = int(state["rank"]), int(state["seed"]), int(
+        state["epochs_done"])
+    bundle = _bundle_from_leaves(
+        _jax_leaves(state["models"]), len(cfg.gen_dims), len(cfg.dis_dims),
+        cfg.lr_schedule != "constant")
+    G = StackedGenerator.from_modules([generator_from_jax(bundle.params_g,
+                                                          bundle.state_g)])
+    D = StackedDiscriminator.from_modules([discriminator_from_jax(
+        bundle.params_d, cfg.pac)])
+    opts = []
+    for params, (count, mu, nu), as_module in (
+            (G.params, bundle.opt_g,
+             lambda t: generator_from_jax(t, bundle.state_g)),
+            (D.params, bundle.opt_d,
+             lambda t: discriminator_from_jax(t, cfg.pac))):
+        opt = StackedAdam(params, cfg)
+        opt.load(np.asarray(count).reshape(1).astype(np.int64),
+                 *(_flat(as_module(t))[None] for t in (mu, nu)))
+        opts.append(opt)
+    stack = SimpleNamespace(generator=G, discriminator=D, opt_g=opts[0],
+                            opt_d=opts[1])
+    ema = None
+    if state.get("ema") is not None:
+        gen = generator_from_jax(*state["ema"])
+        ema = [_flat(gen), torch.cat([t for b in gen.blocks for t in (
+            b.bn.running_mean, b.bn.running_var)])]
+    rng = torch.Generator().manual_seed(step_seed(step_seed(seed, rank - 1),
+                                                  done))
+    run = MultihostRun(epochs=done, seed=seed, ckpt_dir=ckpt_dir)
+    _save_participant(run, rank, stack, rng, ema, done, done,
+                      int(state["n_clients"]), cfg)
+    return os.path.join(ckpt_dir, f"multihost_rank{rank}")

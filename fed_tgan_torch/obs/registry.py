@@ -6,8 +6,9 @@ Pure stdlib and thread-safe.  The serving layer's
 :class:`~fed_tgan_torch.serve.metrics.FleetMetrics` each hold an isolated
 :class:`MetricsRegistry` and render it in Prometheus text exposition
 format, with the JAX package's series names and text.  The process-wide
-default registry and the training subsystems' metrics wait for the rest
-of the tooling (ROADMAP A.20).
+:data:`DEFAULT` registry holds the multi-process transport's counters
+(:func:`counter`); its exporter and the training subsystems' metrics
+wait for the rest of the tooling (ROADMAP A.20).
 
 ``counter()`` / ``gauge()`` / ``histogram()`` are get-or-create: the
 same name (and labels) always returns the same object, and a name
@@ -27,6 +28,8 @@ __all__ = [
     "Histogram",
     "MetricsRegistry",
     "DEFAULT_BUCKETS",
+    "DEFAULT",
+    "counter",
 ]
 
 #: default histogram bucket upper bounds (seconds-flavoured, like
@@ -275,3 +278,12 @@ class MetricsRegistry:
                 series = getattr(m, "series", m.name)
                 lines.append(f"{series} {m.snapshot():g}")
         return "\n".join(lines) + "\n"
+
+
+#: the process-wide registry (the JAX package's ``default_registry()``)
+DEFAULT = MetricsRegistry()
+
+
+def counter(name: str, help: str = "") -> Counter:
+    """Get-or-create ``name`` in :data:`DEFAULT`."""
+    return DEFAULT.counter(name, help)

@@ -4,10 +4,18 @@
 A :class:`FaultPlan` parses the JAX package's spec grammar: ``;``-separated
 faults, ``,``-separated ``key=value`` arguments, every kind of
 :attr:`FaultPlan.VALID_KINDS`.  An unknown kind fails fast.  The port acts
-on ten kinds:
+on every kind:
 
 - ``kill_client:rank=R,round=E`` — client ``R`` (1-based) is dropped at
-  the start of round ``E`` (1-based), once;
+  the start of round ``E`` (1-based), once; in a multi-process world the
+  participant of rank ``R`` hard-exits (``os._exit(17)``) at the start of
+  that round instead (:mod:`fed_tgan_torch.train.multihost`);
+- ``delay_msg:ms=M`` — every transport send sleeps ``M`` ms first
+  (:meth:`FaultPlan.maybe_delay`);
+- ``sever_conn:rank=R,after=N`` — client ``R`` severs its own live
+  transport connection after its ``N``-th successful send, once
+  (:meth:`FaultPlan.should_sever`), so the next operation rides a
+  reconnect and a sequence resync;
 - ``crash_checkpoint:save=N`` — the ``N``-th ``save_federated`` call
   raises :class:`FaultInjected` after ``host.json`` is staged and before
   the publish, as a crash mid-write would;
@@ -41,13 +49,14 @@ on ten kinds:
 
 The churn kinds are host events between rounds: :meth:`FaultPlan.
 churn_events` lists a round's, :meth:`FaultPlan.next_churn_round` the next
-round that has one.  The other kinds parse, but a plan holding one is
-refused by :func:`install_plan` and :func:`active_plan`
-(:func:`require_ported`), so none parses and then quietly does nothing:
-the transport faults wait for ROADMAP A.18.
+round that has one.  A kind the port did not act on would be refused by
+:func:`install_plan` and :func:`active_plan` (:func:`require_ported`,
+through :data:`NOT_PORTED_KINDS`, now empty), so none parses and then
+quietly does nothing.
 
 Plans come from the ``--faults`` CLI flag or the
-``FED_TGAN_TORCH_FAULTS`` environment variable.  The trainer and the
+``FED_TGAN_TORCH_FAULTS`` environment variable, which the CLI exports so
+the processes of a multi-process world see the same plan.  The trainer and the
 checkpoint writer consult :func:`active_plan`, which is None unless a plan
 was installed.
 """
@@ -58,6 +67,7 @@ import dataclasses
 import logging
 import os
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -67,7 +77,7 @@ log = logging.getLogger("fed_tgan_torch.faults")
 ENV_VAR = "FED_TGAN_TORCH_FAULTS"
 
 # kind -> the ROADMAP item the port waits for before it can act on it
-NOT_PORTED_KINDS = {"delay_msg": "A.18", "sever_conn": "A.18"}
+NOT_PORTED_KINDS: dict = {}
 
 
 class FaultInjected(RuntimeError):
@@ -111,6 +121,7 @@ class FaultPlan:
         self._save_calls = 0
         self._cache_stores = 0
         self._snapshot_saves = 0
+        self._severed = False
         self._killed = False
         self.kinds: list[str] = []  # the kinds of the parsed spec, in order
 
@@ -138,6 +149,22 @@ class FaultPlan:
         return plan
 
     # -- injection points -----------------------------------------------
+
+    def maybe_delay(self) -> None:
+        """Sleep ``delay_ms`` before a transport send."""
+        if self.delay_ms > 0:
+            time.sleep(self.delay_ms / 1000.0)
+
+    def should_sever(self, rank: int, sent_count: int) -> bool:
+        """True exactly once, for client ``rank`` once it has made
+        ``sever_after`` successful sends."""
+        if self.sever_rank != rank or sent_count < self.sever_after:
+            return False
+        with self._lock:
+            if self._severed:
+                return False
+            self._severed = True
+            return True
 
     def should_kill(self, rank: int, round_1based: int) -> bool:
         """True exactly once, for client ``rank`` at ``round_1based``."""

@@ -502,29 +502,15 @@ class FederatedTrainer:
         if part.idx is not None:  # renormalized over the cohort
             w = w[part.idx]
             w = w / torch.clamp(w.sum(), min=1e-12)
-        cfg = self.cfg
-        payload = resolve_precision(cfg.precision).payload_dtype
-        if cfg.update_gate or cfg.aggregator != "weighted" or update_fault:
-            agg, quar = robust_aggregate(
-                prev, new, w, part.steps_dev,
-                aggregator=cfg.aggregator, update_gate=cfg.update_gate,
-                gate_norm_factor=cfg.gate_norm_factor,
-                update_clip=cfg.update_clip, trim_ratio=cfg.trim_ratio,
-                payload_dtype=payload)
-        else:
-            agg = (weighted_delta_average(prev, new, w, payload)
-                   if payload is not None else weighted_average(new, w))
-            quar = torch.zeros(len(part.ids), dtype=torch.bool,
-                               device=self.device)
+        agg, quar = aggregate_updates(prev, new, w, part.steps_dev, self.cfg,
+                                      robust=bool(update_fault))
         if part.idx is not None:
             part.stack.scatter(self.stack, part.idx)
         for x, a in zip(agg_leaves(self.stack), agg):
             x.copy_(a)
         if self.ema is not None:
-            d = self.cfg.ema_decay
-            G = self.stack.generator
-            for e_, n in zip(self.ema, (G.params[0], G.bn_state[self._bn0])):
-                e_.copy_(d * e_ + (1.0 - d) * n)
+            fold_ema(self.ema, self.stack.generator, self._bn0,
+                     self.cfg.ema_decay)
             self._ema_updates += 1
         return quar
 
@@ -985,19 +971,57 @@ class FederatedTrainer:
             self.server_cond, self.columns, self.cfg, key_offset=KEY_OFFSET)
 
     def write_timing(self, out_dir: str = ".") -> None:
-        """``timestamp_experiment.csv`` (one wall-clock value per round)
-        and ``timing_phases.csv`` (epoch, train_aggregate_s,
-        distribution_s, total_s), the reference's layout."""
-        with open(os.path.join(out_dir, "timestamp_experiment.csv"),
-                  "w") as f:
-            csv.writer(f).writerows([[t] for t in self.epoch_times])
-        with open(os.path.join(out_dir, "timing_phases.csv"), "w") as f:
-            w = csv.writer(f)
-            w.writerow(["epoch", "train_aggregate_s", "distribution_s",
-                        "total_s"])
-            for i, t in enumerate(self.epoch_times):
-                w.writerow([i, self.phase_times["train_aggregate"][i],
-                            self.phase_times["distribution"][i], t])
+        write_timing(out_dir, self.epoch_times, self.phase_times)
+
+
+def write_timing(out_dir: str, epoch_times: list, phase_times: dict) -> None:
+    """``timestamp_experiment.csv`` (one wall-clock value per round) and
+    ``timing_phases.csv`` (epoch, train_aggregate_s, distribution_s,
+    total_s), the reference's layout."""
+    with open(os.path.join(out_dir, "timestamp_experiment.csv"), "w") as f:
+        csv.writer(f).writerows([[t] for t in epoch_times])
+    with open(os.path.join(out_dir, "timing_phases.csv"), "w") as f:
+        w = csv.writer(f)
+        w.writerow(["epoch", "train_aggregate_s", "distribution_s",
+                    "total_s"])
+        for i, t in enumerate(epoch_times):
+            w.writerow([i, phase_times["train_aggregate"][i],
+                        phase_times["distribution"][i], t])
+
+
+@torch.no_grad()
+def aggregate_updates(prev: list, new: list, weights: torch.Tensor,
+                      steps: torch.Tensor, cfg: TrainConfig,
+                      robust: bool = False) -> tuple:
+    """``(aggregate, quarantine mask (P,))`` of the participants' stacked
+    leaves ``new`` (P, ...) against the global pre-round ``prev`` at
+    ``weights`` (P,), ``steps`` (P,) their local steps: the update gate
+    and ``cfg.aggregator`` (:func:`robust_aggregate`) when either can act
+    or ``robust`` asks for it (an injected update fault), else the plain
+    weighted average, through the bf16 delta payload under ``precision=
+    "bf16"``.  The in-process round and every participant of a
+    multi-process world (:mod:`fed_tgan_torch.train.multihost`) call it
+    on the same stacked input."""
+    payload = resolve_precision(cfg.precision).payload_dtype
+    if cfg.update_gate or cfg.aggregator != "weighted" or robust:
+        return robust_aggregate(
+            prev, new, weights, steps, aggregator=cfg.aggregator,
+            update_gate=cfg.update_gate,
+            gate_norm_factor=cfg.gate_norm_factor,
+            update_clip=cfg.update_clip, trim_ratio=cfg.trim_ratio,
+            payload_dtype=payload)
+    agg = (weighted_delta_average(prev, new, weights, payload)
+           if payload is not None else weighted_average(new, weights))
+    return agg, torch.zeros(new[0].shape[0], dtype=torch.bool,
+                            device=new[0].device)
+
+
+@torch.no_grad()
+def fold_ema(ema: list, G, bn: torch.Tensor, decay: float) -> None:
+    """``ema = d * ema + (1 - d) * x`` for the aggregated generator's flat
+    weights and the running statistics at ``bn`` (one slot's)."""
+    for e_, n in zip(ema, (G.params[0], G.bn_state[bn])):
+        e_.copy_(decay * e_ + (1.0 - decay) * n)
 
 
 def corrupt_updates(prev: list, new: list, fault, positions=None) -> list:

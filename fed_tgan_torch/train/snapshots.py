@@ -35,6 +35,7 @@ import os
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
 from fed_tgan_torch.data.decode import decode_cells, decode_columns
@@ -105,6 +106,17 @@ class SnapshotWriter:
         self._pending.append((self._pool.submit(
             self._write, self.path_fn(epoch), buffers, event,
             trainer.decode), buffers))
+
+    def write_parts(self, epoch: int, parts: dict, decode) -> None:
+        """Write host ``parts`` (numpy arrays of ``decode``'s layout) to
+        ``path_fn(epoch)`` on the writer thread: a multi-process world's
+        rank 0, which receives them from rank 1."""
+        while len(self._pending) >= MAX_PENDING:
+            self._settle_oldest()
+        buffers = {k: torch.from_numpy(np.ascontiguousarray(v))
+                   for k, v in parts.items()}
+        self._pending.append((self._pool.submit(
+            self._write, self.path_fn(epoch), buffers, None, decode), {}))
 
     def _formatter(self, decode):
         if self._packed is None or self._packed[0] is not decode:

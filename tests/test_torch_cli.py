@@ -15,8 +15,12 @@ on the same raw Intrusion-shaped CSV (600 rows, 3 clients).
 - ``--similarity sketch --init-cache`` restores a warm init, and
   ``--elastic-capacity`` runs join/leave/drift faults;
 - ``--precision bf16`` trains, checkpoints and resumes in bf16;
-- a flag of a feature not ported yet, or a fault kind the port does not
-  act on, exits with code 2 and names its ROADMAP item.
+- a flag of a feature not ported yet exits with code 2 and names its
+  ROADMAP item;
+- the multi-process launch (``-ip``): ``--init-only``, ``--params-out``,
+  the transport fault kinds and the ``fed_tgan_torch.distributed`` alias
+  run a world of rank 0 and 2 participants (``launch_world`` of
+  ``tests/test_torch_world.py``).
 """
 
 import csv
@@ -108,14 +112,101 @@ def test_standalone_cli_matches_jax(data, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--snapshot-format", "parquet"], "A.21"),
-    (["--sanitize-nans"], "A.20"), (["--profile-rounds", "5"], "A.20"),
-    (["--init-only"], "A.18"), (["--params-out", "D"], "A.18"),
-    (["-ip", "1.2.3.4", "-rank", "0"], "A.18"),
-    (["--bgm-backend", "sklearn"], "A.24")])
+    pytest.param(["--snapshot-format", "parquet"], "A.21", id="flag0-A.21"),
+    pytest.param(["--sanitize-nans"], "A.20", id="flag1-A.20"),
+    pytest.param(["--profile-rounds", "5"], "A.20", id="flag2-A.20"),
+    pytest.param(["--bgm-backend", "sklearn"], "A.24", id="flag6-A.24")])
 def test_unported_flags_exit_2(data, tmp_path, capsys, flag, item):
     assert port_cli.main(argv(data, tmp_path, "--device", "cpu", *flag)) == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def _shards(data, tmp_path, n=2):
+    from fed_tgan_torch.data.csvio import read_csv, write_csv
+    from fed_tgan_torch.data.sharding import shard_table
+
+    paths = []
+    for i, part in enumerate(shard_table(read_csv(data), n, "iid", seed=1)):
+        paths.append(str(tmp_path / f"shard{i + 1}.csv"))
+        write_csv(part, paths[-1])
+    return paths
+
+
+def _world_argv(out, *extra):
+    return ["--dataset", "intrusion", "-epochs", "1", "--sample-rows", "60",
+            "--batch-size", "50", "--embedding-dim", "16", "--device", "cpu",
+            "--seed", "1", "--out-dir", str(out), *extra]
+
+
+@pytest.mark.parametrize("case", ["init_only", "params_out", "rank0_alone"])
+def test_multihost_launch_flags_run(data, tmp_path, capsys, case):
+    """The flags the multi-process launch took from ROADMAP A.18 (until
+    then refused with exit 2): ``--init-only`` stops a world of rank 0
+    and 2 participants after the init protocol (meta and encoders
+    written, no snapshot); ``--params-out`` writes each participant's
+    final generator; ``-ip -rank 0`` without ``-world_size`` exits 2 with
+    JAX's line."""
+    from test_torch_world import launch_world
+
+    if case == "rank0_alone":
+        assert port_cli.main(argv(data, tmp_path, "--device", "cpu", "-ip",
+                                  "1.2.3.4", "-rank", "0")) == 2
+        assert ("multihost rank 0 needs -world_size"
+                in capsys.readouterr().out)
+        return
+    out = tmp_path / "out"
+    extra = (["--init-only"] if case == "init_only"
+             else ["--params-out", str(out / "params")])
+    res = launch_world(str(tmp_path), _world_argv(out, *extra),
+                       _shards(data, tmp_path))
+    assert [rc for rc, _, _ in res] == [0, 0, 0], res
+    assert "multihost init complete: 2 clients" in res[0][1]
+    assert (out / "models" / "Intrusion.json").is_file()
+    assert (out / "models" / "label_encoders_Intrusion.json").is_file()
+    if case == "init_only":
+        assert not (out / "Intrusion_result").exists()
+        assert all("init complete" in r[1] and "training complete" not in
+                   r[1] for r in res[1:])
+    else:
+        params = [torch.load(out / "params" / f"params_rank{r}.pt")
+                  for r in (1, 2)]
+        assert params[0]["ema"] is None
+        assert all(torch.equal(params[0]["generator"][k],
+                               params[1]["generator"][k])
+                   for k in params[0]["generator"])
+        assert (out / "Intrusion_result"
+                / "Intrusion_synthesis_epoch_0.csv").is_file()
+
+
+def test_distributed_alias_takes_the_reference_flags(data, tmp_path):
+    """``python -m fed_tgan_torch.distributed`` is the CLI under the
+    reference's module name: a world launched through it with the
+    reference's flags (``-rank``, ``-ip``, ``-port``, ``-world_size``,
+    ``-epochs``, ``-datapath``) runs its init."""
+    import subprocess
+    import sys
+
+    from test_torch_world import world_env, next_port
+
+    shards = _shards(data, tmp_path)
+    port = str(next_port())
+    env = world_env()
+    base = [sys.executable, "-m", "fed_tgan_torch.distributed", "-ip",
+            "127.0.0.1", "-port", port, "-epochs", "1", "--init-only",
+            "--device", "cpu", "--out-dir", str(tmp_path / "out")]
+    procs = [subprocess.Popen(base + ["-rank", "0", "-world_size", "3"],
+                              env=env, stdout=subprocess.PIPE, text=True)]
+    procs += [subprocess.Popen(base + ["-rank", str(r), "-datapath",
+                                       shards[r - 1]], env=env,
+                               stdout=subprocess.PIPE, text=True)
+              for r in (1, 2)]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0, 0], outs
+    assert "multihost init complete: 2 clients" in outs[0]
 
 
 def test_precision_bf16_runs_a_round_and_resumes_in_it(data, tmp_path,
@@ -231,16 +322,34 @@ def test_elastic_churn_runs_and_refuses_a_resume(data, tmp_path, capsys):
         os.environ.pop(ENV_VAR, None)
 
 
-@pytest.mark.parametrize("spec,item", [
-    ("delay_msg:ms=5", "A.18"), ("sever_conn:rank=1,after=1", "A.18"),
-    ("kill_client:rank=1,round=1;delay_msg:ms=5", "A.18")])
-def test_unported_fault_kinds_exit_2(data, tmp_path, capsys, spec, item):
-    assert port_cli.main(argv(data, tmp_path, "--device", "cpu",
-                              "--faults", spec)) == 2
-    err = capsys.readouterr().err
-    assert f"ROADMAP {item}" in err and spec.split(";")[-1].split(":")[0] \
-        in err
-    assert not (tmp_path / "Intrusion_result").exists()
+@pytest.mark.parametrize("spec", [
+    "delay_msg:ms=5", "sever_conn:rank=1,after=1",
+    "kill_client:rank=1,round=1;delay_msg:ms=5"])
+def test_transport_fault_kinds_run(data, tmp_path, capsys, spec):
+    """The fault kinds ROADMAP A.18 ported (until then refused with exit
+    2): ``delay_msg`` and ``sever_conn`` act on the transport of a world
+    run through the init protocol (the severed rank 1 reconnects and the
+    world exits 0); with ``kill_client`` the plan drives the in-process
+    trainer, which drops the client, and the delay rides along."""
+    from fed_tgan_torch.testing.faults import ENV_VAR, install_plan
+    from test_torch_world import launch_world
+
+    if spec.startswith("kill_client"):
+        try:
+            assert port_cli.main(argv(data, tmp_path, "--device", "cpu",
+                                      "--faults", spec)) == 0
+        finally:
+            install_plan(None)
+            os.environ.pop(ENV_VAR, None)
+        assert (tmp_path / "Intrusion_result").is_dir()
+        return
+    out = tmp_path / "out"
+    res = launch_world(str(tmp_path), _world_argv(out, "--init-only",
+                                                  "--faults", spec),
+                       _shards(data, tmp_path))
+    assert [rc for rc, _, _ in res] == [0, 0, 0], res
+    if spec.startswith("sever_conn"):
+        assert "rank 1 reconnected and resynced" in res[1][2]
 
 
 def test_save_every_then_resume_extends_the_monitor_csv(data, tmp_path,
@@ -382,6 +491,9 @@ def test_round_scale_flags_run(data, tmp_path, capsys, extra):
     ["--ema-decay", "0.5", "--mode", "mdgan"], ["--population", "4"],
     ["--cohort", "-1"], ["--cohort", "2", "--mode", "mdgan"],
     ["--aggregation", "buffered", "--mode", "standalone"],
+    ["--cohort", "2", "-ip", "127.0.0.1", "-rank", "1"],
+    ["--aggregation", "buffered", "-ip", "127.0.0.1", "-rank", "0",
+     "-world_size", "3"],
 ])
 def test_round_scale_parser_errors_match_jax(data, tmp_path, capsys, extra):
     """Both CLIs refuse the same argv with exit 2 and the same error."""

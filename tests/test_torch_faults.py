@@ -1,7 +1,8 @@
 """The port's fault plans (``fed_tgan_torch.testing.faults``) against
 ``fed_tgan_tpu.testing.faults``: the same spec strings parse to the same
-fields, the injection points fire once, the environment variable is read,
-unknown and unported kinds are refused, and the kill scenario of
+fields, the injection points fire once (the transport's delay and sever
+among them), the environment variable is read, unknown kinds and any kind
+listed as unported are refused, and the kill scenario of
 ``tests/test_faults.py`` drops the same client with the same renormalised
 weights on both trainers (atol 1e-6)."""
 
@@ -70,16 +71,42 @@ def test_unknown_kind_fails_fast():
     assert FaultPlan.VALID_KINDS == jfaults.FaultPlan.VALID_KINDS
 
 
-@pytest.mark.parametrize("kind,item", sorted(faults.NOT_PORTED_KINDS.items()))
-def test_unported_kinds_are_refused(kind, item):
-    spec = {"delay_msg": "delay_msg:ms=5", "sever_conn": "sever_conn:rank=1,"
-            "after=1", "corrupt_cache": "corrupt_cache", "join": "join:round=2",
-            "leave": "leave:client=1,round=2", "drift": "drift:client=1,"
-            "round=2", "straggle": "straggle:rank=1,delay=2"}[kind]
-    plan = FaultPlan.parse(spec)
+@pytest.mark.parametrize("kind,item", [("straggle", "A.99")])
+def test_unported_kinds_are_refused(monkeypatch, kind, item):
+    """A kind listed in ``NOT_PORTED_KINDS`` (empty since ROADMAP A.18
+    ported the transport kinds; one is listed here for the check) parses
+    but is refused at install, so no plan quietly does nothing."""
+    assert faults.NOT_PORTED_KINDS == {}
+    monkeypatch.setitem(faults.NOT_PORTED_KINDS, kind, item)
+    plan = FaultPlan.parse("straggle:rank=1,delay=2")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         install_plan(plan)
     assert active_plan() is None
+
+
+@pytest.mark.parametrize("kind", ["delay_msg", "sever_conn"])
+def test_transport_kinds_install_and_fire(kind):
+    """The transport kinds (refused until ROADMAP A.18) install, parse to
+    JAX's fields, and fire as JAX's injection points do: the delay before
+    every send, the sever once, at the N-th send of its rank."""
+    import time
+
+    spec = {"delay_msg": "delay_msg:ms=20",
+            "sever_conn": "sever_conn:rank=2,after=3"}[kind]
+    plan = FaultPlan.parse(spec)
+    jplan = jfaults.FaultPlan.parse(spec)
+    install_plan(plan)
+    assert active_plan() is plan
+    if kind == "delay_msg":
+        t0 = time.perf_counter()
+        plan.maybe_delay()
+        assert time.perf_counter() - t0 >= 0.02
+        assert plan.delay_ms == jplan.delay_ms == 20
+        return
+    calls = [(1, 5), (2, 2), (2, 3), (2, 4)]
+    assert ([plan.should_sever(*c) for c in calls]
+            == [jplan.should_sever(*c) for c in calls]
+            == [False, False, True, False])
 
 
 def test_injection_points_fire_once():

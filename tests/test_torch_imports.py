@@ -101,7 +101,8 @@ def test_port_package_lists_every_slice_module():
                  "serve.canary", "federation.sketch", "data.dates",
                  "runtime.precision", "federation.init_cache",
                  "federation.streaming", "federation.elastic",
-                 "train.mdgan"):
+                 "train.mdgan", "runtime.transport", "federation.distributed",
+                 "parallel.multihost", "train.multihost", "distributed"):
         assert f"fed_tgan_torch.{name}" in mods
 
 
@@ -283,10 +284,17 @@ def test_federated_entry_points_default_to_the_card():
         assert MDGANTrainer(init, cfg).data[0].is_cuda
         assert federated_initialize([pre]).weights.shape == (1,)
         return
+    from fed_tgan_torch.parallel.multihost import participant_device
+
     for call in (lambda: federated_initialize([pre]),
                  lambda: FederatedTrainer(init, cfg),
                  lambda: MDGANTrainer(init, cfg),
-                 lambda: cli.main(["--datapath", "none.csv"])):
+                 lambda: cli.main(["--datapath", "none.csv"]),
+                 lambda: participant_device(1),
+                 lambda: cli.main(["-ip", "127.0.0.1", "-rank", "0",
+                                   "-world_size", "3"]),
+                 lambda: cli.main(["-ip", "127.0.0.1", "-rank", "1",
+                                   "-datapath", "none.csv"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 
@@ -525,3 +533,29 @@ def test_round_scale_cli_runs_with_jax_sklearn_and_pandas_blocked(tmp_path):
         assert (tmp_path / f"run{i}" / "models" / "synthesizer_torch").is_dir()
     host = json.load(open(tmp_path / "run1" / "checkpoint" / "host.json"))
     assert host["kind"] == "mdgan_torch" and host["completed_epochs"] == 3
+
+
+def test_multihost_world_runs_with_jax_sklearn_and_pandas_blocked(tmp_path):
+    """A world of rank 0 and 2 participants, each launched in a fresh
+    interpreter where jax, the JAX package, pandas, pyarrow and sklearn
+    cannot be imported: the init protocol, a bf16 round over gloo (the
+    bf16 delta payload), the snapshot written by rank 0."""
+    from fed_tgan_torch.data.csvio import read_csv, write_csv
+    from fed_tgan_torch.data.sharding import shard_table
+    from fed_tgan_torch.serve.demo import write_intrusion_csv
+    from test_torch_world import launch_world
+
+    table = read_csv(write_intrusion_csv(str(tmp_path / "intr.csv"), 200, 0))
+    shards = []
+    for i, part in enumerate(shard_table(table, 2, "iid", seed=1)):
+        shards.append(str(tmp_path / f"shard{i + 1}.csv"))
+        write_csv(part, shards[-1])
+    out = tmp_path / "out"
+    res = launch_world(str(tmp_path), [
+        "--dataset", "intrusion", "-epochs", "1", "--sample-rows", "40",
+        "--batch-size", "50", "--embedding-dim", "8", "--device", "cpu",
+        "--precision", "bf16", "--out-dir", str(out)], shards, blocked=True)
+    assert [rc for rc, _, _ in res] == [0, 0, 0], res
+    assert "final aggregated params identical across 2" in res[0][1]
+    assert (out / "Intrusion_result" / "Intrusion_synthesis_epoch_0.csv"
+            ).is_file()
