@@ -203,11 +203,40 @@ Phases, each fatal on failure:
    wall beside the in-process stacked round's (turns world, in-process,
    in-process, world), the all-gather's bytes and ms a round; then K1
    and K2 against their plain versions at a participant's shape (500,
-   D).
+   D).  The second world journals (``--journal``: one journal per rank),
+   and ``python -m fed_tgan_torch.obs report`` over the per-rank
+   journals must count 3 rounds and 4 clients.
+
+19. the observatory (``observatory_phase``), slice 13's path: the
+   federated round's CSV through the CLI as a process of its own, 4 IID
+   clients, 3 rounds, a 40,000-row snapshot, the monitor and a save
+   every round, ``--precision f32 --journal J --obs-port 0 --profile-dir
+   D --profile-rounds 1`` with every event validated against the schema:
+   while it runs ``/healthz`` reaches ``training``, ``/metrics`` holds 4
+   ``fed_tgan_client_weight`` series and ``/journal?offset=0`` answers
+   with ``X-Journal-Offset``; after exit 0 ``J`` holds no
+   ``schema_violation``, 3 ``client_contribution`` events whose weights
+   sum to 1 within 1e-6 and equal the printed weights, 3 ``round``, 3
+   ``similarity`` and 3 ``checkpoint`` events, one ``device_trace`` with
+   ``ok`` and ``program_cost`` with flops and bytes above 0; ``obs report
+   J`` prints "clients: 4 tracked over 3 round(s)", ``obs slo J`` and
+   ``obs watch J`` exit 0; the trace in ``D`` holds K1 21 times (10 steps
+   x 2 + the snapshot's chunk) plus the monitor's probe and K2 10 times,
+   with the spans ``train.local_steps``, ``train.aggregate.sync`` and
+   ``train.snapshot`` as host ranges.  Then the same round in this
+   process, 5 rounds a turn with the observatory off, with a journal (a
+   span tracer and the first chunk's cost too) and on (the journal and
+   the exporter scraped every 50 ms) in turns off, on, journal, journal,
+   on, off after a warm-up turn: the final states equal, the
+   synchronising calls (``torch.cuda.set_sync_debug_mode("warn")``) as
+   many; s/round of each, the overhead fractions, the scrape's p99.  The
+   fleet and canary phases run under a journal too, which must hold
+   ``fleet_load``, ``serve_stages``, ``promotion_promoted`` and
+   ``promotion_rejected`` and no schema violation.
 
 ``--onboard N [N ...]`` runs phase 15 alone at the populations given (the
 JAX sweep's N = 1024 is measured so); ``--multiprocess`` runs phase 18
-alone.
+alone; ``--observatory`` runs phase 19 alone.
 
 ``--ab TREE`` runs none of the phases: it builds the kernels of the
 ``fed_tgan_torch`` package under TREE (for example a ``git archive`` of an
@@ -222,8 +251,8 @@ Prints the card's name and power limit beside every number, a JSON line
 with the training numbers, one with the federated round's, one with the
 durable round's, one with the canary's and the dated phase's, one with
 the precision phase's, one with the onboarding and churn phases', one
-with the round-scale phases', one with the multi-process world's, the
-card's
+with the round-scale phases', one with the multi-process world's, one
+with the observatory's, the card's
 line, a JSON line with the kernels' numbers (one entry per kernel and
 path: K1 serving, K1 in the fleet, K1 and K2 training, K1 and K2
 federated, K1 in the similarity monitor, K1 and K2 in the ragged round, K1
@@ -245,7 +274,6 @@ import csv
 import dataclasses
 import io
 import json
-import logging
 import math
 import os
 import shutil
@@ -278,6 +306,12 @@ from fed_tgan_torch.features.transformer import (
 )
 from fed_tgan_torch.federation.init import federated_initialize
 from fed_tgan_torch.interop import params_to_jax_layout
+from fed_tgan_torch.obs.journal import (
+    RunJournal,
+    read_journal,
+    set_journal,
+    validation_violations,
+)
 from fed_tgan_torch.ops import activate_cuda
 from fed_tgan_torch.ops.activate_cuda import (
     fused_activate_bwd,
@@ -3464,18 +3498,24 @@ def onboard_phase(root: str, seed: int, card: str,
     return report
 
 
-class EventLog(logging.Handler):
-    """Collects the event dicts the port logs (``{"type": ...}``) while
-    the journal waits for ROADMAP A.20."""
-
-    def __init__(self):
-        super().__init__(logging.INFO)
-        self.events: list = []
-
-    def emit(self, record) -> None:
-        # logging keeps a lone mapping argument as ``args`` itself
-        if isinstance(record.args, dict) and "type" in record.args:
-            self.events.append(record.args)
+@contextlib.contextmanager
+def journaled():
+    """A run journal installed as the process journal while the block
+    runs (validation armed); yields the list its events land in when the
+    block ends."""
+    fd, path = tempfile.mkstemp(suffix=".jsonl", dir=os.path.join(
+        REPO, "fed_tgan_torch", "_build"))
+    os.close(fd)
+    events: list = []
+    journal = RunJournal(path, validate=True)
+    prev = set_journal(journal)
+    try:
+        yield events
+    finally:
+        set_journal(prev)
+        journal.close()
+        events.extend(read_journal(path))
+        os.remove(path)
 
 
 def _churn_cli(root: str, csv_path: str, seed: int, tag: str) -> dict:
@@ -3491,29 +3531,21 @@ def _churn_cli(root: str, csv_path: str, seed: int, tag: str) -> dict:
             "--elastic-capacity", str(CHURN_CAPACITY), "--drift-every",
             str(CHURN_EVERY), "--save-every", "1", "--ckpt-keep",
             str(CHURN_ROUNDS), "--watchdog", "--faults", CHURN_FAULTS]
-    handler = EventLog()
-    loggers = [logging.getLogger(n) for n in ("fed_tgan_torch.federation",
-                                              "fed_tgan_torch.train")]
-    for lg in loggers:
-        lg.addHandler(handler)
-        lg.setLevel(logging.INFO)
     stdout = io.StringIO()
     fused_apply_activate.launches = 0
     fused_activate_bwd.launches = 0
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(stdout):
+        with contextlib.redirect_stdout(stdout), journaled() as events:
             rc = cli_main(argv)
     finally:
         install_plan(None)
         os.environ.pop("FED_TGAN_TORCH_FAULTS", None)
-        for lg in loggers:
-            lg.removeHandler(handler)
     wall = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"churn CLI exited {rc}: "
                              f"{stdout.getvalue()[-3000:]}")
-    return {"out": out, "wall_s": wall, "events": handler.events,
+    return {"out": out, "wall_s": wall, "events": events,
             "launches": {"K1": fused_apply_activate.launches,
                          "K2": fused_activate_bwd.launches},
             "stdout": stdout.getvalue()}
@@ -3645,31 +3677,26 @@ MDGAN_ROUNDS = 3
 
 def _cli_run(argv: list) -> dict:
     """The training CLI in this process (its launches counted): K1/K2
-    launches, the event dicts the trainer logged, stdout and wall
-    seconds; fails unless it exits 0."""
+    launches, the journal's events (a ``--journal`` of the argv takes
+    them instead), stdout and wall seconds; fails unless it exits 0."""
     from fed_tgan_torch.cli import main as cli_main
 
-    handler = EventLog()
-    logger = logging.getLogger("fed_tgan_torch.train")
-    logger.addHandler(handler)
-    logger.setLevel(logging.INFO)
     stdout = io.StringIO()
     activate_cuda.reset_launches()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(stdout):
+        with contextlib.redirect_stdout(stdout), journaled() as events:
             rc = cli_main(argv)
     finally:
         install_plan(None)
         os.environ.pop("FED_TGAN_TORCH_FAULTS", None)
-        logger.removeHandler(handler)
     wall = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"CLI {argv} exited {rc}: "
                              f"{stdout.getvalue()[-3000:]}")
     return {"launches": {"K1": fused_apply_activate.launches,
                          "K2": fused_activate_bwd.launches},
-            "events": handler.events, "stdout": stdout.getvalue(),
+            "events": events, "stdout": stdout.getvalue(),
             "wall_s": wall}
 
 
@@ -3859,7 +3886,8 @@ def buffered_phase(root: str, seed: int, card: str) -> dict:
     host, _ = _checkpoint_arrays(os.path.join(outs["straggle"], "checkpoint"))
     w = host["weights"][1]
     landed = [(e["origin"], e["round"], e["staleness"], e["discount"])
-              for e in straggle["events"] if e.get("type") == "aggregate"]
+              for e in straggle["events"] if e.get("type") == "aggregate"
+              and e.get("aggregator") == "buffered"]
     if [x[:3] for x in landed] != [(1, 3, 2), (2, 4, 2)] or not all(
             math.isclose(x[3], w * 0.25, rel_tol=1e-6) for x in landed):
         raise AssertionError(f"buffered arrivals {landed}, weight {w}")
@@ -4270,8 +4298,21 @@ def multiprocess_phase(root: str, seed: int, card: str) -> dict:
     launches = w1["here"]["launches"]
     _, s_in1 = in_process("in1")
     _, s_in2 = in_process("in2")
-    w4 = _mp_world(root, "w4", shards, seed, MP_ROUNDS)
+    # the second world journals: one journal per rank
+    w4 = _mp_world(root, "w4", shards, seed, MP_ROUNDS, "--journal",
+                   os.path.join(root, "w4", "journal.jsonl"))
     _world_ok("second world", w4)
+    rank_journals = [os.path.join(w4["dir"], f"journal_rank{r}.jsonl")
+                     for r in range(MP_CLIENTS + 1)]
+    rc, text, err = _obs_tool("report", "--format", "json", *rank_journals)
+    merged = json.loads(text) if rc == 0 else {}
+    if (rc != 0 or merged["rounds"]["total_rounds"] != MP_ROUNDS
+            or merged["clients"]["tracked"] != MP_CLIENTS
+            or merged["by_type"].get("schema_violation")):
+        raise AssertionError(f"merged per-rank report (rc {rc}): "
+                             f"{merged.get('rounds')}, "
+                             f"{merged.get('clients', {}).get('tracked')}, "
+                             f"{merged.get('by_type')} {err[-1500:]}")
 
     text0 = w1["out"][0]
     if f"final aggregated params identical across {MP_CLIENTS}" not in text0:
@@ -4366,6 +4407,9 @@ def multiprocess_phase(root: str, seed: int, card: str) -> dict:
         "launches_per_round": {k: v / MP_ROUNDS for k, v in
                                launches.items()},
         "rank1_profile_one_round": w2["events"],
+        "journaled_world": {"rounds": merged["rounds"]["total_rounds"],
+                            "clients": merged["clients"]["tracked"],
+                            "events": merged["by_type"]},
         "vs_in_process_round1": first, "vs_in_process_round3": after3,
         "kill": {"rcs": rcs, "wall_s": wk["wall_s"]},
         "world_wall_s": [w1["wall_s"], w4["wall_s"]],
@@ -4383,7 +4427,10 @@ def multiprocess_phase(root: str, seed: int, card: str) -> dict:
           f"{launches} ({out['launches_per_round']} a round; one round under "
           f"torch.profiler {w2['events']}); world vs in-process after round "
           f"1 {first}, after {MP_ROUNDS} rounds {after3}; resume == straight; "
-          f"two worlds bit-equal; init weights bit-equal; kill world exit "
+          f"two worlds bit-equal (the second journaled: merged per-rank "
+          f"report {merged['rounds']['total_rounds']} rounds, "
+          f"{merged['clients']['tracked']} clients); init weights "
+          f"bit-equal; kill world exit "
           f"codes {rcs} in {wk['wall_s']!r} s  [{card}]", flush=True)
     return out
 
@@ -4404,6 +4451,362 @@ def _multiprocess_with_checks(build_root: str, seed: int, card: str):
             check_bwd_kernel(sp, card, rows, extra=False))
 
 
+# --------------------------------------------------------- the observatory
+
+OBS_ROUNDS = 3  # the CLI run's rounds; the last one traced
+OBS_TURN_ROUNDS = 5  # rounds of each in-process turn, observatory on/off
+OBS_SPANS = ("train.local_steps", "train.aggregate.sync", "train.snapshot")
+
+
+def _get(url: str, timeout: float = 10.0) -> tuple:
+    """``(body, headers, ms)`` of one GET."""
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        body, headers = r.read(), dict(r.headers)
+    return body, headers, 1e3 * (time.perf_counter() - t0)
+
+
+def _watch_exporter(lines: list, done: threading.Event) -> dict:
+    """While the CLI runs: find its exporter's URL in its output, poll
+    ``/healthz`` until it reports ``training``, then read ``/metrics``
+    and ``/journal?offset=0`` once."""
+    seen: dict = {}
+    url = None
+    while not done.is_set() and url is None:
+        for ln in list(lines):
+            if ln.startswith("obs: live telemetry on "):
+                url = ln.split()[4]
+        time.sleep(0.02)
+    while url is not None and not done.is_set():
+        try:
+            health = json.loads(_get(url + "/healthz")[0])
+        except OSError:
+            time.sleep(0.02)
+            continue
+        if health.get("status") == "training":
+            metrics = _get(url + "/metrics")[0].decode()
+            body, headers, _ = _get(url + "/journal?offset=0")
+            seen = {"url": url, "health": health,
+                    "client_weight_series": sorted(
+                        ln.split()[0] for ln in metrics.splitlines()
+                        if ln.startswith("fed_tgan_client_weight{")),
+                    "journal_bytes": len(body),
+                    "journal_lines": len(body.splitlines()),
+                    "x_journal_offset": headers.get("X-Journal-Offset")}
+            break
+        time.sleep(0.02)
+    return seen
+
+
+def _obs_cli(root: str, csv_path: str, seed: int) -> dict:
+    """The CLI as a process of its own with ``--journal --obs-port 0
+    --profile-dir --profile-rounds 1`` (validation armed), its exporter
+    read while it runs."""
+    out = os.path.join(root, "obs_cli")
+    jpath, prof = os.path.join(out, "journal.jsonl"), os.path.join(out, "prof")
+    argv = [sys.executable, "-m", "fed_tgan_torch", "--mode", "fedavg",
+            "--datapath", csv_path, "--dataset", "intrusion", "--n-clients",
+            str(FED_CLIENTS), "-epochs", str(OBS_ROUNDS), "--sample-rows",
+            str(SNAPSHOT_ROWS), "--monitor-every", "1", "--save-every", "1",
+            "--precision", "f32", "--out-dir", out, "--seed", str(seed),
+            "--journal", jpath, "--obs-port", "0", "--profile-dir", prof,
+            "--profile-rounds", "1"]
+    env = {**os.environ, "FED_TGAN_TORCH_VALIDATE_JOURNAL": "1",
+           "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    lines: list = []
+    done = threading.Event()
+    err: list = []
+    readers = [threading.Thread(target=lambda: lines.extend(
+        ln.rstrip("\n") for ln in proc.stdout), daemon=True),
+        threading.Thread(target=lambda: err.append(proc.stderr.read()),
+                         daemon=True)]
+    for t in readers:
+        t.start()
+    live: dict = {}
+    watcher = threading.Thread(
+        target=lambda: live.update(_watch_exporter(lines, done)), daemon=True)
+    watcher.start()
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        done.set()
+    for t in readers + [watcher]:
+        t.join(timeout=30)
+    stdout = "\n".join(lines)
+    if rc != 0:
+        raise AssertionError(f"observatory CLI exited {rc}: "
+                             f"{(err[0] if err else '')[-3000:]}")
+    return {"out": out, "journal": jpath, "prof": prof, "stdout": stdout,
+            "live": live, "wall_s": time.perf_counter() - t0}
+
+
+def _obs_tool(*args) -> tuple:
+    """``python -m fed_tgan_torch.obs ARGS``: ``(exit code, stdout,
+    stderr)``."""
+    proc = subprocess.run([sys.executable, "-m", "fed_tgan_torch.obs",
+                           *args], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def _require_events(what: str, events: list, types: tuple) -> dict:
+    """The journaled ``events`` hold every one of ``types`` and no
+    ``schema_violation``; returns the count of each type."""
+    counts: dict = {}
+    for e in events:
+        counts[e["type"]] = counts.get(e["type"], 0) + 1
+    missing = [t for t in types if not counts.get(t)]
+    if missing or counts.get("schema_violation"):
+        raise AssertionError(f"{what} journal: missing {missing}, events "
+                             f"{counts}")
+    return counts
+
+
+def _trace_counts(prof_dir: str) -> dict:
+    """K1/K2 kernels, the host spans and the device's busy ms in the
+    ``torch.profiler`` trace that ``--profile-dir`` wrote."""
+    files = [f for f in os.listdir(prof_dir) if f.endswith(".json")]
+    if len(files) != 1:
+        raise AssertionError(f"profile dir holds {files}")
+    with open(os.path.join(prof_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    device = [e for e in events if e.get("cat") in
+              ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name") in OBS_SPANS:
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    return {"file": files[0], "bytes": os.path.getsize(
+        os.path.join(prof_dir, files[0])),
+        "K1": sum(KERNEL_NAMES["K1"] in e["name"] for e in kernels),
+        "K2": sum(KERNEL_NAMES["K2"] in e["name"] for e in kernels),
+        "kernels": len(kernels),
+        "busy_ms": sum(e.get("dur", 0.0) for e in device) / 1e3,
+        "spans": spans}
+
+
+def _count_syncs(fn) -> tuple:
+    """``(fn(), synchronising calls it made)``: one warning per sync under
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def _obs_turns(init, root: str, seed: int) -> dict:
+    """One trainer's ``OBS_TURN_ROUNDS`` rounds with a 40,000-row snapshot
+    each, in this process, after a warm-up turn, in turns off, on,
+    journal, journal, on, off: ``journal`` = a validated journal, a span
+    tracer and the first chunk's ``program_cost``; ``on`` = the same and
+    the exporter, ``/metrics`` scraped every 50 ms by a thread of this
+    process while the rounds run (JAX's ``bench.py`` cadence).  The final
+    states must be equal and the synchronising calls as many."""
+    from fed_tgan_torch.obs import (
+        TelemetryExporter,
+        start_tracing,
+        stop_tracing,
+    )
+
+    # a warm-up turn first: a process's first round makes synchronising
+    # calls of its own (the allocator's, the libraries' set-up)
+    turns = []
+    for i, mode in enumerate((None, "off", "on", "journal", "journal", "on",
+                              "off")):
+        tr = FederatedTrainer(init, steps.TrainConfig(), seed=seed,
+                              device="cuda")
+        writer = SnapshotWriter(init.global_meta, init.encoders,
+                                result_path_fn(os.path.join(root, f"t{i}"),
+                                               "Intrusion"),
+                                rows=SNAPSHOT_ROWS, seed=seed)
+        scrapes: list = []
+        stop = threading.Event()
+        jpath = os.path.join(root, f"turn{i}.jsonl")
+        with contextlib.ExitStack() as stack:
+            if mode in ("on", "journal"):
+                journal = RunJournal(jpath, validate=True)
+                prev = set_journal(journal)
+                stack.callback(journal.close)
+                stack.callback(set_journal, prev)
+                start_tracing()
+                stack.callback(stop_tracing)
+            if mode == "on":
+                exp = stack.enter_context(TelemetryExporter(port=0))
+
+                def scrape(url=exp.url):
+                    while not stop.is_set():
+                        scrapes.append(_get(url + "/metrics")[2])
+                        time.sleep(0.05)
+
+                scraper = threading.Thread(target=scrape, daemon=True)
+                scraper.start()
+                stack.callback(scraper.join, 10)
+                stack.callback(stop.set)
+            with writer:
+                t0 = time.perf_counter()
+                _, syncs = _count_syncs(
+                    lambda: tr.fit(OBS_TURN_ROUNDS, sample_hook=writer))
+                wall = time.perf_counter() - t0
+            health = None
+            if mode == "on":
+                health = json.loads(_get(exp.url + "/healthz")[0])
+        if mode is None:
+            continue
+        turns.append({"mode": mode, "wall_s": wall, "syncs": syncs,
+                      "s_per_round": list(tr.epoch_times),
+                      "scrapes": scrapes, "health": health,
+                      "state": _stack_state(tr),
+                      "journal_bytes": (os.path.getsize(jpath)
+                                        if mode != "off" else None)})
+    for t in turns[1:]:
+        _require_equal("observatory on vs off, final state", t["state"],
+                       turns[0]["state"])
+    if len({t["syncs"] for t in turns}) != 1:
+        raise AssertionError("synchronising calls differ with the "
+                             f"observatory: {[t['syncs'] for t in turns]}")
+    for t in turns:
+        if t["mode"] == "on" and (
+                t["health"]["status"] != "training"
+                or t["health"]["live_clients"] != FED_CLIENTS):
+            raise AssertionError(f"/healthz after the rounds {t['health']}")
+
+    def steady(mode):  # rounds 1.. (a journaled turn's round 0 is costed)
+        return statistics.mean(x for t in turns if t["mode"] == mode
+                               for x in t["s_per_round"][1:])
+
+    lat = sorted(x for t in turns for x in t["scrapes"])
+    off, on, jonly = steady("off"), steady("on"), steady("journal")
+    return {"turns": [{k: v for k, v in t.items()
+                       if k not in ("state", "scrapes")} for t in turns],
+            "s_per_round_off": off, "s_per_round_on": on,
+            "s_per_round_journal": jonly,
+            "overhead_frac": on / off - 1.0,
+            "overhead_frac_journal": jonly / off - 1.0,
+            "costed_round_s": [t["s_per_round"][0] for t in turns
+                               if t["mode"] != "off"],
+            "scrapes": len(lat),
+            "scrape_p50_ms": lat[len(lat) // 2] if lat else None,
+            "scrape_p99_ms": (lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+                              if lat else None),
+            "syncs": turns[0]["syncs"]}
+
+
+def observatory_phase(root: str, seed: int, card: str) -> dict:
+    """Slice 13's path: the federated round of phase 9 journaled, exported
+    live, costed and device-traced (see the module docstring)."""
+    csv_path = write_intrusion_csv(os.path.join(root, "obs.csv"), FED_ROWS,
+                                   seed)
+    run = _obs_cli(root, csv_path, seed)
+    events = list(read_journal(run["journal"]))
+    by_type: dict = {}
+    for e in events:
+        by_type.setdefault(e["type"], []).append(e)
+    live = run["live"]
+    want_series = [f'fed_tgan_client_weight{{client="{i}"}}'
+                   for i in range(FED_CLIENTS)]
+    if (live.get("health", {}).get("status") != "training"
+            or live.get("client_weight_series") != want_series
+            or not live.get("journal_lines")
+            or live.get("x_journal_offset") is None):
+        raise AssertionError(f"live exporter during the run: {live}")
+    if by_type.get("schema_violation"):
+        raise AssertionError(f"schema violations {by_type['schema_violation']}")
+    printed = ast.literal_eval(run["stdout"].split(
+        "aggregation weights: ", 1)[1].splitlines()[0])
+    contribs = by_type.get("client_contribution", [])
+    if [e["round"] for e in contribs] != list(range(OBS_ROUNDS)):
+        raise AssertionError(f"client_contribution rounds "
+                             f"{[e['round'] for e in contribs]}")
+    for e in contribs:
+        w = e["weights"]
+        if (e["clients"] != list(range(FED_CLIENTS))
+                or abs(sum(w) - 1.0) > 1e-6
+                or any(abs(a - b) > 5.1e-5 for a, b in zip(w, printed))):
+            raise AssertionError(f"contribution {e} vs printed {printed}")
+    counts = {k: len(by_type.get(k, [])) for k in (
+        "round", "similarity", "checkpoint", "device_trace", "program_cost")}
+    traces = by_type.get("device_trace", [])
+    costs = by_type.get("program_cost", [])
+    if (counts["round"] != OBS_ROUNDS or counts["similarity"] != OBS_ROUNDS
+            or counts["checkpoint"] != OBS_ROUNDS or len(traces) != 1
+            or not traces[0]["ok"] or not costs
+            or not all(c["flops"] > 0 and c["bytes_accessed"] > 0
+                       for c in costs)):
+        raise AssertionError(f"journal counts {counts}, traces {traces}, "
+                             f"costs {costs}")
+    tools = {}
+    for cmd in ("report", "slo", "watch"):
+        rc, text, err = _obs_tool(cmd, run["journal"])
+        tools[cmd] = rc
+        text += err
+        if rc != 0:
+            raise AssertionError(f"obs {cmd} exited {rc}: {text[-2000:]}")
+        if cmd == "report" and (f"clients: {FED_CLIENTS} tracked over "
+                                f"{OBS_ROUNDS} round(s)") not in text:
+            raise AssertionError(f"obs report: {text[-2000:]}")
+    trace = _trace_counts(run["prof"])
+    # the traced round: max(steps) = 10 steps, K1 twice a step and once
+    # for the snapshot's one chunk, K2 once a step; the similarity
+    # monitor's probe is one more K1 launch
+    steps_per_round = (FED_ROWS // FED_CLIENTS) // steps.TrainConfig(
+    ).batch_size
+    want = {"K1": 2 * steps_per_round + 1, "K2": steps_per_round}
+    if (trace["K1"] != want["K1"] + 1 or trace["K2"] != want["K2"]
+            or set(trace["spans"]) != set(OBS_SPANS)):
+        raise AssertionError(f"device trace {trace}, want {want} + 1 K1 "
+                             "monitor probe")
+    init = _fed_init(csv_path, FED_CLIENTS, seed, "cuda")
+    turns = _obs_turns(init, root, seed)
+    jbytes = os.path.getsize(run["journal"])
+    out = {
+        "cli_wall_s": run["wall_s"], "live": live,
+        "journal_events": {k: len(v) for k, v in sorted(by_type.items())},
+        "journal_bytes": jbytes,
+        "journal_bytes_per_round": jbytes / OBS_ROUNDS,
+        "program_cost": [{k: c[k] for k in ("name", "flops",
+                                            "bytes_accessed", "peak_bytes")}
+                         for c in costs],
+        "contribution_weights": contribs[-1]["weights"],
+        "trace": {**trace, "want": want, "monitor_probe_K1": 1},
+        "tools": tools, **turns}
+    print(f"observatory: CLI with --journal --obs-port 0 --profile-dir "
+          f"--profile-rounds 1, {OBS_ROUNDS} rounds: exit 0 in "
+          f"{run['wall_s']!r} s; live /healthz training, "
+          f"{len(live['client_weight_series'])} client weight series, "
+          f"/journal {live['journal_lines']} lines (X-Journal-Offset "
+          f"{live['x_journal_offset']}); journal {out['journal_events']}, "
+          f"0 schema violations, {jbytes} bytes; program_cost "
+          f"{out['program_cost']}; traced round: K1 {trace['K1']} (want "
+          f"{want['K1']} + 1 monitor probe), K2 {trace['K2']}, busy "
+          f"{trace['busy_ms']!r} ms, spans {trace['spans']}  [{card}]",
+          flush=True)
+    print(f"observatory: in-process turns off/on/journal/journal/on/off "
+          f"bit-equal, {turns['syncs']} synchronising calls each; s/round "
+          f"off {turns['s_per_round_off']!r}, journal "
+          f"{turns['s_per_round_journal']!r} (overhead "
+          f"{turns['overhead_frac_journal']!r}), on "
+          f"{turns['s_per_round_on']!r} (overhead "
+          f"{turns['overhead_frac']!r}); a costed first round "
+          f"{turns['costed_round_s']!r} s; /metrics scrape p50 "
+          f"{turns['scrape_p50_ms']!r} p99 {turns['scrape_p99_ms']!r} ms "
+          f"over {turns['scrapes']} scrapes  [{card}]", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4418,10 +4821,16 @@ def main(argv=None) -> int:
     ap.add_argument("--multiprocess", action="store_true",
                     help="instead of the phases: the multi-process world "
                     "and its kernel checks only")
+    ap.add_argument("--observatory", action="store_true",
+                    help="instead of the phases: the observatory phase "
+                    "only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    # every run journal of this process and of the processes it starts
+    # checks each event against the schema
+    os.environ["FED_TGAN_TORCH_VALIDATE_JOURNAL"] = "1"
     card = gpu_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
@@ -4455,6 +4864,20 @@ def main(argv=None) -> int:
         finally:
             shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"onboard": onboard}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if args.observatory:
+        obs_root = tempfile.mkdtemp(prefix="chip_smoke_obs_", dir=os.path.join(
+            REPO, "fed_tgan_torch", "_build"))
+        try:
+            observatory = observatory_phase(obs_root, args.seed, card)
+        finally:
+            shutil.rmtree(obs_root, ignore_errors=True)
+        print(json.dumps({"observatory": observatory}))
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4511,7 +4934,10 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(art, ignore_errors=True)
     mark("serving")
-    fleet = fleet_phase(args.seed, args.rows, card, build_root)
+    with journaled() as fleet_events:
+        fleet = fleet_phase(args.seed, args.rows, card, build_root)
+    fleet["journal"] = _require_events("fleet", fleet_events,
+                                       ("fleet_load", "serve_stages"))
     # K1 at the shape of an 8-lane dispatch: every lane's rows at once
     shapes += check_kernel(fleet.pop("spec"), card,
                            (("fleet", fleet["lane_rows"]),), extra=False)
@@ -4527,8 +4953,12 @@ def main(argv=None) -> int:
     serve_trained_phase(synth, meta, encoders, args.rows, args.seed, card)
     training.update(train_stage_breakdown(synth, args.seed, card))
     mark("training")
-    canary = canary_phase(synth, meta, encoders, args.seed, card, build_root,
-                          args.rows)
+    with journaled() as canary_events:
+        canary = canary_phase(synth, meta, encoders, args.seed, card,
+                              build_root, args.rows)
+    canary["journal"] = _require_events(
+        "canary", canary_events, ("promotion_promoted", "promotion_rejected",
+                                  "serve_stages"))
     # K1 at the shadow sample's shape: one engine chunk
     shapes += check_kernel(synth.spec, card,
                            (("canary", canary["chunk_rows"]),), extra=False)
@@ -4637,6 +5067,15 @@ def main(argv=None) -> int:
     shapes += mp_shapes
     bwd_shapes += mp_bwd
     mark("multiprocess")
+    obs_root = tempfile.mkdtemp(prefix="chip_smoke_obs_", dir=build_root)
+    try:
+        observatory = observatory_phase(obs_root, args.seed, card)
+    finally:
+        shutil.rmtree(obs_root, ignore_errors=True)
+    mark("observatory")
+    if validation_violations():
+        raise AssertionError(f"journal schema violations in this process: "
+                             f"{validation_violations()}")
     print(f"wall seconds by phase {json.dumps(wall)}, "
           f"{sum(wall.values())!r} in all  [{card}]", flush=True)
 
@@ -4758,6 +5197,7 @@ def main(argv=None) -> int:
     print(json.dumps({"onboard": onboard, "churn": churn}))
     print(json.dumps({"round_scale": round_scale}))
     print(json.dumps({"multiprocess": multiprocess}))
+    print(json.dumps({"observatory": observatory}))
     print(card)
     print(json.dumps({"kernels": kernels, "serving": serving,
                       "fleet": fleet}))

@@ -14,15 +14,23 @@ can come from a less accurate routine (seen as a 4e-5 relative error in
 twenty on a loaded host), which moved the Gumbel noise of the CPU path's
 first sample and broke its determinism.  After one serial call of each
 function, no parallel call was seen to do so.
+
+Without torch the package still imports, so ``python -m
+fed_tgan_torch.obs report|slo|watch`` (stdlib only) runs on a host that
+has only Python; every module that computes imports torch itself.
 """
 
-import torch
+try:
+    import torch
+except ImportError:  # a host with only Python: the stdlib-only obs CLI
+    torch = None
 
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
+if torch is not None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
-for _fn in (torch.log, torch.exp, torch.tanh, torch.sqrt, torch.sin,
-            torch.log1p, torch.expm1):
-    for _dtype in (torch.float32, torch.float64):
-        _fn(torch.full((8,), 0.5, dtype=_dtype))
-del _fn, _dtype
+    for _fn in (torch.log, torch.exp, torch.tanh, torch.sqrt, torch.sin,
+                torch.log1p, torch.expm1):
+        for _dtype in (torch.float32, torch.float64):
+            _fn(torch.full((8,), 0.5, dtype=_dtype))
+    del _fn, _dtype

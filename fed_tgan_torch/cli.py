@@ -60,7 +60,15 @@ device) and writes its layout:
   multihost`); ``--init-only`` stops after the init protocol,
   ``--params-out DIR`` writes each participant's final generator as
   ``params_rank<r>.pt``, ``--save-every``/``--resume`` keep and continue
-  per-rank checkpoints.
+  per-rank checkpoints;
+- ``--journal PATH`` writes the run journal (JSONL, the JAX package's
+  schema; ``python -m fed_tgan_torch.obs report|slo|watch`` read it);
+  ``--obs-port P`` serves ``/metrics``, ``/healthz`` and ``/journal`` from
+  inside the run (0 picks a free port; a journal at
+  ``<out>/journal.jsonl`` unless ``--journal`` names one); with ``-ip``
+  rank r journals to ``<root>_rank<r><ext>`` and binds P + r;
+  ``--profile-dir DIR`` traces the last ``--profile-rounds`` rounds with
+  ``torch.profiler`` into ``DIR`` (host spans beside the kernels).
 
 A flag of a feature not ported yet exits with code 2 and names the
 ROADMAP item it waits for.
@@ -69,6 +77,7 @@ ROADMAP item it waits for.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -78,12 +87,8 @@ import numpy as np
 # flag -> (argparse keywords, ROADMAP item); a value other than the
 # default is refused with exit code 2
 NOT_PORTED = {
-    "--obs-port": (dict(type=int, default=None), "A.20"),
-    "--journal": (dict(type=str, default=None), "A.20"),
-    "--profile-dir": (dict(type=str, default=None), "A.20"),
     "--sanitize": (dict(action="store_true"), "A.20"),
     "--sanitize-nans": (dict(action="store_true"), "A.20"),
-    "--profile-rounds": (dict(type=int, default=3), "A.20"),
     "--snapshot-format": (dict(type=str, default=None), "A.21"),
 }
 
@@ -258,6 +263,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multi-process launch (-ip): each participant "
                         "writes its final generator to "
                         "DIR/params_rank<r>.pt")
+    p.add_argument("--journal", type=str, default=None, metavar="PATH",
+                   help="write a run journal (JSONL event stream) to PATH "
+                        "(default with --obs-port: <out-dir>/journal.jsonl, "
+                        "suffixed _rank<r> in a -ip launch); read it with "
+                        "`python -m fed_tgan_torch.obs report|slo|watch`")
+    p.add_argument("--obs-port", type=int, default=None, metavar="PORT",
+                   help="serve live telemetry from inside the run: /metrics "
+                        "(Prometheus), /healthz (round progress, watchdog, "
+                        "quarantine census), /journal (NDJSON, ?follow=1 "
+                        "tails).  0 picks a free port.  Implies a journal; "
+                        "in a -ip launch rank r binds PORT+r")
+    p.add_argument("--profile-dir", type=str, default=None, metavar="DIR",
+                   help="trace the LAST --profile-rounds training rounds with "
+                        "torch.profiler (CPU and CUDA) into DIR: the kernels "
+                        "and the host phases on one timeline")
+    p.add_argument("--profile-rounds", type=int, default=3,
+                   help="rounds inside the --profile-dir trace (the run's "
+                        "steady-state tail; default 3)")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     # the reference's world bookkeeping: without -ip, one process runs
@@ -387,6 +410,56 @@ def _evaluate(real_tables: list, fake: dict, categorical) -> None:
     print(f"final Avg_JSD={avg_jsd:.4f} Avg_WD={avg_wd:.4f}")
 
 
+@contextlib.contextmanager
+def _observability(args):
+    """The opt-in observability plane around a run
+    (``fed_tgan_tpu/cli.py:694-740``): ``--journal PATH`` installs the
+    process journal; ``--obs-port`` also starts the exporter (and implies
+    a journal at ``<out-dir>/journal.jsonl``).  In a ``-ip`` launch each
+    rank is its own process: rank r writes ``<root>_rank<r><ext>`` and
+    binds PORT + r, and ``obs report <root>_rank*.jsonl`` merges them.
+    Everything drains in ``finally``, so a ``/journal?follow=1`` tail
+    sees the whole stream even when the run fails."""
+    jpath = args.journal
+    if jpath is None and args.obs_port is not None:
+        jpath = os.path.join(args.out_dir, "journal.jsonl")
+    rank = args.rank
+    if jpath is not None and rank is not None and args.ip:
+        root, ext = os.path.splitext(jpath)
+        jpath = f"{root}_rank{rank}{ext or '.jsonl'}"
+    journal = exporter = prev = None
+    try:
+        if jpath is not None:
+            from fed_tgan_torch.obs.journal import RunJournal, set_journal
+
+            journal = RunJournal(jpath)
+            prev = set_journal(journal)
+        if args.obs_port is not None:
+            from fed_tgan_torch.obs.exporter import TelemetryExporter, get_health
+
+            port = args.obs_port
+            if port and rank is not None and args.ip:
+                port += rank
+            get_health().update(status="starting")
+            exporter = TelemetryExporter(port=port).start()
+            if not args.quiet:
+                print(f"obs: live telemetry on {exporter.url} "
+                      f"(/metrics /healthz /journal); journal -> {jpath}",
+                      flush=True)
+        yield
+    finally:
+        if exporter is not None:
+            from fed_tgan_torch.obs.exporter import get_health
+
+            get_health().update(status="finished")
+            exporter.shutdown()
+        if journal is not None:
+            from fed_tgan_torch.obs.journal import set_journal
+
+            set_journal(prev)  # a caller's journal, if it had one
+            journal.close()
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -402,8 +475,9 @@ def main(argv=None) -> int:
     if args.rank is not None and args.ip and (args.rank > 0
                                               or args.world_size):
         # the reference's multi-process launch: rank 0 is the server,
-        # ranks 1..N the participants
-        return _run_multihost(args)
+        # ranks 1..N the participants; each journals before its init
+        with _observability(args):
+            return _run_multihost(args)
     if args.rank == 0 and args.ip and not args.world_size:
         print("multihost rank 0 needs -world_size (how many clients to wait "
               "for)")
@@ -417,7 +491,12 @@ def main(argv=None) -> int:
         args.device = {"cpu": "cpu", "gpu": "cuda"}[args.backend]
     if args.n_clients is None and args.world_size:
         args.n_clients = args.world_size - 1
+    with _observability(args):
+        return _run(args)
 
+
+def _run(args) -> int:
+    """One process's run: resume, standalone or the federated run."""
     from fed_tgan_torch.data.csvio import read_csv
     from fed_tgan_torch.data.sharding import shard_table
     from fed_tgan_torch.device import resolve_device
@@ -908,17 +987,38 @@ def _run_training(args, name, kwargs, trainer, init, tables, ckpt_dir,
             print(f"note: hook cadence (every {min(cadences)} rounds) "
                   f"is below --rounds-per-program {rpp}; hooks force "
                   "program boundaries, capping the effective fusion")
+    # --profile-dir traces the LAST profile_rounds rounds (the steady
+    # state; fed_tgan_tpu/cli.py:1272-1330): the run is split in two fits,
+    # which computes what one fit computes, bit for bit
+    prof_n = (min(max(args.profile_rounds, 1), remaining)
+              if args.profile_dir and remaining else 0)
+    if elastic is not None:
+        elastic.watchdog = watchdog
     with mon_log, snapshot:
-        if elastic is not None:
-            elastic.watchdog = watchdog
-            trainer = elastic.run(remaining, fit_kwargs=fit_kwargs,
-                                  ckpt_dir=ckpt_dir,
-                                  newcomer_factory=newcomer_factory)
-        elif watchdog is not None:
-            trainer = fit_with_watchdog(trainer, remaining, watchdog,
-                                        ckpt_dir, fit_kwargs=fit_kwargs)
-        else:
-            trainer.fit(remaining, **fit_kwargs)
+        if remaining - prof_n:
+            if elastic is not None:
+                trainer = elastic.run(remaining - prof_n,
+                                      fit_kwargs=fit_kwargs,
+                                      ckpt_dir=ckpt_dir,
+                                      newcomer_factory=newcomer_factory)
+            elif watchdog is not None:
+                trainer = fit_with_watchdog(trainer, remaining - prof_n,
+                                            watchdog, ckpt_dir,
+                                            fit_kwargs=fit_kwargs)
+            else:
+                trainer.fit(remaining - prof_n, **fit_kwargs)
+        if prof_n:
+            from fed_tgan_torch.runtime.profiling import device_trace
+
+            # as in JAX: the elastic layer keeps its watchdog inside the
+            # trace; otherwise the traced rounds are a plain fit
+            with device_trace(args.profile_dir):
+                if elastic is not None:
+                    trainer = elastic.run(prof_n, fit_kwargs=fit_kwargs,
+                                          ckpt_dir=ckpt_dir,
+                                          newcomer_factory=newcomer_factory)
+                else:
+                    trainer.fit(prof_n, **fit_kwargs)
         last_epoch = trainer.completed_epochs - 1
         if not args.sample_every and last_epoch >= 0:
             snapshot(last_epoch, trainer)

@@ -17,11 +17,11 @@
   strikes.  Rolling back is never the remedy: an old model cannot undrift
   a shard.
 
-The JAX package journals ``client_joined``, ``client_left``,
-``drift_alarm``, ``drift_window`` and ``quarantine`` events; until the
-port has a journal (ROADMAP A.20) each is a dict with the JAX event's
-name (``type``) and fields, logged and kept in :attr:`ElasticFederation.
-events`.
+``client_left``, ``drift_alarm``, ``drift_window`` and ``quarantine``
+(``test="drift"``) events are journaled with the JAX events' fields, and
+kept as dicts (``type`` and fields) in :attr:`ElasticFederation.events`
+beside the trainer's ``client_joined`` events of each join.  A detection
+window is the ``elastic.detect`` span.
 """
 
 from __future__ import annotations
@@ -35,6 +35,8 @@ import numpy as np
 from fed_tgan_torch.data.ingest import TablePreprocessor
 from fed_tgan_torch.federation.init import recompute_weights
 from fed_tgan_torch.federation.streaming import OnboardingSession
+from fed_tgan_torch.obs.journal import emit as _emit_event
+from fed_tgan_torch.obs.trace import span as _span
 
 log = logging.getLogger("fed_tgan_torch.federation")
 
@@ -101,7 +103,7 @@ class ElasticFederation:
         self.trainer.init = self.session.init
 
     def _emit(self, event: dict) -> None:
-        log.info("%s", event)
+        _emit_event(**event)
         self.events.append(event)
 
     # ------------------------------------------------------------- membership
@@ -168,6 +170,11 @@ class ElasticFederation:
         Returns the window's record (also in :attr:`windows`)."""
         if round_idx is None:
             round_idx = int(self.trainer.completed_epochs)
+        with _span("elastic.detect", round=round_idx,
+                   clients=int(self._alive_mask().sum())):
+            return self._detect(round_idx)
+
+    def _detect(self, round_idx: int) -> dict:
         alive = self._alive_mask()
         live = np.nonzero(alive)[0]
         if live.size == 0:

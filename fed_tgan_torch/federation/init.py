@@ -52,6 +52,8 @@ from fed_tgan_torch.features.bgm import (
     fit_shards,
 )
 from fed_tgan_torch.features.transformer import ModeNormalizer
+from fed_tgan_torch.obs.journal import emit as _emit_event
+from fed_tgan_torch.obs.trace import record_span
 
 log = logging.getLogger("fed_tgan_torch.federation")
 
@@ -369,11 +371,13 @@ def federated_initialize(clients: Sequence[TablePreprocessor], seed: int = 0,
     timings: dict = {}
 
     def done(phase: str, t0: float) -> float:
+        """Phase ``phase`` ran from ``t0``: its ``init.<phase>`` span and
+        its ``init_phase`` event."""
         t1 = time.perf_counter()
         timings[phase] = t1 - t0
-        log.info("%s", {"type": "init_phase", "phase": phase,
-                        "seconds": round(t1 - t0, 6), "clients": n_clients,
-                        "rows": total_rows})
+        record_span(f"init.{phase}", t0, t1, clients=n_clients)
+        _emit_event("init_phase", phase=phase, seconds=round(t1 - t0, 6),
+                    clients=n_clients, rows=total_rows)
         return t1
 
     t = time.perf_counter()

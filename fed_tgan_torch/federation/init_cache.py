@@ -46,6 +46,7 @@ import numpy as np
 
 from fed_tgan_torch.data.csvio import cell_strings
 from fed_tgan_torch.features.bgm import ColumnGMM
+from fed_tgan_torch.obs.journal import emit as _emit_event
 
 log = logging.getLogger("fed_tgan_torch.federation")
 
@@ -139,11 +140,11 @@ class InitCache:
 
     def flush_events(self) -> None:
         """One ``init_cache`` event per (op, scope) since the last flush,
-        logged and appended to :attr:`events`."""
+        journaled and appended to :attr:`events`."""
         for (op, scope), count in sorted(self.counts.items()):
             event = {"type": "init_cache", "op": op, "scope": scope,
                      "count": count, "root": self.root}
-            log.info("%s", event)
+            _emit_event(**event)
             self.events.append(event)
         self.counts.clear()
 

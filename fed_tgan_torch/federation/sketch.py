@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from fed_tgan_torch.device import resolve_device
+from fed_tgan_torch.obs.trace import span as _span
 
 GRID_POINTS = 512
 POOL_BUDGET = 65536
@@ -125,9 +126,10 @@ def wd_sketch(client_gmms: Optional[Sequence[Sequence]],
     dev = resolve_device(device)
     as_t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32),
                                      device=dev)
-    wd = wd_scores(as_t(means), as_t(stds), as_t(weights), as_t(omega),
-                   as_t(grid))
-    return wd.cpu().numpy().astype(np.float64)
+    with _span("init.wd_sketch", clients=n_clients, columns=len(cont_cols)):
+        wd = wd_scores(as_t(means), as_t(stds), as_t(weights), as_t(omega),
+                       as_t(grid)).cpu().numpy()
+    return wd.astype(np.float64)
 
 
 def pooled_mixture_sample(client_gmms: Optional[Sequence[Sequence]],

@@ -22,7 +22,8 @@ newcomers alone:
 
 Residents' weights move when newcomers join (the softmax renormalizes);
 their encoded matrices and transformers do not.  A rejected newcomer is
-logged as a ``client_dropped`` event dict (the JAX event's fields).
+journaled as a ``client_dropped`` event; each call journals its
+``init_phase`` event and records its ``init.<phase>`` span.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ from fed_tgan_torch.data.ingest import TablePreprocessor
 from fed_tgan_torch.device import resolve_device
 from fed_tgan_torch.features.bgm import N_CLUSTERS, fit_shards
 from fed_tgan_torch.features.transformer import ModeNormalizer
+from fed_tgan_torch.obs.journal import emit as _emit_event
+from fed_tgan_torch.obs.trace import record_span
 from fed_tgan_torch.federation.init import (
     FederatedInit,
     _normalize_per_column,
@@ -189,14 +192,14 @@ class OnboardingSession:
         return self.init
 
     def _phase(self, phase: str, t0: float) -> None:
-        """Record the call's seconds in :attr:`timings` and log JAX's
-        ``init_phase`` event dict."""
-        seconds = time.perf_counter() - t0
-        self.timings = {phase: seconds}
-        log.info("%s", {"type": "init_phase", "phase": phase,
-                        "seconds": round(seconds, 6),
-                        "clients": self.n_clients,
-                        "rows": int(np.sum(self.init.rows_per_client))})
+        """Record the call's seconds in :attr:`timings`, its span and its
+        ``init_phase`` event."""
+        t1 = time.perf_counter()
+        self.timings = {phase: t1 - t0}
+        record_span(f"init.{phase}", t0, t1, clients=self.n_clients)
+        _emit_event("init_phase", phase=phase, seconds=round(t1 - t0, 6),
+                    clients=self.n_clients,
+                    rows=int(np.sum(self.init.rows_per_client)))
 
     def _snapshot(self, transformers, client_matrices, rows, jsd_raw,
                   wd_raw, mix) -> FederatedInit:
@@ -222,11 +225,11 @@ class OnboardingSession:
 
     @staticmethod
     def _reject(why: str, on_invalid: str) -> None:
-        """Raise, or log the drop (``on_invalid="drop"``)."""
+        """Raise, or journal the drop (``on_invalid="drop"``)."""
         if on_invalid == "raise":
             raise ValueError(why)
-        log.warning("%s", {"type": "client_dropped", "reason": why,
-                           "where": "register_clients"})
+        log.warning("dropped newcomer: %s", why)
+        _emit_event("client_dropped", reason=why, where="register_clients")
 
     def _screen(self, newcomers, cat_idx, on_invalid):
         """Schema, vocabulary and finiteness screen; returns the admitted

@@ -6,9 +6,12 @@ Pure stdlib and thread-safe.  The serving layer's
 :class:`~fed_tgan_torch.serve.metrics.FleetMetrics` each hold an isolated
 :class:`MetricsRegistry` and render it in Prometheus text exposition
 format, with the JAX package's series names and text.  The process-wide
-:data:`DEFAULT` registry holds the multi-process transport's counters
-(:func:`counter`); its exporter and the training subsystems' metrics
-wait for the rest of the tooling (ROADMAP A.20).
+default (:func:`get_registry`, also :data:`DEFAULT`) collects what the
+trainer (rounds, chunks, quarantines, drops, and the per-client
+``fed_tgan_client_weight`` / ``fed_tgan_client_strikes`` series of up to
+64 clients), the checkpoints, the watchdog, the transport and the
+journal's schema sanitizer publish; the exporter
+(:mod:`fed_tgan_torch.obs.exporter`) serves it at ``/metrics``.
 
 ``counter()`` / ``gauge()`` / ``histogram()`` are get-or-create: the
 same name (and labels) always returns the same object, and a name
@@ -30,6 +33,9 @@ __all__ = [
     "DEFAULT_BUCKETS",
     "DEFAULT",
     "counter",
+    "gauge",
+    "get_registry",
+    "histogram",
 ]
 
 #: default histogram bucket upper bounds (seconds-flavoured, like
@@ -280,10 +286,22 @@ class MetricsRegistry:
         return "\n".join(lines) + "\n"
 
 
-#: the process-wide registry (the JAX package's ``default_registry()``)
+#: the process-wide registry every subsystem publishes into
 DEFAULT = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    return DEFAULT
 
 
 def counter(name: str, help: str = "") -> Counter:
     """Get-or-create ``name`` in :data:`DEFAULT`."""
     return DEFAULT.counter(name, help)
+
+
+def gauge(name: str, help: str = "") -> Gauge:
+    return DEFAULT.gauge(name, help)
+
+
+def histogram(name: str, help: str = "", **kwargs) -> Histogram:
+    return DEFAULT.histogram(name, help, **kwargs)

@@ -360,10 +360,12 @@ def _launch(fn_name: str, a: torch.Tensor, b: torch.Tensor,
 _COUNT_LOCK = threading.Lock()
 
 
-def _count(wrapper, variant: str) -> None:
+def _count(wrapper, variant: str, t: torch.Tensor) -> None:
+    """One launch of ``wrapper``'s ``variant`` over ``t``'s elements."""
     with _COUNT_LOCK:
         wrapper.launches += 1
         wrapper.variant_launches[variant] += 1
+        wrapper.variant_elements[variant] += t.numel()
 
 
 def _activate(x: torch.Tensor, spec: SegmentSpec, u: torch.Tensor,
@@ -376,15 +378,15 @@ def _activate(x: torch.Tensor, spec: SegmentSpec, u: torch.Tensor,
     _check_rows("fused_apply_activate", spec, x, u)
     if x.dtype == torch.float32:
         out = _launch("fed_tgan_activate_fwd", x, u, spec)
-        _count(fused_apply_activate, "f32")
+        _count(fused_apply_activate, "f32", x)
         return (out, out) if residual else out
     if residual:
         res = torch.empty(x.shape, dtype=torch.float32, device=x.device)
         out = _launch("fed_tgan_activate_fwd_train_bf16", x, u, spec, res=res)
-        _count(fused_apply_activate, "bf16_train")
+        _count(fused_apply_activate, "bf16_train", x)
         return out, res
     out = _launch("fed_tgan_activate_fwd_bf16", x, u, spec, scratch=True)
-    _count(fused_apply_activate, "bf16")
+    _count(fused_apply_activate, "bf16", x)
     return out
 
 
@@ -426,6 +428,9 @@ def fused_apply_activate(x: torch.Tensor, spec: SegmentSpec,
 
 fused_apply_activate.launches = 0
 fused_apply_activate.variant_launches = {"f32": 0, "bf16": 0, "bf16_train": 0}
+# elements processed per variant (the cost ledger's kernel bytes and flops)
+fused_apply_activate.variant_elements = dict.fromkeys(
+    fused_apply_activate.variant_launches, 0)
 
 
 def fused_activate_bwd(dy: torch.Tensor, out: torch.Tensor,
@@ -440,15 +445,17 @@ def fused_activate_bwd(dy: torch.Tensor, out: torch.Tensor,
     _check_rows("fused_activate_bwd", spec, dy, out)
     if dy.dtype == torch.float32:
         dx = _launch("fed_tgan_activate_bwd", dy, out, spec)
-        _count(fused_activate_bwd, "f32")
+        _count(fused_activate_bwd, "f32", dy)
     else:
         dx = _launch("fed_tgan_activate_bwd_bf16", dy, out, spec)
-        _count(fused_activate_bwd, "bf16")
+        _count(fused_activate_bwd, "bf16", dy)
     return dx
 
 
 fused_activate_bwd.launches = 0
 fused_activate_bwd.variant_launches = {"f32": 0, "bf16": 0}
+fused_activate_bwd.variant_elements = dict.fromkeys(
+    fused_activate_bwd.variant_launches, 0)
 
 
 def reset_launches() -> None:

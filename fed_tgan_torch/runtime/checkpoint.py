@@ -65,6 +65,8 @@ from fed_tgan_torch.features.transformer import (
     output_info,
 )
 from fed_tgan_torch.models.ctgan import Generator
+from fed_tgan_torch.obs.journal import emit as _emit_event
+from fed_tgan_torch.obs.registry import counter as _metric_counter
 from fed_tgan_torch.ops.segments import SegmentSpec
 from fed_tgan_torch.runtime.precision import resolve_precision
 from fed_tgan_torch.testing.faults import FaultInjected, active_plan
@@ -83,6 +85,11 @@ _GMM_FIELDS = ("means", "stds", "weights", "active", "mean_precision", "dof",
                "stick_a", "stick_b")
 
 log = logging.getLogger("fed_tgan_torch.checkpoint")
+
+_CKPT_SAVES = _metric_counter(
+    "fed_tgan_checkpoints_saved_total", "crash-safe checkpoints published")
+_CKPT_RESTORES = _metric_counter(
+    "fed_tgan_checkpoints_restored_total", "checkpoints loaded for resume")
 
 
 class SavedSynthesizer:
@@ -428,7 +435,7 @@ def save_federated(trainer, path: str, run_name: str | None = None,
     if hasattr(trainer, "gen"):
         host = _mdgan_parts(trainer, arrays)
         host.update(init=init_host, run_name=run_name)
-        return _write_checkpoint(path, host, arrays, keep)
+        return _saved(path, host, arrays, keep)
     n_done = len(trainer.epoch_times)
     stack = trainer.stack
     parts = (("generator", stack.generator.state_dicts()),
@@ -488,7 +495,15 @@ def save_federated(trainer, path: str, run_name: str | None = None,
     if trainer.ema is not None:
         arrays["ema.params"], arrays["ema.state"] = (
             t.cpu().numpy() for t in trainer.ema)
+    _saved(path, host, arrays, keep)
+
+
+def _saved(path: str, host: dict, arrays: dict, keep: int) -> None:
+    """Write a trainer's checkpoint, then count and journal it."""
     _write_checkpoint(path, host, arrays, keep)
+    _CKPT_SAVES.inc()
+    _emit_event("checkpoint", path=str(path), kind=host["kind"],
+                round=int(host["completed_epochs"]), keep=int(keep))
 
 
 def _write_checkpoint(path: str, host: dict, arrays: dict,
@@ -511,6 +526,14 @@ def _write_checkpoint(path: str, host: dict, arrays: dict,
             shutil.rmtree(tmp, ignore_errors=True)
         raise
     _publish_dir(tmp, path, keep)
+
+
+def _restored(path: str, host: dict, trainer):
+    """Count and journal a loaded checkpoint; returns ``trainer``."""
+    _CKPT_RESTORES.inc()
+    _emit_event("checkpoint_restore", path=str(path), kind=host["kind"],
+                round=int(trainer.completed_epochs))
+    return trainer
 
 
 def load_federated(path: str, device="cuda"):
@@ -536,7 +559,7 @@ def load_federated(path: str, device="cuda"):
         raise ValueError(f"checkpoint version {host['version']} is newer "
                          f"than supported {FEDERATED_VERSION}")
     if host["kind"] == "mdgan_torch":
-        return _load_mdgan(path, host, device)
+        return _restored(path, host, _load_mdgan(path, host, device))
     with np.load(os.path.join(path, _ARRAYS)) as data:
         trainer = FederatedTrainer(
             _init_from(host["init"], data), config_from_dict(host["cfg"]),
@@ -592,7 +615,7 @@ def load_federated(path: str, device="cuda"):
     trainer.dropped_clients = set(host["dropped_clients"])
     trainer.steps = np.where(trainer._alive(), trainer.steps, 0)
     trainer.run_name = host["run_name"]
-    return trainer
+    return _restored(path, host, trainer)
 
 
 def _mdgan_parts(trainer, arrays: dict) -> dict:

@@ -35,10 +35,9 @@ at first use into ``fed_tgan_torch/_build/libfed_tgan_transport_<hash>.so``
 (a per-process temporary file, then ``os.replace``: the N + 1 processes of
 a world may build it at once) and bound with ``ctypes``.  Its counters
 live in the port's process-wide metrics registry
-(:data:`fed_tgan_torch.obs.registry.DEFAULT`); the events the JAX package
-journals (``transport_drop``, ``transport_reconnect``,
-``heartbeat_lapse``) are dicts logged at INFO until ROADMAP A.20's
-journal.
+(:data:`fed_tgan_torch.obs.registry.DEFAULT`), and it journals the JAX
+package's ``transport_drop``, ``transport_reconnect`` and
+``heartbeat_lapse`` events.
 
 SECURITY: payloads are deserialized with ``pickle`` — the SAME trust model
 as the reference's torch RPC (arbitrary code execution if the peer is
@@ -63,6 +62,7 @@ import time
 from pathlib import Path
 from typing import Any, Optional
 
+from fed_tgan_torch.obs.journal import emit as _emit_event
 from fed_tgan_torch.obs.registry import counter as _metric_counter
 
 log = logging.getLogger("fed_tgan_torch.transport")
@@ -95,11 +95,6 @@ def _last_errno_suffix(lib) -> str:
         return f" ({os.strerror(e)})" if e else ""
     except Exception:
         return ""
-
-
-def _emit_event(kind: str, **fields) -> None:
-    """A JAX journal event, logged as a dict until ROADMAP A.20."""
-    log.info("%s", {"type": kind, **fields})
 
 
 @functools.lru_cache(maxsize=None)

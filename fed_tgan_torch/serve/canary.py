@@ -28,9 +28,9 @@ The budgets bound regressions: the candidate's scores are compared with
 the serving model's over the same reference and shadow seed (cached per
 serving model id).  A rejected candidate's fingerprint is quarantined, so
 the same bytes are never scored again, and the serving model is left as
-it was.  The JAX package journals ``promotion_promoted``,
-``promotion_rejected`` and ``serve_reload_failed`` events; the journal is
-not ported yet (ROADMAP A.20), so the gate logs each decision dict.
+it was.  Each decision is journaled (``promotion_promoted``,
+``promotion_rejected``, with the decision dict's fields), and a candidate
+that fails to load is a ``serve_reload_failed`` event.
 
 The reference statistics are a JSON file written beside the model at
 ``--save-model`` time (``reference_stats_<name>.json``); without one the
@@ -52,6 +52,7 @@ import torch
 
 from fed_tgan_torch.data.csvio import cell_strings
 from fed_tgan_torch.device import resolve_device
+from fed_tgan_torch.obs.journal import emit as _emit_event
 from fed_tgan_torch.federation.sketch import (
     GRID_POINTS,
     column_grids,
@@ -484,6 +485,8 @@ class CanaryGate:
         except Exception as exc:  # noqa: BLE001 — a torn candidate
             self._log(f"canary[{self.tenant}]: candidate "
                       f"{cand.fingerprint} failed to load ({exc!r})")
+            _emit_event("serve_reload_failed", tenant=self.tenant,
+                        model_id=incumbent.model_id, error=repr(exc))
             self.registry.dismiss(cand)
             return None
         try:
@@ -515,11 +518,10 @@ class CanaryGate:
             self.promotions += 1
         decision = self._decision(True, cand, incumbent, scores, base,
                                   [], t0, figures=figures)
+        _emit_event("promotion_promoted", **decision)
         self._log(f"canary[{self.tenant}]: promoted {cand.fingerprint} "
                   f"(jsd_delta={figures['quality/jsd_delta']:+.4f} "
                   f"wd_delta={figures['quality/wd_delta']:+.4f})")
-        self._log(f"canary[{self.tenant}]: promotion_promoted "
-                  f"{json.dumps(decision, sort_keys=True)}")
         self.last_decision = decision
         return decision
 
@@ -576,11 +578,10 @@ class CanaryGate:
             self._quarantine[cand.fingerprint] = decision
             self.rejections += 1
         self.registry.dismiss(cand)
+        _emit_event("promotion_rejected", **decision)
         self._log(f"canary[{self.tenant}]: REJECTED candidate "
                   f"{cand.fingerprint} (tripped: {', '.join(tripped)}); "
                   f"keeping {incumbent.model_id}")
-        self._log(f"canary[{self.tenant}]: promotion_rejected "
-                  f"{json.dumps(decision, sort_keys=True)}")
         self.last_decision = decision
         return decision
 

@@ -47,9 +47,11 @@ Under ``promote="canary"`` each tenant has its own
 shadow through its tenant's engine (never through a lane group, so it
 never enters the :class:`ProgramCache` before it is promoted), and only a
 promoted one is adopted, its row-pool entries dropped as on an immediate
-reload; ``/fleet`` shows each tenant's promotion state.  The journal's
-``fleet_load``, ``fleet_evict``, ``tenant_shed`` and ``serve_stages``
-events and the sanitizers are not ported yet (ROADMAP A.20).
+reload; ``/fleet`` shows each tenant's promotion state.  The process
+journal gets ``fleet_load``, ``fleet_evict``, ``serve_reload`` and, rate
+limited, ``tenant_shed`` (at most about one a second a tenant, carrying
+counts) and per-tenant ``serve_stages``; the sanitizers are not ported
+yet (ROADMAP A.20).
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ import torch
 
 from fed_tgan_torch.data.decode import decode_cells
 from fed_tgan_torch.models.ctgan import StackedEvalGenerator
+from fed_tgan_torch.obs.journal import emit as _emit_event
 from fed_tgan_torch.ops.activate_cuda import fused_apply_activate
 from fed_tgan_torch.ops.decode import layout_decode, stack_tables
 from fed_tgan_torch.runtime.precision import f32_island
@@ -292,6 +295,8 @@ class FleetRegistry:
                            gate=gate)
         with self._lock:
             self._tenants[name] = rt
+        _emit_event("fleet_load", tenant=name, model_id=model.model_id,
+                    root=str(root))
         self._log(f"fleet: loaded tenant {name!r} (model {model.model_id})")
         return rt
 
@@ -300,6 +305,8 @@ class FleetRegistry:
             rt = self._tenants.pop(name, None)
         if rt is None:
             return False
+        _emit_event("fleet_evict", tenant=name,
+                    model_id=rt.registry.get().model_id)
         self._log(f"fleet: evicted tenant {name!r}")
         return True
 
@@ -419,6 +426,7 @@ class FleetService(BatchWorkers):
                           request_timeout_s, reload_interval_s)
         # per-tenant in-flight counts (admission fairness)
         self._adm_lock = threading.Lock()
+        self._shed_acc: dict = {}  # tenant -> shed counts since the event
         self._inflight: dict = {}
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._frontdoor = None
@@ -489,7 +497,7 @@ class FleetService(BatchWorkers):
         if self._draining.is_set():
             return "capacity"
         if not rt.bucket.allow():
-            self.metrics.record_shed(req.tenant, "quota")
+            self._shed(req.tenant, "quota")
             return "quota"
         return self.submit_admitted(req)
 
@@ -505,14 +513,32 @@ class FleetService(BatchWorkers):
                 self._inflight[req.tenant] = \
                     self._inflight.get(req.tenant, 0) + 1
         if over_cap:
-            self.metrics.record_shed(req.tenant, "capacity")
+            self._shed(req.tenant, "capacity")
             return "capacity"
         if self._enqueue(req):
             return None
         with self._adm_lock:
             self._inflight[req.tenant] -= 1
-        self.metrics.record_shed(req.tenant, "capacity")
+        self._shed(req.tenant, "capacity")
         return "capacity"
+
+    def _shed(self, tenant: str, reason: str) -> None:
+        """Count a shed request; journal a ``tenant_shed`` summary at most
+        about once a second a tenant, carrying the counts since the last
+        one (a shed storm stays out of the journal's rate)."""
+        self.metrics.record_shed(tenant, reason)
+        with self._adm_lock:
+            acc = self._shed_acc.setdefault(
+                tenant, {"quota": 0, "capacity": 0, "last": 0.0})
+            acc[reason] += 1
+            now = time.monotonic()
+            if now - acc["last"] < 1.0:
+                return
+            quota, capacity = acc["quota"], acc["capacity"]
+            acc["quota"] = acc["capacity"] = 0
+            acc["last"] = now
+        _emit_event("tenant_shed", tenant=tenant, count=quota + capacity,
+                    quota=quota, capacity=capacity)
 
     def _finish(self, req: _FleetRequest) -> None:
         with self._adm_lock:
@@ -698,12 +724,18 @@ class FleetService(BatchWorkers):
                         # pooled rows belong to the old model
                         self.row_pool.invalidate(name)
                     self.metrics.record_reload(name)
+                    _emit_event("serve_reload", tenant=name,
+                                model_id=rt.registry.get().model_id,
+                                programs_kept=bool(kept))
                     self._log(f"fleet: tenant {name!r} now serving model "
                               f"{rt.registry.get().model_id} (layout "
                               f"{'kept' if kept else 'changed'})")
             except Exception as exc:  # noqa: BLE001 — never kills serving
                 self._log(f"fleet: reload check failed for {name!r} "
                           f"({exc!r})")
+
+    def _stage_snapshots(self) -> dict:
+        return self.metrics.stage_snapshots()
 
     # -------------------------------------------------------------- status
 
@@ -835,7 +867,7 @@ class FleetService(BatchWorkers):
         # quota first: a pool hit still spends the tenant's token
         t_admit = time.time()
         if not rt.bucket.allow():
-            self.metrics.record_shed(tenant, "quota")
+            self._shed(tenant, "quota")
             retry = max(rt.bucket.retry_after_s(), 0.05)
             return _json_response(
                 429, {"error": f"tenant {tenant!r} over quota"},

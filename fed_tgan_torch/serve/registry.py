@@ -24,6 +24,7 @@ from typing import Sequence
 
 from fed_tgan_torch.data.encoders import CategoryEncoder
 from fed_tgan_torch.data.schema import TableMeta
+from fed_tgan_torch.obs.journal import emit as _emit_event
 from fed_tgan_torch.runtime.checkpoint import (
     SYNTH_DIR,
     SavedSynthesizer,
@@ -204,6 +205,8 @@ class ModelRegistry:
             self._log(f"registry: reload failed ({exc!r}); keeping "
                       f"{self._model.model_id}")
             self.dismiss(cand)  # the next publish moves the signature
+            _emit_event("serve_reload_failed", model_id=self._model.model_id,
+                        error=repr(exc))
             return False
         self._log(f"registry: hot-reload {self._model.model_id} -> "
                   f"{model.model_id}")

@@ -27,8 +27,9 @@ Endpoints:
 ``promote="canary"`` puts a :class:`~.canary.CanaryGate` on the reload
 poll: a new generation is scored in shadow and adopted only when the
 gate promotes it, so a rejected one never contributes a byte to a
-response.  The journal's ``serve_stages`` and ``serve_reload`` events and
-the sanitizers are not ported yet (ROADMAP A.20).
+response.  The process journal gets ``serve_stages`` (about one every
+5 s while requests flow, and one at shutdown) and ``serve_reload``; the
+sanitizers are not ported yet (ROADMAP A.20).
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
 
+from fed_tgan_torch.obs.journal import emit as _emit_event
 from fed_tgan_torch.serve.engine import ConditionError, SamplingEngine
 from fed_tgan_torch.serve.metrics import DrainRate, ServiceMetrics
 from fed_tgan_torch.serve.registry import ModelRegistry
@@ -101,6 +103,7 @@ class BatchWorkers:
             queue.Queue(maxsize=per) for _ in range(self.workers)]
         self._rr = itertools.count()
         self._drain_rate = DrainRate()
+        self._last_stage_emit = float("-inf")
         self._draining = threading.Event()
         self._last_reload_check = time.monotonic()
         self._worker_threads: List[threading.Thread] = []
@@ -171,6 +174,7 @@ class BatchWorkers:
                 continue
             if item is _STOP:
                 self._process(self._drain_remaining(q), wid)
+                self._emit_stages(force=True)
                 return
             item.popped_at = time.time()
             batch = [item]
@@ -196,8 +200,10 @@ class BatchWorkers:
                 nxt.popped_at = time.time()
                 batch.append(nxt)
             self._process(batch, wid)
+            self._emit_stages()
             if stop:
                 self._process(self._drain_remaining(q), wid)
+                self._emit_stages(force=True)
                 return
             if wid == 0:
                 self._poll_reload()
@@ -212,6 +218,20 @@ class BatchWorkers:
             if req is not _STOP:
                 req.popped_at = time.time()
                 batch.append(req)
+
+    def _emit_stages(self, force: bool = False) -> None:
+        """Rate-limited ``serve_stages`` journal summaries (about one every
+        5 s, ``force`` at shutdown) of :meth:`_stage_snapshots`:
+        ``{tenant or None: {stage: {count, p50_ms, p99_ms}}}``."""
+        now = time.monotonic()
+        if not force and now - self._last_stage_emit < 5.0:
+            return
+        snaps = self._stage_snapshots()
+        if snaps:
+            self._last_stage_emit = now
+            for tenant, stages in snaps.items():
+                _emit_event("serve_stages", stages=stages,
+                            **({} if tenant is None else {"tenant": tenant}))
 
     def _poll_reload(self) -> None:
         if self.reload_interval_s <= 0:
@@ -330,11 +350,18 @@ class SamplingService(BatchWorkers):
                     else self.registry.maybe_reload()):
                 kept = self.engine.adopt(self.registry.get())
                 self.metrics.record_reload()
+                _emit_event("serve_reload",
+                            model_id=self.registry.get().model_id,
+                            programs_kept=bool(kept))
                 self._log(f"service: now serving model "
                           f"{self.registry.get().model_id} (layout "
                           f"{'kept' if kept else 'changed'})")
         except Exception as exc:  # noqa: BLE001 — reload never kills serving
             self._log(f"service: reload check failed ({exc!r})")
+
+    def _stage_snapshots(self) -> dict:
+        stages = self.metrics.stage_snapshot()
+        return {None: stages} if stages else {}
 
     def health(self) -> dict:
         model = self.registry.get()

@@ -97,9 +97,23 @@ newcomers in padded slots and grows the capacity to the next power of two
 on overflow, the new slots copies of slot 0 as JAX's are;
 :meth:`update_client_shard` swaps one client's rows (drift).
 
-Events the JAX package journals (``aggregate`` and ``quarantine`` of
-buffered mode) are dicts in :attr:`FederatedTrainer.events`, logged at
-INFO, until ROADMAP A.20's journal.
+The round journals what JAX's does (``fed_tgan_tpu/train/federated.py:
+816-895, 1172, 1228-1254, 1377-1589``) through the process journal
+(:mod:`fed_tgan_torch.obs.journal`, a free no-op without one): per
+logical round ``round``, ``aggregate``, ``cohort`` (under a cohort or
+buffered aggregation) and ``client_contribution`` (chunk-head convention:
+``first`` is the chunk's first round, ``rounds_per_program`` its size),
+``quarantine`` per gated client, ``client_dropped``, ``client_joined``,
+``init_phase`` (shard packing) and, once per distinct chunk while a
+journal is installed, ``program_cost`` measured on that real dispatch
+(:func:`fed_tgan_torch.obs.ledger.measure_dispatch`).  The
+``/healthz`` fields and the per-client registry series follow each chunk.
+Every one of them is built from the chunk's one host copy and host state
+(weights, strikes, clocks): the journal adds no device-to-host copy and
+no synchronisation.  Host phases are spans (``train.local_steps``,
+``train.aggregate.sync``, ``train.monitor``, ``train.snapshot``).
+Buffered mode's ``aggregate`` and ``quarantine`` events are also kept in
+:attr:`FederatedTrainer.events`.
 """
 
 from __future__ import annotations
@@ -116,6 +130,10 @@ import torch
 
 from fed_tgan_torch.device import resolve_device
 from fed_tgan_torch.federation.init import FederatedInit, renormalize_weights
+from fed_tgan_torch.obs.exporter import get_health
+from fed_tgan_torch.obs.journal import emit as _emit_event, get_journal
+from fed_tgan_torch.obs.registry import counter as _metric_counter, get_registry
+from fed_tgan_torch.obs.trace import span as _span
 from fed_tgan_torch.ops.decode import select_snapshot_decode
 from fed_tgan_torch.ops.segments import SegmentSpec
 from fed_tgan_torch.parallel.fedavg import (
@@ -156,6 +174,20 @@ KEY_OFFSET = 29  # the JAX trainer's sampling stream offset
 METRICS = ("loss_d", "pen", "loss_g")
 COHORT_STREAM = 0x636F686F7274  # the cohort draw's stream ("cohort")
 log = logging.getLogger("fed_tgan_torch.train")
+
+_ROUNDS_TOTAL = _metric_counter(
+    "fed_tgan_training_rounds_total", "federated rounds completed")
+_CHUNKS_TOTAL = _metric_counter(
+    "fed_tgan_training_chunks_total", "fused round-chunks dispatched")
+_QUARANTINED_TOTAL = _metric_counter(
+    "fed_tgan_training_quarantined_rounds_total",
+    "client-rounds quarantined by the update gate")
+_DROPPED_TOTAL = _metric_counter(
+    "fed_tgan_training_clients_dropped_total",
+    "clients dropped from the federation")
+# labelled registry series are bounded: past this many clients the
+# contribution ledger lives in the journal only
+_LEDGER_LABEL_CAP = 64
 
 # (round, client, step) -> that step's draws; tests inject JAX draws here
 Draws = Callable[[int, int, int], StepDraws]
@@ -277,8 +309,10 @@ class FederatedTrainer:
         t0 = time.perf_counter()
         longest = max(len(m) for m in init.client_matrices)
         self._stride = _next_pow2(longest) if self.elastic else longest
-        self._pack(init)
+        with _span("init.shard_packing", clients=self.n_clients):
+            self._pack(init)
         self.timings = {"shard_packing": time.perf_counter() - t0}
+        self._emit_packing(init, self.timings["shard_packing"])
 
         if models is None:
             models = [init_models(self.spec, self.cfg, seed, self.device)
@@ -322,6 +356,7 @@ class FederatedTrainer:
                     if self.cfg.ema_decay > 0.0 else None)
         self._ema_updates = 0
         self.host_copies = 0  # device-to-host copies of round results
+        self._costed: set = set()  # chunks whose program_cost is journaled
 
         self.columns = init.transformers[0].columns
         self.decode = select_snapshot_decode(self.columns, decode)
@@ -349,6 +384,13 @@ class FederatedTrainer:
         if server_cond:
             self.server_cond = srv
             self._engine = None
+
+    @staticmethod
+    def _emit_packing(init: FederatedInit, seconds: float) -> None:
+        _emit_event("init_phase", phase="shard_packing",
+                    seconds=round(seconds, 6),
+                    clients=len(init.client_matrices),
+                    rows=int(sum(len(m) for m in init.client_matrices)))
 
     def _slot0_bn(self) -> torch.Tensor:
         """Where slot 0's running statistics sit in the stack's
@@ -526,7 +568,32 @@ class FederatedTrainer:
         results kept there and copied to the host once; returns the host
         results (``metrics`` (K, P, 3), ``quarantined`` (K, P), ``finite``,
         ``cohort`` (K, C) or None, ``delta`` of the straggler and whether
-        it is finite) and records the chunk's local / aggregate split."""
+        it is finite) and records the chunk's local / aggregate split.
+        The first chunk of each shape dispatched while a journal is
+        installed is measured for its ``program_cost`` event."""
+        key = (size, self.cohort_size or self.capacity, update_fault,
+               straggle)
+        if get_journal() is None or key in self._costed:
+            return self._dispatch_chunk(e, size, update_fault, straggle)
+        self._costed.add(key)
+        from fed_tgan_torch.obs.ledger import (
+            CostEntry,
+            get_ledger,
+            measure_dispatch,
+        )
+
+        stack = key[1]
+        name = (f"train_step[stack{stack}@{self.cfg.precision}]" if size == 1
+                else f"train_step[stack{stack}:r{size}@{self.cfg.precision}]")
+        entry = CostEntry(name=name, family="train_live")
+        with measure_dispatch(entry, self.device):
+            res = self._dispatch_chunk(e, size, update_fault, straggle)
+        get_ledger().record(entry)
+        _emit_event("program_cost", **entry.to_dict())
+        return res
+
+    def _dispatch_chunk(self, e: int, size: int, update_fault,
+                        straggle) -> dict:
         t0 = time.perf_counter()
         cohort = self.cohort_size
         if cohort:
@@ -546,35 +613,46 @@ class FederatedTrainer:
             w = renormalize_weights(self.weights, alive)
         weights = self._upload(w)
         mets, quars, delta = [], [], None
-        t1 = t0
-        for r in range(size):
-            if cohort:
-                part = self._cohort_part(ids[r], plan[0, r], plan[1, r])
-            else:
-                part = self._full_part(plan[1, r])
-            with torch.no_grad():  # every slot holds the global state
-                prev = [x[0].clone() for x in agg_leaves(part.stack)]
-            metrics = self._local_steps(e + r, part)
-            if r == size - 1:  # the split: up to the last round's local
-                self._sync()   # steps, then its aggregation and the copy
-                t1 = time.perf_counter()
+
+        def update(prev, part):
+            """Round's gate and aggregation; the straggler's delta."""
+            nonlocal delta
             new = self._updates(prev, part, update_fault)
             if straggle is not None:  # its delta, zero if not sampled
                 pos = np.flatnonzero(part.ids == straggle[0])
                 delta = [(x[int(pos[0])].float() - p.float()) if pos.size
                          else torch.zeros(p.shape, device=self.device)
                          for p, x in zip(prev, new)]
-            quar = self._aggregate(prev, update_fault, part, weights, new)
-            mets.append(metrics)
-            quars.append(quar)
-        mets, quars = torch.stack(mets), torch.stack(quars)
-        flags = [torch.isfinite(mets).all()]
-        if delta is not None:
-            flags.append(torch.stack([torch.isfinite(d).all()
-                                      for d in delta]).all())
-        host = self._to_host(torch.cat([
-            mets.flatten(), quars.to(torch.float32).flatten(),
-            torch.stack(flags).to(torch.float32)]))
+            quars.append(self._aggregate(prev, update_fault, part, weights,
+                                         new))
+
+        # the split: up to the last round's local steps, then its
+        # aggregation and the copy
+        with _span("train.local_steps", rounds=size,
+                   rounds_per_program=size):
+            for r in range(size):
+                if cohort:
+                    part = self._cohort_part(ids[r], plan[0, r], plan[1, r])
+                else:
+                    part = self._full_part(plan[1, r])
+                with torch.no_grad():  # every slot holds the global state
+                    prev = [x[0].clone() for x in agg_leaves(part.stack)]
+                mets.append(self._local_steps(e + r, part))
+                if r < size - 1:
+                    update(prev, part)
+            self._sync()
+        t1 = time.perf_counter()
+        with _span("train.aggregate.sync", rounds=size):
+            update(prev, part)
+            mets, quars = torch.stack(mets), torch.stack(quars)
+            flags = [torch.isfinite(mets).all()]
+            if delta is not None:
+                flags.append(torch.stack([torch.isfinite(d).all()
+                                          for d in delta]).all())
+        with _span("train.monitor", pulled=True):
+            host = self._to_host(torch.cat([
+                mets.flatten(), quars.to(torch.float32).flatten(),
+                torch.stack(flags).to(torch.float32)]))
         t2 = time.perf_counter()
         self.round_split["local_steps"].append(t1 - t0)
         self.round_split["aggregate"].append(t2 - t1)
@@ -604,6 +682,7 @@ class FederatedTrainer:
         else:
             counts = q.sum(axis=0).astype(np.int64)
         self._strikes += counts
+        _QUARANTINED_TOTAL.inc(int(counts.sum()))
         metrics, size = res["metrics"], len(q)
         for idx in np.flatnonzero(counts):
             sel = (q & (ids == idx)) if ids is not None else None
@@ -621,6 +700,9 @@ class FederatedTrainer:
                             "rounds %d..%d (%s; strikes %d/%d)", idx,
                             counts[idx], e, e + size - 1, tripped,
                             self._strikes[idx], self.quarantine_strikes)
+            _emit_event("quarantine", client=int(idx),
+                        rounds=int(counts[idx]), first=e, last=e + size - 1,
+                        strikes=int(self._strikes[idx]), test=tripped)
         for idx in np.flatnonzero(self._strikes >= self.quarantine_strikes):
             if int(idx) not in self.dropped_clients:
                 self.drop_client(int(idx), f"quarantined {self._strikes[idx]} "
@@ -645,9 +727,10 @@ class FederatedTrainer:
             self.drop_client(plan.kill_rank - 1,
                              f"fault-injected kill at round {e + 1}")
 
-    def _event(self, **fields) -> None:
-        self.events.append(fields)
-        log.info("%s", fields)
+    def _event(self, type: str, **fields) -> None:
+        """A journal event that :attr:`events` keeps too."""
+        self.events.append({"type": type, **fields})
+        _emit_event(type, **fields)
 
     @torch.no_grad()
     def _apply_buffered(self, e: int) -> None:
@@ -665,7 +748,8 @@ class FederatedTrainer:
                 continue
             if not upd["finite"]:
                 self._strikes[idx] += 1
-                self._event(type="quarantine", client=idx, rounds=1, first=e,
+                _QUARANTINED_TOTAL.inc()
+                self._event("quarantine", client=idx, rounds=1, first=e,
                             last=e, strikes=int(self._strikes[idx]),
                             buffered=True)
                 continue
@@ -674,7 +758,7 @@ class FederatedTrainer:
             for x, d in zip(agg_leaves(self.stack), upd["delta"]):
                 x.copy_((x.float() + d * eff).to(x.dtype))
             self._buffered_applied += 1
-            self._event(type="aggregate", round=e, first=e,
+            self._event("aggregate", round=e, first=e,
                         rounds_per_program=1, aggregator="buffered",
                         clients=1, client=idx, origin=int(upd["origin"]),
                         staleness=int(upd["staleness"]),
@@ -775,10 +859,12 @@ class FederatedTrainer:
                 self.completed_epochs += 1
             if last in firing:
                 t1 = time.perf_counter()
-                sample_hook(last, self)
+                with _span("train.snapshot", round=last):
+                    sample_hook(last, self)
                 t_hook = time.perf_counter() - t1
                 self.phase_times["distribution"][-1] = t_hook
                 self.epoch_times[-1] += t_hook
+            self._journal_chunk(e, size, res, per_round)
             if log_every and any(x % log_every == 0
                                  for x in range(e, e + size)):
                 m = metrics.reshape(-1, len(METRICS)).mean(axis=0)
@@ -786,6 +872,99 @@ class FederatedTrainer:
                       f"loss_g={m[2]:.3f} ({self.epoch_times[-1]:.3f}s/round)")
             e += size
         return self
+
+    def _journal_chunk(self, e: int, size: int, res: dict,
+                       per_round: float) -> None:
+        """The chunk's counters and events, one ``round``, ``aggregate``
+        (and ``cohort`` under a cohort or buffered aggregation) per
+        logical round, then the contribution ledger and ``/healthz``
+        (``fed_tgan_tpu/train/federated.py:1547-1589``); host values
+        only."""
+        _ROUNDS_TOTAL.inc(size)
+        _CHUNKS_TOTAL.inc()
+        ok = bool(res["finite"])
+        n_live = self.n_clients - len(self.dropped_clients)
+        for ei in range(e, e + size):
+            _emit_event("round", round=ei, first=e, rounds_per_program=size,
+                        per_round_s=round(per_round, 6), finite=ok)
+            _emit_event("aggregate", round=ei, first=e,
+                        rounds_per_program=size,
+                        aggregator=self.cfg.aggregator, clients=n_live)
+        ids = res["cohort"]
+        if ids is not None or self.cfg.aggregation == "buffered":
+            stale: dict = {}
+            for u in self._buffered:
+                stale[str(u["staleness"])] = stale.get(
+                    str(u["staleness"]), 0) + 1
+            for r, ei in enumerate(range(e, e + size)):
+                _emit_event(
+                    "cohort", round=ei, first=e, rounds_per_program=size,
+                    population=self.n_clients,
+                    cohort=int(ids[r].size) if ids is not None else n_live,
+                    clients=(sorted(int(x) for x in ids[r])
+                             if ids is not None else []),
+                    buffered_pending=len(self._buffered),
+                    buffered_applied=self._buffered_applied,
+                    staleness=stale)
+        self._publish_round_obs(e, size, res, per_round, ok)
+
+    def _publish_round_obs(self, e: int, size: int, res: dict,
+                           per_round_s: float, ok: bool) -> None:
+        """Per-client contribution ledger and live health from host
+        state (``fed_tgan_tpu/train/federated.py:816-895``): the chunk's
+        one host copy (``res``), :attr:`weights`, the strikes, clocks.
+        One ``client_contribution`` event per logical round; the
+        labelled registry series hold the last round's view."""
+        n_live = self.n_clients - len(self.dropped_clients)
+        health = dict(
+            status="training", round=int(e + size - 1),
+            rounds_per_s=(round(1.0 / per_round_s, 3)
+                          if per_round_s > 0 else None),
+            per_round_s=round(per_round_s, 6), finite=bool(ok),
+            population=int(self.n_clients), live_clients=int(n_live),
+            dropped_clients=sorted(int(i) for i in self.dropped_clients),
+            strikes_total=int(self._strikes.sum()),
+            clients_with_strikes=int((self._strikes > 0).sum()))
+        if res["cohort"] is not None:
+            health["cohort_size"] = int(res["cohort"].shape[-1])
+        get_health().update(**health)
+        if get_journal() is None:
+            return
+
+        def num(x):
+            return round(float(x), 6) if np.isfinite(x) else None
+
+        metrics = res["metrics"].astype(np.float64)
+        ld, lg = METRICS.index("loss_d"), METRICS.index("loss_g")
+        ids = None
+        for r in range(size):
+            if res["cohort"] is not None:
+                ids, sel = res["cohort"][r].astype(int), slice(None)
+            else:
+                # resident clients only: padded elastic slots are
+                # capacity, not clients
+                ids = np.arange(self.n_clients)
+                sel = ids
+            _emit_event(
+                "client_contribution", round=e + r, first=e,
+                rounds_per_program=size, clients=[int(i) for i in ids],
+                # unrounded: a round's weights sum to 1 within float32
+                weights=[float(self.weights[i]) for i in ids],
+                loss_d=[num(v) for v in metrics[r][sel, ld]],
+                loss_g=[num(v) for v in metrics[r][sel, lg]],
+                quarantined=[int(b) for b in res["quarantined"][r][sel]],
+                strikes=[int(self._strikes[i]) for i in ids])
+        reg = get_registry()
+        for i in ids:
+            if i >= _LEDGER_LABEL_CAP:
+                continue
+            lab = {"client": str(int(i))}
+            reg.gauge("fed_tgan_client_weight",
+                      "similarity aggregation weight",
+                      labels=lab).set(float(self.weights[i]))
+            reg.gauge("fed_tgan_client_strikes",
+                      "quarantine strikes accumulated",
+                      labels=lab).set(float(self._strikes[i]))
 
     def set_lr(self, lr: float) -> None:
         """Set every client's learning rate to ``lr`` from the next update
@@ -810,6 +989,9 @@ class FederatedTrainer:
                 f"aborting: dropping client {idx} leaves {survivors} live "
                 f"clients, below min_clients={self.min_clients}")
         self.dropped_clients.add(idx)
+        _DROPPED_TOTAL.inc()
+        _emit_event("client_dropped", client=int(idx), reason=reason,
+                    survivors=survivors)
         alive = self._alive()
         self.weights = renormalize_weights(self.weights, alive)
         self.steps = np.where(alive, self.steps, 0)
@@ -846,8 +1028,8 @@ class FederatedTrainer:
         new slots copies of slot 0 (``repacked``).  The stacks are
         rebuilt from ``new_init`` (the row stride grows to the next power
         of two when a shard needs it) and its weights installed, dropped
-        clients kept at 0.  Each newcomer is logged as a
-        ``client_joined`` event dict, kept in :attr:`last_admission`."""
+        clients kept at 0.  Each newcomer is journaled as a
+        ``client_joined`` event, its dict kept in :attr:`last_admission`."""
         if not self.elastic:
             raise RuntimeError(
                 "admit_clients needs an elastic trainer: construct "
@@ -876,20 +1058,25 @@ class FederatedTrainer:
         first_new = self.n_clients
         self.init = new_init
         self.n_clients = n_total
-        self._pack(new_init)
+        with _span("init.shard_packing", clients=n_total):
+            self._pack(new_init)
         self.weights = np.zeros(self.capacity, dtype=np.float32)
         self.update_weights(np.asarray(new_init.weights, dtype=np.float32))
         self.timings["shard_packing"] = time.perf_counter() - t0
+        self._emit_packing(new_init, self.timings["shard_packing"])
         self.last_admission = [{
-            "type": "client_joined", "client": idx,
-            "round": self.completed_epochs, "population": n_total,
-            "capacity": self.capacity,
+            "type": "client_joined", "client": int(idx),
+            "round": int(self.completed_epochs), "population": n_total,
+            "capacity": int(self.capacity),
             "weight": round(float(self.weights[idx]), 8),
             "rows": int(len(new_init.client_matrices[idx])),
-            "repacked": repacked, "reason": reason}
+            "repacked": bool(repacked), "reason": reason}
             for idx in range(first_new, n_total)]
         for event in self.last_admission:
-            log.info("%s", event)
+            _emit_event(**event)
+        log.info("admitted %d newcomer(s) (population %d -> %d, capacity "
+                 "%d%s)", n_total - first_new, first_new, n_total,
+                 self.capacity, ", repacked" if repacked else "")
         return self
 
     def update_client_shard(self, idx: int, matrix: np.ndarray) -> None:

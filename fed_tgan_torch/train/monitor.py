@@ -40,6 +40,7 @@ from fed_tgan_torch.data.encoders import CategoryEncoder
 from fed_tgan_torch.data.ingest import _fill_missing
 from fed_tgan_torch.data.schema import TableMeta
 from fed_tgan_torch.device import resolve_device
+from fed_tgan_torch.obs.journal import emit as _emit_event
 
 # the JAX monitor samples stream key(seed + 31); the trainer's snapshots
 # use seed + 29 (``train/federated.py::KEY_OFFSET``)
@@ -175,7 +176,9 @@ class MonitorLog:
     """Crash-durable CSV of the monitor's rows (``Epoch_No.,Avg_JSD,
     Avg_WD``): each row is appended and flushed as it comes, a resumed
     run extends the file, and the file is opened on the first row, so a
-    run whose monitor never fires creates nothing."""
+    run whose monitor never fires creates nothing.  Each row is also a
+    ``similarity`` journal event, with ``extra`` (the per-column values)
+    in the journal only: the CSV is the same with or without a journal."""
 
     HEADER = ["Epoch_No.", "Avg_JSD", "Avg_WD"]
 
@@ -184,7 +187,8 @@ class MonitorLog:
         self._file = None
         self._writer = None
 
-    def append(self, epoch: int, avg_jsd: float, avg_wd: float) -> None:
+    def append(self, epoch: int, avg_jsd: float, avg_wd: float,
+               extra: dict | None = None) -> None:
         if self._file is None:
             new_file = not os.path.exists(self.path)
             self._file = open(self.path, "a", newline="")
@@ -193,6 +197,8 @@ class MonitorLog:
                 self._writer.writerow(self.HEADER)
         self._writer.writerow([epoch, avg_jsd, avg_wd])
         self._file.flush()
+        _emit_event("similarity", epoch=int(epoch), avg_jsd=float(avg_jsd),
+                    avg_wd=float(avg_wd), **(extra or {}))
 
     def close(self) -> None:
         if self._file is not None:

@@ -38,9 +38,14 @@ samples a snapshot.  Here, after the init protocol
   round E: its peers' collective fails, rank 0's heartbeat check raises,
   and the run is resumed from the per-rank checkpoints (``save_every``).
 
-The events the JAX package journals (``round``, ``checkpoint``,
-``client_contribution``) are dicts logged at INFO until ROADMAP A.20's
-journal.
+Each rank journals into its own process journal (the CLI's
+``<journal>_rank<r>``): participants a ``round`` (``role="client"``) and a
+``client_contribution`` of their client per round, and ``checkpoint``
+events; rank 0 a ``round`` (``role="server"``) per report.  ``python -m
+fed_tgan_torch.obs report journal_rank*.jsonl`` merges them into one
+federation view (rounds once, server first).  ``/healthz`` carries each
+rank's role and round; the spans are ``multihost.local_steps`` and
+``multihost.checkpoint``.  All of it reads the round's one host copy.
 """
 
 from __future__ import annotations
@@ -59,6 +64,9 @@ import numpy as np
 import torch
 
 from fed_tgan_torch.device import resolve_device
+from fed_tgan_torch.obs.exporter import get_health
+from fed_tgan_torch.obs.journal import emit as _emit_event
+from fed_tgan_torch.obs.trace import span as _span
 from fed_tgan_torch.ops.decode import SnapshotDecode, select_snapshot_decode
 from fed_tgan_torch.ops.segments import SegmentSpec
 from fed_tgan_torch.parallel import fedavg, multihost
@@ -112,10 +120,6 @@ class MultihostRun:
     decode: str = "packed8"
 
 
-def _event(**fields) -> None:
-    log.info("%s", fields)
-
-
 def _maybe_fault_kill(rank: int, round_1based: int) -> None:
     """A participant scheduled to die at this round hard-exits, as a
     crashed process would."""
@@ -163,9 +167,10 @@ def _save_participant(run: MultihostRun, rank: int, stack, gen, ema,
             "epochs_done": epochs_done, "ema_updates": ema_updates,
             "rng_device": gen.device.type}
     path = ckpt_path(run.ckpt_dir, rank)
-    _write_checkpoint(path, meta, arrays, keep=1)
-    _event(type="checkpoint", path=path, kind="multihost_participant",
-           rank=rank, round=int(epochs_done))
+    with _span("multihost.checkpoint", rank=rank):
+        _write_checkpoint(path, meta, arrays, keep=1)
+    _emit_event("checkpoint", path=path, kind="multihost_participant",
+                rank=rank, round=int(epochs_done))
 
 
 def _load_participant(run: MultihostRun, rank: int, n_clients: int,
@@ -189,6 +194,27 @@ def _load_participant(run: MultihostRun, rank: int, n_clients: int,
     with np.load(os.path.join(path, "arrays.npz")) as data:
         arrays = {k: data[k] for k in data.files}
     return state, arrays
+
+
+def _publish_rank_obs(rank: int, client: int, e: int, seconds: float,
+                      host: np.ndarray, weights: np.ndarray) -> None:
+    """Participant ``rank``'s ``/healthz`` fields and the round's
+    ``client_contribution`` of its client (``fed_tgan_tpu/train/
+    multihost.py:219-272``), from the round's host copy ``host`` (loss_d,
+    pen, loss_g, then the quarantine mask of every client)."""
+    get_health().update(
+        status="training", role="client", rank=int(rank),
+        client=int(client), round=int(e), per_round_s=round(seconds, 6),
+        rounds_per_s=round(1.0 / seconds, 3) if seconds > 0 else None)
+
+    def num(x):
+        return round(float(x), 6) if np.isfinite(x) else None
+
+    _emit_event("client_contribution", round=int(e), first=int(e),
+                rounds_per_program=1, rank=int(rank), clients=[int(client)],
+                weights=[round(float(weights[client]), 6)],
+                loss_d=[num(host[0])], loss_g=[num(host[2])],
+                quarantined=[int(host[3 + client] > 0.5)], strikes=[0])
 
 
 class _OrderedSender:
@@ -387,18 +413,19 @@ def client_train(transport, init_out: dict, cfg: TrainConfig,
             with torch.no_grad():
                 prev = [x[0].clone() for x in fedavg.agg_leaves(stack)]
             metrics = torch.zeros((1, 3), device=device)
-            for s in range(max_steps):
-                if s < own_steps:
-                    if draws is not None:
-                        for a, b in zip(dst.tensors(),
-                                        draws(e, c, s).tensors()):
-                            a.copy_(b)
-                    else:
-                        draw_into(gen, spec, cfg, keep, device, dst)
-                metrics = stacked_train_step(stack, data, cond, rows, buf,
-                                             active[s], metrics)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            with _span("multihost.local_steps", rank=rank, rounds=1):
+                for s in range(max_steps):
+                    if s < own_steps:
+                        if draws is not None:
+                            for a, b in zip(dst.tensors(),
+                                            draws(e, c, s).tensors()):
+                                a.copy_(b)
+                        else:
+                            draw_into(gen, spec, cfg, keep, device, dst)
+                    metrics = stacked_train_step(stack, data, cond, rows,
+                                                 buf, active[s], metrics)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
             t1 = time.perf_counter()
             with torch.no_grad():
                 new = multihost.gather_leaves(fedavg.agg_leaves(stack))
@@ -420,12 +447,9 @@ def client_train(transport, init_out: dict, cfg: TrainConfig,
             if host[3:].any():
                 log.warning("update gate quarantined clients %s in round %d",
                             np.flatnonzero(host[3:]).tolist(), e)
-            _event(type="round", role="client", rank=rank, first=e, last=e,
-                   rounds=1, per_round_s=round(seconds, 6))
-            _event(type="client_contribution", round=e, rank=rank,
-                   clients=[c], weights=[float(host_w[c])],
-                   loss_d=[float(host[0])], loss_g=[float(host[2])],
-                   quarantined=[int(host[3 + c] > 0)])
+            _emit_event("round", role="client", rank=rank, first=e, last=e,
+                        rounds=1, per_round_s=round(seconds, 6))
+            _publish_rank_obs(rank, c, e, seconds, host, host_w)
             t3 = time.perf_counter()
             if sender is not None:
                 msg = {"type": "chunk", "rounds": 1, "seconds": seconds,
@@ -503,9 +527,15 @@ def server_train(transport, init_out: dict, run: MultihostRun, name: str,
             if "decode" in msg:
                 decode = SnapshotDecode(msg["decode"][1], msg["decode"][0])
             per_round = msg["seconds"] / msg["rounds"]
-            _event(type="round", role="server", first=msg["last"],
-                   last=msg["last"], rounds=msg["rounds"],
-                   per_round_s=round(per_round, 6))
+            _emit_event("round", role="server",
+                        first=msg["last"] - msg["rounds"] + 1,
+                        last=msg["last"], rounds=msg["rounds"],
+                        per_round_s=round(per_round, 6))
+            get_health().update(
+                status="training", role="server", rank=0,
+                round=int(msg["last"]), per_round_s=round(per_round, 6),
+                rounds_per_s=(round(1.0 / per_round, 3) if per_round > 0
+                              else None))
             t0 = time.perf_counter()
             if msg.get("snapshot_parts") is not None:
                 writer.write_parts(msg["last"], msg["snapshot_parts"], decode)

@@ -40,6 +40,7 @@ import torch
 
 from fed_tgan_torch.data.decode import decode_cells, decode_columns
 from fed_tgan_torch.data.fastcsv import ColumnPlan, PackedSnapshotFormatter
+from fed_tgan_torch.obs.trace import span as _span
 
 MAX_PENDING = 2  # snapshots in flight, each with its own host buffers
 
@@ -92,17 +93,18 @@ class SnapshotWriter:
     def __call__(self, epoch: int, trainer) -> None:
         while len(self._pending) >= MAX_PENDING:
             self._settle_oldest()
-        parts = trainer.sample_parts(self.rows, seed=self.seed + epoch,
-                                     to_host=False)
-        buffers = self._buffers(parts)
-        event = None
-        for k, v in parts.items():
-            buffers[k].copy_(v, non_blocking=True)
-            if v.is_cuda and event is None:
-                event = torch.cuda.Event()
-        if event is not None:
-            event.record(torch.cuda.current_stream(next(
-                v.device for v in parts.values() if v.is_cuda)))
+        with _span("train.snapshot.predispatch", round=epoch):
+            parts = trainer.sample_parts(self.rows, seed=self.seed + epoch,
+                                         to_host=False)
+            buffers = self._buffers(parts)
+            event = None
+            for k, v in parts.items():
+                buffers[k].copy_(v, non_blocking=True)
+                if v.is_cuda and event is None:
+                    event = torch.cuda.Event()
+            if event is not None:
+                event.record(torch.cuda.current_stream(next(
+                    v.device for v in parts.values() if v.is_cuda)))
         self._pending.append((self._pool.submit(
             self._write, self.path_fn(epoch), buffers, event,
             trainer.decode), buffers))

@@ -19,7 +19,9 @@ and goes on, at most ``max_rollbacks`` times before it aborts with
 elastic federation's drift windows and names the clients whose drift
 persisted ``drift_patience`` windows; it never raises (rolling the model
 back cannot undrift a shard).  Alarms and rollbacks are logged as
-warnings (metrics and the journal wait for A.20).
+warnings, journaled (``watchdog_alarm``, ``watchdog_rollback``), counted
+(``fed_tgan_watchdog_alarms_total``, ``fed_tgan_watchdog_rollbacks_total``)
+and shown on ``/healthz``, all from host bookkeeping.
 """
 
 from __future__ import annotations
@@ -30,7 +32,16 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from fed_tgan_torch.obs.exporter import get_health
+from fed_tgan_torch.obs.journal import emit as _emit_event
+from fed_tgan_torch.obs.registry import counter as _metric_counter
+
 log = logging.getLogger("fed_tgan_torch.watchdog")
+
+_ALARMS_TOTAL = _metric_counter(
+    "fed_tgan_watchdog_alarms_total", "training-health alarms raised")
+_ROLLBACKS_TOTAL = _metric_counter(
+    "fed_tgan_watchdog_rollbacks_total", "automatic checkpoint rollbacks")
 
 
 class WatchdogAlarm(RuntimeError):
@@ -177,6 +188,14 @@ def fit_with_watchdog(trainer, epochs: int, watchdog: TrainingWatchdog,
             clamp_until = max(clamp_until or 0,
                               trainer.completed_epochs + base_rounds)
             watchdog.rollbacks += 1
+            _ALARMS_TOTAL.inc()
+            _emit_event("watchdog_alarm", reason=str(alarm),
+                        round=int(trainer.completed_epochs),
+                        rollbacks=watchdog.rollbacks)
+            get_health().update(
+                watchdog_last_alarm=str(alarm),
+                watchdog_alarm_round=int(trainer.completed_epochs),
+                watchdog_rollbacks=watchdog.rollbacks)
             log.warning("watchdog alarm (%s); rollback %d/%d", alarm,
                         watchdog.rollbacks, watchdog.cfg.max_rollbacks)
             if watchdog.rollbacks > watchdog.cfg.max_rollbacks:
@@ -207,6 +226,14 @@ def fit_with_watchdog(trainer, epochs: int, watchdog: TrainingWatchdog,
             trainer.set_lr(old_lr * watchdog.cfg.lr_reanneal)
             watchdog.reset_window()
             restore_round = trainer.completed_epochs
+            _ROLLBACKS_TOTAL.inc()
+            _emit_event("watchdog_rollback", restored_from=str(src),
+                        round=int(trainer.completed_epochs),
+                        generation_skip=gen_skip, lr=float(trainer.cfg.lr))
+            get_health().update(
+                watchdog_rollbacks=watchdog.rollbacks,
+                watchdog_restored_round=int(trainer.completed_epochs),
+                lr=float(trainer.cfg.lr))
             log.warning("rolled back to %s (round %d); lr re-annealed %g -> "
                         "%g", src, trainer.completed_epochs, old_lr,
                         trainer.cfg.lr)

@@ -16,7 +16,8 @@ on the same raw Intrusion-shaped CSV (600 rows, 3 clients).
   ``--elastic-capacity`` runs join/leave/drift faults;
 - ``--precision bf16`` trains, checkpoints and resumes in bf16;
 - a flag of a feature not ported yet exits with code 2 and names its
-  ROADMAP item;
+  ROADMAP item; ``--journal``, ``--obs-port``, ``--profile-dir`` and
+  ``--profile-rounds`` run;
 - the multi-process launch (``-ip``): ``--init-only``, ``--params-out``,
   the transport fault kinds and the ``fed_tgan_torch.distributed`` alias
   run a world of rank 0 and 2 participants (``launch_world`` of
@@ -114,11 +115,38 @@ def test_standalone_cli_matches_jax(data, tmp_path, capsys):
 @pytest.mark.parametrize("flag,item", [
     pytest.param(["--snapshot-format", "parquet"], "A.21", id="flag0-A.21"),
     pytest.param(["--sanitize-nans"], "A.20", id="flag1-A.20"),
-    pytest.param(["--profile-rounds", "5"], "A.20", id="flag2-A.20"),
+    pytest.param(["--sanitize"], "A.20", id="flag2-A.20"),
     pytest.param(["--bgm-backend", "sklearn"], "A.24", id="flag6-A.24")])
 def test_unported_flags_exit_2(data, tmp_path, capsys, flag, item):
     assert port_cli.main(argv(data, tmp_path, "--device", "cpu", *flag)) == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_observability_flags_run(data, tmp_path, capsys):
+    """``--journal``, ``--obs-port``, ``--profile-dir`` and
+    ``--profile-rounds`` (refused with exit 2 until ROADMAP A.20's first
+    part) run: the journal holds the rounds and the contributions, the
+    exporter's URL is printed, the last round is traced into the profile
+    directory (``device_trace`` ok) and the run ends as it would without
+    them."""
+    from fed_tgan_torch.obs import read_journal
+
+    jpath = tmp_path / "j" / "run.jsonl"
+    prof = tmp_path / "prof"
+    assert port_cli.main(argv(data, tmp_path, "--device", "cpu",
+                              "--journal", str(jpath), "--obs-port", "0",
+                              "--profile-dir", str(prof),
+                              "--profile-rounds", "1")) == 0
+    out = capsys.readouterr().out
+    assert "obs: live telemetry on http://127.0.0.1:" in out
+    assert "final Avg_JSD=" in out and "2 rounds in" in out
+    types = [e["type"] for e in read_journal(str(jpath))]
+    assert types.count("round") == types.count("client_contribution") == 2
+    traces = [e for e in read_journal(str(jpath))
+              if e["type"] == "device_trace"]
+    assert [e["ok"] for e in traces] == [True]
+    assert len(os.listdir(prof)) == 1
+    assert len(os.listdir(tmp_path / "Intrusion_result")) == 2
 
 
 def _shards(data, tmp_path, n=2):

@@ -1120,3 +1120,106 @@ def test_two_participant_world_on_the_card(cuda, tmp_path):
     assert inside >= 0.99 * total, (inside, total)
     print(f"world on the card vs in-process after a round: {inside} of "
           f"{total} entries within the tolerance, bit-equal {equal}")
+
+
+# ------------------------------------------------------------ the observatory
+
+
+def _sync_count(fn):
+    """Synchronising calls of ``fn()``: one warning each under
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def test_journaled_round_on_the_card_equals_the_plain_round(cuda, tmp_path):
+    """Two rounds with a journal, the exporter, a tracer and the first
+    chunk's program_cost (FlopCounterMode and the bytes mode around the
+    real dispatch) end torch.equal to two plain rounds, with as many
+    synchronising calls; the cost counts K1 and K2's bytes."""
+    from fed_tgan_torch.obs import (
+        RunJournal,
+        TelemetryExporter,
+        read_journal,
+        set_journal,
+        start_tracing,
+        stop_tracing,
+    )
+    from fed_tgan_torch.train.federated import FederatedTrainer
+
+    init, cfg = _population()
+    # a process's first rounds (and its first rounds under the sync
+    # debug mode) make synchronising calls of their own
+    warm = FederatedTrainer(init, cfg, seed=0, device="cuda")
+    _sync_count(lambda: warm.fit(2))
+    plain = FederatedTrainer(init, cfg, seed=0, device="cuda")
+    n_plain = _sync_count(lambda: plain.fit(2))
+    obs = FederatedTrainer(init, cfg, seed=0, device="cuda")
+    journal = RunJournal(str(tmp_path / "j.jsonl"), validate=True)
+    set_journal(journal)
+    start_tracing()
+    try:
+        with TelemetryExporter(port=0):
+            n_obs = _sync_count(lambda: obs.fit(2))
+    finally:
+        set_journal(None)
+        journal.close()
+        stop_tracing()
+    assert n_obs == n_plain
+    for x, y in zip(_state(plain), _state(obs)):
+        assert torch.equal(x, y)
+    events = list(read_journal(journal.path))
+    assert not [e for e in events if e["type"] == "schema_violation"]
+    cost = [e for e in events if e["type"] == "program_cost"]
+    assert len(cost) == 1 and cost[0]["flops"] > 0
+    assert cost[0]["peak_bytes"] > 0
+    assert cost[0]["bytes_accessed"] > 12 * 6 * 40 * obs.spec.dim
+    assert len([e for e in events if e["type"] == "client_contribution"]) == 2
+
+
+def test_device_trace_holds_k1_and_k2_and_the_spans(cuda, tmp_path):
+    """A round under runtime/profiling.py::device_trace: the Chrome trace
+    names K1 and K2 (as many launches as the counters) beside the round's
+    host spans, and the journal records the trace ok."""
+    import json
+    import os
+
+    from fed_tgan_torch.obs import RunJournal, read_journal, set_journal
+    from fed_tgan_torch.runtime.profiling import device_trace
+    from fed_tgan_torch.train.federated import FederatedTrainer
+
+    init, cfg = _population()
+    tr = FederatedTrainer(init, cfg, seed=0, device="cuda")
+    tr.fit(1)
+    journal = RunJournal(str(tmp_path / "j.jsonl"), validate=True)
+    set_journal(journal)
+    activate_cuda.reset_launches()
+    try:
+        with device_trace(str(tmp_path / "prof")) as d:
+            assert d is not None
+            tr.fit(1)
+    finally:
+        set_journal(None)
+        journal.close()
+    (name,) = os.listdir(tmp_path / "prof")
+    with open(tmp_path / "prof" / name) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert sum("activate_fwd_kernel" in k for k in kernels) \
+        == fused_apply_activate.launches > 0
+    assert sum("activate_bwd_kernel" in k for k in kernels) \
+        == fused_activate_bwd.launches > 0
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"train.local_steps", "train.aggregate.sync"} <= spans
+    traced = [e for e in read_journal(journal.path)
+              if e["type"] == "device_trace"]
+    assert [e["ok"] for e in traced] == [True]

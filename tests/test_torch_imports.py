@@ -75,6 +75,34 @@ def test_fastcsv_formats_with_jax_pandas_and_pyarrow_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def test_obs_cli_runs_without_torch_or_numpy(tmp_path):
+    """``python -m fed_tgan_torch.obs report|slo|watch`` in a fresh
+    interpreter where torch, numpy, jax and the JAX package cannot be
+    imported: the observability CLI is stdlib only."""
+    from fed_tgan_torch.obs import RunJournal
+
+    path = str(tmp_path / "journal.jsonl")
+    with RunJournal(path, run_id="bare") as j:
+        j.emit("round", round=0, first=0, rounds_per_program=1,
+               per_round_s=0.5, finite=True)
+        j.emit("client_contribution", round=0, first=0, rounds_per_program=1,
+               clients=[0, 1], weights=[0.5, 0.5], loss_d=[0.1, 0.2],
+               loss_g=[0.3, 0.4], quarantined=[0, 0], strikes=[0, 0])
+    blocked = ("torch", "numpy", "jax", "jaxlib", "fed_tgan_tpu")
+    for cmd, want in (("report", "clients: 2 tracked over 1 round(s)"),
+                      ("slo", "slo: 0 checked"), ("watch", "[watch] round 0")):
+        code = (
+            "import runpy, sys\n"
+            f"for name in {blocked!r}:\n"
+            "    sys.modules[name] = None\n"
+            f"sys.argv = ['obs', {cmd!r}, {path!r}]\n"
+            "runpy.run_module('fed_tgan_torch.obs', run_name='__main__')\n")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                              capture_output=True, text=True, timeout=60)
+        assert proc.returncode == 0, (cmd, proc.stderr)
+        assert want in proc.stdout, (cmd, proc.stdout)
+
+
 def test_sources_never_import_jax_or_the_jax_package():
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|fed_tgan_tpu)\b",
                      re.MULTILINE)
