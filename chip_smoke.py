@@ -234,9 +234,38 @@ Phases, each fatal on failure:
    ``fleet_load``, ``serve_stages``, ``promotion_promoted`` and
    ``promotion_rejected`` and no schema violation.
 
+20. the sanitizers and the tooling (``tooling_phase``), slice 14's path,
+   every sanitized or doctor command a process of its own (cuBLAS reads
+   its deterministic workspace setting once, before the first CUDA call):
+   the federated round's CLI (4 IID clients, 3 rounds, a 40,000-row
+   packed8 snapshot a round, ``--save-model``) plain, ``--sanitize`` and
+   ``--sanitize-nans`` one after another, each with K1 21 and K2 10
+   launches a round, exact: the sanitized run's report holds the training
+   budget and 0 unsanctioned syncs in its steady rounds (their sanctioned
+   syncs printed), and both runs' snapshots and final generator equal the
+   plain run's; a ``nan_update`` fault under ``--sanitize-nans`` raises
+   FloatingPointError naming the op and its line; in this process a
+   deliberate ``.item()`` in a steady hot region raises SyncGuardError
+   naming it while another thread's syncs do not, and a NaN logit fed to
+   K1 raises naming K1; ``ops/diagnostics.py::gradient_flow`` at full
+   width on the card against the CPU from the same weights and draws
+   (atol 1e-6 + rtol 1e-3 a layer; K1 2 and K2 1 launches); ``serve
+   --sanitize`` answers 5,000-row requests (two chunk sizes each) with
+   an unsanitized engine's bytes, its report after the drain clean;
+   ``fleet --sanitize --lockwatch`` serves phase 4's 4 tenants to 16
+   clients (every body its tenant's single engine's), then no cycle, no
+   re-entry, the fleet budget, each lock's hold p99; beside them
+   ``python -m fed_tgan_torch.doctor`` (every check OK) and ``obs ledger
+   --json`` (every family with flops and peak bytes above 0); the steady
+   s/round of the three CLI runs, the phase's seconds, and the process
+   left with sync debug mode 0 and deterministic algorithms off; then K1
+   and K2 against their plain versions at the sanitized round's stacked
+   step and the gradient-flow batch.
+
 ``--onboard N [N ...]`` runs phase 15 alone at the populations given (the
 JAX sweep's N = 1024 is measured so); ``--multiprocess`` runs phase 18
-alone; ``--observatory`` runs phase 19 alone.
+alone; ``--observatory`` runs phase 19 alone; ``--tooling`` runs phase 20
+alone.
 
 ``--ab TREE`` runs none of the phases: it builds the kernels of the
 ``fed_tgan_torch`` package under TREE (for example a ``git archive`` of an
@@ -252,14 +281,15 @@ with the training numbers, one with the federated round's, one with the
 durable round's, one with the canary's and the dated phase's, one with
 the precision phase's, one with the onboarding and churn phases', one
 with the round-scale phases', one with the multi-process world's, one
-with the observatory's, the card's
+with the observatory's, one with the tooling phase's, the card's
 line, a JSON line with the kernels' numbers (one entry per kernel and
 path: K1 serving, K1 in the fleet, K1 and K2 training, K1 and K2
 federated, K1 in the similarity monitor, K1 and K2 in the ragged round, K1
 in the canary's shadow samples, K1 serving a dated model, K1 and K2 in
 the dated training, K1 and K2 in the elastic rounds, K1 and K2 in the
 cohort rounds and in MD-GAN, K1 and K2 in a multi-process participant,
-and the three bf16 variants),
+K1 and K2 in the sanitized round and in the gradient-flow summary, and
+the three bf16 variants),
 and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no result line, when CUDA is not available.
@@ -276,7 +306,9 @@ import io
 import json
 import math
 import os
+import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2116,7 +2148,7 @@ def _check_bodies(run: dict, mix: list, want: dict) -> None:
         if status != 200 or body != want[mix[c][k]]:
             raise AssertionError(f"request {mix[c][k]}: status {status}, "
                                  "bytes differ from the tenant's single "
-                                 "engine")
+                                 f"engine ({body[:300]!r})")
 
 
 def fleet_phase(seed: int, rows: int, card: str, build_root: str) -> dict:
@@ -4807,6 +4839,564 @@ def observatory_phase(root: str, seed: int, card: str) -> dict:
     return out
 
 
+# the tooling phase: the federated round's CLI runs (plain, --sanitize,
+# --sanitize-nans) of TOOL_ROUNDS rounds each, and the fault run's one
+TOOL_ROUNDS = 3
+# the gradient-flow summary: atol + rtol per layer, card against CPU
+GRADFLOW_ATOL, GRADFLOW_RTOL = 1e-6, 1e-3
+_SYNC_LINE = re.compile(r"^\s+(\S+) entry (\d+)(?: \(warm-up, unguarded\))?: "
+                        r"(\d+) unsanctioned, (\d+) sanctioned \((.*)\)$")
+_ROUND_LINE = re.compile(r"^round (\d+): .*\(([\d.]+)s/round\)$")
+
+
+def _tool_cli(argv: list, timeout: int = 600) -> dict:
+    """The training CLI as a process of its own (a sanitized one must set
+    up cuBLAS before its first CUDA call), through a wrapper that prints
+    its K1/K2 launch counts last: exit code, stdout, stderr, wall seconds,
+    launches (None when it raised) and its per-round seconds."""
+    code = ("import json, sys\n"
+            "from fed_tgan_torch import cli\n"
+            "from fed_tgan_torch.ops import activate_cuda as k\n"
+            f"rc = cli.main({argv!r})\n"
+            "print(json.dumps({'launches': {"
+            "'K1': k.fused_apply_activate.launches, "
+            "'K2': k.fused_activate_bwd.launches}}))\n"
+            "sys.exit(rc)\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    launches = None
+    if lines and lines[-1].startswith('{"launches"'):
+        launches = json.loads(lines.pop())["launches"]
+    rounds = [float(m.group(2)) for m in map(_ROUND_LINE.match, lines) if m]
+    return {"rc": proc.returncode, "stdout": "\n".join(lines),
+            "stderr": proc.stderr, "wall_s": wall, "launches": launches,
+            "s_per_round": rounds}
+
+
+def _sync_entries(report: str) -> list:
+    """The ``(region, entry, unsanctioned, sanctioned, sites)`` lines of a
+    sanitize report."""
+    return [(m.group(1), int(m.group(2)), int(m.group(3)), int(m.group(4)),
+             m.group(5)) for m in map(_SYNC_LINE.match, report.splitlines())
+            if m]
+
+
+def _require_clean_report(what: str, out: str) -> dict:
+    """A sanitize report with no budget violation and no unsanctioned sync
+    after a region's warm-up entry; returns its build count, the steady
+    entries and the syncs outside the regions."""
+    if "SANITIZE:" in out or "sanitize: " not in out:
+        raise AssertionError(f"{what}: report {out[-3000:]}")
+    entries = _sync_entries(out)
+    bad = [e for e in entries if e[1] > 1 and e[2]]
+    if bad or not any(e[1] > 1 for e in entries):
+        raise AssertionError(f"{what}: unsanctioned steady syncs {bad} in "
+                             f"{entries}")
+    builds = re.search(r"sanitize: (\d+) build event", out)
+    return {"builds": int(builds.group(1)) if builds else 0,
+            "steady_entries": [e for e in entries if e[1] > 1],
+            "outside": [ln.strip() for ln in out.splitlines()
+                        if "outside the hot regions" in ln]}
+
+
+def _same_snapshots(what: str, a: str, b: str) -> int:
+    """Two runs wrote the same snapshot files, byte for byte; returns how
+    many."""
+    da, db = (os.path.join(x, "Intrusion_result") for x in (a, b))
+    names = sorted(os.listdir(da))
+    if names != sorted(os.listdir(db)) or not names:
+        raise AssertionError(f"{what}: snapshots {names} vs "
+                             f"{sorted(os.listdir(db))}")
+    for n in names:
+        with open(os.path.join(da, n), "rb") as f, \
+                open(os.path.join(db, n), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"{what}: {n} differs")
+    return len(names)
+
+
+def _same_generator(what: str, a: str, b: str) -> None:
+    ga, gb = _artifact_generator(a), _artifact_generator(b)
+    if ga.keys() != gb.keys() or not all(
+            torch.equal(torch.from_numpy(ga[k]), torch.from_numpy(gb[k]))
+            for k in ga):
+        raise AssertionError(f"{what}: final generators differ")
+
+
+class _Server:
+    """``python -m fed_tgan_torch ARGV`` serving in a process of its own:
+    its URL from its first line; :meth:`stop` interrupts it (a drain, then
+    its report) and returns exit code and output."""
+
+    def __init__(self, argv: list):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "fed_tgan_torch", *argv], cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.lines: list = []
+        self.err: list = []
+        self._readers = [
+            threading.Thread(target=lambda: self.lines.extend(
+                ln.rstrip("\n") for ln in self.proc.stdout), daemon=True),
+            threading.Thread(target=lambda: self.err.append(
+                self.proc.stderr.read()), daemon=True)]
+        for t in self._readers:
+            t.start()
+        deadline = time.time() + 300
+        self.url = None
+        while self.url is None:
+            if self.proc.poll() is not None or time.time() > deadline:
+                self.stop()
+                raise AssertionError(f"server {argv} did not start: "
+                                     f"{self.output()[-3000:]}")
+            for ln in list(self.lines):
+                m = re.search(r"on (http://[\d.]+:\d+)", ln)
+                if m:
+                    self.url = m.group(1)
+            time.sleep(0.05)
+
+    def output(self) -> str:
+        return "\n".join(self.lines) + "\n" + "".join(self.err)
+
+    def stop(self, timeout: float = 120) -> tuple:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        for t in self._readers:
+            t.join(timeout=30)
+        return rc, self.output()
+
+
+def _encoded_rows(spec: SegmentSpec, n: int, seed: int) -> np.ndarray:
+    """A random encoded matrix of ``spec``'s layout: tanh dims in
+    (-0.99, 0.99), one-hot softmax segments."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for size, kind in spec.output_info:
+        if kind == "tanh":
+            parts.append(rng.uniform(-0.99, 0.99, (n, 1)))
+        else:
+            oh = np.zeros((n, size))
+            oh[np.arange(n), rng.integers(0, size, n)] = 1.0
+            parts.append(oh)
+    return np.concatenate(parts, axis=1).astype(np.float32)
+
+
+def gradflow_check(spec: SegmentSpec, seed: int, card: str) -> dict:
+    """``ops/diagnostics.py::gradient_flow`` at full width (TrainConfig()
+    defaults) on the card against the CPU, from the same weights and the
+    same draws; the launches it made on the card."""
+    import copy
+
+    from fed_tgan_torch.ops.diagnostics import gradient_flow
+
+    cfg = steps.TrainConfig()
+    data = _encoded_rows(spec, 4 * cfg.batch_size, seed)
+    cpu_models = steps.init_models(spec, cfg, seed=seed, device="cpu")
+    draws = steps.draw_step(torch.Generator().manual_seed(seed), cpu_models)
+    card_models = steps.Models.build(
+        copy.deepcopy(cpu_models.generator).to("cuda"),
+        copy.deepcopy(cpu_models.discriminator).to("cuda"), spec, cfg)
+    want = gradient_flow(cpu_models, torch.from_numpy(data),
+                         CondSampler.from_data(data, spec, "cpu"),
+                         RowSampler.from_data(data, spec, "cpu"), draws)
+    activate_cuda.reset_launches()
+    got = gradient_flow(card_models, torch.from_numpy(data).cuda(),
+                        CondSampler.from_data(data, spec, "cuda"),
+                        RowSampler.from_data(data, spec, "cuda"),
+                        draws.to("cuda"))
+    launches = {"K1": fused_apply_activate.launches,
+                "K2": fused_activate_bwd.launches}
+    worst = 0.0
+    for net in want:
+        for name, ref in want[net].items():
+            for stat in ("avg_abs", "max_abs"):
+                d = abs(got[net][name][stat] - ref[stat])
+                if d > GRADFLOW_ATOL + GRADFLOW_RTOL * abs(ref[stat]):
+                    raise AssertionError(f"gradient flow {net} {name} {stat}"
+                                         f": card {got[net][name][stat]} vs "
+                                         f"CPU {ref[stat]}")
+                worst = max(worst, d / (GRADFLOW_ATOL
+                                        + GRADFLOW_RTOL * abs(ref[stat])))
+    if launches != {"K1": 2, "K2": 1}:
+        raise AssertionError(f"gradient flow launched {launches}, want K1 2 "
+                             "(D fake batch, G step) and K2 1")
+    layers = sum(len(v) for v in want.values())
+    print(f"tooling: gradient flow at (500, {spec.dim}), card vs CPU on the "
+          f"same weights and draws: {layers} layers within atol "
+          f"{GRADFLOW_ATOL} + rtol {GRADFLOW_RTOL} (worst {worst!r} of the "
+          f"tolerance); K1 {launches['K1']}, K2 {launches['K2']} launches  "
+          f"[{card}]", flush=True)
+    return {"layers": layers, "worst_of_tolerance": worst,
+            "launches": launches}
+
+
+def guard_check(spec: SegmentSpec, card: str) -> dict:
+    """The sync guard and the NaN guard in this process (no determinism
+    guard: cuBLAS is long set up here): a deliberate ``.item()`` in a
+    steady region raises naming it while another thread's syncs do not,
+    and a NaN logit fed to K1 raises naming K1."""
+    from fed_tgan_torch.analysis import sanitizers
+
+    x = torch.ones(1000, device="cuda")
+    other_errors: list = []
+
+    def other():
+        try:
+            for _ in range(50):
+                x.sum().item()
+        except Exception as exc:  # noqa: BLE001 -- fatal below
+            other_errors.append(repr(exc))
+
+    raised = None
+    with sanitizers.sanitize(deterministic=False):
+        with sanitizers.hot_region("tooling.guard"):
+            x.sum().item()  # the warm-up entry
+        try:
+            with sanitizers.hot_region("tooling.guard"):
+                x.sum().item()
+        except sanitizers.SyncGuardError as exc:
+            raised = str(exc)
+        with sanitizers.hot_region("tooling.guard"):
+            t = threading.Thread(target=other)
+            t.start()
+            t.join()
+        census = sanitizers.sync_census()
+    if raised is None or "tooling.guard" not in raised \
+            or "chip_smoke.py" not in raised or other_errors:
+        raise AssertionError(f"sync guard: raised {raised!r}, other thread "
+                             f"{other_errors}")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    logits = torch.randn((500, spec.dim), generator=gen, device="cuda")
+    u = torch.rand((500, spec.dim), generator=gen, device="cuda")
+    logits[7, 3] = float("nan")
+    nan_error = backward_error = None
+    with sanitizers.sanitize(nan_debug=True, deterministic=False):
+        try:
+            fused_apply_activate(logits, spec, u)
+        except FloatingPointError as exc:
+            nan_error = str(exc)
+        # a NaN only the backward makes (0 * d log(x) at 0), on the
+        # autograd engine's device thread
+        xg = torch.zeros(8, device="cuda", requires_grad=True)
+        loss = torch.where(xg > 0, torch.log(xg), torch.zeros_like(xg)).sum()
+        try:
+            loss.backward()
+        except FloatingPointError as exc:
+            backward_error = str(exc)
+    if nan_error is None or "K1" not in nan_error:
+        raise AssertionError(f"the NaN guard on K1: {nan_error!r}")
+    if backward_error is None or "aten." not in backward_error:
+        raise AssertionError(f"the NaN guard in the backward: "
+                             f"{backward_error!r}")
+    other_syncs = sum(c["count"] for c in census if c["region"] is None)
+    print(f"tooling: sync guard in this process: {raised!r}; another "
+          f"thread's {other_syncs} syncs meanwhile raised nothing; a NaN "
+          f"logit fed to K1: {nan_error!r}; a NaN of the backward: "
+          f"{backward_error!r}  [{card}]", flush=True)
+    return {"sync_guard": raised, "other_thread_syncs": other_syncs,
+            "nan_guard_k1": nan_error, "nan_guard_backward": backward_error}
+
+
+def _serve_sanitized(art: str, seed: int, rows: int, card: str) -> dict:
+    """``serve --sanitize`` answers ``rows``-row requests and requests of
+    2,000 rows (another chunk size) with the bytes of an unsanitized
+    engine; its report after the drain holds the serving budget and no
+    unsanctioned sync after the warm-up."""
+    want_engine = SamplingEngine(open_model(art, device="cuda"))
+    server = _Server(["serve", art, "--sanitize", "--port", "0",
+                      "--workers", "2", "--reload-interval", "0"])
+    try:
+        seeds = [(seed + 11 + i, n) for i in range(4) for n in (rows, 2000)]
+        t0 = time.perf_counter()
+        for s, n in seeds:
+            body = urllib.request.urlopen(
+                f"{server.url}/sample?rows={n}&seed={s}", timeout=120).read()
+            if body != want_engine.sample_csv_bytes(n, seed=s):
+                raise AssertionError(f"serve --sanitize: {n} rows of seed "
+                                     f"{s} differ from an unsanitized engine")
+        wall = time.perf_counter() - t0
+    finally:
+        rc, out = server.stop()
+    if rc != 0:
+        raise AssertionError(f"serve --sanitize exited {rc}: {out[-3000:]}")
+    report = _require_clean_report("serve --sanitize", out)
+    sizes = sorted({e[0] for e in report["steady_entries"]})
+    if len(sizes) < 2:
+        raise AssertionError(f"serve --sanitize: chunk regions {sizes}")
+    print(f"tooling: serve --sanitize answered {len(seeds)} requests of "
+          f"{rows} and 2000 rows over chunk regions {sizes}, bytes equal to an "
+          f"unsanitized engine, {report['builds']} builds, no unsanctioned "
+          f"sync after the warm-up (steady entries "
+          f"{report['steady_entries']}), exit 0  [{card}]", flush=True)
+    return {"requests": len(seeds), "rows": rows, "wall_s": wall,
+            **report}
+
+
+def _fleet_lockwatch(seed: int, rows: int, card: str, root: str) -> dict:
+    """``fleet --sanitize --lockwatch`` over the fleet phase's 4 tenants,
+    16 clients x 4 requests of ``rows`` rows: every body its tenant's
+    single engine's; after the drain no lock-order cycle, no re-entry,
+    the fleet budget, each lock's hold p99."""
+    arts = {name: build_random_artifact(os.path.join(root, name),
+                                        seed=seed + s, table=table)
+            for name, table, s in FLEET_TENANTS}
+    names = [name for name, _, _ in FLEET_TENANTS]
+    mix = [[(names[(c + k) % len(names)], rows,
+             2000 + c * FLEET_REQUESTS + k)
+            for k in range(FLEET_REQUESTS)] for c in range(FLEET_CLIENTS)]
+    singles = {name: SamplingEngine(open_model(art, device="cuda"))
+               for name, art in arts.items()}
+    want = {(t, n, s): singles[t].sample_csv_bytes(n, seed=s)
+            for reqs in mix for t, n, s in reqs}
+    server = _Server(["fleet", *(f"{n}={a}" for n, a in arts.items()),
+                      "--sanitize", "--lockwatch", "--port", "0",
+                      "--workers", "2", "--coalesce-window", "0.005",
+                      "--reload-interval", "0"])
+    try:
+        base = urllib.parse.urlsplit(server.url)
+        run = _load(FLEET_CLIENTS, mix,
+                    lambda t: (base.hostname, base.port, f"/t/{t}/sample"))
+        _check_bodies(run, mix, want)
+    finally:
+        rc, out = server.stop()
+    if rc != 0 or "LOCKWATCH:" in out:
+        raise AssertionError(f"fleet --sanitize --lockwatch exited {rc}: "
+                             f"{out[-3000:]}")
+    report = _require_clean_report("fleet --sanitize", out)
+    locks = {}
+    for m in re.finditer(r"lockwatch: (\S+): (\d+) acq \((\d+) contended\)"
+                         r", hold p99 ([\d.]+) ms", out):
+        locks[m.group(1)] = {"acquisitions": int(m.group(2)),
+                             "contentions": int(m.group(3)),
+                             "hold_p99_ms": float(m.group(4))}
+    if "fleet_adm" not in locks:
+        raise AssertionError(f"lockwatch summary {locks}")
+    stats = _load_stats(run, rows)
+    print(f"tooling: fleet --sanitize --lockwatch, {FLEET_CLIENTS} clients "
+          f"x {FLEET_REQUESTS} {rows}-row requests over {len(names)} "
+          f"tenants: every body its tenant's single engine's, no cycle, no "
+          f"re-entry, fleet budget held ({report['builds']} builds); "
+          f"{stats['rows_per_s']!r} rows/s, p99 {stats['p99_ms']!r} ms; "
+          f"hold p99 by lock " + ", ".join(
+              f"{k} {v['hold_p99_ms']!r} ms ({v['acquisitions']} acq, "
+              f"{v['contentions']} contended)" for k, v in sorted(
+                  locks.items())) + f"  [{card}]", flush=True)
+    return {"load": stats, "locks": locks, **report}
+
+
+def tooling_phase(root: str, seed: int, card: str, rows: int) -> dict:
+    """Slice 14's path (see the module docstring, phase 20)."""
+    t_phase = time.perf_counter()
+    csv_path = write_intrusion_csv(os.path.join(root, "tool.csv"), FED_ROWS,
+                                   seed)
+    runs = {}
+
+    def argv(tag, *extra, epochs=TOOL_ROUNDS):
+        # the plain run fills the init cache, the others restore it (a
+        # warm init is the cold one, bit for bit)
+        return ["--mode", "fedavg", "--datapath", csv_path, "--dataset",
+                "intrusion", "--n-clients", str(FED_CLIENTS), "-epochs",
+                str(epochs), "--sample-rows", str(SNAPSHOT_ROWS),
+                "--save-model", "--out-dir", os.path.join(root, tag),
+                "--seed", str(seed), "--init-cache",
+                os.path.join(root, "init_cache"), *extra]
+
+    # the timed runs, one after another: plain, sanitized, NaN-guarded
+    for tag, extra in (("plain", ()), ("sanitize", ("--sanitize",)),
+                       ("nans", ("--sanitize-nans",))):
+        runs[tag] = _tool_cli(argv(tag, *extra))
+        if runs[tag]["rc"] != 0:
+            raise AssertionError(f"CLI {tag} exited {runs[tag]['rc']}: "
+                                 f"{runs[tag]['stderr'][-3000:]}")
+    # untimed, beside the rest: the fault run, the doctor and the ledger
+    side = {name: subprocess.Popen(
+        [sys.executable, "-m", *cmd], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for name, cmd in (("doctor", ["fed_tgan_torch.doctor"]),
+                          ("ledger", ["fed_tgan_torch.obs", "ledger",
+                                      "--json"]))}
+    side_t0 = time.perf_counter()
+    fault_box: dict = {}
+    fault_thread = threading.Thread(target=lambda: fault_box.update(
+        _tool_cli(argv("fault", "--sanitize-nans", "--faults",
+                       "nan_update:rank=1,round=1", epochs=1))))
+    fault_thread.start()
+    try:
+        steps_per_round = (FED_ROWS // FED_CLIENTS) // steps.TrainConfig(
+        ).batch_size
+        want = {"K1": TOOL_ROUNDS * (2 * steps_per_round + 1),
+                "K2": TOOL_ROUNDS * steps_per_round}
+        for tag in ("plain", "sanitize", "nans"):
+            if runs[tag]["launches"] != want:
+                raise AssertionError(f"{tag}: launches "
+                                     f"{runs[tag]['launches']}, want {want}")
+        san = _require_clean_report("--sanitize", runs["sanitize"]["stdout"])
+        rounds = [e for e in san["steady_entries"]
+                  if e[0].startswith("train.chunk")]
+        if [e[1] for e in rounds] != list(range(2, TOOL_ROUNDS + 1)):
+            raise AssertionError(f"steady round entries {rounds}")
+        _require_clean_report("--sanitize-nans", runs["nans"]["stdout"])
+        out_of = lambda tag: os.path.join(root, tag)  # noqa: E731
+        snaps = _same_snapshots("--sanitize vs plain", out_of("plain"),
+                                out_of("sanitize"))
+        _same_snapshots("--sanitize-nans vs plain", out_of("plain"),
+                        out_of("nans"))
+        _same_generator("--sanitize vs plain", out_of("plain"),
+                        out_of("sanitize"))
+        _same_generator("--sanitize-nans vs plain", out_of("plain"),
+                        out_of("nans"))
+        steady = lambda tag: runs[tag]["s_per_round"][1:]  # noqa: E731
+        for tag in ("plain", "sanitize", "nans"):
+            print(f"tooling: CLI {tag}: {TOOL_ROUNDS} rounds, exit 0 in "
+                  f"{runs[tag]['wall_s']!r} s, K1 {runs[tag]['launches']['K1']}"
+                  f" K2 {runs[tag]['launches']['K2']} launches (want {want}), "
+                  f"s/round {runs[tag]['s_per_round']!r}  [{card}]",
+                  flush=True)
+        print(f"tooling: --sanitize: {san['builds']} builds, the training "
+              f"budget held; steady rounds' syncs " + "; ".join(
+                  f"{r[0]} entry {r[1]}: {r[2]} unsanctioned, {r[3]} "
+                  f"sanctioned ({r[4]})" for r in rounds)
+              + f"; outside the regions {san['outside']}; {snaps} snapshots"
+              f" and the final generator torch.equal to the plain run's, "
+              f"and so --sanitize-nans's  [{card}]", flush=True)
+        spec = SegmentSpec.from_output_info(output_info(intrusion_layout(
+            np.random.default_rng(seed))[2]))
+        guards = guard_check(spec, card)
+        gradflow = gradflow_check(spec, seed, card)
+        art = build_random_artifact(os.path.join(root, "art"), seed=seed)
+        serving = _serve_sanitized(art, seed, rows, card)
+        fleet = _fleet_lockwatch(seed, rows, card, os.path.join(root, "fl"))
+    finally:
+        fault_thread.join(timeout=600)
+        side_out = {}
+        for name, proc in side.items():
+            try:
+                out, err = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            side_out[name] = (proc.returncode, out, err)
+    side_wall = time.perf_counter() - side_t0
+    m = re.search(r"FloatingPointError: (NaN in the output of \S+ at \S+)",
+                  fault_box.get("stderr", ""))
+    if fault_box.get("rc") in (0, None) or m is None:
+        raise AssertionError(f"nan_update under --sanitize-nans: rc "
+                             f"{fault_box.get('rc')}, "
+                             f"{fault_box.get('stderr', '')[-2000:]}")
+    print(f"tooling: a nan_update fault under --sanitize-nans: exit "
+          f"{fault_box['rc']}, {m.group(1)!r}  [{card}]", flush=True)
+    rc, out, err = side_out["doctor"]
+    checks = re.findall(r"^(OK  |FAIL) (\S+):", out, re.MULTILINE)
+    if rc != 0 or not checks or any(k != "OK  " for k, _ in checks):
+        raise AssertionError(f"doctor exited {rc}: {(out + err)[-3000:]}")
+    doctor_s = float(re.search(r"checks passed in ([\d.]+) s", out).group(1))
+    print(f"tooling: python -m fed_tgan_torch.doctor: {len(checks)}/"
+          f"{len(checks)} checks OK, exit 0, {doctor_s!r} s of checks (beside "
+          f"the phase's other runs; all side runs done {side_wall!r} s after "
+          f"their start)  [{card}]", flush=True)
+    rc, out, err = side_out["ledger"]
+    if rc != 0:
+        raise AssertionError(f"obs ledger exited {rc}: {err[-3000:]}")
+    ledger = json.loads(out)
+    hollow = [n for n, e in ledger.items()
+              if not (e["flops"] > 0 and e["peak_bytes"] > 0)]
+    if hollow or len({e["family"] for e in ledger.values()}) != 4:
+        raise AssertionError(f"obs ledger: {ledger}")
+    print("tooling: obs ledger --json on the card: " + ", ".join(
+        f"{n} {e['flops']!r} flops, {e['bytes_accessed']!r} bytes, peak "
+        f"{e['peak_bytes']}" for n, e in sorted(ledger.items()))
+        + f"  [{card}]", flush=True)
+    mode = torch.cuda.get_sync_debug_mode()
+    if mode != 0 or torch.are_deterministic_algorithms_enabled():
+        raise AssertionError(f"the process left with sync debug mode {mode}"
+                             ", deterministic algorithms "
+                             f"{torch.are_deterministic_algorithms_enabled()}")
+    phase_s = time.perf_counter() - t_phase
+    plain_s, san_s, nan_s = (statistics.mean(steady(t))
+                             for t in ("plain", "sanitize", "nans"))
+    print(f"tooling: steady s/round plain {plain_s!r}, --sanitize {san_s!r} "
+          f"({san_s / plain_s - 1.0!r}), --sanitize-nans {nan_s!r} "
+          f"({nan_s / plain_s - 1.0!r}); the phase {phase_s!r} s; sync "
+          f"debug mode 0 and deterministic algorithms off after it  "
+          f"[{card}]", flush=True)
+    return {"runs": {t: {k: v for k, v in r.items()
+                         if k not in ("stdout", "stderr")}
+                     for t, r in runs.items()},
+            "launches_want": want, "sanitize": san, "snapshots_equal": snaps,
+            "nan_fault": m.group(1), "guards": guards, "gradflow": gradflow,
+            "serving": serving, "fleet": fleet,
+            "doctor": {"checks": len(checks), "checks_s": doctor_s,
+                       "side_wall_s": side_wall},
+            "round_spec": open_model(os.path.join(root, "sanitize"),
+                                     device="cpu").synth.spec,
+            "gradflow_spec": spec,
+            "ledger": ledger, "steady_s_per_round": {
+                "plain": plain_s, "sanitize": san_s, "nans": nan_s},
+            "phase_s": phase_s}
+
+
+def _tooling_with_checks(build_root: str, seed: int, card: str,
+                         rows: int):
+    """The tooling phase, then K1 and K2 against their plain versions at
+    its shapes: the sanitized round's stacked step and the
+    gradient-flow summary's batch."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_tool_", dir=build_root)
+    try:
+        tooling = tooling_phase(root, seed, card, rows)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    B = steps.TrainConfig().batch_size
+    shapes, bwd = [], []
+    for spec, sizes in ((tooling.pop("round_spec"),
+                         (("tool_round", FED_CLIENTS * B),)),
+                        (tooling.pop("gradflow_spec"),
+                         (("tool_gradflow", B),))):
+        shapes += check_kernel(spec, card, sizes, extra=False)
+        bwd += check_bwd_kernel(spec, card, sizes, extra=False)
+    return tooling, shapes, bwd
+
+
+def _tooling_kernels(tooling: dict, shapes: list, bwd: list) -> list:
+    """The kernels' entries of the tooling paths: the sanitized round's
+    launches (counted in its own process) and the gradient-flow
+    summary's."""
+    fwd, bwd_ref = ("fed_tgan_tpu/ops/activate_pallas.py:81",
+                    "fed_tgan_tpu/ops/activate_pallas.py:102")
+    out = []
+    for name, kernel, replaces, results, case, launches, path in (
+            ("fused_gumbel_activation_fwd_sanitized", "K1", fwd, shapes,
+             "tool_round", tooling["runs"]["sanitize"]["launches"]["K1"],
+             "federated --sanitize"),
+            ("fused_gumbel_activation_bwd_sanitized", "K2", bwd_ref, bwd,
+             "tool_round", tooling["runs"]["sanitize"]["launches"]["K2"],
+             "federated --sanitize"),
+            ("fused_gumbel_activation_fwd_gradflow", "K1", fwd, shapes,
+             "tool_gradflow", tooling["gradflow"]["launches"]["K1"],
+             "gradient flow"),
+            ("fused_gumbel_activation_bwd_gradflow", "K2", bwd_ref, bwd,
+             "tool_gradflow", tooling["gradflow"]["launches"]["K2"],
+             "gradient flow")):
+        main = next(r for r in results if r["case"] == case)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "fed_tgan_torch/csrc/activate.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in results),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "device_ms": main["device_ms"], "host_us": main["host_us"],
+            "plan": main["plan"], "library_ms": None, "path": path,
+            "shape": main["shape"], "shapes": results})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4824,6 +5414,10 @@ def main(argv=None) -> int:
     ap.add_argument("--observatory", action="store_true",
                     help="instead of the phases: the observatory phase "
                     "only")
+    ap.add_argument("--tooling", action="store_true",
+                    help="instead of the phases: the tooling phase (the "
+                    "sanitizers, lockwatch, the doctor, the ledger) and "
+                    "its kernel checks only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4879,6 +5473,19 @@ def main(argv=None) -> int:
             shutil.rmtree(obs_root, ignore_errors=True)
         print(json.dumps({"observatory": observatory}))
         print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if args.tooling:
+        tooling, tool_shapes, tool_bwd = _tooling_with_checks(
+            os.path.join(REPO, "fed_tgan_torch", "_build"), args.seed, card,
+            args.rows)
+        print(json.dumps({"tooling": tooling}))
+        print(card)
+        print(json.dumps({"kernels": _tooling_kernels(
+            tooling, tool_shapes, tool_bwd)}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -5073,6 +5680,9 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(obs_root, ignore_errors=True)
     mark("observatory")
+    tooling, tool_shapes, tool_bwd = _tooling_with_checks(
+        build_root, args.seed, card, args.rows)
+    mark("tooling")
     if validation_violations():
         raise AssertionError(f"journal schema violations in this process: "
                              f"{validation_violations()}")
@@ -5170,6 +5780,9 @@ def main(argv=None) -> int:
               "federated multi-process", bwd_shapes, "multiprocess",
               multiprocess["launches_rank1"]["K2"]),
     ]
+    # slice 14's tooling: the sanitized round (its own process) and the
+    # gradient-flow summary on the card
+    kernels += _tooling_kernels(tooling, tool_shapes, tool_bwd)
     # slice 9's bf16 variants: their launches on the bf16 paths (training,
     # the federated round, serving), each path counted on its own
     by_path = precision.pop("launches_by_path")
@@ -5198,6 +5811,7 @@ def main(argv=None) -> int:
     print(json.dumps({"round_scale": round_scale}))
     print(json.dumps({"multiprocess": multiprocess}))
     print(json.dumps({"observatory": observatory}))
+    print(json.dumps({"tooling": tooling}))
     print(card)
     print(json.dumps({"kernels": kernels, "serving": serving,
                       "fleet": fleet}))

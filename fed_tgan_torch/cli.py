@@ -68,7 +68,12 @@ device) and writes its layout:
   ``<out>/journal.jsonl`` unless ``--journal`` names one); with ``-ip``
   rank r journals to ``<root>_rank<r><ext>`` and binds P + r;
   ``--profile-dir DIR`` traces the last ``--profile-rounds`` rounds with
-  ``torch.profiler`` into ``DIR`` (host spans beside the kernels).
+  ``torch.profiler`` into ``DIR`` (host spans beside the kernels);
+- ``--sanitize`` runs the rounds under the sanitizers
+  (:mod:`fed_tgan_torch.analysis.sanitizers`): the steady round chunk
+  under the sync guard, deterministic algorithms, the builds counted,
+  and at the end their report and the training budget (exit 4 on a
+  violation); ``--sanitize-nans`` adds the NaN guard.
 
 A flag of a feature not ported yet exits with code 2 and names the
 ROADMAP item it waits for.
@@ -87,8 +92,6 @@ import numpy as np
 # flag -> (argparse keywords, ROADMAP item); a value other than the
 # default is refused with exit code 2
 NOT_PORTED = {
-    "--sanitize": (dict(action="store_true"), "A.20"),
-    "--sanitize-nans": (dict(action="store_true"), "A.20"),
     "--snapshot-format": (dict(type=str, default=None), "A.21"),
 }
 
@@ -289,6 +292,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-world_size", "--world_size", type=int, default=None)
     p.add_argument("-ip", "--ip", type=str, default=None)
     p.add_argument("-port", "--port", type=int, default=None)
+    p.add_argument("--sanitize", action="store_true",
+                   help="runtime sanitizers: a sync guard on the steady "
+                        "round chunk (an unsanctioned synchronising CUDA "
+                        "call raises), a build budget, deterministic "
+                        "algorithms; a report at the end, exit 4 on a "
+                        "budget violation")
+    p.add_argument("--sanitize-nans", action="store_true",
+                   help="--sanitize plus the NaN guard: every aten op's "
+                        "floating outputs and the kernels' outputs checked, "
+                        "FloatingPointError naming the op at the first NaN")
     for flag, (kw, item) in NOT_PORTED.items():
         p.add_argument(flag, **kw, help=f"not ported yet (ROADMAP {item})")
     return p
@@ -472,6 +485,21 @@ def main(argv=None) -> int:
     if refused:
         print(f"error: {refused}", file=sys.stderr)
         return 2
+    if not (args.sanitize or args.sanitize_nans):
+        return _launch(args)
+    from fed_tgan_torch.analysis import sanitizers
+
+    # before any CUDA work: cuBLAS reads its workspace setting once
+    sanitizers.prepare_process()
+    sanitizers.enable_sanitizers(nan_debug=args.sanitize_nans)
+    try:
+        return _launch(args)
+    finally:
+        sanitizers.disable_sanitizers()
+
+
+def _launch(args) -> int:
+    """The multi-process launch, or this process's run."""
     if args.rank is not None and args.ip and (args.rank > 0
                                               or args.world_size):
         # the reference's multi-process launch: rank 0 is the server,
@@ -672,7 +700,7 @@ def _run_standalone(args, name, kwargs, tables, columns, cfg, device) -> int:
                     [table])
     if args.eval:
         _evaluate([table], raw, _eval_categorical_columns(kwargs))
-    return 0
+    return _sanitize_report(args)
 
 
 def _run_multihost(args) -> int:
@@ -1038,4 +1066,17 @@ def _run_training(args, name, kwargs, trainer, init, tables, ckpt_dir,
         n = max(len(trainer.epoch_times), 1)
         print(f"{len(trainer.epoch_times)} rounds in {total:.1f}s "
               f"({total / n:.3f}s/round)")
-    return 0
+    return _sanitize_report(args, trainer)
+
+
+def _sanitize_report(args, trainer=None) -> int:
+    """Under ``--sanitize``: the builds and syncs of the run, then the
+    training budget (``fed_tgan_tpu/cli.py:1392-1397``); 4 on a
+    violation."""
+    from fed_tgan_torch.analysis import sanitizers
+
+    if not sanitizers.sanitizing():
+        return 0
+    problems = (sanitizers.check_training_budget(trainer)
+                if trainer is not None else [])
+    return sanitizers.report_and_check(problems, quiet=args.quiet)

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import csv
 import ctypes
-import functools
 import hashlib
 import io
 import os
@@ -43,6 +42,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 
+from fed_tgan_torch.analysis.sanitizers import note_build
+from fed_tgan_torch.runtime.cache import built_once
 from fed_tgan_torch.data.csvio import _cells
 from fed_tgan_torch.data.decode import (
     category_values,
@@ -72,10 +73,11 @@ def _cc() -> str:
     return cc
 
 
-@functools.lru_cache(maxsize=None)
+@built_once()
 def build() -> str:
     """Compile the formatter (once per source content and flags) and
     return the library's path."""
+    note_build("library[csvfmt.c]")
     src = SOURCE.read_bytes()
     tag = hashlib.sha256(src + " ".join(CC_FLAGS).encode()).hexdigest()[:12]
     lib = BUILD_DIR / f"libfed_tgan_csvfmt_{tag}.so"
@@ -108,7 +110,7 @@ class _Column(ctypes.Structure):
                 ("offsets", ctypes.c_void_p)]
 
 
-@functools.lru_cache(maxsize=None)
+@built_once()
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     cols = ctypes.POINTER(_Column)

@@ -142,11 +142,13 @@ class InitCache:
         """One ``init_cache`` event per (op, scope) since the last flush,
         journaled and appended to :attr:`events`."""
         for (op, scope), count in sorted(self.counts.items()):
-            event = {"type": "init_cache", "op": op, "scope": scope,
-                     "count": count, "root": self.root}
-            _emit_event(**event)
-            self.events.append(event)
+            self._emit({"type": "init_cache", "op": op, "scope": scope,
+                        "count": count, "root": self.root})
         self.counts.clear()
+
+    def _emit(self, event: dict) -> None:
+        _emit_event(**event)
+        self.events.append(event)
 
     # ---------------------------------------------------------- client scope
 

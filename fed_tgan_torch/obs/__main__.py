@@ -12,20 +12,20 @@ Subcommands:
 - ``watch <journal|url>... [--follow]`` -- live view over journal files
   or a training process's ``--obs-port`` exporter, with the SLO gate
   re-evaluated every K rounds as an in-run alarm.
-- ``ledger`` -- exits 2: the JAX package's runs over its hlolint
-  program contracts, which have no torch counterpart (ROADMAP A.20).
-  The port's live cost ledger (``program_cost`` events from a journaled
-  round) is in every journal ``report`` reads.
+- ``ledger [--json] [--family F ...] [--device cuda|cpu]`` -- the cost
+  ledger of one small instance of each program family the port
+  dispatches (the stacked round chunk in f32 and bf16, an engine chunk,
+  a 2-lane fleet dispatch, the monitor's probe): flops, bytes accessed,
+  peak device bytes, as JAX's ``ledger`` prints them.
 
 Exit codes: 0 ok, 1 SLO regression/breach, 2 usage / unreadable input.
 Importing this module and running ``report``, ``slo`` and ``watch``
-needs neither torch nor numpy.
+needs neither torch nor numpy; ``ledger`` imports torch.
 """
 
 from __future__ import annotations
 
 import argparse
-import sys
 
 from fed_tgan_torch.obs.report import report_main
 from fed_tgan_torch.obs.slo import slo_main
@@ -69,10 +69,13 @@ def build_parser() -> argparse.ArgumentParser:
                      help="stop following after this many seconds "
                           "(testing/automation)")
     led = sub.add_parser(
-        "ledger", help="not ported yet (ROADMAP A.20): the contracted "
-                       "programs' cost ledger")
-    led.add_argument("--json", action="store_true")
-    led.add_argument("--family", action="append", default=None)
+        "ledger", help="run one small instance of each program family the "
+                       "port dispatches and print its device cost ledger")
+    led.add_argument("--json", action="store_true",
+                     help="emit the ledger as JSON")
+    led.add_argument("--family", action="append", default=None,
+                     help="restrict to one program family (repeatable)")
+    led.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return ap
 
 
@@ -84,11 +87,9 @@ def main(argv=None) -> int:
         return slo_main(args)
     if args.cmd == "watch":
         return watch_main(args)
-    print("obs ledger is not ported yet (ROADMAP A.20): the JAX package's "
-          "ledger compiles its hlolint-contracted programs, which have no "
-          "torch counterpart; a journaled run's program_cost events are in "
-          "`obs report`", file=sys.stderr)
-    return 2
+    from fed_tgan_torch.obs.ledger import ledger_main
+
+    return ledger_main(args)
 
 
 if __name__ == "__main__":

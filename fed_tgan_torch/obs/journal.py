@@ -14,10 +14,12 @@ preserved (the schema is append-only: fields are added, never renamed).
 ``EVENT_TYPES`` is derived from ``schema.json`` beside this module, a
 copy of the JAX package's telemetry contract registry (per-event
 required/optional/external fields and producers, which name the JAX
-modules); ``tests/test_torch_obs.py`` holds the two copies equal.  The
-port emits the same events at its counterparts of those producers,
-except ``compile``, ``backend_probe`` and ``backend_plugin_registered``
-(XLA and PJRT have no counterpart here).
+modules); ``tests/test_torch_obs.py`` holds the two copies equal, but
+for ``backend_probe`` and ``backend_plugin_registered``, whose fields
+the port's copy lists as ``external``: the port emits neither (PJRT has
+no counterpart here).  It emits every other event at its counterparts
+of those producers; ``compile`` comes from the sanitizers' build counter
+(``--sanitize``).
 
 Event catalogue (``EVENT_TYPES``):
 
@@ -53,7 +55,9 @@ checkpoint_restore        checkpoint loaded for resume/rollback
 transport_reconnect       transport peer re-established after a drop
 transport_drop            server marked a peer dead
 heartbeat_lapse           liveness deadline exceeded for a peer
-compile                   XLA compile event (from the sanitizer counter)
+compile                   a cached build (kernel library, device tables,
+                          launch plan, lane group), from the sanitizers'
+                          build counter
 backend_probe             subprocess backend-responsiveness probe outcome
 backend_plugin_registered PJRT plugin backend registered with the runtime
                           (plugin name, shared-library path)

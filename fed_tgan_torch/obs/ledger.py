@@ -24,9 +24,14 @@ Neither mode changes which kernels run: each aten op is dispatched as it
 is called.  Nothing here reads a device tensor.
 
 :class:`CostEntry`, :class:`CostLedger` and :func:`get_ledger` are the JAX
-package's; the ``ledger`` subcommand's AOT pass over the hlolint
-contracts has no torch counterpart (ROADMAP A.20).  This module imports
-torch only inside :func:`measure_dispatch`.
+package's.  JAX's ``ledger`` subcommand compiles the programs of its
+hlolint contracts, which have no torch counterpart; the port's
+(:func:`port_cost_ledger`, ``python -m fed_tgan_torch.obs ledger``) runs
+one small instance of each program family the port dispatches (the
+stacked round chunk in f32 and bf16, an engine chunk, a 2-lane fleet
+dispatch, the similarity monitor's probe) through
+:func:`measure_dispatch`.  This module imports torch only inside
+:func:`measure_dispatch` and the ledger's families.
 """
 
 from __future__ import annotations
@@ -40,8 +45,11 @@ __all__ = [
     "CostEntry",
     "CostLedger",
     "KERNEL_COST",
+    "FAMILIES",
     "get_ledger",
+    "ledger_main",
     "measure_dispatch",
+    "port_cost_ledger",
 ]
 
 #: (kernel wrapper, variant) -> (bytes, float operations) per element:
@@ -175,8 +183,10 @@ def measure_dispatch(entry: CostEntry, device):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             if moves_data(func):
-                self.total += (nbytes(args) + nbytes(kwargs or {})
-                               + nbytes(out))
+                # a dispatch mode is entered on one thread and sees only
+                # that thread's ops
+                self.total += (  # torchlint: disable=L01
+                    nbytes(args) + nbytes(kwargs or {}) + nbytes(out))
             return out
 
     cuda = torch.device(device).type == "cuda"
@@ -195,3 +205,171 @@ def measure_dispatch(entry: CostEntry, device):
     entry.bytes_accessed = float(moved.total + kernel_bytes)
     entry.peak_bytes = (int(torch.cuda.max_memory_allocated(device))
                         if cuda else 0)
+
+
+# ------------------------------------------------------- the ledger CLI
+
+
+def _small_trainer(device, precision: str = "f32", seed: int = 3):
+    """A 2-client federated trainer on a small two-column table (one
+    continuous, one categorical), 2 steps a round."""
+    import numpy as np
+
+    from fed_tgan_torch.data.ingest import TablePreprocessor
+    from fed_tgan_torch.federation.init import federated_initialize
+    from fed_tgan_torch.train.federated import FederatedTrainer
+    from fed_tgan_torch.train.steps import TrainConfig
+
+    rng = np.random.default_rng(seed)
+    tables = [{"x": np.round(rng.normal(0, 1, 80), 3),
+               "c": rng.choice(["a", "b", "c"], 80).astype(object)}
+              for _ in range(2)]
+    init = federated_initialize(
+        [TablePreprocessor(table=t, categorical_columns=["c"])
+         for t in tables], seed=0, device=device)
+    cfg = TrainConfig(embedding_dim=8, gen_dims=(16,), dis_dims=(16,),
+                      batch_size=40, pac=4, precision=precision)
+    return FederatedTrainer(init, cfg, seed=seed, device=device), tables
+
+
+def _measured(name: str, family: str, device, fn) -> CostEntry:
+    entry = CostEntry(name=name, family=family)
+    with measure_dispatch(entry, device):
+        fn()
+    return entry
+
+
+def _train_family(device) -> list:
+    out = []
+    for precision in ("f32", "bf16"):
+        tr, _ = _small_trainer(device, precision)
+        out.append(_measured(
+            f"train_step[stack{tr.capacity}@{precision}]", "train_live",
+            device, lambda tr=tr: tr._dispatch_chunk(0, 1, None, None)))
+    return out
+
+
+def _artifact_engines(device, root: str, tenants: int):
+    """``tenants`` hot tenants of one random-weight Intrusion-layout
+    artifact (full width, TrainConfig() defaults) in a fleet."""
+    from fed_tgan_torch.serve.demo import build_random_artifact
+    from fed_tgan_torch.serve.fleet import FleetRegistry
+
+    build_random_artifact(root, seed=0)
+    fleet = FleetRegistry(device=device, log=lambda *a, **k: None)
+    for i in range(tenants):
+        fleet.load(f"t{i}", root)
+    return fleet
+
+
+def _serve_family(device, root: str) -> list:
+    fleet = _artifact_engines(device, root, 1)
+    engine = fleet.get("t0").engine
+    rows = 4 * engine.cfg.batch_size
+    return [_measured(f"serve_chunk[{rows}@{engine.cfg.precision}]",
+                      "serve_engine", device,
+                      lambda: engine.sample_encoded(rows, seed=1))]
+
+
+def _fleet_family(device, root: str) -> list:
+    from fed_tgan_torch.serve.fleet import (
+        FleetService,
+        _FleetRequest,
+        _Member,
+    )
+
+    fleet = _artifact_engines(device, root, 2)
+    members = []
+    for i, name in enumerate(("t0", "t1")):
+        rt = fleet.get(name)
+        snap = rt.engine.snapshot()
+        members.append(_Member(_FleetRequest(name, 2 * snap.cfg.batch_size,
+                                             5 + i, 0, None, True),
+                               rt, snap, 0, 0))
+    svc = FleetService(fleet, max_lanes=2, log=lambda *a, **k: None)
+    return [_measured("fleet_lanes[2x2]", "serve_fleet", device,
+                      lambda: svc.lane_pass(members, 2))]
+
+
+def _monitor_family(device) -> list:
+    import numpy as np
+
+    from fed_tgan_torch.train.monitor import SimilarityMonitor
+
+    tr, tables = _small_trainer(device)
+    real = {c: np.concatenate([t[c] for t in tables]) for c in tables[0]}
+    mon = SimilarityMonitor(tr.init.global_meta, tr.init.encoders, real,
+                            n_rows=400, seed=0, device=device)
+    return [_measured("monitor_probe[400]", "monitor", device,
+                      lambda: mon.evaluate(tr, seed=0))]
+
+
+#: family -> the function (device, scratch directory) of its measured entries
+FAMILIES = {
+    "train_live": lambda device, root: _train_family(device),
+    "serve_engine": _serve_family,
+    "serve_fleet": _fleet_family,
+    "monitor": lambda device, root: _monitor_family(device),
+}
+
+
+def port_cost_ledger(families=None, device="cuda",
+                     ledger: CostLedger = None,
+                     journal: bool = True) -> Dict[str, CostEntry]:
+    """Run one small instance of each program family in ``families``
+    (default: every one of :data:`FAMILIES`) on ``device`` and ledger its
+    cost; each emits a ``program_cost`` event when a journal is installed
+    and ``journal``.  Returns the entries keyed by program name."""
+    import shutil
+    import tempfile
+
+    from fed_tgan_torch.device import resolve_device
+    from fed_tgan_torch.obs.journal import emit as _emit_event
+
+    device = resolve_device(device)
+    ledger = ledger if ledger is not None else get_ledger()
+    out: Dict[str, CostEntry] = {}
+    root = tempfile.mkdtemp(prefix="fed_tgan_ledger_")
+    try:
+        for family in families or FAMILIES:
+            for entry in FAMILIES[family](device, root):
+                ledger.record(entry)
+                out[entry.name] = entry
+                if journal:
+                    _emit_event("program_cost", **entry.to_dict())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def ledger_main(args) -> int:
+    """``python -m fed_tgan_torch.obs ledger [--json] [--family F ...]
+    [--device cuda|cpu]`` (``fed_tgan_tpu/obs/ledger.py:249-300``): run
+    the families and print the ledger as JAX prints it."""
+    import json
+
+    if args.family:
+        unknown = [f for f in args.family if f not in FAMILIES]
+        if unknown:
+            print(f"ledger: unknown families {unknown}; "
+                  f"known: {sorted(FAMILIES)}")
+            return 2
+    try:
+        entries = port_cost_ledger(families=args.family, device=args.device,
+                                   journal=False)
+    except RuntimeError as exc:  # no card where one was asked for
+        print(f"ledger: {exc}")
+        return 2
+    if args.json:
+        print(json.dumps({n: e.to_dict() for n, e in entries.items()},
+                         indent=2, sort_keys=True))
+        return 0
+    print(f"{'program':<38} {'family':<16} {'Mflops':>10} "
+          f"{'MB accessed':>12} {'peak MB':>9} {'donated MB':>11}")
+    for name in sorted(entries):
+        e = entries[name]
+        print(f"{name:<38} {e.family:<16} {e.flops / 1e6:>10.2f} "
+              f"{e.bytes_accessed / 1e6:>12.2f} "
+              f"{e.peak_bytes / 1e6:>9.2f} "
+              f"{e.donated_bytes / 1e6:>11.2f}")
+    return 0

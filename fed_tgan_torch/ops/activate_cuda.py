@@ -30,7 +30,10 @@ run unstaged, one per block).  :func:`launch_plan` chooses the tile and
 the shared memory from ``(N, D, S)`` and the first operand's element
 size on the host, so the CPU tests can check it.  The per-dim codes and
 segment offsets the kernels read are copied to the card once per spec
-object and device, and the plans are cached per shape.
+object and device, and the plans are cached per shape; the sanitizers
+count each such build (:mod:`fed_tgan_torch.analysis.sanitizers`), and
+under their NaN guard each wrapper checks its launch's output, which no
+dispatch mode sees.
 """
 
 from __future__ import annotations
@@ -51,11 +54,17 @@ import torch
 
 from torch.autograd.function import once_differentiable
 
+from fed_tgan_torch.analysis.sanitizers import (
+    building,
+    check_kernel_output,
+    note_build,
+)
 from fed_tgan_torch.ops.segments import (
     SegmentSpec,
     apply_activate_bwd,
     apply_activate_residual,
 )
+from fed_tgan_torch.runtime.cache import built_once
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "activate.cu"
@@ -84,11 +93,12 @@ def _nvcc() -> str:
     return nvcc
 
 
-@functools.lru_cache(maxsize=None)
+@built_once()
 def build() -> tuple[str, str]:
     """Compile the kernel source (once per source content) and return
     ``(library path, compiler output)``; the output carries ptxas's
     register and shared-memory report."""
+    note_build("library[activate.cu]")
     src = SOURCE.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     lib = BUILD_DIR / f"libfed_tgan_activate_{tag}.so"
@@ -104,7 +114,7 @@ def build() -> tuple[str, str]:
     return str(lib), proc.stdout + proc.stderr
 
 
-@functools.lru_cache(maxsize=None)
+@built_once()
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()[0])
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -255,7 +265,13 @@ def launch_plan(n_rows: int, dim: int, n_segments: int,
                       staged=True)
 
 
-_plan = functools.lru_cache(maxsize=256)(launch_plan)
+@built_once(maxsize=256)
+def _plan(n_rows: int, dim: int, n_segments: int, sms: int,
+          itemsize: int) -> LaunchPlan:
+    """:func:`launch_plan`, cached per shape (a build the sanitizers
+    count)."""
+    note_build(f"plan[{n_rows}x{dim}s{n_segments}b{itemsize}@{sms}sm]")
+    return launch_plan(n_rows, dim, n_segments, sms, itemsize)
 
 
 class _Prepared:
@@ -263,6 +279,10 @@ class _Prepared:
     SM count."""
 
     def __init__(self, spec: SegmentSpec, index: int):
+        with building(f"tables[activate:{spec.tag}@cuda:{index}]"):
+            self._copy_tables(spec, index)
+
+    def _copy_tables(self, spec: SegmentSpec, index: int) -> None:
         lib = _library()
         with torch.cuda.device(index):
             _check(lib, lib.fed_tgan_activate_prepare(),
@@ -280,7 +300,7 @@ class _Prepared:
         self.start_ptr = self.start.data_ptr()
 
 
-@functools.lru_cache(maxsize=64)
+@built_once(maxsize=64)
 def _prepared(spec: SegmentSpec, index: int) -> _Prepared:
     return _Prepared(spec, index)
 
@@ -379,15 +399,17 @@ def _activate(x: torch.Tensor, spec: SegmentSpec, u: torch.Tensor,
     if x.dtype == torch.float32:
         out = _launch("fed_tgan_activate_fwd", x, u, spec)
         _count(fused_apply_activate, "f32", x)
-        return (out, out) if residual else out
-    if residual:
+        res = out
+    elif residual:
         res = torch.empty(x.shape, dtype=torch.float32, device=x.device)
         out = _launch("fed_tgan_activate_fwd_train_bf16", x, u, spec, res=res)
         _count(fused_apply_activate, "bf16_train", x)
-        return out, res
-    out = _launch("fed_tgan_activate_fwd_bf16", x, u, spec, scratch=True)
-    _count(fused_apply_activate, "bf16", x)
-    return out
+    else:
+        out = _launch("fed_tgan_activate_fwd_bf16", x, u, spec, scratch=True)
+        _count(fused_apply_activate, "bf16", x)
+    # a ctypes launch is invisible to the NaN guard's dispatch mode
+    check_kernel_output("K1 fused_apply_activate (csrc/activate.cu)", out)
+    return (out, res) if residual else out
 
 
 class ActivateFunction(torch.autograd.Function):
@@ -449,6 +471,7 @@ def fused_activate_bwd(dy: torch.Tensor, out: torch.Tensor,
     else:
         dx = _launch("fed_tgan_activate_bwd_bf16", dy, out, spec)
         _count(fused_activate_bwd, "bf16", dy)
+    check_kernel_output("K2 fused_activate_bwd (csrc/activate.cu)", dx)
     return dx
 
 

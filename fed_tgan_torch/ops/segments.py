@@ -17,11 +17,14 @@ float32 island too.
 from __future__ import annotations
 
 import functools
+import hashlib
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
+
+from fed_tgan_torch.analysis.sanitizers import building
 
 GUMBEL_TAU = 0.2  # reference ctgan.py:77
 
@@ -50,6 +53,13 @@ class SegmentSpec:
 
     def __hash__(self) -> int:
         return hash(self.output_info)
+
+    @property
+    def tag(self) -> str:
+        """A short name of the layout (width, segments and a digest of
+        ``output_info``), as the build counter names its tables."""
+        digest = hashlib.sha1(repr(self.output_info).encode()).hexdigest()
+        return f"{self.dim}d{self.n_segments}s:{digest[:8]}"
 
     @classmethod
     def from_output_info(cls, output_info) -> "SegmentSpec":
@@ -160,12 +170,14 @@ def cond_tables(spec: SegmentSpec, device: torch.device) -> dict:
     ``member``: the (n_opt, n_discrete) float32 0/1 matrix of which
     conditional column each position belongs to; copied to the device once
     per (spec, device), not on every training step."""
-    out = {name: torch.as_tensor(getattr(spec, name), dtype=torch.long,
-                                 device=device)
-           for name in ("discrete_dims", "cond_column_ids", "cond_offsets")}
-    member = np.zeros((spec.n_opt, spec.n_discrete), dtype=np.float32)
-    member[np.arange(spec.n_opt), spec.cond_column_ids] = 1.0
-    out["member"] = torch.as_tensor(member, device=device)
+    with building(f"tables[cond:{spec.tag}@{device}]"):
+        out = {name: torch.as_tensor(getattr(spec, name), dtype=torch.long,
+                                     device=device)
+               for name in ("discrete_dims", "cond_column_ids",
+                            "cond_offsets")}
+        member = np.zeros((spec.n_opt, spec.n_discrete), dtype=np.float32)
+        member[np.arange(spec.n_opt), spec.cond_column_ids] = 1.0
+        out["member"] = torch.as_tensor(member, device=device)
     return out
 
 

@@ -34,6 +34,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from fed_tgan_torch.analysis.sanitizers import nan_sentinels
+
 EPS = 1e-12
 AGGREGATORS = ("weighted", "clipped", "trimmed", "median")
 
@@ -161,13 +163,15 @@ def robust_aggregate(prev: Sequence[torch.Tensor],
     alive, trained = w > 0, steps > 0
     if update_gate:
         consider = alive & finite & trained
-        med = nanmedian(torch.where(consider, norm, torch.nan))
+        with nan_sentinels():  # NaN marks a client the median skips
+            med = nanmedian(torch.where(consider, norm, torch.nan))
         med_ok = torch.isfinite(med) & (med > 0)
         bad = med_ok & trained & ((norm > gate_norm_factor * med)
                                   | (norm * gate_norm_factor < med))
         valid = alive & finite & ~bad
     else:
-        med = nanmedian(torch.where(alive & finite, norm, torch.nan))
+        with nan_sentinels():
+            med = nanmedian(torch.where(alive & finite, norm, torch.nan))
         valid = alive & finite
     all_valid = (valid == alive).all()
     wz = torch.where(valid, w, 0.0)
@@ -204,9 +208,10 @@ def robust_aggregate(prev: Sequence[torch.Tensor],
             total = torch.where(keep, g, 0.0).sum(dim=0)
             agg.append((total / torch.clamp(m - 2 * t, min=1)).to(x.dtype))
     else:
-        agg = [nanmedian(torch.where(_expand(valid, x),
-                                     _payload(x, payload_dtype),
-                                     torch.nan)).to(x.dtype) for x in san]
+        with nan_sentinels():
+            agg = [nanmedian(torch.where(_expand(valid, x),
+                                         _payload(x, payload_dtype),
+                                         torch.nan)).to(x.dtype) for x in san]
     # a gate that rejected everyone keeps the previous global state
     agg = [torch.where(any_valid, a, p.to(a.dtype)) for a, p in zip(agg, prev)]
     return agg, alive & ~valid

@@ -42,6 +42,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from fed_tgan_torch.analysis.sanitizers import hot_region, sanctioned_sync
 from fed_tgan_torch.data.decode import decode_cells, decode_columns
 from fed_tgan_torch.data.fastcsv import ColumnPlan
 from fed_tgan_torch.features.transformer import DiscreteColumn
@@ -110,6 +111,9 @@ class SamplingEngine:
         self._adopt_fields(model)
         self.device = model.synth.device
         self._gen = torch.Generator(device=self.device)
+        # the row counts of the chunks dispatched (the sanitizers' serving
+        # budget: one launch plan each)
+        self.chunk_rows: set = set()
 
     def _adopt_fields(self, model: LoadedModel) -> None:
         synth = model.synth
@@ -288,15 +292,23 @@ class SamplingEngine:
         out = []
         for start, steps in self._chunk_plan(first_step, total_steps,
                                              pow2_tail=to_host):
-            z, c, u = self.draw(snap, seed + key_offset, start, steps,
-                                condition, draws)
-            synth = snap.model.synth
-            res = post(sample_step(synth.generator, snap.spec, z, c, u,
-                                   block_rows=B, dtype=synth.compute_dtype),
-                       snap)
-            if to_host:
-                res = ({k: v.cpu().numpy() for k, v in res.items()}
-                       if isinstance(res, dict) else res.cpu().numpy())
+            with self._lock:
+                self.chunk_rows.add(steps * B)
+            # the chunk's dispatch is a sanitizer hot region; its one copy
+            # to the host is the sanctioned sync
+            with hot_region(f"serve.engine[{steps}"
+                            f"{'c' if condition is not None else ''}]"):
+                z, c, u = self.draw(snap, seed + key_offset, start, steps,
+                                    condition, draws)
+                synth = snap.model.synth
+                res = post(sample_step(synth.generator, snap.spec, z, c, u,
+                                       block_rows=B,
+                                       dtype=synth.compute_dtype), snap)
+                if to_host:
+                    with sanctioned_sync():
+                        res = ({k: v.cpu().numpy() for k, v in res.items()}
+                               if isinstance(res, dict)
+                               else res.cpu().numpy())
             out.append(res)
         cat = np.concatenate if to_host else torch.cat
         if isinstance(out[0], dict):

@@ -50,8 +50,12 @@ promoted one is adopted, its row-pool entries dropped as on an immediate
 reload; ``/fleet`` shows each tenant's promotion state.  The process
 journal gets ``fleet_load``, ``fleet_evict``, ``serve_reload`` and, rate
 limited, ``tenant_shed`` (at most about one a second a tenant, carrying
-counts) and per-tenant ``serve_stages``; the sanitizers are not ported
-yet (ROADMAP A.20).
+counts) and per-tenant ``serve_stages``.  ``fleet --sanitize`` runs
+every steady lane dispatch under the sanitizers' sync guard and checks
+the lane groups' build budget after the drain; ``--lockwatch`` watches
+every lock the fleet allocates (``fleet_adm``, ``row_pool`` by name) and
+reports cycles, re-entry and each lock's hold p99 (exit 4 on a cycle or a
+re-entry).
 """
 
 from __future__ import annotations
@@ -67,6 +71,12 @@ from typing import Callable, List, Optional, Tuple, Union
 
 import torch
 
+from fed_tgan_torch.analysis import lockwatch
+from fed_tgan_torch.analysis.sanitizers import (
+    building,
+    hot_region,
+    sanctioned_sync,
+)
 from fed_tgan_torch.data.decode import decode_cells
 from fed_tgan_torch.models.ctgan import StackedEvalGenerator
 from fed_tgan_torch.obs.journal import emit as _emit_event
@@ -83,10 +93,11 @@ from fed_tgan_torch.serve.registry import ArtifactError, ModelRegistry
 from fed_tgan_torch.serve.service import (
     BatchWorkers,
     add_serving_flags,
+    finish_sanitizers,
     parse_sample_params,
     read_json_body,
-    refuse_unported,
     stamp_wait,
+    start_sanitizers,
     wait_for_interrupt,
 )
 
@@ -426,6 +437,7 @@ class FleetService(BatchWorkers):
                           request_timeout_s, reload_interval_s)
         # per-tenant in-flight counts (admission fairness)
         self._adm_lock = threading.Lock()
+        lockwatch.set_name(self._adm_lock, "fleet_adm")
         self._shed_acc: dict = {}  # tenant -> shed counts since the event
         self._inflight: dict = {}
         self._httpd: Optional[ThreadingHTTPServer] = None
@@ -623,11 +635,15 @@ class FleetService(BatchWorkers):
 
     def lane_group(self, snaps: List[EngineSnapshot]) -> LaneGroup:
         """The cached :class:`LaneGroup` of ``snaps`` (lane order)."""
-        key = ("lanes", tuple(s.model.model_id for s in snaps), len(snaps),
-               snaps[0].sig)
+        ids = tuple(s.model.model_id for s in snaps)
+        key = ("lanes", ids, len(snaps), snaps[0].sig)
+
+        def build() -> LaneGroup:
+            with building(f"lanes[{len(snaps)}:{'+'.join(ids)}]"):
+                return LaneGroup(snaps)
+
         return self.fleet.cache.get_or_build(
-            key, lambda: LaneGroup(snaps),
-            est_bytes=LaneGroup.est_bytes(snaps))
+            key, build, est_bytes=LaneGroup.est_bytes(snaps))
 
     def lane_encoded(self, members: list, steps: int,
                      draws: Optional[list] = None,
@@ -671,10 +687,14 @@ class FleetService(BatchWorkers):
         and one copy: ``(lanes, steps * B, n_columns)`` decoded rows on the
         host (``tick`` also sees ``decode`` and ``copy``)."""
         tick = tick or (lambda stage: None)
-        group, enc = self.lane_encoded(members, steps, draws, tick)
-        dec = layout_decode(enc, group.tables)
-        tick("decode")
-        host = dec.cpu().numpy()
+        # the lane dispatch is a sanitizer hot region; its one copy to the
+        # host is the sanctioned sync
+        with hot_region(f"serve.fleet[{steps}x{len(members)}]"):
+            group, enc = self.lane_encoded(members, steps, draws, tick)
+            dec = layout_decode(enc, group.tables)
+            tick("decode")
+            with sanctioned_sync():
+                host = dec.cpu().numpy()
         tick("copy")
         return host
 
@@ -989,18 +1009,23 @@ def fleet_main(argv=None) -> int:
     ap.add_argument("--row-pool-chunk-rows", type=int, default=2048,
                     help="rows per pre-generated pool chunk")
     ap.add_argument("--lockwatch", action="store_true",
-                    help="deadlock sanitizer (not ported yet)")
+                    help="deadlock sanitizer: watch every lock the fleet "
+                         "allocates for order cycles and re-entry, print "
+                         "each lock's hold p99 at shutdown (exit 4 on a "
+                         "cycle or re-entry)")
     args = ap.parse_args(argv)
-    refused = refuse_unported(args, extra=("lockwatch",))
-    if refused:
-        print(f"fleet: {refused}")
-        return 2
     pairs = []
     for spec in args.tenants:
         name, sep, root = spec.partition("=")
         if not sep or not name or not root:
             ap.error(f"tenant spec {spec!r}: want NAME=DIR")
         pairs.append((name, root))
+    start_sanitizers(args)
+    if args.lockwatch:
+        # installed before the registry and the service are built, so
+        # every lock they allocate is watched
+        lockwatch.clear()
+        lockwatch.install(on_deadlock="record")
     log = (lambda *a, **k: None) if args.quiet else print
     fleet = FleetRegistry(
         program_cache=ProgramCache(max_entries=args.cache_entries,
@@ -1032,4 +1057,28 @@ def fleet_main(argv=None) -> int:
           f"[{fleet.device}] (endpoints: /t/<tenant>/sample /fleet /healthz "
           "/metrics; Ctrl-C drains and exits)", flush=True)
     wait_for_interrupt("fleet", service)
-    return 0
+    from fed_tgan_torch.analysis import sanitizers
+
+    rc = finish_sanitizers(
+        args, lambda: sanitizers.check_fleet_budget(fleet.cache))
+    if args.lockwatch:
+        rc = max(rc, _lockwatch_report())
+    return rc
+
+
+def _lockwatch_report() -> int:
+    """``fleet --lockwatch`` after the drain
+    (``fed_tgan_tpu/serve/fleet.py:1369-1378``): each lock's acquisitions,
+    contentions and hold p99, exported to the process registry as
+    ``fed_tgan_lock_hold_seconds{lock=...}``; a cycle or a re-entry as a
+    ``LOCKWATCH:`` line and exit 4."""
+    lockwatch.uninstall()
+    lockwatch.export_to_registry()
+    for lname, st in sorted(lockwatch.summary().items()):
+        print(f"lockwatch: {lname}: {st['acquisitions']} acq "
+              f"({st['contentions']} contended), hold p99 "
+              f"{st['hold_p99_ms']:.3f} ms")
+    problems = lockwatch.reports("cycle") + lockwatch.reports("reentry")
+    for rep in problems:
+        print(f"LOCKWATCH: {rep.detail}")
+    return 4 if problems else 0

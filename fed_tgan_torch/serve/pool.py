@@ -28,6 +28,8 @@ import threading
 from collections import OrderedDict
 from typing import Optional
 
+from fed_tgan_torch.analysis import lockwatch
+
 __all__ = ["RowPool"]
 
 
@@ -73,6 +75,7 @@ class RowPool:
         self.fill_interval_s = float(fill_interval_s)
         self.max_fills_per_cycle = max(1, int(max_fills_per_cycle))
         self._lock = threading.Lock()
+        lockwatch.set_name(self._lock, "row_pool")
         self._entries: OrderedDict = OrderedDict()  # key -> _PoolEntry
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None

@@ -28,8 +28,10 @@ Endpoints:
 poll: a new generation is scored in shadow and adopted only when the
 gate promotes it, so a rejected one never contributes a byte to a
 response.  The process journal gets ``serve_stages`` (about one every
-5 s while requests flow, and one at shutdown) and ``serve_reload``; the
-sanitizers are not ported yet (ROADMAP A.20).
+5 s while requests flow, and one at shutdown) and ``serve_reload``.
+``serve --sanitize`` runs every steady chunk under the sanitizers' sync
+guard (its copy to the host sanctioned) and reports the builds, the syncs
+and the serving budget after the drain (exit 4 on a violation).
 """
 
 from __future__ import annotations
@@ -487,15 +489,29 @@ def _make_handler(service: SamplingService):
 # ------------------------------------------------------------------- CLI
 
 
-def refuse_unported(args, extra: tuple = ()) -> Optional[str]:
-    """The exit-2 message for a serving flag the port does not act on yet
-    (``--sanitize`` and the ``extra`` flags, A.20's), naming its ROADMAP
-    item; None when none is set."""
-    for flag in ("sanitize", *extra):
-        if getattr(args, flag):
-            return (f"--{flag} is not ported yet (ROADMAP A.20: tooling "
-                    "analogs)")
-    return None
+def start_sanitizers(args) -> None:
+    """``--sanitize``: the sanitizers on before the first model loads
+    (``fed_tgan_tpu/serve/service.py:527-530``)."""
+    if args.sanitize:
+        from fed_tgan_torch.analysis import sanitizers
+
+        # before any CUDA work: cuBLAS reads its workspace setting once
+        sanitizers.prepare_process()
+        sanitizers.enable_sanitizers()
+
+
+def finish_sanitizers(args, problems) -> int:
+    """``--sanitize`` after the drain: the builds and syncs, then each of
+    ``problems()`` (the budget's violations) as a ``SANITIZE:`` line; 4
+    when there is one."""
+    if not args.sanitize:
+        return 0
+    from fed_tgan_torch.analysis import sanitizers
+
+    try:
+        return sanitizers.report_and_check(problems())
+    finally:
+        sanitizers.disable_sanitizers()
 
 
 def add_serving_flags(ap, max_batch: int, queue_size: int) -> None:
@@ -528,7 +544,10 @@ def add_serving_flags(ap, max_batch: int, queue_size: int) -> None:
                     help="serve even when the meta JSON postdates the "
                          "synthesizer")
     ap.add_argument("--sanitize", action="store_true",
-                    help="runtime sanitizers (not ported yet)")
+                    help="runtime sanitizers: the sync guard on the "
+                         "steady sampling dispatch, deterministic "
+                         "algorithms and a one-build-per-chunk-size "
+                         "budget (exit 4 on violation)")
     ap.add_argument("--quiet", action="store_true")
 
 
@@ -554,10 +573,7 @@ def serve_main(argv=None) -> int:
                     "synthesizer dir")
     add_serving_flags(ap, max_batch=8, queue_size=64)
     args = ap.parse_args(argv)
-    refused = refuse_unported(args)
-    if refused:
-        print(f"serve: {refused}")
-        return 2
+    start_sanitizers(args)
     log = (lambda *a, **k: None) if args.quiet else print
     try:
         registry = ModelRegistry(args.artifact, device=args.device,
@@ -579,7 +595,10 @@ def serve_main(argv=None) -> int:
           f"{service.url} [{service.engine.device}] (endpoints: /sample "
           "/healthz /metrics; Ctrl-C drains and exits)", flush=True)
     wait_for_interrupt("serve", service)
-    return 0
+    from fed_tgan_torch.analysis import sanitizers
+
+    return finish_sanitizers(
+        args, lambda: sanitizers.check_serving_budget(service.engine))
 
 
 def client_main(argv=None) -> int:

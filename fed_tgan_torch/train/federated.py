@@ -128,6 +128,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from fed_tgan_torch.analysis.sanitizers import hot_region, sanctioned_sync
 from fed_tgan_torch.device import resolve_device
 from fed_tgan_torch.federation.init import FederatedInit, renormalize_weights
 from fed_tgan_torch.obs.exporter import get_health
@@ -357,6 +358,9 @@ class FederatedTrainer:
         self._ema_updates = 0
         self.host_copies = 0  # device-to-host copies of round results
         self._costed: set = set()  # chunks whose program_cost is journaled
+        # the stacked row counts the steps ran (the sanitizers' training
+        # budget: one launch plan each)
+        self.step_rows: set = set()
 
         self.columns = init.transformers[0].columns
         self.decode = select_snapshot_decode(self.columns, decode)
@@ -420,7 +424,8 @@ class FederatedTrainer:
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with sanctioned_sync():  # the local / aggregate split's timing
+                torch.cuda.synchronize(self.device)
 
     def _upload(self, array: np.ndarray) -> torch.Tensor:
         """A host array on the device without waiting for the device's
@@ -434,7 +439,8 @@ class FederatedTrainer:
         """The one device-to-host copy of a chunk's results (counted in
         :attr:`host_copies`)."""
         self.host_copies += 1
-        return t.cpu().numpy()
+        with sanctioned_sync():
+            return t.cpu().numpy()
 
     @property
     def cohort_size(self) -> int:
@@ -494,6 +500,7 @@ class FederatedTrainer:
         last step (zeros without a step)."""
         part = part or self._full_part()
         steps = part.steps
+        self.step_rows.add(len(steps) * self.cfg.batch_size)
         n_max = int(steps.max(initial=0))
         active = (torch.arange(n_max, device=self.device)[:, None]
                   < part.steps_dev[None])
@@ -594,6 +601,17 @@ class FederatedTrainer:
 
     def _dispatch_chunk(self, e: int, size: int, update_fault,
                         straggle) -> dict:
+        """The chunk's device work and its one host copy, a sanitizer hot
+        region (``train.chunk[...]``): under ``--sanitize`` any other
+        synchronising call in a steady chunk raises."""
+        stack = self.cohort_size or self.capacity
+        with hot_region(f"train.chunk[stack{stack}@{self.cfg.precision}"
+                        f":r{size}]"):
+            return self._dispatch_chunk_body(e, size, update_fault,
+                                             straggle)
+
+    def _dispatch_chunk_body(self, e: int, size: int, update_fault,
+                             straggle) -> dict:
         t0 = time.perf_counter()
         cohort = self.cohort_size
         if cohort:
@@ -726,6 +744,12 @@ class FederatedTrainer:
                 and plan.should_kill(plan.kill_rank, e + 1)):
             self.drop_client(plan.kill_rank - 1,
                              f"fault-injected kill at round {e + 1}")
+
+    def _emit(self, event: dict) -> None:
+        """A ``client_joined`` event, journaled and kept in
+        :attr:`last_admission`."""
+        _emit_event(**event)
+        self.last_admission.append(event)
 
     def _event(self, type: str, **fields) -> None:
         """A journal event that :attr:`events` keeps too."""
@@ -1064,16 +1088,15 @@ class FederatedTrainer:
         self.update_weights(np.asarray(new_init.weights, dtype=np.float32))
         self.timings["shard_packing"] = time.perf_counter() - t0
         self._emit_packing(new_init, self.timings["shard_packing"])
-        self.last_admission = [{
-            "type": "client_joined", "client": int(idx),
-            "round": int(self.completed_epochs), "population": n_total,
-            "capacity": int(self.capacity),
-            "weight": round(float(self.weights[idx]), 8),
-            "rows": int(len(new_init.client_matrices[idx])),
-            "repacked": bool(repacked), "reason": reason}
-            for idx in range(first_new, n_total)]
-        for event in self.last_admission:
-            _emit_event(**event)
+        self.last_admission = []
+        for idx in range(first_new, n_total):
+            self._emit({
+                "type": "client_joined", "client": int(idx),
+                "round": int(self.completed_epochs), "population": n_total,
+                "capacity": int(self.capacity),
+                "weight": round(float(self.weights[idx]), 8),
+                "rows": int(len(new_init.client_matrices[idx])),
+                "repacked": bool(repacked), "reason": reason})
         log.info("admitted %d newcomer(s) (population %d -> %d, capacity "
                  "%d%s)", n_total - first_new, first_new, n_total,
                  self.capacity, ", repacked" if repacked else "")

@@ -38,6 +38,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from fed_tgan_torch.analysis.sanitizers import sanctioned_sync
 from fed_tgan_torch.data.decode import decode_cells, decode_columns
 from fed_tgan_torch.data.fastcsv import ColumnPlan, PackedSnapshotFormatter
 from fed_tgan_torch.obs.trace import span as _span
@@ -128,7 +129,8 @@ class SnapshotWriter:
 
     def _write(self, path: str, buffers: dict, event, decode):
         if event is not None:
-            event.synchronize()
+            with sanctioned_sync():  # the pinned copies' one wait
+                event.synchronize()
         t0 = time.perf_counter()
         parts = {k: v.numpy() for k, v in buffers.items()}
         packed = self._formatter(decode)

@@ -17,7 +17,9 @@ on the same raw Intrusion-shaped CSV (600 rows, 3 clients).
 - ``--precision bf16`` trains, checkpoints and resumes in bf16;
 - a flag of a feature not ported yet exits with code 2 and names its
   ROADMAP item; ``--journal``, ``--obs-port``, ``--profile-dir`` and
-  ``--profile-rounds`` run;
+  ``--profile-rounds`` run, and so do ``--sanitize`` and
+  ``--sanitize-nans`` (the plain run's bytes) and ``serve``'s and
+  ``fleet``'s ``--sanitize`` and ``fleet --lockwatch``;
 - the multi-process launch (``-ip``): ``--init-only``, ``--params-out``,
   the transport fault kinds and the ``fed_tgan_torch.distributed`` alias
   run a world of rank 0 and 2 participants (``launch_world`` of
@@ -29,6 +31,7 @@ import json
 import os
 import pickle
 import re
+import urllib.request
 
 import numpy as np
 import pytest
@@ -112,14 +115,40 @@ def test_standalone_cli_matches_jax(data, tmp_path, capsys):
     assert len(rows) == 121 and len(rows[0]) == 42
 
 
+ONE_ROUND = ("-epochs", "1")
+
+
+@pytest.fixture(scope="module")
+def plain_run(data, tmp_path_factory):
+    """The fedavg CLI's snapshots without any flag of the cases below."""
+    out = tmp_path_factory.mktemp("plain")
+    assert port_cli.main(argv(data, out, "--device", "cpu", *ONE_ROUND)) == 0
+    result = out / "Intrusion_result"
+    return {p.name: p.read_bytes() for p in result.iterdir()}
+
+
 @pytest.mark.parametrize("flag,item", [
     pytest.param(["--snapshot-format", "parquet"], "A.21", id="flag0-A.21"),
     pytest.param(["--sanitize-nans"], "A.20", id="flag1-A.20"),
     pytest.param(["--sanitize"], "A.20", id="flag2-A.20"),
     pytest.param(["--bgm-backend", "sklearn"], "A.24", id="flag6-A.24")])
-def test_unported_flags_exit_2(data, tmp_path, capsys, flag, item):
-    assert port_cli.main(argv(data, tmp_path, "--device", "cpu", *flag)) == 2
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+def test_unported_flags_exit_2(data, tmp_path, capsys, plain_run, flag,
+                               item):
+    """A flag of a feature not ported yet exits 2 naming its ROADMAP item.
+    A.20's (``--sanitize``, ``--sanitize-nans``) are ported: the run exits
+    0 with the sanitizers' report (builds, syncs) and its snapshots are
+    the plain run's bytes."""
+    rc = port_cli.main(argv(data, tmp_path, "--device", "cpu", *ONE_ROUND,
+                            *flag))
+    out = capsys.readouterr()
+    if item != "A.20":
+        assert rc == 2 and f"ROADMAP {item}" in out.err
+        return
+    assert rc == 0, out.err
+    assert "sanitize: " in out.out and "synchronizing call(s)" in out.out
+    assert "SANITIZE:" not in out.out
+    result = tmp_path / "Intrusion_result"
+    assert {p.name: p.read_bytes() for p in result.iterdir()} == plain_run
 
 
 def test_observability_flags_run(data, tmp_path, capsys):
@@ -419,19 +448,53 @@ def test_batch_size_must_be_a_multiple_of_pac(data, tmp_path):
 
 
 @pytest.mark.parametrize("command,flag,item", [
-    ("serve", ["--sanitize"], "A.20"),
-    ("fleet", ["--sanitize"], "A.20"),
-    ("fleet", ["--lockwatch"], "A.20")])
-def test_unported_serving_flags_exit_2(tmp_path, capsys, command, flag,
-                                       item):
-    """``serve`` and ``fleet`` refuse a flag they do not act on yet with
-    exit code 2 and its ROADMAP item, before they load anything."""
+    pytest.param("serve", ["--sanitize"], "A.20", id="serve-flag0-A.20"),
+    pytest.param("fleet", ["--sanitize"], "A.20", id="fleet-flag1-A.20"),
+    pytest.param("fleet", ["--lockwatch"], "A.20", id="fleet-flag2-A.20")])
+def test_unported_serving_flags_exit_2(tmp_path, capsys, monkeypatch,
+                                       command, flag, item):
+    """``serve --sanitize``, ``fleet --sanitize`` and ``fleet --lockwatch``
+    (refused with exit 2 until ROADMAP A.20's second part) run: requests
+    over two chunk sizes are answered with the bytes of an engine built
+    without the flag, and after the drain the report follows (builds and
+    syncs and the budget for ``--sanitize``, each lock's hold p99 for
+    ``--lockwatch``) with exit 0."""
     from fed_tgan_torch.__main__ import main
+    from fed_tgan_torch.serve import fleet, service
+    from fed_tgan_torch.serve.demo import build_random_artifact
+    from fed_tgan_torch.serve.engine import SamplingEngine
+    from fed_tgan_torch.serve.registry import open_model
+    from fed_tgan_torch.train.steps import TrainConfig
 
-    target = str(tmp_path) if command == "serve" else f"a={tmp_path}"
-    assert main([command, target, "--device", "cpu", *flag]) == 2
+    cfg = TrainConfig(embedding_dim=8, gen_dims=(16,), dis_dims=(16,),
+                      batch_size=40, pac=4)
+    art = build_random_artifact(str(tmp_path / "art"), seed=4, cfg=cfg)
+    got = {}
+
+    def serve_then_drain(name, svc):
+        base = (f"{svc.url}/sample" if command == "serve"
+                else f"{svc.url}/t/a/sample")
+        for rows in (40, 120, 120):
+            with urllib.request.urlopen(f"{base}?rows={rows}&seed=5",
+                                        timeout=60) as r:
+                got[rows] = r.read()
+        svc.shutdown(drain=True)
+
+    monkeypatch.setattr(service, "wait_for_interrupt", serve_then_drain)
+    monkeypatch.setattr(fleet, "wait_for_interrupt", serve_then_drain)
+    target = art if command == "serve" else f"a={art}"
+    assert main([command, target, "--device", "cpu", "--port", "0",
+                 "--quiet", *flag]) == 0
     out = capsys.readouterr().out
-    assert f"ROADMAP {item}" in out and flag[0] in out
+    engine = SamplingEngine(open_model(art, device="cpu"))
+    assert got == {rows: engine.sample_csv_bytes(rows, seed=5)
+                   for rows in (40, 120)}
+    assert "SANITIZE:" not in out and "LOCKWATCH:" not in out
+    if flag == ["--sanitize"]:
+        assert "sanitize: " in out and "synchronizing call(s)" in out
+    else:
+        assert "lockwatch: fleet_adm:" in out and "hold p99" in out
+    assert not torch.are_deterministic_algorithms_enabled()
 
 
 def test_serving_commands_take_the_jax_flags_and_defaults():

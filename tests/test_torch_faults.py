@@ -64,6 +64,7 @@ def test_parse_matches_jax(spec):
 
 def test_unknown_kind_fails_fast():
     with pytest.raises(ValueError) as e:
+        # torchlint: disable=O05
         FaultPlan.parse("nan_updat:rank=1")  # jaxlint: disable=O05
     assert "nan_updat" in str(e.value)
     for kind in jfaults.FaultPlan.VALID_KINDS:

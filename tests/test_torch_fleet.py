@@ -1,8 +1,9 @@
 """The port's multi-tenant fleet (``fed_tgan_torch/serve/fleet.py``) on
 the CPU: the JAX package's ``tests/test_fleet.py`` ported (its compile
-budget and lockwatch tests wait for the port's sanitizers), and the lane
-dispatch: its bytes equal the single-model engine's, exactly, at every
-lane count and step count, with one activation call per dispatch.
+budget as the lane groups' build budget, and the whole module under an
+armed lockwatch), and the lane dispatch: its bytes equal the
+single-model engine's, exactly, at every lane count and step count, with
+one activation call per dispatch.
 
 Tenants are random-weight Intrusion-shaped port artifacts at a small
 width; ``alpha`` and ``beta`` are the same bytes, ``gamma`` has other
@@ -43,6 +44,19 @@ _silent = lambda *a, **k: None  # noqa: E731
 
 def build(root, seed):
     return build_random_artifact(str(root), seed=seed, cfg=SMALL)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lockwatch_armed():
+    """Arm the runtime deadlock sanitizer for the whole module: every
+    lock the fleet allocates is watched, and any lock-order cycle or
+    re-entry the tests drive fails the module at teardown."""
+    from fed_tgan_torch.analysis import lockwatch
+
+    with lockwatch.watch(on_deadlock="record"):
+        yield
+        bad = lockwatch.reports("cycle") + lockwatch.reports("reentry")
+        assert bad == [], [r.detail for r in bad]
 
 
 @pytest.fixture(scope="module")
@@ -519,3 +533,45 @@ def test_stacked_eval_generator_equals_generator(fleet, lanes):
         for i, g in enumerate(gens):
             want = torch.cat([g(b) for b in x[i].split(B)])
             assert torch.equal(got[i], want)
+
+
+def test_cross_tenant_build_budget_one_per_name(tenant_roots):
+    """Under an armed build counter, lane groups of same-layout tenants
+    are built at most once per key fleet-wide (``check_fleet_budget``
+    clean); with evictions the budget is entries + evictions."""
+    from fed_tgan_torch.analysis.sanitizers import (
+        check_fleet_budget,
+        sanitize,
+    )
+
+    with sanitize() as counter:
+        reg = FleetRegistry(program_cache=ProgramCache(max_entries=16),
+                            device="cpu", log=_silent)
+        for name in ("alpha", "gamma"):
+            reg.load(name, tenant_roots[name])
+        svc = FleetService(reg, max_lanes=8, log=_silent)
+        for seed in (1, 2):
+            for steps in (1, 2):
+                svc.lane_pass(_members(reg, [("alpha", 40, seed, 0, None),
+                                             ("gamma", 40, seed, 0, None)]),
+                              steps)
+            for name in ("alpha", "gamma"):
+                reg.get(name).engine.sample_csv_bytes(60, seed=seed)
+        counts = {k: v for k, v in counter.counts().items()
+                  if k.startswith("lanes[")}
+        assert len(counts) == 1 and all(v == 1 for v in counts.values())
+        assert check_fleet_budget(reg.cache, counter) == []
+
+        tight = FleetRegistry(program_cache=ProgramCache(max_entries=1),
+                              device="cpu", log=_silent)
+        for name in ("alpha", "beta", "gamma"):
+            tight.load(name, tenant_roots[name])
+        svc = FleetService(tight, max_lanes=8, log=_silent)
+        counter.reset()
+        for pair in (("alpha", "gamma"), ("gamma", "alpha"),
+                     ("alpha", "gamma")):
+            svc.lane_pass(_members(tight, [(n, 40, 1, 0, None)
+                                            for n in pair]), 1)
+        stats = tight.cache.stats()
+        assert stats["evictions"] == 2 and counter.count("lanes[") == 3
+        assert check_fleet_budget(tight.cache, counter) == []

@@ -1,9 +1,9 @@
 """The port's front door (``fed_tgan_torch/serve/frontdoor.py``), row
 pool (``serve/pool.py``) and multi-worker pipeline on the CPU: the JAX
-package's ``tests/test_frontdoor.py`` ported (its compile-budget test
-waits for the port's sanitizers).  Every byte served through the asyncio
-door, the workers, a lane dispatch or a pool hit equals the single-model
-engine's.
+package's ``tests/test_frontdoor.py`` ported (its compile budget as the
+lane groups' build budget, the whole module under an armed lockwatch).
+Every byte served through the asyncio door, the workers, a lane dispatch
+or a pool hit equals the single-model engine's.
 """
 
 import http.client
@@ -35,6 +35,19 @@ torch.set_num_threads(2)
 SMALL = TrainConfig(embedding_dim=16, gen_dims=(32, 32), dis_dims=(32, 32),
                     batch_size=50)
 _silent = lambda *a, **k: None  # noqa: E731
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lockwatch_armed():
+    """Arm the runtime deadlock sanitizer for the whole module: every
+    lock the front door allocates is watched, and any lock-order cycle
+    or re-entry the tests drive fails the module at teardown."""
+    from fed_tgan_torch.analysis import lockwatch
+
+    with lockwatch.watch(on_deadlock="record"):
+        yield
+        bad = lockwatch.reports("cycle") + lockwatch.reports("reentry")
+        assert bad == [], [r.detail for r in bad]
 
 
 @pytest.fixture(scope="module")
@@ -380,3 +393,40 @@ def test_sampling_service_multiworker_drain(tenant_roots):
     svc.shutdown(drain=True)
     for r in reqs:
         assert r.done.is_set() and r.status == 200
+
+
+def test_multiworker_build_budget_holds(tenant_roots):
+    """Armed build counter: 4 workers racing the same lane groups still
+    build each group at most once fleet-wide, and serve the single
+    engine's bytes."""
+    from fed_tgan_torch.analysis.sanitizers import (
+        check_fleet_budget,
+        sanitize,
+    )
+
+    with sanitize() as counter:
+        reg = FleetRegistry(program_cache=ProgramCache(max_entries=16),
+                            device="cpu", log=_silent)
+        for name in ("alpha", "beta"):
+            reg.load(name, tenant_roots[name])
+        svc = FleetService(reg, port=0, max_batch=8, queue_size=64,
+                           max_lanes=4, reload_interval_s=0, workers=4,
+                           log=_silent)
+        reqs = [_FleetRequest(tenant=("alpha", "beta")[i % 2], n=5, seed=1,
+                              offset=5 * i, condition=None, header=True)
+                for i in range(16)]
+        for r in reqs:
+            assert svc.submit(reg.get(r.tenant), r) is None
+        svc.start_workers()
+        for r in reqs:
+            assert r.done.wait(timeout=120) and r.status == 200
+        svc.shutdown(drain=True)
+        assert check_fleet_budget(reg.cache, counter) == []
+        assert all(v == 1 for k, v in counter.counts().items()
+                   if k.startswith("lanes["))
+    for name in ("alpha", "beta"):
+        engine = SamplingEngine(open_model(tenant_roots[name], device="cpu"))
+        for r in reqs:
+            if r.tenant == name:
+                assert r.result == engine.sample_csv_bytes(
+                    5, seed=1, offset=r.offset)

@@ -1223,3 +1223,102 @@ def test_device_trace_holds_k1_and_k2_and_the_spans(cuda, tmp_path):
     traced = [e for e in read_journal(journal.path)
               if e["type"] == "device_trace"]
     assert [e["ok"] for e in traced] == [True]
+
+
+# ------------------------------------------------------ the sanitizers
+
+def test_a_real_sync_trips_the_guard_and_another_thread_does_not(cuda):
+    """Under ``set_sync_debug_mode("warn")`` a ``.item()``, a copy to the
+    host and a blocking copy to the card inside a steady hot region raise
+    SyncGuardError naming the region; the warm-up entry, a sanctioned
+    copy and another thread's syncs do not."""
+    import threading
+
+    from fed_tgan_torch.analysis import sanitizers
+
+    x = torch.ones(10, device=cuda)
+    errors = []
+
+    def other():
+        try:
+            for _ in range(20):
+                x.sum().item()
+        except Exception as exc:  # noqa: BLE001 -- the failure
+            errors.append(exc)
+
+    with sanitizers.sanitize(deterministic=False):
+        assert torch.cuda.get_sync_debug_mode() == 1
+        with sanitizers.hot_region("gpu.test"):
+            x.sum().item()  # warm-up
+        for fn in (lambda: x.sum().item(), lambda: x.cpu(),
+                   lambda: torch.tensor([1.0]).to(cuda)):
+            with pytest.raises(sanitizers.SyncGuardError,
+                               match="gpu.test"):
+                with sanitizers.hot_region("gpu.test"):
+                    fn()
+        with sanitizers.hot_region("gpu.test"):
+            with sanitizers.sanctioned_sync():
+                x.cpu()
+            t = threading.Thread(target=other)
+            t.start()
+            t.join()
+    assert errors == []
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_the_nan_guard_names_k1_at_its_output(cuda):
+    """A NaN logit fed to K1 (a ctypes launch no dispatch mode sees)
+    raises FloatingPointError naming K1 at the wrapper's check."""
+    from fed_tgan_torch.analysis import sanitizers
+
+    spec = _spec()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((500, spec.dim), generator=g, device=cuda)
+    u = torch.rand((500, spec.dim), generator=g, device=cuda)
+    clean = fused_apply_activate(x, spec, u)
+    x[3, 5] = float("nan")
+    with sanitizers.sanitize(nan_debug=True, deterministic=False):
+        with pytest.raises(FloatingPointError, match="K1"):
+            fused_apply_activate(x, spec, u)
+    x[3, 5] = 0.0
+    with sanitizers.sanitize(nan_debug=True, deterministic=False):
+        again = fused_apply_activate(x, spec, u)
+    assert torch.isfinite(again).all() and again.shape == clean.shape
+
+
+def test_build_budgets_and_steady_syncs_on_the_card(cuda, tmp_path):
+    """A sanitized 2-client trainer builds one K1/K2 table set and one
+    launch plan per stacked row count, and its steady round chunk makes
+    no unsanctioned sync; an engine over two chunk sizes keeps the
+    serving budget."""
+    from fed_tgan_torch.analysis import sanitizers
+    from fed_tgan_torch.data.ingest import TablePreprocessor
+    from fed_tgan_torch.federation.init import federated_initialize
+    from fed_tgan_torch.train.federated import FederatedTrainer
+
+    rng = np.random.default_rng(5)
+    tables = [{"x": np.round(rng.normal(0, 1, 120), 3),
+               "c": rng.choice(["a", "b", "c"], 120).astype(object)}
+              for _ in range(2)]
+    init = federated_initialize(
+        [TablePreprocessor(table=t, categorical_columns=["c"])
+         for t in tables], seed=0, device="cuda")
+    cfg = steps.TrainConfig(embedding_dim=8, gen_dims=(16,), dis_dims=(16,),
+                            batch_size=40, pac=4)
+    activate_cuda._plan.cache_clear()
+    activate_cuda._prepared.cache_clear()
+    art = build_random_artifact(str(tmp_path / "art"), seed=1, cfg=cfg)
+    with sanitizers.sanitize(deterministic=False) as counter:
+        tr = FederatedTrainer(init, cfg, seed=0, device="cuda")
+        tr.fit(3)
+        assert counter.count("tables[activate:") == 1
+        assert sanitizers.check_training_budget(tr, counter) == []
+        steady = [c for c in sanitizers.sync_census()
+                  if c["region"] and c["entry"] > 1 and not c["sanctioned"]]
+        assert steady == []
+        eng = SamplingEngine(open_model(art, device="cuda"))
+        eng.sample_csv_bytes(40, seed=3)
+        eng.sample_csv_bytes(120, seed=3)
+        eng.sample_csv_bytes(120, seed=4)
+        assert len(eng.chunk_rows) == 2
+        assert sanitizers.check_serving_budget(eng, counter) == []

@@ -130,8 +130,34 @@ def test_port_package_lists_every_slice_module():
                  "runtime.precision", "federation.init_cache",
                  "federation.streaming", "federation.elastic",
                  "train.mdgan", "runtime.transport", "federation.distributed",
-                 "parallel.multihost", "train.multihost", "distributed"):
+                 "parallel.multihost", "train.multihost", "distributed",
+                 "analysis", "analysis.__main__", "analysis.lint",
+                 "analysis.sanitizers", "analysis.lockwatch",
+                 "analysis.concurrency.model", "analysis.concurrency.rules",
+                 "analysis.concurrency.ast_helpers",
+                 "analysis.telemetry.extract", "analysis.telemetry.rules",
+                 "analysis.telemetry.schema", "ops.diagnostics", "doctor"):
         assert f"fed_tgan_torch.{name}" in mods
+
+
+def test_analysis_cli_runs_without_torch_or_numpy():
+    """``python -m fed_tgan_torch.analysis`` (locklint) and ``--telemetry``
+    (obslint) in a fresh interpreter where torch, numpy, jax, the JAX
+    package, pandas, pyarrow and sklearn cannot be imported: both are
+    stdlib AST analyses, clean against their checked-in baselines."""
+    blocked = ("torch", "numpy") + BLOCKED
+    for args, want in (([], "locklint: 0 finding(s)"),
+                       (["--telemetry"], "obslint: 0 finding(s)")):
+        code = (
+            "import runpy, sys\n"
+            f"for name in {blocked!r}:\n"
+            "    sys.modules[name] = None\n"
+            f"sys.argv = ['analysis', *{args!r}]\n"
+            "runpy.run_module('fed_tgan_torch.analysis', run_name='__main__')\n")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, (args, proc.stdout, proc.stderr)
+        assert want in proc.stdout, (args, proc.stdout)
 
 
 def test_trainer_runs_with_jax_sklearn_and_pandas_blocked():
