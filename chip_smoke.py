@@ -292,6 +292,26 @@ Phases, each fatal on failure:
    clients 1 and 5 dropped, ``obs slo`` exit 0); then K1 and K2 against
    their plain versions at both soaks' stacked steps.
 
+23. offline evaluation (``offline_eval_phase``), slice 16's path: the
+   fedavg CLI in this process (launches counted) on phase 9's
+   Intrusion-like CSV at full width, 2 rounds with ``--sample-every 1
+   --monitor-every 1`` and 40,000-row snapshots; ``python -m
+   fed_tgan_torch.eval.similarity`` over its snapshots and
+   ``timestamp_experiment.csv`` exits 0, its rows the snapshot rounds, its
+   values finite and equal to ``statistical_similarity`` in this process
+   on the same files, its ``time_stamp`` the cumulative round time;
+   ``scripts/torch_crosscheck_monitor.py`` compares 2 rounds (the gaps
+   printed, not gated); the zoo's binning, min-max (sigmoid and tanh) and
+   grid encoders on 40,000 Intrusion-like rows, the card's tensors
+   ``torch.equal`` to the CPU's; ``--snapshot-format parquet``,
+   ``--snapshot-format feather``, ``--bgm-backend sklearn`` and ``python
+   -m fed_tgan_torch.eval.utility``, each a process of its own, run and
+   are checked where their library (pyarrow, sklearn) imports (columnar
+   snapshots equal to the CSV's values; a host-fit init and a round on
+   the card; the utility gap finite), and elsewhere exit 2 naming it in a
+   process that sees no card (a probe would exit 3); the branch each took
+   and the phase's seconds are printed.
+
 Phase 19 also runs ``scripts/torch_trace_attribution.py`` on its trace:
 its K1 and K2 counts equal the phase's own count of the trace, its busy
 ms summed over the streams within 1% of the phase's.
@@ -301,8 +321,9 @@ JAX sweep's N = 1024 is measured so); ``--multiprocess`` runs phase 18
 alone (a participant killed mid-run, with every process ending, is
 checked by phase 21's departure pod: ``--pod``); ``--observatory`` runs
 phase 19 alone, trace attribution included;
-``--tooling`` runs phase 20 alone; ``--backend-probe``, ``--pod`` and
-``--soak`` run the backend probe, phase 21 and phase 22 alone.
+``--tooling`` runs phase 20 alone; ``--backend-probe``, ``--pod``,
+``--soak`` and ``--offline-eval`` run the backend probe, phase 21, phase
+22 and phase 23 alone.
 
 ``--ab TREE`` runs none of the phases: it builds the kernels of the
 ``fed_tgan_torch`` package under TREE (for example a ``git archive`` of an
@@ -319,7 +340,8 @@ durable round's, one with the canary's and the dated phase's, one with
 the precision phase's, one with the onboarding and churn phases', one
 with the round-scale phases', one with the multi-process world's, one
 with the observatory's, one with the tooling phase's, one with the
-run-level tools' (the probe, the pod, the soaks), the card's
+run-level tools' (the probe, the pod, the soaks), one with the offline
+evaluation's, the card's
 line, a JSON line with the kernels' numbers (one entry per kernel and
 path: K1 serving, K1 in the fleet, K1 and K2 training, K1 and K2
 federated, K1 in the similarity monitor, K1 and K2 in the ragged round, K1
@@ -327,8 +349,8 @@ in the canary's shadow samples, K1 serving a dated model, K1 and K2 in
 the dated training, K1 and K2 in the elastic rounds, K1 and K2 in the
 cohort rounds and in MD-GAN, K1 and K2 in a multi-process participant,
 K1 and K2 in the sanitized round and in the gradient-flow summary, K1
-and K2 in a pod participant, the fault soak and the churn soak, and the
-three bf16 variants),
+and K2 in a pod participant, the fault soak and the churn soak, K1 and K2
+in the offline evaluation's run, and the three bf16 variants),
 and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no result line, when CUDA is not available.
@@ -370,6 +392,8 @@ from fed_tgan_torch.datasets import (
     PRESETS,
     preprocessor_kwargs,
 )
+from fed_tgan_torch.eval.similarity import statistical_similarity
+from fed_tgan_torch.features import zoo
 from fed_tgan_torch.features.transformer import (
     DiscreteColumn,
     ModeNormalizer,
@@ -400,6 +424,7 @@ from fed_tgan_torch.serve.demo import (
     adult_like_table,
     build_random_artifact,
     intrusion_layout,
+    intrusion_like_raw,
     intrusion_like_table,
     write_artifact,
     write_intrusion_csv,
@@ -5878,6 +5903,325 @@ def trace_attribution_check(prof_dir: str, trace: dict, card: str) -> dict:
                                     "host_hotspots_ms")}}
 
 
+# ------------------------------------------------------ offline evaluation
+# slice 16: the similarity report over a run's snapshots, the monitor's
+# cross-check, the encoder zoo on the card, and the paths that need a host
+# library (pyarrow, sklearn), which run where it imports and exit 2 naming
+# it where it does not
+
+OFFLINE_ROUNDS = 2
+ZOO_ROWS = 40_000
+ZOO_ENCODERS = (("binning", lambda dev: zoo.BinningTransformer(32, device=dev)),
+                ("minmax_sigmoid", lambda dev: zoo.MinMaxTransformer(
+                    "sigmoid", device=dev)),
+                ("minmax_tanh", lambda dev: zoo.MinMaxTransformer(
+                    "tanh", device=dev)),
+                ("grid", lambda dev: zoo.GridTransformer(7, device=dev)))
+
+
+def _offline_argv(csv_path: str, out: str, seed: int,
+                  rounds: int = OFFLINE_ROUNDS) -> list:
+    """The fedavg CLI at full width on the Intrusion-like CSV: a 40,000-row
+    snapshot and an on-device monitor probe each round."""
+    return ["--mode", "fedavg", "--datapath", csv_path, "--dataset",
+            "intrusion", "--n-clients", str(FED_CLIENTS), "-epochs",
+            str(rounds), "--sample-every", "1", "--monitor-every", "1",
+            "--sample-rows", str(SNAPSHOT_ROWS), "--out-dir", out, "--seed",
+            str(seed)]
+
+
+def _start(cmd: list, root: str, tag: str, env=None) -> dict:
+    """``cmd`` in a process of its own (cwd the repository), its output
+    in files under ``root``; a thread notes when it ends."""
+    out = open(os.path.join(root, f"{tag}.out"), "w+")
+    err = open(os.path.join(root, f"{tag}.err"), "w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=out, stderr=err,
+                            env={**os.environ, **(env or {})})
+    job = {"tag": tag, "proc": proc, "out": out, "err": err, "t0": t0}
+
+    def note_end():
+        proc.wait()
+        job["t1"] = time.perf_counter()
+
+    threading.Thread(target=note_end, daemon=True).start()
+    return job
+
+
+def _wait(job: dict, timeout: float = 600) -> tuple:
+    """``(returncode, stdout, stderr, seconds it ran)`` of a started
+    process."""
+    try:
+        rc = job["proc"].wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        job["proc"].kill()
+        job["proc"].wait()
+        raise AssertionError(f"{job['tag']}: still running after {timeout} s")
+    texts = []
+    for f in (job["out"], job["err"]):
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    return (rc, texts[0], texts[1],
+            job.get("t1", time.perf_counter()) - job["t0"])
+
+
+# path -> (the library it needs, what the path is)
+HOST_PATHS = {"parquet": ("pyarrow", "--snapshot-format parquet"),
+              "feather": ("pyarrow", "--snapshot-format feather"),
+              "sklearn_fit": ("sklearn", "--bgm-backend sklearn"),
+              "utility": ("sklearn", "python -m fed_tgan_torch.eval.utility")}
+
+
+def _has(lib: str) -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(lib) is not None
+
+
+def _start_host_path(name: str, root: str, csv_path: str, seed: int,
+                     snapshot: str) -> dict:
+    """One host-library path in a process of its own.  Where its library
+    does not import, the process sees no card (``CUDA_VISIBLE_DEVICES``
+    empty): its exit 2 then shows the check came before any CUDA work (a
+    probe would exit 3)."""
+    lib, _ = HOST_PATHS[name]
+    env = None if _has(lib) else {"CUDA_VISIBLE_DEVICES": ""}
+    out = os.path.join(root, f"host_{name}")
+    if name == "utility":
+        test_csv = os.path.join(root, "intrusion_test.csv")
+        if not os.path.exists(test_csv):
+            write_intrusion_csv(test_csv, 5_000, seed + 1)
+        cmd = [sys.executable, "-m", "fed_tgan_torch.eval.utility",
+               "--real-train", csv_path, "--real-test", test_csv,
+               "--synthetic", snapshot, "--target", "class",
+               "--categorical", *PRESETS["intrusion"].categorical_columns,
+               "--json"]
+    elif name == "sklearn_fit":
+        cmd = [sys.executable, "-m", "fed_tgan_torch",
+               *_offline_argv(csv_path, out, seed, rounds=1),
+               "--bgm-backend", "sklearn"]
+    else:
+        # one round: round 0 (constant learning rate) and its snapshot are
+        # the main run's round 0
+        cmd = [sys.executable, "-m", "fed_tgan_torch",
+               *_offline_argv(csv_path, out, seed, rounds=1),
+               "--snapshot-format", name]
+    job = _start(cmd, root, f"host_{name}", env)
+    job.update(name=name, lib=lib, present=env is None, out_dir=out)
+    return job
+
+
+def _columnar_equals_csv(path: str, csv_blob: bytes) -> int:
+    """A columnar snapshot read back, written as a CSV (a null as
+    ``' '``), is the CSV snapshot's bytes; returns the rows compared."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    table = (pq.read_table(path) if path.endswith(".parquet")
+             else pa.ipc.open_file(path).read_all()).to_pydict()
+    cells = {name: np.array([" " if v is None else v for v in values],
+                            dtype=object) for name, values in table.items()}
+    if plain_csv_bytes(cells) != csv_blob:
+        raise AssertionError(f"{path}: its values differ from the CSV "
+                             "snapshot's")
+    return len(next(iter(table.values()), []))
+
+
+def _finish_host_path(job: dict, result_dir: str) -> dict:
+    """Wait for one host-library path and check the branch it took."""
+    rc, out, err, wall = _wait(job)
+    name, lib, what = job["name"], job["lib"], HOST_PATHS[job["name"]][1]
+    res = {"library": lib, "present": job["present"], "rc": rc,
+           "wall_s": wall}
+    if not job["present"]:
+        if rc != 2 or f"needs {lib}" not in err:
+            raise AssertionError(f"{what} without {lib}: exit {rc}, "
+                                 f"{err[-600:]!r}")
+        if name != "utility" and os.path.exists(job["out_dir"]):
+            raise AssertionError(f"{what} without {lib} wrote {job['out_dir']}")
+        res["branch"] = f"exit 2 naming {lib}, no CUDA touched"
+        return res
+    if rc != 0:
+        raise AssertionError(f"{what}: exit {rc}: {err[-3000:]}")
+    own = os.path.join(job["out_dir"], "Intrusion_result")
+    if name in ("parquet", "feather"):
+        res["rows_equal"] = _columnar_equals_csv(
+            os.path.join(own, f"Intrusion_synthesis_epoch_0.{name}"),
+            open(os.path.join(result_dir, "Intrusion_synthesis_epoch_0.csv"),
+                 "rb").read())
+        res["branch"] = (f"ran: the .{name} snapshot of round 0 equal to "
+                         "the CSV's values")
+    elif name == "sklearn_fit":
+        snap = read_csv(os.path.join(own, "Intrusion_synthesis_epoch_0.csv"))
+        if not all(np.isfinite(snap[c]).all() for c in ("duration",
+                                                        "src_bytes")):
+            raise AssertionError("--bgm-backend sklearn: non-finite snapshot")
+        res["branch"] = "ran: a host-fit init and one round on the card"
+    else:
+        res["utility"] = json.loads(out.strip().splitlines()[-1])
+        if not all(math.isfinite(v) for row in res["utility"]["difference"]
+                   for v in row):
+            raise AssertionError(f"utility: {res['utility']}")
+        res["branch"] = "ran: LR/DT/RF/MLP on the snapshot, finite"
+    return res
+
+
+def offline_eval_phase(root: str, seed: int, card: str) -> dict:
+    """Slice 16's offline workflow on the card: the fedavg CLI (2 rounds,
+    snapshots and monitor probes every round, launches counted in this
+    process), ``python -m fed_tgan_torch.eval.similarity`` over its
+    snapshots and timing (rows = the snapshot rounds, values equal to
+    ``statistical_similarity`` here), the monitor's cross-check
+    (``scripts/torch_crosscheck_monitor.py``, 2 rounds compared), the
+    closed-form zoo encoders on 40,000 rows (card tensors ``torch.equal``
+    to the CPU's) and the four host-library paths."""
+    t_phase = time.perf_counter()
+    csv_path = os.path.join(root, "intrusion.csv")
+    write_intrusion_csv(csv_path, FED_ROWS, seed)
+    out = os.path.join(root, "offline_out")
+    result_dir = os.path.join(out, "Intrusion_result")
+    snapshots = [os.path.join(result_dir, f"Intrusion_synthesis_epoch_{e}.csv")
+                 for e in range(OFFLINE_ROUNDS)]
+    # the CLI paths beside the run (processes of their own); the utility
+    # CLI reads the run's last snapshot, so it starts after the run
+    host = [_start_host_path(name, root, csv_path, seed, snapshots[-1])
+            for name in ("parquet", "feather", "sklearn_fit")]
+    run = _cli_run(_offline_argv(csv_path, out, seed))
+    names = sorted(os.listdir(result_dir))
+    if names != sorted(os.path.basename(p) for p in snapshots):
+        raise AssertionError(f"offline run: snapshots {names}")
+    if min(run["launches"].values()) <= 0:
+        raise AssertionError(f"offline run launched {run['launches']}")
+    host.append(_start_host_path("utility", root, csv_path, seed,
+                                 snapshots[-1]))
+
+    categorical = list(PRESETS["intrusion"].categorical_columns)
+    report_csv = os.path.join(root, "report.csv")
+    timing = os.path.join(out, "timestamp_experiment.csv")
+    report_job = _start(
+        [sys.executable, "-m", "fed_tgan_torch.eval.similarity", "--real",
+         csv_path, "--result-dir", result_dir, "--name", "Intrusion",
+         "--categorical", *categorical, "--timing", timing, "-o",
+         report_csv], root, "report")
+    # the same metrics in this process, while the report runs
+    real = read_csv(csv_path)
+    want = [statistical_similarity(real, read_csv(p), categorical)[:2]
+            for p in snapshots]
+    rc, rout, rerr, report_s = _wait(report_job)
+    if rc != 0 or "RuntimeWarning" in rerr:
+        raise AssertionError(f"the similarity report exited {rc}: "
+                             f"{rerr[-2000:]}")
+    report = read_csv(report_csv)
+    per_round = [float(line.split(",")[0]) for line in open(timing)
+                 if line.strip()]
+    if report["Epoch_No."].tolist() != list(range(OFFLINE_ROUNDS)):
+        raise AssertionError(f"report rounds {report['Epoch_No.']}")
+    got = list(zip(report["Avg_JSD"].tolist(), report["Avg_WD"].tolist()))
+    if got != want or not np.isfinite(got).all():
+        raise AssertionError(f"report {got} != statistical_similarity {want}")
+    if report["time_stamp"].tolist() != np.cumsum(per_round).tolist():
+        raise AssertionError("report time_stamp is not the cumulative "
+                             "round time")
+
+    xc_out = io.StringIO()
+    with contextlib.redirect_stdout(xc_out):
+        _script("torch_crosscheck_monitor").main([
+            "--monitor-csv", os.path.join(out, "monitor_similarity.csv"),
+            "--similarity-csv", report_csv])
+    gaps = json.loads(xc_out.getvalue().strip().splitlines()[-1])
+    if gaps["rounds_compared"] != OFFLINE_ROUNDS:
+        raise AssertionError(f"cross-check: {gaps}")
+
+    raw = intrusion_like_raw(ZOO_ROWS, seed)
+    data = np.empty((ZOO_ROWS, len(raw)), dtype=object)
+    for i, v in enumerate(raw.values()):
+        data[:, i] = v
+    cat_idx = [i for i, v in enumerate(raw.values()) if v.dtype.kind != "f"]
+    zoo_res = {}
+    for name, make in ZOO_ENCODERS:
+        tensors, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            enc = make(dev)
+            enc.fit(data, categorical_columns=cat_idx)
+            tensors[dev] = enc.transform(data)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            secs[dev] = time.perf_counter() - t0
+        card_t = tensors["cuda"].cpu()
+        err = float((card_t.double() - tensors["cpu"].double()).abs().max())
+        if tensors["cuda"].device.type != "cuda" or not torch.equal(
+                card_t, tensors["cpu"]):
+            raise AssertionError(f"zoo {name}: the card's tensor differs from "
+                                 f"the CPU's (max abs error {err!r})")
+        zoo_res[name] = {"shape": list(card_t.shape),
+                         "dtype": str(card_t.dtype), "max_abs_err": err,
+                         "fit_transform_s": secs}
+
+    branches = {job["name"]: _finish_host_path(job, result_dir)
+                for job in host}
+    phase_s = time.perf_counter() - t_phase
+    for name, b in branches.items():
+        print(f"offline eval: {HOST_PATHS[name][1]} -> {b['branch']} "
+              f"({b['wall_s']!r} s)  [{card}]", flush=True)
+    print(f"offline eval: fedavg CLI {OFFLINE_ROUNDS} rounds in "
+          f"{run['wall_s']!r} s (K1 {run['launches']['K1']}, K2 "
+          f"{run['launches']['K2']}); report rows {got} equal to this "
+          f"process's in {report_s!r} s; monitor vs offline: "
+          f"{json.dumps(gaps)}; zoo on {ZOO_ROWS} rows card == CPU "
+          f"({', '.join(zoo_res)}); phase {phase_s!r} s  [{card}]",
+          flush=True)
+    return {"cli_wall_s": run["wall_s"], "launches": run["launches"],
+            "report": {"rows": got, "time_stamp": report["time_stamp"]
+                       .tolist(), "seconds": report_s},
+            "crosscheck": gaps, "zoo": zoo_res, "host_paths": branches,
+            "phase_s": phase_s}
+
+
+def _offline_eval_with_checks(build_root: str, seed: int, card: str,
+                              shapes=None, bwd_shapes=None):
+    """:func:`offline_eval_phase` in a scratch directory.  Alone (no
+    ``shapes`` from the federated phases): K1 and K2 against their plain
+    versions at its stacked step and K1 at its snapshot chunk."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_offline_", dir=build_root)
+    try:
+        phase = offline_eval_phase(root, seed, card)
+        if shapes is None:
+            spec = SegmentSpec.from_output_info(_fed_init(
+                os.path.join(root, "intrusion.csv"), FED_CLIENTS, seed,
+                "cuda").output_info)
+            B = steps.TrainConfig().batch_size
+            shapes = check_kernel(spec, card, (("fed", FED_CLIENTS * B),
+                                               ("fed_snapshot", 128 * B)),
+                                  extra=False)
+            bwd_shapes = check_bwd_kernel(spec, card,
+                                          (("fed", FED_CLIENTS * B),),
+                                          extra=False)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fwd, bwd = ("fed_tgan_tpu/ops/activate_pallas.py:81",
+                "fed_tgan_tpu/ops/activate_pallas.py:102")
+    kernels = []
+    for name, replaces, results, kernel in (
+            ("fused_gumbel_activation_fwd_offline_eval", fwd, shapes, "K1"),
+            ("fused_gumbel_activation_bwd_offline_eval", bwd, bwd_shapes,
+             "K2")):
+        main = next(r for r in results if r["case"] == "fed")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fed_tgan_torch/csrc/activate.cu",
+            "replaces": replaces, "launches": phase["launches"][kernel],
+            "max_abs_err": max(r["max_abs_err"] for r in results),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "device_ms": main["device_ms"], "host_us": main["host_us"],
+            "plan": main["plan"], "library_ms": None,
+            "path": "offline evaluation run (fedavg CLI, monitored)",
+            "shape": main["shape"], "shapes": results})
+    return phase, kernels
+
+
 def _run_level_kernels(pod, pod_shapes, pod_bwd, soak, soak_shapes,
                        soak_bwd) -> list:
     """The kernels' entries of slice 15's paths: a pod participant's step
@@ -5948,6 +6292,10 @@ def main(argv=None) -> int:
     ap.add_argument("--soak", action="store_true",
                     help="instead of the phases: the fault soak (seeds "
                     "0-4) and the churn soak, and their kernel checks only")
+    ap.add_argument("--offline-eval", action="store_true",
+                    help="instead of the phases: the offline evaluation "
+                    "phase (report, cross-check, zoo, host-library paths) "
+                    "and its kernel checks only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6000,6 +6348,11 @@ def main(argv=None) -> int:
         return finish({"run_level": {"pod": pod}}, {
             "kernels": _run_level_kernels(pod, pod_shapes, pod_bwd, None,
                                           [], [])})
+    if args.offline_eval:
+        offline, offline_kernels = _offline_eval_with_checks(
+            build_root, args.seed, card)
+        return finish({"offline_eval": offline},
+                      {"kernels": offline_kernels})
     if args.soak:
         soak, soak_shapes, soak_bwd = _soak_with_checks(build_root, card)
         return finish({"run_level": {"soak": soak}}, {
@@ -6254,6 +6607,9 @@ def main(argv=None) -> int:
     mark("tooling")
     soak, soak_shapes, soak_bwd = _soak_with_checks(build_root, card)
     mark("soak")
+    offline, offline_kernels = _offline_eval_with_checks(
+        build_root, args.seed, card, shapes, bwd_shapes)
+    mark("offline_eval")
     backend["script_cold_probes_min"] = stamps.stop()
     print(f"backend: the script's CLI processes made at least "
           f"{backend['script_cold_probes_min']} cold probe(s) of "
@@ -6365,6 +6721,9 @@ def main(argv=None) -> int:
     # soak's and the churn soak's stacked steps
     kernels += _run_level_kernels(pod, pod_shapes, pod_bwd, soak,
                                   soak_shapes, soak_bwd)
+    # slice 16: the offline evaluation's fedavg run (stacked steps,
+    # snapshot chunks, monitor probes), counted in this process
+    kernels += offline_kernels
     # slice 9's bf16 variants: their launches on the bf16 paths (training,
     # the federated round, serving), each path counted on its own
     by_path = precision.pop("launches_by_path")
@@ -6396,6 +6755,7 @@ def main(argv=None) -> int:
     print(json.dumps({"tooling": tooling}))
     print(json.dumps({"run_level": {"backend": backend, "pod": pod,
                                     "soak": soak}}))
+    print(json.dumps({"offline_eval": offline}))
     print(card)
     print(json.dumps({"kernels": kernels, "serving": serving,
                       "fleet": fleet}))

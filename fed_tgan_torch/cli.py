@@ -78,8 +78,16 @@ the CPU.  A run writes the JAX CLI's layout:
   and at the end their report and the training budget (exit 4 on a
   violation); ``--sanitize-nans`` adds the NaN guard.
 
-A flag of a feature not ported yet exits with code 2 and names the
-ROADMAP item it waits for.
+- ``--bgm-backend sklearn`` fits the mixtures on the host with sklearn's
+  ``BayesianGaussianMixture`` (the reference-exact fit); everything after
+  the fit runs on ``--device``;
+- ``--snapshot-format feather|parquet`` writes each snapshot as an Arrow
+  table (``.feather``, ``.parquet``) instead of a CSV.
+
+Every flag of the JAX CLI is ported.  A flag whose host library (sklearn,
+pyarrow) does not import exits with code 2 naming the library, before the
+backend probe and before any CUDA work; nothing falls back to another
+path.
 """
 
 from __future__ import annotations
@@ -93,10 +101,8 @@ import time
 import numpy as np
 
 # flag -> (argparse keywords, ROADMAP item); a value other than the
-# default is refused with exit code 2
-NOT_PORTED = {
-    "--snapshot-format": (dict(type=str, default=None), "A.21"),
-}
+# default is refused with exit code 2.  Empty: every flag is ported
+NOT_PORTED: dict = {}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -153,8 +159,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["fedavg", "mdgan", "standalone"])
     p.add_argument("--bgm-backend", type=str, default="jax",
                    choices=["sklearn", "jax"],
-                   help="jax (default): the batched variational fit, here "
-                        "in torch on the device; sklearn is not ported")
+                   help="the mixture fit of the init: jax (default) = the "
+                        "batched variational fit, here in torch on the "
+                        "device; sklearn = the reference-exact fit, one "
+                        "sklearn BayesianGaussianMixture a column on the "
+                        "host (needs sklearn; the rest of the run stays on "
+                        "--device)")
     p.add_argument("--similarity", type=str, default="exact",
                    choices=["exact", "sketch"],
                    help="init similarity: exact = the reference's sampled "
@@ -305,16 +315,34 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--sanitize plus the NaN guard: every aten op's "
                         "floating outputs and the kernels' outputs checked, "
                         "FloatingPointError naming the op at the first NaN")
+    p.add_argument("--snapshot-format", default=None,
+                   choices=["csv", "feather", "parquet"],
+                   help="snapshot file format: csv (default, what the "
+                        "offline evaluation reads) or an Arrow table, "
+                        "feather or parquet, with typed columns and nulls "
+                        "for missing cells (needs pyarrow)")
     for flag, (kw, item) in NOT_PORTED.items():
         p.add_argument(flag, **kw, help=f"not ported yet (ROADMAP {item})")
     return p
 
 
+# flag value -> the host library it needs
+HOST_LIBRARIES = {("bgm_backend", "sklearn"): "sklearn",
+                  ("snapshot_format", "feather"): "pyarrow",
+                  ("snapshot_format", "parquet"): "pyarrow"}
+
+
 def _refused(args, parser) -> str | None:
-    """The first flag of a feature not ported yet, as a message."""
-    if args.bgm_backend == "sklearn":
-        return ("--bgm-backend sklearn is not ported yet (ROADMAP A.24): "
-                "sklearn is not on the card's host")
+    """Why the run cannot start, as a message: a flag whose host library
+    does not import here, a platform the port does not run on, or a flag
+    of a feature not ported yet."""
+    import importlib.util
+
+    for (dest, value), lib in HOST_LIBRARIES.items():
+        if getattr(args, dest) == value and importlib.util.find_spec(
+                lib) is None:
+            flag = "--" + dest.replace("_", "-")
+            return f"{flag} {value} needs {lib}, which is not installed here"
     from fed_tgan_torch.runtime.backend import parse_backend
 
     try:
@@ -721,7 +749,8 @@ def _run_standalone(args, name, kwargs, tables, columns, cfg, device) -> int:
                             **kwargs)
     meta_dict, encoders, _ = harmonize_categories([pre.local_meta()])
     matrix, cat_idx, ord_idx = pre.encode(encoders)
-    synth = StandaloneSynthesizer(cfg, seed=args.seed, device=device)
+    synth = StandaloneSynthesizer(cfg, seed=args.seed, device=device,
+                                  bgm_backend=args.bgm_backend)
     t0 = time.time()
     synth.fit(matrix, cat_idx, ord_idx, epochs=args.epochs)
     if not args.quiet:
@@ -784,7 +813,8 @@ def _run_multihost(args) -> int:
         log_every=0 if args.quiet else max(1, args.epochs // 10),
         save_every=args.save_every,
         ckpt_dir=args.ckpt_dir or os.path.join(args.out_dir, "checkpoint"),
-        resume=args.resume, decode=args.decode or "packed8")
+        resume=args.resume, decode=args.decode or "packed8",
+        snapshot_format=args.snapshot_format or "csv")
 
     def join(world_size: int, device) -> None:
         backend = multihost.initialize_multihost(
@@ -802,7 +832,8 @@ def _run_multihost(args) -> int:
                 out = server_initialize(
                     t, seed=args.seed, weighted=not args.uniform,
                     run_name=name, min_clients=args.min_clients,
-                    device=device, similarity=args.similarity)
+                    device=device, similarity=args.similarity,
+                    backend=args.bgm_backend)
                 _write_meta(os.path.join(args.out_dir, "models"), name,
                             out["global_meta"], out["encoders"])
                 print(f"multihost init complete: {args.world_size - 1} "
@@ -835,7 +866,8 @@ def _run_multihost(args) -> int:
                                 selected_columns=columns, **kwargs)
         with ClientTransport(args.ip, port, args.rank,
                              deadlines=deadlines) as t:
-            out = client_initialize(t, pre, seed=args.seed, device=device)
+            out = client_initialize(t, pre, seed=args.seed, device=device,
+                                    backend=args.bgm_backend)
             # the server's run name wins, whatever the shard files are called
             name = out.get("run_name") or name
             print(f"rank {args.rank} ({name}) init complete: "
@@ -925,7 +957,8 @@ def _run_federated(args, name, kwargs, tables, columns, cfg, device,
     init = federated_initialize(clients, seed=args.seed,
                                 weighted=not args.uniform, device=device,
                                 similarity=args.similarity,
-                                cache=args.init_cache)
+                                cache=args.init_cache,
+                                backend=args.bgm_backend)
     if args.mode == "mdgan":
         trainer = MDGANTrainer(init, cfg, seed=args.seed, device=device,
                                decode=args.decode)
@@ -988,8 +1021,9 @@ def _run_training(args, name, kwargs, trainer, init, tables, ckpt_dir,
     _write_meta(os.path.join(args.out_dir, "models"), name, init.global_meta,
                 init.encoders)
     path_fn = result_path_fn(args.out_dir, name)
+    fmt = args.snapshot_format or "csv"
     snapshot = SnapshotWriter(init.global_meta, init.encoders, path_fn,
-                              rows=args.sample_rows, seed=args.seed)
+                              rows=args.sample_rows, seed=args.seed, fmt=fmt)
     mon_log = MonitorLog(os.path.join(args.out_dir, "monitor_similarity.csv"))
     monitor = None
     if args.monitor_every:
@@ -1098,6 +1132,9 @@ def _run_training(args, name, kwargs, trainer, init, tables, ckpt_dir,
         last_epoch = trainer.completed_epochs - 1
         if not args.sample_every and last_epoch >= 0:
             snapshot(last_epoch, trainer)
+        # a columnar run scores the last snapshot's decoded columns (the
+        # CSV's cells); a CSV run reads its file back below
+        last_columns = snapshot.drain() if fmt != "csv" else None
     if args.save_every and trainer.completed_epochs % args.save_every:
         save_federated(trainer, ckpt_dir, run_name=name, keep=args.ckpt_keep)
     if args.save_model:
@@ -1107,8 +1144,11 @@ def _run_training(args, name, kwargs, trainer, init, tables, ckpt_dir,
     if args.eval and tables is not None and last_epoch >= 0:
         last = ((last_epoch // args.sample_every) * args.sample_every
                 if args.sample_every else last_epoch)
-        _evaluate(tables, read_csv(path_fn(last)),
-                  _eval_categorical_columns(kwargs))
+        fake = read_csv(path_fn(last)) if fmt == "csv" else last_columns
+        if fake is None:
+            print("--eval skipped: this run wrote no snapshot")
+        else:
+            _evaluate(tables, fake, _eval_categorical_columns(kwargs))
     if not args.quiet:
         total = sum(trainer.epoch_times)
         n = max(len(trainer.epoch_times), 1)

@@ -27,13 +27,24 @@ cohort's ragged client x column structure at once.
 One deviation from the JAX package: a column shorter than ``n_components``
 is fitted with ``n_components = len(column)`` by the same batched fit,
 where the JAX package hands it to sklearn.
+
+The reference-exact host fit (``--bgm-backend sklearn``,
+``fed_tgan_tpu/features/bgm.py:147-251``) is :func:`fit_column_gmm`: one
+sklearn ``BayesianGaussianMixture`` a column on the host, with sklearn
+imported only there.  Its posterior fills a :class:`ColumnGMM` (the
+estimator is not kept), whose :meth:`ColumnGMM.predict_proba` is then
+sklearn's own E-step, so the encode path, the checkpoints and the init
+cache take either fit.  :func:`fit_backend` picks the fit by the
+backend's name: ``"jax"`` (the batched fit above, the JAX CLI's default)
+or ``"sklearn"``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -315,3 +326,82 @@ def fit_shards(shard_columns: Sequence[Sequence[np.ndarray]],
                          wc_prior, device=device) if flat else []
     return [fitted[offsets[i]:offsets[i + 1]]
             for i in range(len(shard_columns))]
+
+
+BACKENDS = ("jax", "sklearn")
+
+
+def _host_fit_settings() -> tuple[int, float]:
+    """``max_iter`` and ``tol`` of the host fit: sklearn's defaults, which
+    the reference fits at, unless ``FED_TGAN_TORCH_BGM_MAX_ITER`` /
+    ``FED_TGAN_TORCH_BGM_TOL`` override them (the JAX package's
+    ``FED_TGAN_TPU_BGM_*`` levers); an unparsable value keeps both."""
+    try:
+        return (int(os.environ.get("FED_TGAN_TORCH_BGM_MAX_ITER", 100)),
+                float(os.environ.get("FED_TGAN_TORCH_BGM_TOL", 1e-3)))
+    except ValueError:
+        return 100, 1e-3
+
+
+def fit_column_gmm(x: np.ndarray, n_components: int = N_CLUSTERS,
+                   eps: float = WEIGHT_EPS,
+                   seed: Optional[int] = None) -> ColumnGMM:
+    """The reference-exact fit of one column on the host: sklearn's
+    ``BayesianGaussianMixture`` with a Dirichlet-process prior of 0.001,
+    one initialisation, ``random_state=seed`` and at most one component a
+    row.  The ``ConvergenceWarning`` of a fit that stops at ``max_iter``
+    is silenced: the reference's fits routinely do.  The column is
+    fitted from a contiguous copy: sklearn's sums over a strided column
+    round differently, and the JAX package's columns are contiguous (its
+    encoded matrices are column-major)."""
+    try:
+        from sklearn.exceptions import ConvergenceWarning
+        from sklearn.mixture import BayesianGaussianMixture
+    except ImportError as exc:
+        raise ImportError("the host BGM fit (--bgm-backend sklearn) needs "
+                          "sklearn, which does not import here") from exc
+    import warnings
+
+    x = np.ascontiguousarray(x, dtype=np.float64).reshape(-1, 1)
+    max_iter, tol = _host_fit_settings()
+    gm = BayesianGaussianMixture(
+        n_components=max(1, min(n_components, len(x))),
+        weight_concentration_prior_type="dirichlet_process",
+        weight_concentration_prior=WEIGHT_CONCENTRATION_PRIOR,
+        n_init=1, max_iter=max_iter, tol=tol, random_state=seed)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", ConvergenceWarning)
+        gm.fit(x)
+    weights = np.asarray(gm.weights_, dtype=np.float64).reshape(-1)
+    stick_a, stick_b = gm.weight_concentration_
+    return ColumnGMM(
+        means=np.asarray(gm.means_, dtype=np.float64).reshape(-1),
+        stds=np.sqrt(np.asarray(gm.covariances_,
+                                dtype=np.float64)).reshape(-1),
+        weights=weights, active=weights > eps,
+        mean_precision=np.asarray(gm.mean_precision_, dtype=np.float64),
+        dof=np.asarray(gm.degrees_of_freedom_, dtype=np.float64),
+        stick_a=np.asarray(stick_a, dtype=np.float64),
+        stick_b=np.asarray(stick_b, dtype=np.float64))
+
+
+def fit_column_gmms(columns: Sequence[np.ndarray],
+                    n_components: int = N_CLUSTERS, eps: float = WEIGHT_EPS,
+                    seed: Optional[int] = None) -> list[ColumnGMM]:
+    """:func:`fit_column_gmm` of every column, one after the other, each
+    with the same ``seed`` (``fed_tgan_tpu/features/bgm.py:216``)."""
+    return [fit_column_gmm(c, n_components, eps, seed) for c in columns]
+
+
+def fit_backend(columns: Sequence[np.ndarray], backend: str = "jax",
+                n_components: int = N_CLUSTERS, eps: float = WEIGHT_EPS,
+                seed: Optional[int] = None, device="cuda") -> list[ColumnGMM]:
+    """One mixture per column by ``backend``: ``"jax"`` is
+    :func:`fit_columns` on ``device``, ``"sklearn"`` the host fit
+    (``seed`` its ``random_state``)."""
+    if backend == "jax":
+        return fit_columns(columns, n_components, eps, device=device)
+    if backend == "sklearn":
+        return fit_column_gmms(columns, n_components, eps, seed)
+    raise ValueError(f"unknown BGM backend {backend!r} (expected one of "
+                     f"{BACKENDS})")

@@ -23,7 +23,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from fed_tgan_torch.features.bgm import N_CLUSTERS, WEIGHT_EPS, fit_columns
+from fed_tgan_torch.features.bgm import N_CLUSTERS, WEIGHT_EPS, fit_backend
 
 SCALE = 4.0  # the reference's (x - mu) / (4 sigma)
 CLIP = 0.99
@@ -65,14 +65,19 @@ def output_info(columns: Sequence) -> list[tuple[int, str]]:
 
 class ModeNormalizer:
     """fit / transform / inverse_transform for one table.  The mixtures
-    are fitted on ``device`` (the card unless the caller asks for the
-    CPU)."""
+    are fitted by ``backend`` (:func:`~fed_tgan_torch.features.bgm.
+    fit_backend`): ``"jax"``, the batched fit on ``device`` (the card
+    unless the caller asks for the CPU), or ``"sklearn"``, the host fit
+    with ``random_state=seed``."""
 
     def __init__(self, n_components: int = N_CLUSTERS, eps: float = WEIGHT_EPS,
-                 device="cuda"):
+                 device="cuda", backend: str = "jax",
+                 seed: Optional[int] = None):
         self.n_components = n_components
         self.eps = eps
         self.device = device
+        self.backend = backend
+        self.seed = seed
         self.columns: list = []  # decode columns
         self.gmms: list = []     # ColumnGMM per continuous column, else None
         self.output_info: list[tuple[int, str]] = []
@@ -96,9 +101,9 @@ class ModeNormalizer:
                                  f"{missing}")
             gmms = {j: column_gmms[j] for j in cont_idx}
         elif cont_idx:
-            gmms = dict(zip(cont_idx, fit_columns(
-                [data[:, j] for j in cont_idx], self.n_components, self.eps,
-                device=self.device)))
+            gmms = dict(zip(cont_idx, fit_backend(
+                [data[:, j] for j in cont_idx], self.backend,
+                self.n_components, self.eps, self.seed, device=self.device)))
         else:
             gmms = {}
         self.columns, self.gmms = [], []

@@ -113,7 +113,8 @@ def _broadcast_phase(transport: ServerTransport, obj, phase: str,
 def server_initialize(transport: ServerTransport, seed: int = 0,
                       weighted: bool = True, run_name: str | None = None,
                       min_clients: int | None = None, device="cuda",
-                      similarity: str = "exact") -> dict:
+                      similarity: str = "exact",
+                      backend: str = "jax") -> dict:
     """Drive the init protocol from rank 0; returns the global artifacts
     (``global_meta``, ``encoders``, ``global_gmms``, ``weights``, ``jsd``,
     ``wd``, ``rows_per_client``, ``cond_counts``, ``live_ranks``,
@@ -125,7 +126,8 @@ def server_initialize(transport: ServerTransport, seed: int = 0,
     non-finite payload is dropped and the weights are computed over the
     survivors; below the floor the run aborts.  ``None`` requires every
     client.  ``similarity`` is :func:`harmonize_continuous`'s method; the
-    pooled refit runs on ``device``."""
+    pooled refit runs on ``device`` (``backend="jax"``) or on the host
+    (``"sklearn"``)."""
     metas = _gather_phase(transport, "gather-metas", min_clients)
     meta_ranks = sorted(metas)
     global_meta_dict, encoders, jsd = harmonize_categories(
@@ -143,7 +145,7 @@ def server_initialize(transport: ServerTransport, seed: int = 0,
     global_gmms, wd = harmonize_continuous(
         [infos[r]["gmms"] for r in info_ranks],
         [rows_by_rank[r] for r in info_ranks], seed=seed, device=device,
-        method=similarity)
+        method=similarity, backend=backend)
     wd_by_rank = dict(zip(info_ranks, np.asarray(wd)))
     _broadcast_phase(transport, {"gmms": global_gmms}, "broadcast-gmms",
                      min_clients)
@@ -183,22 +185,25 @@ def server_initialize(transport: ServerTransport, seed: int = 0,
 
 def client_initialize(transport: ClientTransport,
                       preprocessor: TablePreprocessor, seed: int = 0,
-                      device="cuda") -> dict:
+                      device="cuda", backend: str = "jax") -> dict:
     """Take part in the init protocol as ``transport.rank``; returns this
     shard's artifacts (``global_meta``, ``encoders``, ``transformer``,
     ``matrix``, ``weights``, ``rows_per_client``, ``cond_counts``,
-    ``run_name``)."""
+    ``run_name``).  ``backend`` picks the local fit as
+    :class:`~fed_tgan_torch.features.transformer.ModeNormalizer` does."""
     transport.send_obj(preprocessor.local_meta())
 
     msg = transport.recv_obj()
     global_meta = TableMeta.from_json_dict(msg["meta"])
     encoders = msg["encoders"]
     matrix, cat_idx, _ = preprocessor.encode(encoders)
-    local_tf = ModeNormalizer(device=device).fit(matrix, cat_idx)
+    local_tf = ModeNormalizer(device=device, backend=backend,
+                              seed=seed).fit(matrix, cat_idx)
     transport.send_obj({"gmms": local_tf.column_gmms, "rows": len(matrix)})
 
     global_gmms = transport.recv_obj()["gmms"]
-    transformer = ModeNormalizer(device=device).refit_with_global(
+    transformer = ModeNormalizer(device=device, backend=backend,
+                                 seed=seed).refit_with_global(
         global_meta, encoders, global_gmms)
     encoded = transformer.transform(
         matrix, rng=np.random.default_rng(seed + transport.rank - 1))

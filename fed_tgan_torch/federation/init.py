@@ -14,7 +14,8 @@ refit, similarity weights
    scipy's ``wasserstein_distance`` on the host); ``method="sketch"``
    scores the mixtures' CDFs on the device and refits on a fixed-budget
    draw from the pooled mixture (:mod:`fed_tgan_torch.federation.sketch`),
-   so its cost does not grow with the population.
+   so its cost does not grow with the population.  ``backend="sklearn"``
+   refits on the host (the reference-exact fit, seeded with ``seed``).
 3. :func:`aggregation_weights`: ``softmax((1 - d_i / sum(d)) * n_i / N)``
    with ``d_i`` the client's summed normalized JSD and WD scores;
    :func:`recompute_weights` reruns it from raw scores over the live
@@ -45,9 +46,11 @@ from fed_tgan_torch.data.ingest import TablePreprocessor
 from fed_tgan_torch.data.schema import TableMeta
 from fed_tgan_torch.device import resolve_device
 from fed_tgan_torch.features.bgm import (
+    BACKENDS,
     N_CLUSTERS,
     WEIGHT_EPS,
     ColumnGMM,
+    fit_backend,
     fit_columns,
     fit_shards,
 )
@@ -157,7 +160,8 @@ def harmonize_continuous(client_gmms: Sequence[Sequence],
                          n_components: int = N_CLUSTERS,
                          eps: float = WEIGHT_EPS, raw: bool = False,
                          device="cuda", method: str = "exact",
-                         pool_budget: int = 0, grid_points: int = 0):
+                         pool_budget: int = 0, grid_points: int = 0,
+                         backend: str = "jax"):
     """``(global_gmms, wd)``: ``client_gmms[i][j]`` is client i's mixture
     of column j (None when discrete); ``global_gmms[j]`` the mixture
     refitted on the pooled sample, ``wd`` the (n_clients, n_continuous)
@@ -165,7 +169,8 @@ def harmonize_continuous(client_gmms: Sequence[Sequence],
     scores.  ``method`` is ``"exact"`` or ``"sketch"`` (the module
     docstring); the sketch's pool draws ``min(pool_budget or
     POOL_BUDGET, total rows)`` values a column on a ``grid_points`` (or
-    ``GRID_POINTS``) grid."""
+    ``GRID_POINTS``) grid.  ``backend`` picks the refit
+    (:func:`~fed_tgan_torch.features.bgm.fit_backend`)."""
     n_clients = len(client_gmms)
     cont_cols = [j for j, g in enumerate(client_gmms[0]) if g is not None]
     if method == "sketch":
@@ -193,7 +198,8 @@ def harmonize_continuous(client_gmms: Sequence[Sequence],
         raise ValueError(f"unknown similarity method {method!r}")
     global_gmms: list = [None] * len(client_gmms[0])
     if pooled_cols:
-        refits = fit_columns(pooled_cols, n_components, eps, device=device)
+        refits = fit_backend(pooled_cols, backend, n_components, eps, seed,
+                             device=device)
         for j, gmm in zip(cont_cols, refits):
             global_gmms[j] = gmm
     if raw:
@@ -295,7 +301,7 @@ def _onboarding_state(client_gmms, cont_idx, cat_idx, jsd_raw, wd_raw,
 
 
 def _restore_from_cache(entry: dict, seed: int, transform_matrices: bool,
-                        device) -> FederatedInit:
+                        device, backend: str) -> FederatedInit:
     """A ``FederatedInit`` from a global cache entry: the matrices come
     back byte for byte from the entry, never re-transformed."""
     payload, arrays = entry["payload"], entry["arrays"]
@@ -307,7 +313,8 @@ def _restore_from_cache(entry: dict, seed: int, transform_matrices: bool,
         global_gmms[int(j)] = ColumnGMM.from_dict(d)
     rows_per_client = [int(r) for r in payload["rows_per_client"]]
     n_clients = len(rows_per_client)
-    transformers = [ModeNormalizer(device=device).refit_with_global(
+    transformers = [ModeNormalizer(device=device, backend=backend,
+                                   seed=seed).refit_with_global(
         global_meta, encoders, global_gmms) for _ in range(n_clients)]
     onboarding = {
         "jsd_raw": arrays["jsd_raw"], "wd_raw": arrays["wd_raw"],
@@ -333,7 +340,8 @@ def federated_initialize(clients: Sequence[TablePreprocessor], seed: int = 0,
                          weighted: bool = True, device="cuda",
                          similarity: str = "exact",
                          batch_fit: bool = True, cache=None,
-                         transform_matrices: bool = True) -> FederatedInit:
+                         transform_matrices: bool = True,
+                         backend: str = "jax") -> FederatedInit:
     """The init protocol over in-process client shards: harmonize
     categories -> encode -> local mixture fits -> pooled refit and WD
     scores -> transform every shard with the global models -> weights.
@@ -347,7 +355,12 @@ def federated_initialize(clients: Sequence[TablePreprocessor], seed: int = 0,
       init_cache.InitCache`) restores a whole init, or the clients'
       local fits, from content-hashed entries, and stores what it fitted;
     - ``transform_matrices=False`` skips the encoded matrices
-      (registration-only onboarding: weights without training data).
+      (registration-only onboarding: weights without training data);
+    - ``backend`` picks the mixture fits: ``"jax"``, the batched fit on
+      ``device``, or ``"sklearn"``, the reference-exact host fit, client
+      by client and column by column with ``random_state=seed``
+      (``batch_fit`` does not apply).  Everything after the fits runs on
+      ``device`` either way, and the cache keeps the two apart.
 
     ``timings`` holds each phase's seconds, every phase ended on the
     host, each also logged as JAX's ``init_phase`` event dict:
@@ -364,7 +377,8 @@ def federated_initialize(clients: Sequence[TablePreprocessor], seed: int = 0,
     device = resolve_device(device)
     if similarity not in ("exact", "sketch"):
         raise ValueError(f"unknown similarity {similarity!r}")
-    backend = "jax"  # the batched variational fit, the JAX default's
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown BGM backend {backend!r}")
     n_clients = len(clients)
     total_rows = int(sum(c.n_rows for c in clients))
     cache = InitCache.resolve(cache)
@@ -398,7 +412,7 @@ def federated_initialize(clients: Sequence[TablePreprocessor], seed: int = 0,
         t = done("cache_lookup", t)
         if entry is not None:
             init = _restore_from_cache(entry, seed, transform_matrices,
-                                       device)
+                                       device, backend)
             done("cache_restore", t)
             init.timings = timings
             cache.flush_events()
@@ -421,13 +435,17 @@ def federated_initialize(clients: Sequence[TablePreprocessor], seed: int = 0,
     gmms_by_client = {i: hit["gmms"] for i, hit in cached.items()}
     need = [i for i in range(n_clients) if i not in gmms_by_client]
     shards = [[matrices[i][:, j] for j in cont_idx] for i in need]
-    fitted = (fit_shards(shards, device=device) if batch_fit
-              else [fit_columns(cols, device=device) for cols in shards])
+    if backend == "sklearn":
+        fitted = [fit_backend(cols, backend, seed=seed) for cols in shards]
+    elif batch_fit:
+        fitted = fit_shards(shards, device=device)
+    else:
+        fitted = [fit_columns(cols, device=device) for cols in shards]
     for i, gl in zip(need, fitted):
         gmms_by_client[i] = dict(zip(cont_idx, gl))
     client_gmms = []
     for i, m in enumerate(matrices):
-        tf = ModeNormalizer(device=device).fit(
+        tf = ModeNormalizer(device=device, backend=backend, seed=seed).fit(
             m, cat_idx, column_gmms=gmms_by_client[i])
         client_gmms.append(tf.column_gmms)
     if cache is not None:
@@ -437,13 +455,14 @@ def federated_initialize(clients: Sequence[TablePreprocessor], seed: int = 0,
 
     global_gmms, wd, wd_raw = harmonize_continuous(
         client_gmms, rows_per_client, seed=seed, raw=True, device=device,
-        method=similarity)
+        method=similarity, backend=backend)
     t = done("continuous_harmonize", t)
 
     global_meta = TableMeta.from_json_dict(global_meta_dict)
     transformers, client_matrices = [], []
     for i in range(n_clients):
-        tf = ModeNormalizer(device=device).refit_with_global(
+        tf = ModeNormalizer(device=device, backend=backend,
+                            seed=seed).refit_with_global(
             global_meta, encoders, global_gmms)
         transformers.append(tf)
         if transform_matrices:

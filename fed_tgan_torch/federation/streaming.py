@@ -37,7 +37,7 @@ from scipy.spatial import distance as _sdistance
 
 from fed_tgan_torch.data.ingest import TablePreprocessor
 from fed_tgan_torch.device import resolve_device
-from fed_tgan_torch.features.bgm import N_CLUSTERS, fit_shards
+from fed_tgan_torch.features.bgm import N_CLUSTERS, fit_backend, fit_shards
 from fed_tgan_torch.features.transformer import ModeNormalizer
 from fed_tgan_torch.obs.journal import emit as _emit_event
 from fed_tgan_torch.obs.trace import record_span
@@ -277,7 +277,8 @@ class OnboardingSession:
 
     def _fit_locals(self, admitted, matrices, metas, cont_idx, params):
         """The admitted shards' local fits: cache hits, then one bucketed
-        batch for the rest (stored back into the cache)."""
+        batch for the rest (the host fit shard by shard under the
+        ``"sklearn"`` backend), stored back into the cache."""
         from fed_tgan_torch.federation.init_cache import shard_fingerprint
 
         gmms_list: list = [None] * len(admitted)
@@ -292,8 +293,12 @@ class OnboardingSession:
                     gmms_list[k] = hit["gmms"]
         need = [k for k in range(len(admitted)) if gmms_list[k] is None]
         if need:
-            fitted = fit_shards([[matrices[k][:, j] for j in cont_idx]
-                                 for k in need], device=self.device)
+            shards = [[matrices[k][:, j] for j in cont_idx] for k in need]
+            if params["backend"] == "sklearn":
+                fitted = [fit_backend(cols, "sklearn", seed=params["seed"])
+                          for cols in shards]
+            else:
+                fitted = fit_shards(shards, device=self.device)
             for k, gl in zip(need, fitted):
                 gmms_list[k] = dict(zip(cont_idx, gl))
                 # a diverged fit is screened like a bad payload

@@ -118,6 +118,7 @@ class MultihostRun:
     ckpt_dir: Optional[str] = None
     resume: bool = False
     decode: str = "packed8"
+    snapshot_format: str = "csv"  # csv | feather | parquet (rank 0 writes)
 
 
 def _maybe_fault_kill(rank: int, round_1based: int) -> None:
@@ -517,7 +518,8 @@ def server_train(transport, init_out: dict, run: MultihostRun, name: str,
     decode = None
     writer = SnapshotWriter(init_out["global_meta"], init_out["encoders"],
                             result_path_fn(out_dir, name),
-                            rows=run.sample_rows, seed=run.seed)
+                            rows=run.sample_rows, seed=run.seed,
+                            fmt=run.snapshot_format)
     with writer:
         while True:
             msg = recv_or_abort(1, transport.deadlines.train_ms)

@@ -22,6 +22,12 @@ runs with a plain copy and no event.  A bf16 trainer's snapshot samples
 in bf16 (the generator and K1 in the model's compute dtype) and its rows
 are float32 before the decode, as ``make_sample_many`` decodes in f32.
 
+``fmt="feather"`` or ``"parquet"`` (``--snapshot-format``,
+``fed_tgan_tpu/train/snapshots.py:99-135``) writes the snapshot as an Arrow
+table instead, at ``<name>.feather`` or ``<name>.parquet``
+(:func:`columnar_table`, :func:`write_columnar`); pyarrow is imported
+only then.
+
 At most :data:`MAX_PENDING` snapshots are in flight, each with its own set
 of host buffers, reused by later snapshots: a new one waits for the oldest.
 A worker's error is re-raised at the next submit, at ``drain`` or when the
@@ -39,21 +45,105 @@ import numpy as np
 import torch
 
 from fed_tgan_torch.analysis.sanitizers import sanctioned_sync
-from fed_tgan_torch.data.decode import decode_cells, decode_columns
+from fed_tgan_torch.data.constants import MISSING_TOKEN
+from fed_tgan_torch.data.decode import (
+    category_values,
+    decode_cells,
+    decode_columns,
+)
 from fed_tgan_torch.data.fastcsv import ColumnPlan, PackedSnapshotFormatter
 from fed_tgan_torch.obs.trace import span as _span
 
 MAX_PENDING = 2  # snapshots in flight, each with its own host buffers
+FORMATS = ("csv", "feather", "parquet")
+
+
+def _pyarrow():
+    try:
+        import pyarrow
+    except ImportError as exc:
+        raise ImportError("--snapshot-format feather|parquet needs pyarrow, "
+                          "which does not import here") from exc
+    return pyarrow
+
+
+def columnar_table(data: np.ndarray, meta, encoders):
+    """A decoded snapshot as the ``pyarrow.Table`` the JAX package writes
+    (``_write_columnar``), column for column and type for type:
+
+    - with no date column and no missing value, a categorical column is
+      a dictionary array (int32 codes into every category of its
+      encoder, the missing token spelled ``' '``) and any other column
+      the decoded numbers;
+    - otherwise (the JAX package's pandas path) a categorical column is
+      ``large_string``, a date column holds its datetimes (or ``yymmdd``
+      ints), and every cell the CSV spells ``' '`` is a null."""
+    pa = _pyarrow()
+    cells = decode_cells(data, meta, encoders)
+    typed = not meta.date_info and all(
+        c.encoder is not None or c.blank is None for c in cells.values())
+    arrays = {}
+    for name, c in cells.items():
+        if c.encoder is not None:
+            if typed:
+                dictionary = [" " if v == MISSING_TOKEN else str(v)
+                              for v in c.encoder.classes_.tolist()]
+                arrays[name] = pa.DictionaryArray.from_arrays(
+                    pa.array(c.values.astype(np.int32)),
+                    pa.array(dictionary, type=pa.string()))
+                continue
+            vals = category_values(c.encoder, c.values).tolist()
+            arrays[name] = pa.array([None if v == " " else v for v in vals],
+                                    type=pa.large_string())
+        elif c.values.dtype.kind == "O":  # a rejoined date column
+            arrays[name] = pa.array([None if isinstance(v, str) and v == " "
+                                     else v for v in c.values.tolist()])
+        else:
+            arrays[name] = pa.array(c.values, mask=c.blank)
+    return pa.table(arrays)
+
+
+def write_columnar(data: np.ndarray, meta, encoders, path: str,
+                   fmt: str) -> None:
+    """:func:`columnar_table` of ``data`` to ``path``: ``"feather"`` as
+    the Arrow IPC file format (feather V2), ``"parquet"`` with
+    ``pyarrow.parquet.write_table``."""
+    pa = _pyarrow()
+    table = columnar_table(data, meta, encoders)
+    if fmt == "feather":
+        with pa.OSFile(path, "wb") as sink, \
+                pa.ipc.new_file(sink, table.schema) as writer:
+            writer.write_table(table)
+    elif fmt == "parquet":
+        import pyarrow.parquet as pq
+
+        pq.write_table(table, path)
+    else:
+        raise ValueError(f"columnar snapshot format {fmt!r}: expected "
+                         "feather or parquet")
+
+
+def snapshot_file(path: str, fmt: str) -> str:
+    """``path`` (a ``.csv`` name) with the format's extension."""
+    return path if fmt == "csv" else os.path.splitext(path)[0] + "." + fmt
 
 
 class SnapshotWriter:
     """``sample_hook``-compatible: ``writer(epoch, trainer)`` samples
     ``rows`` rows of stream ``seed + epoch`` from ``trainer`` and writes
-    them to ``path_fn(epoch)``.  ``drain()`` waits for every write and
-    returns the last snapshot's decoded columns."""
+    them to ``path_fn(epoch)`` (its extension swapped for a columnar
+    ``fmt``).  ``drain()`` waits for every write and returns the last
+    snapshot's decoded columns, missing cells spelled ``' '`` whatever
+    the format."""
 
     def __init__(self, meta, encoders, path_fn: Callable[[int], str],
-                 rows: int = 40000, seed: int = 0):
+                 rows: int = 40000, seed: int = 0, fmt: str = "csv"):
+        if fmt not in FORMATS:
+            raise ValueError(f"snapshot format {fmt!r}: expected csv, "
+                             "feather or parquet")
+        if fmt != "csv":
+            _pyarrow()  # fail before the first round, not on the writer
+        self.fmt = fmt
         self.meta = meta
         self.encoders = encoders
         self.path_fn = path_fn
@@ -136,6 +226,12 @@ class SnapshotWriter:
         # on the profiler's timeline
         with _span("train.snapshot.write"):
             parts = {k: v.numpy() for k, v in buffers.items()}
+            if self.fmt != "csv":
+                write_columnar(decode.assemble(parts), self.meta,
+                               self.encoders, snapshot_file(path, self.fmt),
+                               self.fmt)
+                self.write_s.append(time.perf_counter() - t0)
+                return {k: v.copy() for k, v in parts.items()}, decode
             packed = self._formatter(decode)
             if packed is not None:
                 blob = packed.csv_bytes(parts)

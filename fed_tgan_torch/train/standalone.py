@@ -40,12 +40,15 @@ KEY_OFFSET = 17  # the JAX package's sampling stream offset
 class StandaloneSynthesizer:
     """``fit`` on a numeric matrix (categorical columns as integer codes),
     ``sample`` decoded rows.  Runs on ``device``: the card unless the
-    caller asks for the CPU."""
+    caller asks for the CPU.  ``bgm_backend`` picks the mixture fit
+    (``"jax"``, the batched fit on ``device``; ``"sklearn"``, the host
+    fit)."""
 
     def __init__(self, config: Optional[TrainConfig] = None, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", bgm_backend: str = "jax"):
         self.cfg = config or TrainConfig()
         self.seed = seed
+        self.bgm_backend = bgm_backend
         self.device = resolve_device(device)
         self.transformer: Optional[ModeNormalizer] = None
         self.models: Optional[Models] = None
@@ -66,8 +69,9 @@ class StandaloneSynthesizer:
             raise ValueError(f"need at least batch_size={self.cfg.batch_size}"
                              f" rows, got {len(data)}")
         t0 = time.perf_counter()
-        self.transformer = ModeNormalizer(device=self.device).fit(
-            data, categorical_idx, ordinal_idx)
+        self.transformer = ModeNormalizer(
+            device=self.device, backend=self.bgm_backend,
+            seed=self.seed).fit(data, categorical_idx, ordinal_idx)
         self.timings = {"bgm_fit_s": time.perf_counter() - t0, "epoch_s": []}
         train = self.transformer.transform(
             data, rng=np.random.default_rng(self.seed))

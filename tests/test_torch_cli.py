@@ -15,11 +15,12 @@ on the same raw Intrusion-shaped CSV (600 rows, 3 clients).
 - ``--similarity sketch --init-cache`` restores a warm init, and
   ``--elastic-capacity`` runs join/leave/drift faults;
 - ``--precision bf16`` trains, checkpoints and resumes in bf16;
-- a flag of a feature not ported yet exits with code 2 and names its
-  ROADMAP item; ``--journal``, ``--obs-port``, ``--profile-dir`` and
-  ``--profile-rounds`` run, and so do ``--sanitize`` and
-  ``--sanitize-nans`` (the plain run's bytes) and ``serve``'s and
-  ``fleet``'s ``--sanitize`` and ``fleet --lockwatch``;
+- the flags of the last ported features run: ``--snapshot-format
+  parquet`` (``.parquet`` snapshots holding the plain run's values) and
+  ``--bgm-backend sklearn`` (finite snapshots); ``--journal``,
+  ``--obs-port``, ``--profile-dir`` and ``--profile-rounds`` run, and so
+  do ``--sanitize`` and ``--sanitize-nans`` (the plain run's bytes) and
+  ``serve``'s and ``fleet``'s ``--sanitize`` and ``fleet --lockwatch``;
 - the multi-process launch (``-ip``): ``--init-only``, ``--params-out``,
   the transport fault kinds and the ``fed_tgan_torch.distributed`` alias
   run a world of rank 0 and 2 participants (``launch_world`` of
@@ -134,17 +135,44 @@ def plain_run(data, tmp_path_factory):
     pytest.param(["--bgm-backend", "sklearn"], "A.24", id="flag6-A.24")])
 def test_unported_flags_exit_2(data, tmp_path, capsys, plain_run, flag,
                                item):
-    """A flag of a feature not ported yet exits 2 naming its ROADMAP item.
-    A.20's (``--sanitize``, ``--sanitize-nans``) are ported: the run exits
-    0 with the sanitizers' report (builds, syncs) and its snapshots are
-    the plain run's bytes."""
+    """The flags that exited 2 naming their ROADMAP item until it was
+    ported now run.  A.20's (``--sanitize``, ``--sanitize-nans``): the run
+    exits 0 with the sanitizers' report (builds, syncs) and its snapshots
+    are the plain run's bytes.  A.21's ``--snapshot-format parquet``: the
+    snapshots are ``.parquet`` files holding the plain run's CSV cells
+    (the same training, the same draws).  A.24's ``--bgm-backend
+    sklearn``: the run exits 0 with finite snapshots."""
     rc = port_cli.main(argv(data, tmp_path, "--device", "cpu", *ONE_ROUND,
                             *flag))
     out = capsys.readouterr()
-    if item != "A.20":
-        assert rc == 2 and f"ROADMAP {item}" in out.err
-        return
     assert rc == 0, out.err
+    assert "ROADMAP" not in out.err
+    result = tmp_path / "Intrusion_result"
+    if item == "A.21":
+        import pyarrow.parquet as pq
+
+        assert sorted(p.name for p in result.iterdir()) == [
+            n.replace(".csv", ".parquet") for n in sorted(plain_run)]
+        for name, blob in plain_run.items():
+            rows = list(csv.reader(blob.decode().splitlines()))
+            table = pq.read_table(str(result / name.replace(
+                ".csv", ".parquet"))).to_pydict()
+            assert list(table) == rows[0]
+            for j, column in enumerate(rows[0]):
+                assert [" " if v is None else repr(v) if isinstance(
+                    v, float) else str(v) for v in table[column]] == [
+                        r[j] for r in rows[1:]], column
+        return
+    if item == "A.24":
+        from fed_tgan_torch.data.csvio import read_csv
+
+        shapes = snapshot_shapes(tmp_path)
+        assert list(shapes) == list(plain_run)
+        for name in shapes:
+            cells = read_csv(str(result / name))
+            for column in ("duration", "src_bytes", "dst_bytes"):
+                assert np.isfinite(cells[column]).all(), column
+        return
     assert "sanitize: " in out.out and "synchronizing call(s)" in out.out
     assert "SANITIZE:" not in out.out
     result = tmp_path / "Intrusion_result"
@@ -195,14 +223,17 @@ def _world_argv(out, *extra):
             "--seed", "1", "--out-dir", str(out), *extra]
 
 
-@pytest.mark.parametrize("case", ["init_only", "params_out", "rank0_alone"])
+@pytest.mark.parametrize("case", ["init_only", "params_out", "rank0_alone",
+                                  "parquet"])
 def test_multihost_launch_flags_run(data, tmp_path, capsys, case):
     """The flags the multi-process launch took from ROADMAP A.18 (until
     then refused with exit 2): ``--init-only`` stops a world of rank 0
     and 2 participants after the init protocol (meta and encoders
     written, no snapshot); ``--params-out`` writes each participant's
     final generator; ``-ip -rank 0`` without ``-world_size`` exits 2 with
-    JAX's line."""
+    JAX's line.  A.21's ``--snapshot-format parquet``: rank 0 writes the
+    round's snapshot as parquet (the layout's columns, the requested
+    rows, finite numbers)."""
     from test_torch_world import launch_world
 
     if case == "rank0_alone":
@@ -212,15 +243,28 @@ def test_multihost_launch_flags_run(data, tmp_path, capsys, case):
                 in capsys.readouterr().out)
         return
     out = tmp_path / "out"
-    extra = (["--init-only"] if case == "init_only"
-             else ["--params-out", str(out / "params")])
+    extra = {"init_only": ["--init-only"],
+             "parquet": ["--snapshot-format", "parquet"]}.get(
+                 case, ["--params-out", str(out / "params")])
     res = launch_world(str(tmp_path), _world_argv(out, *extra),
                        _shards(data, tmp_path))
     assert [rc for rc, _, _ in res] == [0, 0, 0], res
     assert "multihost init complete: 2 clients" in res[0][1]
     assert (out / "models" / "Intrusion.json").is_file()
     assert (out / "models" / "label_encoders_Intrusion.json").is_file()
-    if case == "init_only":
+    if case == "parquet":
+        import pyarrow.parquet as pq
+
+        from fed_tgan_torch.datasets import INTRUSION_SELECTED
+
+        result = out / "Intrusion_result"
+        assert os.listdir(result) == ["Intrusion_synthesis_epoch_0.parquet"]
+        table = pq.read_table(str(result / os.listdir(result)[0]))
+        assert table.column_names == list(INTRUSION_SELECTED)
+        assert table.num_rows == 60
+        for name in ("duration", "src_bytes"):
+            assert np.isfinite(table.column(name).to_numpy()).all()
+    elif case == "init_only":
         assert not (out / "Intrusion_result").exists()
         assert all("init complete" in r[1] and "training complete" not in
                    r[1] for r in res[1:])

@@ -1322,3 +1322,36 @@ def test_build_budgets_and_steady_syncs_on_the_card(cuda, tmp_path):
         eng.sample_csv_bytes(120, seed=4)
         assert len(eng.chunk_rows) == 2
         assert sanitizers.check_serving_budget(eng, counter) == []
+
+
+def _raw_intrusion(n: int, seed: int):
+    """An Intrusion-shaped raw table as a (rows, 42) object array and its
+    categorical column indices."""
+    from fed_tgan_torch.serve.demo import intrusion_like_raw
+
+    raw = intrusion_like_raw(n, seed)
+    data = np.empty((n, len(raw)), dtype=object)
+    for i, v in enumerate(raw.values()):
+        data[:, i] = v
+    return data, [i for i, v in enumerate(raw.values()) if v.dtype.kind != "f"]
+
+
+@pytest.mark.parametrize("name", ["binning", "minmax_sigmoid", "minmax_tanh",
+                                  "grid"])
+def test_zoo_card_tensors_equal_the_cpu(cuda, name):
+    """The closed-form encoders of the zoo compute in float64 on the card
+    and cast as on the CPU: the card's tensors equal the CPU's."""
+    from fed_tgan_torch.features import zoo
+
+    data, cat = _raw_intrusion(2000, 3)
+    make = {"binning": lambda d: zoo.BinningTransformer(32, device=d),
+            "minmax_sigmoid": lambda d: zoo.MinMaxTransformer(device=d),
+            "minmax_tanh": lambda d: zoo.MinMaxTransformer("tanh", device=d),
+            "grid": lambda d: zoo.GridTransformer(7, device=d)}[name]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        enc = make(dev)
+        enc.fit(data, categorical_columns=cat)
+        out[dev] = enc.transform(data)
+        assert out[dev].device.type == dev
+    assert torch.equal(out["cuda"].cpu(), out["cpu"])

@@ -20,10 +20,11 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "fed_tgan_tpu", "pandas", "pyarrow", "sklearn")
 # the run-level scripts of the port (the pod launcher, the soaks, trace
-# attribution)
+# attribution) and the monitor's cross-check
 RUN_LEVEL_SCRIPTS = tuple(os.path.join(REPO, "scripts", f"torch_{name}.py")
                           for name in ("launch_pod", "soak",
-                                       "trace_attribution"))
+                                       "trace_attribution",
+                                       "crosscheck_monitor"))
 
 
 def _port_modules():
@@ -143,7 +144,7 @@ def test_port_package_lists_every_slice_module():
                  "analysis.concurrency.ast_helpers",
                  "analysis.telemetry.extract", "analysis.telemetry.rules",
                  "analysis.telemetry.schema", "ops.diagnostics", "doctor",
-                 "runtime.backend"):
+                 "runtime.backend", "eval.utility", "features.zoo"):
         assert f"fed_tgan_torch.{name}" in mods
 
 
@@ -692,3 +693,73 @@ def test_trace_attribution_runs_without_torch_or_numpy(tmp_path):
     out = json.loads(proc.stdout)[str(tmp_path)]
     assert out["host_hotspots_ms"] == {"train.snapshot": {"total": 2.0,
                                                           "count": 1}}
+
+
+def test_offline_eval_and_zoo_run_with_jax_sklearn_pandas_pyarrow_blocked(
+        tmp_path):
+    """Where jax, the JAX package, pandas, pyarrow and sklearn cannot be
+    imported: the similarity report's module CLI and the cross-check
+    script run; the closed-form encoders of the zoo run; what needs a
+    host library (the utility CLI, the two mixtures of the zoo, a
+    columnar snapshot writer) ends naming it."""
+    result = tmp_path / "toy_result"
+    result.mkdir()
+    real = "x,c\n1.5,a\n2.5,b\n0.5,a\n"
+    (tmp_path / "real.csv").write_text(real)
+    for e in (0, 1):
+        (result / f"toy_synthesis_epoch_{e}.csv").write_text(
+            "x,c\n1.0,a\n2.0,a\n0.25,b\n")
+    (tmp_path / "monitor.csv").write_text(
+        "Epoch_No.,Avg_JSD,Avg_WD\n0,0.1,0.2\n1,0.1,0.2\n")
+    report = str(tmp_path / "report.csv")
+    code = (
+        "import runpy, sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np\n"
+        f"sys.argv = ['similarity', '--real', {str(tmp_path / 'real.csv')!r},"
+        f" '--result-dir', {str(result)!r}, '--name', 'toy', "
+        f"'--categorical', 'c', '-o', {report!r}]\n"
+        "try:\n"
+        "    runpy.run_module('fed_tgan_torch.eval.similarity', "
+        "run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        f"sys.argv = ['xc', '--monitor-csv', "
+        f"{str(tmp_path / 'monitor.csv')!r}, '--similarity-csv', {report!r}]\n"
+        "try:\n"
+        f"    runpy.run_path({RUN_LEVEL_SCRIPTS[3]!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "from fed_tgan_torch.features import zoo\n"
+        "data = np.array([[1.0, 'a'], [2.0, 'b'], [0.5, 'a']], "
+        "dtype=object)\n"
+        "for enc in (zoo.BinningTransformer(4, device='cpu'), "
+        "zoo.MinMaxTransformer(device='cpu'), "
+        "zoo.GridTransformer(2, device='cpu')):\n"
+        "    enc.fit(data, categorical_columns=(1,))\n"
+        "    back = enc.inverse_transform(enc.transform(data))\n"
+        "    assert back[:, 1].tolist() == ['a', 'b', 'a']\n"
+        "from fed_tgan_torch.eval import utility\n"
+        "from fed_tgan_torch.train.snapshots import SnapshotWriter\n"
+        "for call, lib in ((lambda: zoo.GMMTransformer(device='cpu').fit("
+        "data, categorical_columns=(1,)), 'sklearn'), "
+        "(lambda: zoo.BGMTransformer(device='cpu').fit("
+        "data, categorical_columns=(1,)), 'sklearn'), "
+        "(lambda: utility.ml_utility({}, {}, {}, 'c', []), 'sklearn'), "
+        "(lambda: SnapshotWriter(None, [], str, fmt='parquet'), "
+        "'pyarrow')):\n"
+        "    try:\n"
+        "        call()\n"
+        "    except ImportError as exc:\n"
+        "        assert lib in str(exc), exc\n"
+        "    else:\n"
+        "        raise AssertionError(lib)\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-1] == "ok"
+    assert json.loads(lines[-2])["rounds_compared"] == 2
+    assert open(report).readline().strip() == "Epoch_No.,Avg_JSD,Avg_WD"
