@@ -312,6 +312,20 @@ Phases, each fatal on failure:
    process that sees no card (a probe would exit 3); the branch each took
    and the phase's seconds are printed.
 
+24. the program contracts (``contracts_phase``), slice 17's path:
+   ``python -m fed_tgan_torch.analysis --contracts --backend gpu`` in a
+   process of its own dispatches every contracted entry point on the card
+   and holds it against ``fed_tgan_torch/analysis/contracts/gpu/`` (exit 1
+   or 2 fails the script); each program's K1/K2 calls (the recorder holds
+   them equal to the wrappers' launch counts), syncs and cross-device
+   copies with their bytes are printed, and its kernel calls must equal
+   the CPU contract's; the doctor's static-analysis, program-contracts,
+   analysis-all (``--all``: the three prongs) and backend-seam checks on
+   the card all OK (read from phase 20's doctor in a full run; with
+   ``--contracts`` alone, run in another process beside the contracts);
+   then K1 and K2 against their plain versions at the contracts'
+   training shape.
+
 Phase 19 also runs ``scripts/torch_trace_attribution.py`` on its trace:
 its K1 and K2 counts equal the phase's own count of the trace, its busy
 ms summed over the streams within 1% of the phase's.
@@ -322,8 +336,8 @@ alone (a participant killed mid-run, with every process ending, is
 checked by phase 21's departure pod: ``--pod``); ``--observatory`` runs
 phase 19 alone, trace attribution included;
 ``--tooling`` runs phase 20 alone; ``--backend-probe``, ``--pod``,
-``--soak`` and ``--offline-eval`` run the backend probe, phase 21, phase
-22 and phase 23 alone.
+``--soak``, ``--offline-eval`` and ``--contracts`` run the backend probe,
+phase 21, phase 22, phase 23 and phase 24 alone.
 
 ``--ab TREE`` runs none of the phases: it builds the kernels of the
 ``fed_tgan_torch`` package under TREE (for example a ``git archive`` of an
@@ -341,7 +355,7 @@ the precision phase's, one with the onboarding and churn phases', one
 with the round-scale phases', one with the multi-process world's, one
 with the observatory's, one with the tooling phase's, one with the
 run-level tools' (the probe, the pod, the soaks), one with the offline
-evaluation's, the card's
+evaluation's, one with the program contracts', the card's
 line, a JSON line with the kernels' numbers (one entry per kernel and
 path: K1 serving, K1 in the fleet, K1 and K2 training, K1 and K2
 federated, K1 in the similarity monitor, K1 and K2 in the ragged round, K1
@@ -350,7 +364,8 @@ the dated training, K1 and K2 in the elastic rounds, K1 and K2 in the
 cohort rounds and in MD-GAN, K1 and K2 in a multi-process participant,
 K1 and K2 in the sanitized round and in the gradient-flow summary, K1
 and K2 in a pod participant, the fault soak and the churn soak, K1 and K2
-in the offline evaluation's run, and the three bf16 variants),
+in the offline evaluation's run, K1 and K2 in the program contracts, and
+the three bf16 variants),
 and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no result line, when CUDA is not available.
@@ -4896,7 +4911,10 @@ def observatory_phase(root: str, seed: int, card: str) -> dict:
 # --sanitize-nans) of TOOL_ROUNDS rounds each, and the fault run's one
 TOOL_ROUNDS = 3
 # the doctor's checks on the card, every one OK
-DOCTOR_CHECKS = 22
+DOCTOR_CHECKS = 25
+# the doctor's checks that phase 24 reads (slice 17's analysis checks)
+ANALYSIS_CHECKS = ("static-analysis", "program-contracts", "analysis-all",
+                   "backend-seam")
 # the gradient-flow summary: atol + rtol per layer, card against CPU
 GRADFLOW_ATOL, GRADFLOW_RTOL = 1e-6, 1e-3
 _SYNC_LINE = re.compile(r"^\s+(\S+) entry (\d+)(?: \(warm-up, unguarded\))?: "
@@ -5353,6 +5371,8 @@ def tooling_phase(root: str, seed: int, card: str, rows: int) -> dict:
             or any(k != "OK  " for k, _ in checks)):
         raise AssertionError(f"doctor exited {rc}: {(out + err)[-3000:]}")
     doctor_s = float(re.search(r"checks passed in ([\d.]+) s", out).group(1))
+    analysis_lines = [ln for ln in out.splitlines() if re.match(
+        r"(OK  |FAIL) (%s):" % "|".join(ANALYSIS_CHECKS), ln)]
     print(f"tooling: python -m fed_tgan_torch.doctor: {len(checks)}/"
           f"{len(checks)} checks OK, exit 0, {doctor_s!r} s of checks (beside "
           f"the phase's other runs; all side runs done {side_wall!r} s after "
@@ -5389,7 +5409,8 @@ def tooling_phase(root: str, seed: int, card: str, rows: int) -> dict:
             "nan_fault": m.group(1), "guards": guards, "gradflow": gradflow,
             "serving": serving, "fleet": fleet,
             "doctor": {"checks": len(checks), "checks_s": doctor_s,
-                       "side_wall_s": side_wall},
+                       "side_wall_s": side_wall,
+                       "analysis_lines": analysis_lines},
             "round_spec": open_model(os.path.join(root, "sanitize"),
                                      device="cpu").synth.spec,
             "gradflow_spec": spec,
@@ -6259,6 +6280,150 @@ def _run_level_kernels(pod, pod_shapes, pod_bwd, soak, soak_shapes,
     return out
 
 
+# ---------------------------------------------------- the program contracts
+# slice 17: the dispatch contracts on the card and the doctor's analysis
+# checks (fed_tgan_torch/analysis/contracts/, fed_tgan_torch/doctor.py)
+
+# the doctor's four analysis checks on the card, their subprocesses at once
+_DOCTOR_ANALYSIS = (
+    "from fed_tgan_torch import doctor as d\n"
+    "procs = (d._spawn_analysis(['--contracts'], 'cuda'),\n"
+    "         d._spawn_analysis(['--all'], 'cuda'), d._spawn_seam('cuda'))\n"
+    "d.check_static_analysis('cuda')\n"
+    "d.check_program_contracts('cuda', proc=procs[0])\n"
+    "d.check_analysis_all('cuda', proc=procs[1])\n"
+    "d.check_backend_seam('cuda', proc=procs[2])\n")
+
+
+def _communicate(proc, timeout: float) -> tuple:
+    """``(returncode, stdout, stderr)`` of ``proc``, killed past
+    ``timeout``."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{proc.args[:4]} timed out after {timeout} s")
+    return proc.returncode, out, err
+
+
+def contracts_phase(card: str, doctor_lines=None) -> dict:
+    """Phase 24: the card's program contracts and the doctor's analysis
+    checks, in two processes at once; fails on a contract regression, a
+    harness error, a K1/K2 count that differs from the CPU contract's or
+    a failed check.  ``doctor_lines``: the four checks' lines of a doctor
+    this script already ran on the card (phase 20's), read in place of
+    running them again."""
+    from fed_tgan_torch.analysis.contracts.check import (
+        CONTRACTS_DIR,
+        load_contracts,
+    )
+
+    t0 = time.perf_counter()
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    pipes = dict(cwd=REPO, env=env, stdout=subprocess.PIPE,
+                 stderr=subprocess.PIPE, text=True)
+    procs = [subprocess.Popen([sys.executable, "-m",
+                               "fed_tgan_torch.analysis", "--contracts",
+                               "--backend", "gpu", "--format", "json"],
+                              **pipes)]
+    if doctor_lines is None:
+        procs.append(subprocess.Popen([sys.executable, "-c",
+                                       _DOCTOR_ANALYSIS], **pipes))
+    try:
+        rc, out, err = _communicate(procs[0], 600)
+        drc, dout, derr = (_communicate(procs[1], 900) if doctor_lines is None
+                           else (0, "\n".join(doctor_lines), ""))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    lines = [ln for ln in dout.splitlines() if ln.startswith(("OK ", "FAIL"))]
+    for line in lines:
+        print(f"doctor {line}  [{card}]", flush=True)
+    if rc != 0:
+        raise AssertionError(f"--contracts --backend gpu exited {rc}: "
+                             f"{(out or '')[-1500:]} {(err or '')[-1500:]}")
+    report = json.loads(out)
+    checks = {ln.split()[1].rstrip(":"): ln.startswith("OK ")
+              for ln in lines}
+    if drc != 0 or sorted(checks) != sorted(ANALYSIS_CHECKS) or \
+            not all(checks.values()):
+        raise AssertionError(f"doctor analysis checks {checks} (exit {drc}): "
+                             f"{(derr or '')[-1500:]}")
+    cpu = load_contracts(report["programs"], CONTRACTS_DIR)
+    launches = {"K1": 0, "K2": 0}
+    by_program = {}
+    for family, programs in sorted(report["programs"].items()):
+        stored = (cpu[family] or {}).get("programs", {})
+        for name, fp in sorted(programs.items()):
+            k = fp["kernels"]
+            calls = {kern: sum(n for v, n in k.items() if v.startswith(kern))
+                     for kern in ("K1", "K2")}
+            t = fp["transfers"]
+            print(f"contract {family}/{name}: K1 {calls['K1']} K2 "
+                  f"{calls['K2']} {k}, syncs {t['syncs']}, cross-device "
+                  f"copies {t['copies']} ({t['copy_bytes']} B), "
+                  f"collectives {fp['collectives']}  [{card}]", flush=True)
+            want = stored.get(name, {}).get("kernels")
+            if k != want:
+                raise AssertionError(f"{family}/{name}: K1/K2 calls on the "
+                                     f"card {k} != the CPU contract's {want}")
+            for kern in launches:
+                launches[kern] += calls[kern]
+            by_program[f"{family}/{name}"] = {
+                "kernels": k, "syncs": t["syncs"], "copies": t["copies"],
+                "copy_bytes": t["copy_bytes"]}
+    seconds = time.perf_counter() - t0
+    source = " (phase 20's doctor)" if doctor_lines is not None else ""
+    print(f"contracts: {len(by_program)} programs honour "
+          f"analysis/contracts/gpu/, K1/K2 calls equal to the CPU "
+          f"contracts' ({launches['K1']} K1, {launches['K2']} K2 launches); "
+          f"doctor {'/'.join(sorted(checks))} OK{source}; {seconds!r} s  "
+          f"[{card}]", flush=True)
+    return {"programs": len(by_program), "launches": launches,
+            "by_program": by_program, "checks": checks,
+            "drift": sum(i["severity"] == "drift" for i in report["issues"]),
+            "improvements": report["improvements"], "seconds": seconds}
+
+
+def _contracts_with_checks(card: str, doctor_lines=None):
+    """Phase 24, then K1 and K2 against their plain versions at the
+    contracts' training shape: the small 2-client table's stacked step."""
+    from fed_tgan_torch.obs.ledger import _small_config, _small_init
+
+    contracts = contracts_phase(card, doctor_lines)
+    init, _ = _small_init("cuda")
+    spec = SegmentSpec.from_output_info(init.output_info)
+    size = (("contracts", len(init.client_matrices)
+             * _small_config().batch_size),)
+    shapes = check_kernel(spec, card, size, extra=False)
+    bwd = check_bwd_kernel(spec, card, size, extra=False)
+    fwd_ref, bwd_ref = ("fed_tgan_tpu/ops/activate_pallas.py:81",
+                        "fed_tgan_tpu/ops/activate_pallas.py:102")
+    kernels = []
+    for name, kernel, replaces, results in (
+            ("fused_gumbel_activation_fwd_contracts", "K1", fwd_ref, shapes),
+            ("fused_gumbel_activation_bwd_contracts", "K2", bwd_ref, bwd)):
+        main = next(r for r in results if r["case"] == "contracts")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fed_tgan_torch/csrc/activate.cu",
+            "replaces": replaces,
+            # every variant's calls over the contracted programs, counted
+            # in the contracts' process (held to its launch counters)
+            "launches": contracts["launches"][kernel],
+            "max_abs_err": max(r["max_abs_err"] for r in results),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "device_ms": main["device_ms"], "host_us": main["host_us"],
+            "plan": main["plan"], "library_ms": None,
+            "path": "program contracts", "shape": main["shape"],
+            "shapes": results})
+    return contracts, kernels
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6296,6 +6461,10 @@ def main(argv=None) -> int:
                     help="instead of the phases: the offline evaluation "
                     "phase (report, cross-check, zoo, host-library paths) "
                     "and its kernel checks only")
+    ap.add_argument("--contracts", action="store_true",
+                    help="instead of the phases: the program contracts on "
+                    "the card, the doctor's analysis checks and their "
+                    "kernel checks only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6353,6 +6522,9 @@ def main(argv=None) -> int:
             build_root, args.seed, card)
         return finish({"offline_eval": offline},
                       {"kernels": offline_kernels})
+    if args.contracts:
+        contracts, contract_kernels = _contracts_with_checks(card)
+        return finish({"contracts": contracts}, {"kernels": contract_kernels})
     if args.soak:
         soak, soak_shapes, soak_bwd = _soak_with_checks(build_root, card)
         return finish({"run_level": {"soak": soak}}, {
@@ -6610,6 +6782,10 @@ def main(argv=None) -> int:
     offline, offline_kernels = _offline_eval_with_checks(
         build_root, args.seed, card, shapes, bwd_shapes)
     mark("offline_eval")
+    # the doctor of phase 20 ran the four analysis checks on this card
+    contracts, contract_kernels = _contracts_with_checks(
+        card, tooling["doctor"]["analysis_lines"])
+    mark("contracts")
     backend["script_cold_probes_min"] = stamps.stop()
     print(f"backend: the script's CLI processes made at least "
           f"{backend['script_cold_probes_min']} cold probe(s) of "
@@ -6724,6 +6900,8 @@ def main(argv=None) -> int:
     # slice 16: the offline evaluation's fedavg run (stacked steps,
     # snapshot chunks, monitor probes), counted in this process
     kernels += offline_kernels
+    # slice 17: the contracted programs' calls, counted in their process
+    kernels += contract_kernels
     # slice 9's bf16 variants: their launches on the bf16 paths (training,
     # the federated round, serving), each path counted on its own
     by_path = precision.pop("launches_by_path")
@@ -6756,6 +6934,7 @@ def main(argv=None) -> int:
     print(json.dumps({"run_level": {"backend": backend, "pod": pod,
                                     "soak": soak}}))
     print(json.dumps({"offline_eval": offline}))
+    print(json.dumps({"contracts": contracts}))
     print(card)
     print(json.dumps({"kernels": kernels, "serving": serving,
                       "fleet": fleet}))

@@ -1,10 +1,13 @@
 """Correctness tooling of the port (counterpart of
 ``fed_tgan_tpu/analysis/``).
 
-* :mod:`fed_tgan_torch.analysis.lint` -- locklint: the stdlib-AST
-  lockset rules L01-L04 (:mod:`~fed_tgan_torch.analysis.concurrency`)
-  over the threaded serving plane, with a checked-in ratcheting
-  baseline.  ``python -m fed_tgan_torch.analysis``.
+* :mod:`fed_tgan_torch.analysis.lint` -- the static lint: the stdlib-AST
+  rules J01-J06 (:mod:`~fed_tgan_torch.analysis.rules`: JAX's ids in
+  torch idiom -- host syncs in hot loops, draws without a generator,
+  rebuilds and value branches in hot code, numpy on device tensors, the
+  J05 shim, float64 on the device) and the lockset rules L01-L04
+  (:mod:`~fed_tgan_torch.analysis.concurrency`), with a checked-in
+  ratcheting baseline.  ``python -m fed_tgan_torch.analysis``.
 * :mod:`fed_tgan_torch.analysis.telemetry` -- obslint: the telemetry
   contracts O01-O05 against ``obs/schema.json``.  ``python -m
   fed_tgan_torch.analysis --telemetry``.
@@ -14,9 +17,12 @@
   ``--sanitize-nans``).
 * :mod:`fed_tgan_torch.analysis.lockwatch` -- the runtime deadlock
   sanitizer and lock metrics (``fleet --lockwatch``).
-
-The JAX package's J01-J06 rules and its lowered-program contracts check
-JAX idiom and XLA programs; they have no counterpart here.
+* :mod:`fed_tgan_torch.analysis.contracts` -- the program contracts: every
+  contracted entry point dispatched once on small fixed inputs and its
+  fingerprint (collectives, boundary, syncs, cross-device copies, dtype
+  census, K1/K2 calls) ratcheted against checked-in JSON, the CPU's and
+  the card's.  ``python -m fed_tgan_torch.analysis --contracts
+  [--backend gpu]``; ``--all`` runs the three prongs.
 
 This ``__init__`` stays import-light (no torch, no numpy) so the lint
 gate starts instantly.

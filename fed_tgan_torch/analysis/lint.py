@@ -1,15 +1,15 @@
 """The lint runner (counterpart of ``fed_tgan_tpu/analysis/lint.py``): walk
-files, run the locklint rules L01-L04, diff the baseline.
+files, run the rules J01-J06 (JAX's ids, in torch idiom:
+:mod:`fed_tgan_torch.analysis.rules`) and the locklint rules L01-L04,
+diff the baseline.
 
 Pure stdlib + AST: importing this module imports neither torch nor numpy,
 so the gate runs in milliseconds.  Findings are keyed
 ``relpath:rule:line``; the checked-in ``baseline.json`` holds accepted
 findings, so only *new* findings fail the gate (shrink it as code is
-fixed; it grows only through an explicit ``--baseline-update``).  The
-JAX package's J01-J06 rules check JAX idiom and have no counterpart
-here.
+fixed; it grows only through an explicit ``--baseline-update``).
 
-Inline escape hatch for an intentional pattern::
+Inline escape hatch for an intentional pattern, with its reason::
 
     self._cache.clear()  # torchlint: disable=L01
 """
@@ -23,12 +23,7 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterable, List, Optional, Sequence, Set, Tuple
 
-from fed_tgan_torch.analysis.concurrency.rules import (
-    BlockingUnderLockRule,
-    LockLeakRule,
-    LockOrderRule,
-    UnguardedFieldRule,
-)
+from fed_tgan_torch.analysis.rules import ALL_RULES, RULES_BY_ID
 
 PKG_ROOT = Path(__file__).resolve().parent.parent  # .../fed_tgan_torch
 REPO_ROOT = PKG_ROOT.parent
@@ -37,15 +32,8 @@ DEFAULT_BASELINE_PATH = Path(__file__).resolve().parent / "baseline.json"
 _SUPPRESS_RE = re.compile(
     r"#\s*torchlint:\s*disable(?:=(?P<ids>[A-Z0-9,\s]+))?")
 
-
-ALL_RULES = (
-    UnguardedFieldRule(),
-    LockOrderRule(),
-    BlockingUnderLockRule(),
-    LockLeakRule(),
-)
-
-RULES_BY_ID = {r.rule_id: r for r in ALL_RULES}
+#: the locklint prong alone (the doctor's locklint check)
+LOCK_RULES = tuple(r for r in ALL_RULES if r.rule_id.startswith("L"))
 
 
 class LintError(RuntimeError):

@@ -11,10 +11,15 @@ host transport's loopback, the robust aggregators, mixed precision,
 rounds in chunks, cohorts, onboarding, elastic membership, the journal,
 the live observatory, the cost ledger, serving (decode parity), the
 fleet, the front door, the canary, the static analyses (locklint
-with a lockwatch-armed burst, obslint), the backend seam (``tpu`` and
-``plugin:<name>`` refused by name, the CPU backend spawning no probe, the
-probe's process-group answer equal to the world's) and the pod
-launcher's torch-free ``--dry-run`` plan: 22 checks.  Every check runs
+with a lockwatch-armed burst, obslint, the J01-J06 + L01-L04 lint gate),
+the program contracts (a subprocess on the device), the unified
+``analysis --all`` gate, the backend seam (``tpu`` and ``plugin:<name>``
+refused by name, the CPU backend spawning no probe, the probe's
+process-group answer equal to the world's, one contracted family through
+the probed backend equal to its contracts) and the pod launcher's
+torch-free ``--dry-run`` plan: 25 checks.  The three analysis
+subprocesses (the contracts, ``--all``, the seam's family) start before
+the in-process checks and run beside them.  Every check runs
 small models on the device asked for: ``cuda`` by default (the backend
 and device checks fail where there is no card: the doctor never falls
 back to the CPU unasked), ``--device cpu`` on the CPU, where the backend
@@ -25,9 +30,9 @@ fresh probe (:func:`wait_healthy`), deferring while the host is loaded
 and holding a quiet window after a failed probe; ``--wait-timeout-min``,
 ``--quiet-window-min`` and ``--probe-timeout`` tune it.
 
-The JAX package's checks of XLA (the virtual mesh, the compile cache,
-the lowered-program contracts, the static analyses of jaxlint) and the
-HLO-contract half of its backend-seam check have no counterpart here.
+The JAX package's checks of XLA (the virtual mesh, the compile cache)
+have no counterpart here: the port runs on one card and compiles no XLA
+program.
 
 Exit code 0 when every check passes, 1 otherwise.  Read-only except for
 loopback sockets and temporary directories.
@@ -242,6 +247,7 @@ def check_kernels(device: str) -> bool:
                      "take their plain versions")
     import torch
 
+    from fed_tgan_torch.analysis.sanitizers import sanctioned_sync
     from fed_tgan_torch.ops import activate_cuda
     from fed_tgan_torch.ops.segments import (
         apply_activate_bwd,
@@ -257,11 +263,14 @@ def check_kernels(device: str) -> bool:
         u = torch.rand((rows, width), generator=gen, device="cuda")
         dy = torch.randn((rows, width), generator=gen, device="cuda")
         out = activate_cuda.fused_apply_activate(x, spec, u)
-        want = apply_activate_residual(x.cpu(), spec, u.cpu())[0]
-        dx = activate_cuda.fused_activate_bwd(dy, out, spec)
-        want_dx = apply_activate_bwd(dy.cpu(), out.cpu(), spec)
-        e1 = float((out.cpu() - want).abs().max())
-        e2 = float((dx.cpu() - want_dx).abs().max())
+        # each launch against its plain version on the host: the check's
+        # copies are there by design
+        with sanctioned_sync():
+            want = apply_activate_residual(x.cpu(), spec, u.cpu())[0]
+            dx = activate_cuda.fused_activate_bwd(dy, out, spec)
+            want_dx = apply_activate_bwd(dy.cpu(), out.cpu(), spec)
+            e1 = float((out.cpu() - want).abs().max())
+            e2 = float((dx.cpu() - want_dx).abs().max())
         errs.append(f"({rows}, {width}) K1 {e1:.2e} K2 {e2:.2e}")
         if not (e1 <= 1e-5 and e2 <= 1e-5):
             return _line(False, "kernels", f"beyond atol 1e-5 of the plain "
@@ -312,6 +321,7 @@ def check_transport(device: str) -> bool:
 def check_robust_aggregation(device: str) -> bool:
     import torch
 
+    from fed_tgan_torch.analysis.sanitizers import sanctioned_sync
     from fed_tgan_torch.parallel.fedavg import AGGREGATORS, robust_aggregate
 
     rng = np.random.default_rng(0)
@@ -332,12 +342,13 @@ def check_robust_aggregation(device: str) -> bool:
             out, quar = robust_aggregate(
                 [p.to(device) for p in prev], new, weights.to(device),
                 steps.to(device), aggregator=agg)
-            quar = quar.cpu().numpy()
+            with sanctioned_sync():  # the check reads on the host
+                quar = quar.cpu().numpy()
+                outs = [o.cpu() for o in out]
             if not quar[3] or quar[:3].any():
                 return _line(False, "robust-agg", f"{agg}/{pname}: gate "
                              f"flagged {quar} (expected only client 3)")
-            for o, m in zip(out, mean):
-                o = o.cpu()
+            for o, m in zip(outs, mean):
                 if not torch.isfinite(o).all() or float(
                         (o - m).abs().max()) > 0.05:
                     return _line(False, "robust-agg", f"{agg}/{pname}: "
@@ -705,6 +716,7 @@ def check_quality_canary(device: str, arts: _Artifacts) -> bool:
 def check_locklint(device: str, arts: _Artifacts) -> bool:
     from fed_tgan_torch.analysis import lockwatch
     from fed_tgan_torch.analysis.lint import (
+        LOCK_RULES,
         apply_baseline,
         load_baseline,
         run_lint,
@@ -715,7 +727,7 @@ def check_locklint(device: str, arts: _Artifacts) -> bool:
         ProgramCache,
     )
 
-    new, _, _ = apply_baseline(run_lint(), load_baseline())
+    new, _, _ = apply_baseline(run_lint(rules=LOCK_RULES), load_baseline())
     if new:
         return _line(False, "locklint", f"static findings: "
                      f"{new[0].render(with_hint=False)} -- run python -m "
@@ -772,13 +784,181 @@ def check_obslint(device: str) -> bool:
                  "site(s)")
 
 
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _spawn(argv: list):
+    """A subprocess of this interpreter from the repo, its output piped;
+    one CPU thread unless the caller set ``OMP_NUM_THREADS`` (it runs
+    beside the other checks, and its small ops gain nothing from more)."""
+    env = {"OMP_NUM_THREADS": "1", **os.environ}
+    return subprocess.Popen([sys.executable, *argv], cwd=_REPO, text=True,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE)
+
+
+def _spawn_analysis(args: list, device: str, contracts_dir=None,
+                    families=()):
+    """``python -m fed_tgan_torch.analysis ARGS`` against ``device``'s
+    backend (``--backend gpu`` on the card)."""
+    args = list(args) + [a for f in families for a in ("--family", f)]
+    if contracts_dir is not None:
+        args += ["--contracts-dir", str(contracts_dir)]
+    return _spawn(["-m", "fed_tgan_torch.analysis", *args, "--backend",
+                   "gpu" if device == "cuda" else "cpu"])
+
+
+def _finish(proc, timeout: int):
+    """``(exit code, stdout, stderr)`` of ``proc``, or None once it has
+    run past ``timeout`` (then it is killed)."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        return None
+    return proc.returncode, out or "", err or ""
+
+
+def _analysis(proc, timeout: int):
+    """An analysis subprocess's ``(exit code, output lines)``, or None on
+    a timeout."""
+    res = _finish(proc, timeout)
+    if res is None:
+        return None
+    rc, out, err = res
+    return rc, [ln for ln in (out or err).splitlines() if ln.strip()]
+
+
+@_check("static-analysis")
+def check_static_analysis(device: str, paths=None, baseline=None) -> bool:
+    """The lint gate (``fed_tgan_tpu/doctor.py:170``): the rules J01-J06 +
+    L01-L04 over the package (or ``paths``), against the checked-in
+    baseline (or ``baseline``).  Pure AST: no torch."""
+    from fed_tgan_torch.analysis.lint import (
+        apply_baseline,
+        load_baseline,
+        run_lint,
+    )
+
+    findings = run_lint(paths)
+    new, _old, stale = apply_baseline(findings, load_baseline(baseline))
+    if new:
+        heads = ", ".join(f.key for f in new[:3])
+        more = f" (+{len(new) - 3} more)" if len(new) > 3 else ""
+        return _line(False, "static-analysis",
+                     f"{len(new)} non-baselined finding(s): {heads}{more} "
+                     "-- run python -m fed_tgan_torch.analysis")
+    return _line(True, "static-analysis",
+                 f"torchlint clean: {len(findings)} finding(s) all "
+                 f"baselined ({len(stale)} stale baseline entr"
+                 f"{'y' if len(stale) == 1 else 'ies'}, rules J01-J06 + "
+                 "L01-L04)")
+
+
+@_check("program-contracts")
+def check_program_contracts(device: str, contracts_dir=None, families=(),
+                            timeout: int = 600, proc=None) -> bool:
+    """The contract gate (``fed_tgan_tpu/doctor.py:315``): a subprocess
+    dispatches every contracted entry point on ``device`` and diffs the
+    fingerprints against that backend's contracts (``analysis/contracts/``
+    on the CPU, ``analysis/contracts/gpu/`` on the card).  ``proc``: that
+    subprocess, already started (:func:`main` starts it early)."""
+    res = _analysis(proc or _spawn_analysis(
+        ["--contracts"], device, contracts_dir, families), timeout)
+    if res is None:
+        return _line(False, "program-contracts",
+                     f"timed out after {timeout}s")
+    rc, lines = res
+    summary = lines[-1] if lines else "no output"
+    if rc == 2:
+        return _line(False, "program-contracts", "exit 2 (the harness "
+                     "cannot run or a contract is unreadable): " + summary)
+    if rc != 0:
+        return _line(False, "program-contracts",
+                     f"{' | '.join(lines[:2])} -- run python -m "
+                     "fed_tgan_torch.analysis --contracts --explain")
+    return _line(True, "program-contracts", summary)
+
+
+@_check("analysis-all")
+def check_analysis_all(device: str, contracts_dir=None, families=(),
+                       timeout: int = 900, proc=None) -> bool:
+    """The unified gate (``fed_tgan_tpu/doctor.py:197``): ``python -m
+    fed_tgan_torch.analysis --all`` (torchlint+locklint, obslint, program
+    contracts on ``device``) must exit 0.  ``proc``: that subprocess,
+    already started."""
+    res = _analysis(proc or _spawn_analysis(
+        ["--all"], device, contracts_dir, families), timeout)
+    if res is None:
+        return _line(False, "analysis-all", f"timed out after {timeout}s")
+    rc, lines = res
+    table = lines[lines.index("analysis --all summary:") + 1:] \
+        if "analysis --all summary:" in lines else lines[-3:]
+    rows = [" ".join(ln.split()) for ln in table]
+    if rc != 0:
+        bad = [r for r in rows if not r.endswith(" ok")]
+        return _line(False, "analysis-all",
+                     f"exit {rc}: {'; '.join(bad) or ' | '.join(lines[-2:])}"
+                     " -- run python -m fed_tgan_torch.analysis --all")
+    return _line(True, "analysis-all", f"{len(rows)} prong(s) ok: "
+                 + ", ".join(r.rsplit(None, 1)[0] for r in rows))
+
+
+def _spawn_seam(device: str, contracts_dir=None):
+    """The contract half of the seam in a subprocess: ``parallel_fedavg``
+    recorded through the probed backend and held, program by program,
+    against that backend's contract directory (exact fingerprints)."""
+    backend = "gpu" if device == "cuda" else "cpu"
+    code = (
+        "import json, sys\n"
+        "from fed_tgan_torch.analysis.contracts.check import load_contracts\n"
+        "from fed_tgan_torch.analysis.contracts.harness import (\n"
+        "    ENTRYPOINT_FAMILIES, record_fingerprints)\n"
+        "from fed_tgan_torch.runtime.backend import contracts_dir_for\n"
+        f"backend = {backend!r}\n"
+        f"path = {None if contracts_dir is None else str(contracts_dir)!r}\n"
+        "fam = 'parallel_fedavg'\n"
+        "cur = record_fingerprints({fam: ENTRYPOINT_FAMILIES[fam]},\n"
+        "    device='cuda' if backend == 'gpu' else 'cpu')\n"
+        "stored = load_contracts([fam], path or contracts_dir_for(backend))\n"
+        "progs = (stored[fam] or {}).get('programs', {})\n"
+        "bad = [n for n, fp in cur[fam].items() if fp.to_dict() != {\n"
+        "    k: v for k, v in progs.get(n, {}).items() if k != 'require'}]\n"
+        "print(json.dumps({'programs': len(cur[fam]), 'bad': bad}))\n")
+    return _spawn(["-c", code])
+
+
+def _seam_contracts(device: str, contracts_dir, timeout: int,
+                    proc=None) -> str:
+    """What the contract half of the seam (:func:`_spawn_seam`) found to
+    differ, "" when nothing does."""
+    backend = "gpu" if device == "cuda" else "cpu"
+    res = _finish(proc or _spawn_seam(device, contracts_dir), timeout)
+    if res is None:
+        return f"the contract half timed out after {timeout}s"
+    rc, out, err = res
+    if rc != 0:
+        tail = err.strip().splitlines()[-2:]
+        return " | ".join(tail) or "the contract half failed"
+    res = json.loads(out.strip().splitlines()[-1])
+    if res["bad"]:
+        return (f"{len(res['bad'])}/{res['programs']} parallel_fedavg "
+                f"program(s) differ from the {backend} contracts: "
+                f"{', '.join(res['bad'][:3])}")
+    return ""
+
+
 @_check("backend-seam")
-def check_backend_seam(device: str) -> bool:
+def check_backend_seam(device: str, contracts_dir=None,
+                       timeout: int = 300, proc=None) -> bool:
     """The ``runtime/backend.py`` seam: the JAX package's ``tpu`` and
     ``plugin:<name>`` specs are refused with a named error that says
     which flag to use; the CPU backend's probe spawns nothing; the
     probe's process-group answer equals ``choose_backend``'s for 1, 4 and
-    8 participants on this host."""
+    8 participants on this host; and (JAX's contract half) one contracted
+    family recorded through the probed backend equals that backend's
+    contracts exactly (``proc``: its subprocess, already started)."""
     from unittest import mock
 
     from fed_tgan_torch.parallel.multihost import choose_backend
@@ -814,11 +994,16 @@ def check_backend_seam(device: str) -> bool:
     if answers != want:
         return _line(False, "backend-seam", f"the probe's process groups "
                      f"{answers} != choose_backend's {want}")
+    differs = _seam_contracts(device, contracts_dir, timeout, proc)
+    if differs:
+        return _line(False, "backend-seam", differs)
     return _line(True, "backend-seam", "tpu and plugin:<name> refused "
                  "naming --backend gpu|cpu; Backend('cpu') spawned no probe; "
                  "the probe's process group for 1/4/8 participants "
                  f"{'/'.join(answers[n] for n in (1, 4, 8))} = "
-                 "choose_backend's")
+                 "choose_backend's; parallel_fedavg through the "
+                 f"{'gpu' if device == 'cuda' else 'cpu'} backend = its "
+                 "contracts")
 
 
 @_check("launch-pod")
@@ -950,6 +1135,10 @@ def main(argv=None) -> int:
               "other checks were not run)")
         return 1
     arts = _Artifacts(device)
+    # the three analysis subprocesses run beside the in-process checks
+    procs = {"contracts": _spawn_analysis(["--contracts"], device),
+             "all": _spawn_analysis(["--all"], device),
+             "seam": _spawn_seam(device)}
     try:
         checks += [
             check_kernels(device),
@@ -969,11 +1158,18 @@ def main(argv=None) -> int:
             check_quality_canary(device, arts),
             check_locklint(device, arts),
             check_obslint(device),
-            check_backend_seam(device),
+            check_static_analysis(device),
+            check_program_contracts(device, proc=procs["contracts"]),
+            check_analysis_all(device, proc=procs["all"]),
+            check_backend_seam(device, proc=procs["seam"]),
             check_launch_pod(device),
         ]
     finally:
         arts.close()
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     bad = checks.count(False)
     print(f"{len(checks) - bad}/{len(checks)} checks passed in "
           f"{time.perf_counter() - t0:.1f} s")

@@ -295,7 +295,8 @@ def fit_columns(columns: Sequence[np.ndarray], n_components: int = N_CLUSTERS,
             fitted = _fit_batch(torch.as_tensor(xs, device=device),
                                 torch.as_tensor(masks, device=device), k,
                                 max_iter, reg_covar, wc_prior)
-            # one copy to the host for all seven results
+            # one copy to the host for all seven results of a dispatch
+            # torchlint: disable=J01
             means, stds, weights, mean_prec, dof, a, b = torch.stack(
                 fitted).cpu().double().numpy()
             for row, i in enumerate(chunk):

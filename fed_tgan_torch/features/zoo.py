@@ -119,6 +119,9 @@ class _Encoder:
         self.meta: Optional[list[ZooColumnMeta]] = None
 
     def _tensor(self, values, dtype=F64) -> torch.Tensor:
+        # float64 on the device by design: the zoo's encoders match the
+        # JAX package's float64 numpy bit for bit
+        # torchlint: disable=J06
         return torch.as_tensor(np.asarray(values), dtype=dtype,
                                device=self.device)
 

@@ -25,13 +25,15 @@ is called.  Nothing here reads a device tensor.
 
 :class:`CostEntry`, :class:`CostLedger` and :func:`get_ledger` are the JAX
 package's.  JAX's ``ledger`` subcommand compiles the programs of its
-hlolint contracts, which have no torch counterpart; the port's
-(:func:`port_cost_ledger`, ``python -m fed_tgan_torch.obs ledger``) runs
-one small instance of each program family the port dispatches (the
-stacked round chunk in f32 and bf16, an engine chunk, a 2-lane fleet
-dispatch, the similarity monitor's probe) through
-:func:`measure_dispatch`.  This module imports torch only inside
-:func:`measure_dispatch` and the ledger's families.
+hlolint contracts; the port's (:func:`port_cost_ledger`, ``python -m
+fed_tgan_torch.obs ledger``) runs one small instance of each program
+family the port dispatches (the stacked round chunk in f32 and bf16, an
+engine chunk, a 2-lane fleet dispatch, the similarity monitor's probe)
+through :func:`measure_dispatch`.  The port's program contracts
+(``analysis/contracts/``) record their programs from the same small
+instances (:func:`_small_init`, :func:`_small_config`).  This module
+imports torch only inside :func:`measure_dispatch` and the ledger's
+families.
 """
 
 from __future__ import annotations
@@ -210,15 +212,13 @@ def measure_dispatch(entry: CostEntry, device):
 # ------------------------------------------------------- the ledger CLI
 
 
-def _small_trainer(device, precision: str = "f32", seed: int = 3):
-    """A 2-client federated trainer on a small two-column table (one
-    continuous, one categorical), 2 steps a round."""
+def _small_init(device, seed: int = 3):
+    """``(init, tables)``: the federated init of a small two-column table
+    (one continuous, one categorical) over 2 clients of 80 rows."""
     import numpy as np
 
     from fed_tgan_torch.data.ingest import TablePreprocessor
     from fed_tgan_torch.federation.init import federated_initialize
-    from fed_tgan_torch.train.federated import FederatedTrainer
-    from fed_tgan_torch.train.steps import TrainConfig
 
     rng = np.random.default_rng(seed)
     tables = [{"x": np.round(rng.normal(0, 1, 80), 3),
@@ -227,9 +227,27 @@ def _small_trainer(device, precision: str = "f32", seed: int = 3):
     init = federated_initialize(
         [TablePreprocessor(table=t, categorical_columns=["c"])
          for t in tables], seed=0, device=device)
-    cfg = TrainConfig(embedding_dim=8, gen_dims=(16,), dis_dims=(16,),
-                      batch_size=40, pac=4, precision=precision)
-    return FederatedTrainer(init, cfg, seed=seed, device=device), tables
+    return init, tables
+
+
+def _small_config(precision: str = "f32", **overrides):
+    """The small trainer's config (2 steps a round at 80 rows), with
+    ``overrides``."""
+    from fed_tgan_torch.train.steps import TrainConfig
+
+    kw = dict(embedding_dim=8, gen_dims=(16,), dis_dims=(16,),
+              batch_size=40, pac=4, precision=precision)
+    kw.update(overrides)
+    return TrainConfig(**kw)
+
+
+def _small_trainer(device, precision: str = "f32", seed: int = 3):
+    """A 2-client federated trainer on :func:`_small_init`'s table."""
+    from fed_tgan_torch.train.federated import FederatedTrainer
+
+    init, tables = _small_init(device, seed)
+    return FederatedTrainer(init, _small_config(precision), seed=seed,
+                            device=device), tables
 
 
 def _measured(name: str, family: str, device, fn) -> CostEntry:

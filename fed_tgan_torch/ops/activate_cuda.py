@@ -38,6 +38,7 @@ dispatch mode sees.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -379,6 +380,17 @@ def _launch(fn_name: str, a: torch.Tensor, b: torch.Tensor,
 # the launch counts are bumped from every serving thread at once
 _COUNT_LOCK = threading.Lock()
 
+#: the program contracts' recorder (``analysis/contracts/ir.py``): while it
+#: is set, every call of a wrapper, on the CPU too, runs inside
+#: ``observer(kernel, variant)``, a context manager; the launch counts
+#: stay the launches alone
+observer = None
+
+
+def _observed(kernel: str, variant: str):
+    return (contextlib.nullcontext() if observer is None
+            else observer(kernel, variant))
+
 
 def _count(wrapper, variant: str, t: torch.Tensor) -> None:
     """One launch of ``wrapper``'s ``variant`` over ``t``'s elements."""
@@ -392,6 +404,14 @@ def _activate(x: torch.Tensor, spec: SegmentSpec, u: torch.Tensor,
               residual: bool = False):
     """K1 on ``x``: its result, or with ``residual`` ``(result, the float32
     result before rounding)`` (the same tensor for a float32 ``x``)."""
+    variant = ("f32" if x.dtype == torch.float32
+               else "bf16_train" if residual else "bf16")
+    with _observed("K1", variant):
+        return _activate_body(x, spec, u, residual)
+
+
+def _activate_body(x: torch.Tensor, spec: SegmentSpec, u: torch.Tensor,
+                   residual: bool):
     if x.device.type == "cpu":
         out, res = apply_activate_residual(x, spec, u)
         return (out, res) if residual else out
@@ -462,6 +482,12 @@ def fused_activate_bwd(dy: torch.Tensor, out: torch.Tensor,
     ``out`` (both (N, spec.dim)), in ``dy``'s dtype.  CPU tensors take the
     plain version; CUDA tensors launch K2 (one launch, counted in
     ``launches`` and in ``variant_launches``) or raise."""
+    with _observed("K2", "f32" if dy.dtype == torch.float32 else "bf16"):
+        return _activate_bwd_body(dy, out, spec)
+
+
+def _activate_bwd_body(dy: torch.Tensor, out: torch.Tensor,
+                       spec: SegmentSpec) -> torch.Tensor:
     if dy.device.type == "cpu":
         return apply_activate_bwd(dy, out, spec)
     _check_rows("fused_activate_bwd", spec, dy, out)

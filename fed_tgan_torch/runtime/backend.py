@@ -30,9 +30,9 @@ diagnosis.
 
 The JAX module's meshes (``client_mesh``, ``host_axis_groups``,
 ``provision_virtual_cpu``, ``Backend.mesh``/``host_groups``/
-``provision``) and its HLO contract directories (``contracts_dir``) have
-no counterpart: the port stacks every client on one device and compiles
-no XLA program.
+``provision``) have no counterpart: the port stacks every client on one
+device.  :func:`contracts_dir_for` picks a backend's directory of program
+contracts, as JAX's does.
 
 This module imports no torch itself and touches no CUDA: the probe's
 parent stays out of CUDA until the probe has answered.
@@ -434,3 +434,17 @@ def get_backend(spec=None) -> Backend:
     """The backend of a ``--backend`` spec; ``None`` (auto mode) is the
     card, as every entry point's default is."""
     return Backend(spec if spec is not None else "gpu")
+
+
+def contracts_dir_for(backend):
+    """The program contracts' directory of a backend
+    (``fed_tgan_tpu/runtime/backend.py:547``): ``cpu`` is the checked-in
+    ``analysis/contracts/``, which tier-1 checks on the CPU; ``gpu`` (and
+    auto mode, the card) its ``gpu/`` subdirectory, recorded on the card,
+    where the cross-device copies show.  ``tpu`` and ``plugin:<name>`` are
+    refused as :func:`parse_backend` refuses them."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent / "analysis" / "contracts"
+    name = parse_backend(backend) or "gpu"
+    return root if name == "cpu" else root / name

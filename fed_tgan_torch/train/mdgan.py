@@ -216,6 +216,8 @@ class MDGANTrainer:
         per = acc / torch.clamp(self._steps_dev, min=1)[:, None].to(
             torch.float32)
         self.host_copies += 1
+        # the round's one host copy
+        # torchlint: disable=J01
         self.last_metrics = per.cpu().numpy()
         return self.last_metrics
 

@@ -440,6 +440,8 @@ def client_train(transport, init_out: dict, cfg: TrainConfig,
                 if ema is not None:
                     fold_ema(ema, G, bn0, cfg.ema_decay)
                     ema_updates += 1
+            # the round's one host copy
+            # torchlint: disable=J01
             host = torch.cat([metrics.flatten(), quar.float()]).cpu().numpy()
             seconds = time.perf_counter() - t0
             for k, v in (("seconds", seconds), ("local_s", t1 - t0),

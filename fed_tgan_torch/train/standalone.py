@@ -86,6 +86,8 @@ class StandaloneSynthesizer:
             t0 = time.perf_counter()
             metrics = epoch(self.models, self.train_data, self.cond,
                             self.rows, gen, steps_per_epoch)
+            # read once per epoch, after its steps
+            # torchlint: disable=J01
             self.metrics = {k: float(v) for k, v in metrics.items()}
             self.timings["epoch_s"].append(time.perf_counter() - t0)
         return self

@@ -1,7 +1,7 @@
 """The port's doctor (``python -m fed_tgan_torch.doctor``) and the cost
 ledger CLI (``python -m fed_tgan_torch.obs ledger``) on the CPU.
 
-- ``--device cpu``: every one of the 22 checks prints ``OK`` and the
+- ``--device cpu``: every one of the 25 checks prints ``OK`` and the
   exit code is 0 (the counterpart of JAX's
   ``test_doctor_cli_all_green_on_cpu``); the backend and kernel checks say
   why they do not apply, ``launch-pod`` parses the launcher's plan;
@@ -32,7 +32,8 @@ CHECKS = ("runtime", "backend", "device", "kernels", "transport",
           "robust-agg", "precision", "rounds-per-program", "cohort",
           "onboarding", "elastic", "observability", "observatory",
           "cost-ledger", "serving", "fleet", "front-door", "canary",
-          "locklint", "obslint", "backend-seam", "launch-pod")
+          "locklint", "obslint", "static-analysis", "program-contracts",
+          "analysis-all", "backend-seam", "launch-pod")
 
 
 def test_doctor_all_green_on_cpu(capsys):
@@ -41,13 +42,84 @@ def test_doctor_all_green_on_cpu(capsys):
     lines = [ln for ln in out.splitlines() if re.match(r"(OK  |FAIL) ", ln)]
     assert [ln.split()[1].rstrip(":") for ln in lines] == list(CHECKS)
     assert all(ln.startswith("OK  ") for ln in lines), out
-    assert len(CHECKS) == 22
+    assert len(CHECKS) == 25
     assert f"{len(CHECKS)}/{len(CHECKS)} checks passed" in out
     by_name = {ln.split()[1].rstrip(":"): ln for ln in lines}
     assert "does not apply on the CPU" in by_name["kernels"]
     assert "does not apply: --device cpu runs no probe" in by_name["backend"]
     assert "torch-free parent" in by_name["launch-pod"]
     assert "gloo/gloo/gloo = choose_backend's" in by_name["backend-seam"]
+    assert "parallel_fedavg through the cpu backend = its contracts" in \
+        by_name["backend-seam"]
+    assert "rules J01-J06 + L01-L04" in by_name["static-analysis"]
+    assert "42 program(s) across 6 family(ies): 0 regression(s)" in \
+        by_name["program-contracts"]
+    assert "3 prong(s) ok: torchlint+locklint, obslint, program " \
+        "contracts" in by_name["analysis-all"]
+
+
+def _planted_contracts(tmp_path, family: str):
+    """A copy of the CPU contracts where ``family``'s first program looks
+    one sync better than it is: the current dispatch regresses."""
+    import shutil
+
+    from fed_tgan_torch.analysis.contracts.check import CONTRACTS_DIR
+
+    for p in CONTRACTS_DIR.glob("*.json"):
+        shutil.copy(p, tmp_path / p.name)
+    path = tmp_path / f"{family}.json"
+    data = json.loads(path.read_text())
+    first = sorted(data["programs"])[0]
+    data["programs"][first]["transfers"]["in_bytes"] -= 4
+    path.write_text(json.dumps(data))
+    return first
+
+
+def test_static_analysis_fails_on_a_planted_finding(tmp_path, capsys):
+    from pathlib import Path
+
+    bad = Path(__file__).parent / "torch_lint_fixtures" / "j01_bad.py"
+    assert not doctor.check_static_analysis(
+        "cpu", paths=[bad], baseline=tmp_path / "none.json")
+    out = capsys.readouterr().out
+    assert out.startswith("FAIL static-analysis: 6 non-baselined finding(s)")
+    assert "j01_bad.py:J01:14" in out
+
+
+def test_program_contracts_fail_on_a_planted_regression(tmp_path, capsys):
+    first = _planted_contracts(tmp_path, "ingest")
+    assert not doctor.check_program_contracts(
+        "cpu", contracts_dir=tmp_path, families=("ingest",))
+    out = capsys.readouterr().out
+    assert out.startswith(f"FAIL program-contracts: REGRESSION ingest/"
+                          f"{first}: transfers.in_bytes")
+    assert "--contracts --explain" in out
+    (tmp_path / "ingest.json").write_text("{")
+    assert not doctor.check_program_contracts(
+        "cpu", contracts_dir=tmp_path, families=("ingest",))
+    out = capsys.readouterr().out
+    assert out.startswith("FAIL program-contracts: exit 2 (the harness "
+                          "cannot run or a contract is unreadable)")
+    assert "bad contract" in out
+
+
+def test_analysis_all_fails_on_a_planted_regression(tmp_path, capsys):
+    _planted_contracts(tmp_path, "ingest")
+    assert not doctor.check_analysis_all(
+        "cpu", contracts_dir=tmp_path, families=("ingest",))
+    out = capsys.readouterr().out
+    assert out.startswith("FAIL analysis-all: exit 1: program contracts "
+                          "FINDINGS")
+
+
+def test_backend_seam_contract_half_fails_on_a_planted_change(tmp_path,
+                                                             capsys):
+    first = _planted_contracts(tmp_path, "parallel_fedavg")
+    assert not doctor.check_backend_seam("cpu", contracts_dir=tmp_path)
+    out = capsys.readouterr().out
+    assert out.startswith("FAIL backend-seam: 1/11 parallel_fedavg "
+                          "program(s) differ from the cpu contracts: "
+                          f"{first}")
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a host "

@@ -1355,3 +1355,32 @@ def test_zoo_card_tensors_equal_the_cpu(cuda, name):
         out[dev] = enc.transform(data)
         assert out[dev].device.type == dev
     assert torch.equal(out["cuda"].cpu(), out["cpu"])
+
+
+def test_contract_recorder_on_the_card(cuda):
+    """The program contracts' recorder on the card: each K1/K2 call is
+    one kernel entry held to the wrapper's launch count, a copy to the
+    host is one cross-device copy with its bytes, ``.item()`` one sync;
+    host-side ops stay out of the census."""
+    from fed_tgan_torch.analysis.contracts.ir import DispatchRecorder
+
+    spec = _spec()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((64, spec.dim), generator=gen, device="cuda",
+                    requires_grad=True)
+    u = torch.rand((64, spec.dim), generator=gen, device="cuda")
+    k1, k2 = (fused_apply_activate.launches, fused_activate_bwd.launches)
+    with DispatchRecorder("cuda") as rec:
+        out = fused_apply_activate(x, spec, u)
+        out.sum().backward()
+        host = out.detach().cpu()
+        total = out.detach().sum().item()
+        torch.ones(3, dtype=torch.float64).sum()  # on the host
+    fp = rec.fingerprint((x, u), (host, total))
+    assert (fused_apply_activate.launches - k1,
+            fused_activate_bwd.launches - k2) == (1, 1)
+    assert fp.kernels == {"K1[f32]": 1, "K2[f32]": 1}
+    assert fp.transfers["copies"] == 1
+    assert fp.transfers["copy_bytes"] == 64 * spec.dim * 4
+    assert fp.transfers["syncs"] == 1 and "f64" not in fp.dtypes
+    assert fp.transfers["n_inputs"] == 2 and fp.transfers["n_outputs"] == 1

@@ -139,6 +139,13 @@ def test_port_package_lists_every_slice_module():
                  "train.mdgan", "runtime.transport", "federation.distributed",
                  "parallel.multihost", "train.multihost", "distributed",
                  "analysis", "analysis.__main__", "analysis.lint",
+                 "analysis.contracts", "analysis.contracts.ir",
+                 "analysis.contracts.harness", "analysis.contracts.check",
+                 "analysis.rules", "analysis.rules.base",
+                 "analysis.rules.host_sync", "analysis.rules.prng_reuse",
+                 "analysis.rules.recompile", "analysis.rules.numpy_in_jit",
+                 "analysis.rules.shared_state",
+                 "analysis.rules.dtype_promotion",
                  "analysis.sanitizers", "analysis.lockwatch",
                  "analysis.concurrency.model", "analysis.concurrency.rules",
                  "analysis.concurrency.ast_helpers",
@@ -149,12 +156,13 @@ def test_port_package_lists_every_slice_module():
 
 
 def test_analysis_cli_runs_without_torch_or_numpy():
-    """``python -m fed_tgan_torch.analysis`` (locklint) and ``--telemetry``
-    (obslint) in a fresh interpreter where torch, numpy, jax, the JAX
-    package, pandas, pyarrow and sklearn cannot be imported: both are
-    stdlib AST analyses, clean against their checked-in baselines."""
+    """``python -m fed_tgan_torch.analysis`` (the lint: J01-J06 + L01-L04)
+    and ``--telemetry`` (obslint) in a fresh interpreter where torch,
+    numpy, jax, the JAX package, pandas, pyarrow and sklearn cannot be
+    imported: both are stdlib AST analyses, clean against their
+    checked-in baselines."""
     blocked = ("torch", "numpy") + BLOCKED
-    for args, want in (([], "locklint: 0 finding(s)"),
+    for args, want in (([], "finding(s): 0 new"),
                        (["--telemetry"], "obslint: 0 finding(s)")):
         code = (
             "import runpy, sys\n"
@@ -166,6 +174,25 @@ def test_analysis_cli_runs_without_torch_or_numpy():
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0, (args, proc.stdout, proc.stderr)
         assert want in proc.stdout, (args, proc.stdout)
+
+
+def test_analysis_prongs_import_without_torch_or_numpy():
+    """The lint's rules and the contracts' fingerprint and diff import in
+    an interpreter where torch, numpy, jax and the JAX package cannot be
+    imported: only the contracts' recorder and harness need torch, and
+    they import it when they run."""
+    blocked = ("torch", "numpy") + BLOCKED
+    code = (
+        "import sys\n"
+        f"for name in {blocked!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import fed_tgan_torch.analysis.rules\n"
+        "import fed_tgan_torch.analysis.contracts.check as c\n"
+        "import fed_tgan_torch.analysis.contracts.harness\n"
+        "print(len(c.diff_contracts({}, {})))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "0", proc.stderr
 
 
 def test_trainer_runs_with_jax_sklearn_and_pandas_blocked():
