@@ -1,0 +1,9 @@
+"""Shared helpers of the benchmark's CPU tests: a tiny cell of each
+configuration, run through the harness on the CPU."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
