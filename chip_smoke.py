@@ -5905,7 +5905,7 @@ def trace_attribution_check(prof_dir: str, trace: dict, card: str) -> dict:
     attr = json.loads(proc.stdout)[prof_dir]
     counts = {k: sum(v["count"] for m, v in attr["device_modules_ms"].items()
                      if name in m) for k, name in KERNEL_NAMES.items()}
-    busy = sum(attr["device_busy_ms"].values())
+    busy = sum(attr["device_stream_ms"].values())
     spans = [s for s in OBS_SPANS if s in attr["host_hotspots_ms"]]
     if (counts["K1"] != trace["K1"] or counts["K2"] != trace["K2"]
             or abs(busy - trace["busy_ms"]) > 0.01 * trace["busy_ms"]
@@ -5915,12 +5915,12 @@ def trace_attribution_check(prof_dir: str, trace: dict, card: str) -> dict:
     print(f"trace attribution: K1 {counts['K1']} and K2 {counts['K2']} "
           f"(the phase's {trace['K1']}, {trace['K2']}), busy {busy!r} ms "
           f"(the phase's {trace['busy_ms']!r}) over "
-          f"{len(attr['device_busy_ms'])} stream(s); top kernels "
+          f"{len(attr['device_stream_ms'])} stream(s); top kernels "
           f"{list(attr['device_modules_ms'])[:4]}; host hotspots "
           f"{ {k: v['total'] for k, v in attr['host_hotspots_ms'].items()} }"
           f"  [{card}]", flush=True)
     return {"K1": counts["K1"], "K2": counts["K2"], "busy_ms": busy,
-            **{k: attr[k] for k in ("device_busy_ms", "device_modules_ms",
+            **{k: attr[k] for k in ("device_stream_ms", "device_modules_ms",
                                     "host_hotspots_ms")}}
 
 

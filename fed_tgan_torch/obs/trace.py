@@ -95,14 +95,6 @@ class Tracer:
             "tid": threading.get_ident(), "args": args,
         })
 
-    def instant(self, name: str, **attrs) -> None:
-        """Record a zero-duration instant event (scope: thread)."""
-        self._record({
-            "name": name, "ph": "i", "s": "t", "ts": self._now_us(),
-            "pid": self._pid, "tid": threading.get_ident(),
-            "args": dict(attrs),
-        })
-
     # ------------------------------------------------------------ export
 
     def events(self) -> List[dict]:

@@ -4,8 +4,9 @@
 ``device_trace(dir)`` wraps ``torch.profiler.profile`` (CPU and CUDA
 activities) around the traced block and writes its Chrome trace into
 ``dir`` (``trace_<pid>.json``, Perfetto- and ``chrome://tracing``-
-loadable).  While it runs, every :func:`fed_tgan_torch.obs.trace.span`
-also opens a ``record_function`` range of its name, so the host phases
+loadable), and holds that file open for reading until the next trace
+starts (:func:`last_trace`).  While it runs, every
+:func:`fed_tgan_torch.obs.trace.span` also opens a ``record_function`` range of its name, so the host phases
 (``train.local_steps``, ``train.aggregate.sync``, ``train.snapshot``,
 ...) sit beside the kernels on the same timeline.
 
@@ -27,6 +28,27 @@ from fed_tgan_torch.obs.trace import _device_trace_started
 
 log = logging.getLogger("fed_tgan_torch.profiling")
 
+_last = None  # the latest trace written, held open
+
+
+def last_trace():
+    """The Chrome trace the latest :func:`device_trace` wrote, as a binary
+    file open for reading from its start, or None.  It stays readable after
+    its directory is removed, until the next trace starts: for a caller
+    that reduces the trace after the tracing caller cleaned up (the card
+    time by the span that launched it)."""
+    if _last is not None:
+        _last.seek(0)
+    return _last
+
+
+def _hold(path=None) -> None:
+    """Close the trace held open; hold ``path``'s instead."""
+    global _last
+    if _last is not None:
+        _last.close()
+    _last = None if path is None else open(path, "rb")
+
 
 def trace_path(profile_dir: str) -> str:
     """The Chrome trace file :func:`device_trace` writes into
@@ -41,6 +63,7 @@ def device_trace(profile_dir: str):
     import torch
 
     prof = None
+    _hold()
     try:
         os.makedirs(profile_dir, exist_ok=True)
         activities = [ProfilerActivity.CPU]
@@ -64,6 +87,7 @@ def device_trace(profile_dir: str):
                     torch.cuda.synchronize()
                 prof.__exit__(None, None, None)
                 prof.export_chrome_trace(trace_path(profile_dir))
+                _hold(trace_path(profile_dir))
                 log.info("profiler trace written to %s (open with Perfetto "
                          "or chrome://tracing)", trace_path(profile_dir))
                 _emit_event("device_trace", dir=str(profile_dir), ok=True)

@@ -507,16 +507,17 @@ class FederatedTrainer:
         metrics = torch.zeros((len(steps), len(METRICS)), device=self.device)
         for s in range(n_max):
             # each client draws on its own steps only, into its position
-            for j in np.flatnonzero(s < steps):
-                i = int(part.ids[j])
-                dst = part.client_draws[j]
-                if self.draws is not None:
-                    src = self.draws(e, i, s).tensors()
-                    for a, b in zip(dst.tensors(), src):
-                        a.copy_(b)
-                else:
-                    draw_into(self.gens[i], self.spec, self.cfg, self._keep,
-                              self.device, dst)
+            with _span("train.draws"):
+                for j in np.flatnonzero(s < steps):
+                    i = int(part.ids[j])
+                    dst = part.client_draws[j]
+                    if self.draws is not None:
+                        src = self.draws(e, i, s).tensors()
+                        for a, b in zip(dst.tensors(), src):
+                            a.copy_(b)
+                    else:
+                        draw_into(self.gens[i], self.spec, self.cfg,
+                                  self._keep, self.device, dst)
             metrics = stacked_train_step(part.stack, self.data, part.conds,
                                          part.rows, part.draws, active[s],
                                          metrics)
@@ -635,14 +636,15 @@ class FederatedTrainer:
         def update(prev, part):
             """Round's gate and aggregation; the straggler's delta."""
             nonlocal delta
-            new = self._updates(prev, part, update_fault)
-            if straggle is not None:  # its delta, zero if not sampled
-                pos = np.flatnonzero(part.ids == straggle[0])
-                delta = [(x[int(pos[0])].float() - p.float()) if pos.size
-                         else torch.zeros(p.shape, device=self.device)
-                         for p, x in zip(prev, new)]
-            quars.append(self._aggregate(prev, update_fault, part, weights,
-                                         new))
+            with _span("train.aggregate"):
+                new = self._updates(prev, part, update_fault)
+                if straggle is not None:  # its delta, zero if not sampled
+                    pos = np.flatnonzero(part.ids == straggle[0])
+                    delta = [(x[int(pos[0])].float() - p.float()) if pos.size
+                             else torch.zeros(p.shape, device=self.device)
+                             for p, x in zip(prev, new)]
+                quars.append(self._aggregate(prev, update_fault, part,
+                                             weights, new))
 
         # the split: up to the last round's local steps, then its
         # aggregation and the copy
@@ -841,60 +843,63 @@ class FederatedTrainer:
         else:
             firing = {x for x in hook_epochs if e <= x < end}
         while e < end:
-            plan = active_plan()
-            self._fault_kill(plan, e)
-            size, fault, straggle = self._chunk_size(
-                e, end, firing, max_rounds_per_call, plan, update_fault)
-            self._apply_buffered(e)
-            if self._buffered:  # the next arrival lands on a boundary
-                size = min(size, max(1, min(u["arrival"] for u in
-                                            self._buffered) - e))
-            t0 = time.perf_counter()
-            res = self._run_chunk(e, size, fault, straggle)
-            if straggle is not None:
-                idx, delay = straggle
-                self._buffered.append({
-                    "client": int(idx), "origin": e,
-                    "arrival": e + max(1, int(delay)),
-                    "staleness": max(1, int(delay)),
-                    "weight": float(self.weights[idx]),
-                    "delta": res["delta"], "finite": res["delta_finite"]})
-            metrics, q = res["metrics"], res["quarantined"]
-            if not res["finite"]:
-                for r in range(size):
-                    self._warn_nonfinite(metrics[r], q[r], e + r)
-            self._strike(res, e)
-            if health_cb is not None:
-                host = {name: metrics[:, :, j]
-                        for j, name in enumerate(METRICS)}
-                host["quarantined"] = q.astype(np.float32)
-                if res["cohort"] is not None:
-                    host["cohort"] = res["cohort"]
-                health_cb(e, host)
-            t_chunk = time.perf_counter() - t0
-            per_round = t_chunk / size
-            last = e + size - 1
-            for ei in range(e, e + size):
-                charge = (t_chunk - per_round * (size - 1) if ei == last
-                          else per_round)
-                self.phase_times["train_aggregate"].append(charge)
-                self.phase_times["distribution"].append(0.0)
-                self.epoch_times.append(charge)
-                self.completed_epochs += 1
-            if last in firing:
-                t1 = time.perf_counter()
-                with _span("train.snapshot", round=last):
-                    sample_hook(last, self)
-                t_hook = time.perf_counter() - t1
-                self.phase_times["distribution"][-1] = t_hook
-                self.epoch_times[-1] += t_hook
-            self._journal_chunk(e, size, res, per_round)
-            if log_every and any(x % log_every == 0
-                                 for x in range(e, e + size)):
-                m = metrics.reshape(-1, len(METRICS)).mean(axis=0)
-                print(f"round {last}: loss_d={m[0]:.3f} pen={m[1]:.3f} "
-                      f"loss_g={m[2]:.3f} ({self.epoch_times[-1]:.3f}s/round)")
-            e += size
+            # the round driver's own work is this span's self time
+            with _span("train.fit.chunk"):
+                plan = active_plan()
+                self._fault_kill(plan, e)
+                size, fault, straggle = self._chunk_size(
+                    e, end, firing, max_rounds_per_call, plan, update_fault)
+                self._apply_buffered(e)
+                if self._buffered:  # the next arrival lands on a boundary
+                    size = min(size, max(1, min(u["arrival"] for u in
+                                                self._buffered) - e))
+                t0 = time.perf_counter()
+                res = self._run_chunk(e, size, fault, straggle)
+                if straggle is not None:
+                    idx, delay = straggle
+                    self._buffered.append({
+                        "client": int(idx), "origin": e,
+                        "arrival": e + max(1, int(delay)),
+                        "staleness": max(1, int(delay)),
+                        "weight": float(self.weights[idx]),
+                        "delta": res["delta"], "finite": res["delta_finite"]})
+                metrics, q = res["metrics"], res["quarantined"]
+                if not res["finite"]:
+                    for r in range(size):
+                        self._warn_nonfinite(metrics[r], q[r], e + r)
+                self._strike(res, e)
+                if health_cb is not None:
+                    host = {name: metrics[:, :, j]
+                            for j, name in enumerate(METRICS)}
+                    host["quarantined"] = q.astype(np.float32)
+                    if res["cohort"] is not None:
+                        host["cohort"] = res["cohort"]
+                    health_cb(e, host)
+                t_chunk = time.perf_counter() - t0
+                per_round = t_chunk / size
+                last = e + size - 1
+                for ei in range(e, e + size):
+                    charge = (t_chunk - per_round * (size - 1) if ei == last
+                              else per_round)
+                    self.phase_times["train_aggregate"].append(charge)
+                    self.phase_times["distribution"].append(0.0)
+                    self.epoch_times.append(charge)
+                    self.completed_epochs += 1
+                if last in firing:
+                    t1 = time.perf_counter()
+                    with _span("train.snapshot", round=last):
+                        sample_hook(last, self)
+                    t_hook = time.perf_counter() - t1
+                    self.phase_times["distribution"][-1] = t_hook
+                    self.epoch_times[-1] += t_hook
+                self._journal_chunk(e, size, res, per_round)
+                if log_every and any(x % log_every == 0
+                                     for x in range(e, e + size)):
+                    m = metrics.reshape(-1, len(METRICS)).mean(axis=0)
+                    print(f"round {last}: loss_d={m[0]:.3f} pen={m[1]:.3f} "
+                          f"loss_g={m[2]:.3f} "
+                          f"({self.epoch_times[-1]:.3f}s/round)")
+                e += size
         return self
 
     def _journal_chunk(self, e: int, size: int, res: dict,

@@ -51,6 +51,7 @@ from fed_tgan_torch.models.ctgan import (
     StackedGenerator,
 )
 from fed_tgan_torch.models.losses import gradient_penalty
+from fed_tgan_torch.obs.trace import span as _span
 from fed_tgan_torch.ops.activate_cuda import fused_apply_activate
 from fed_tgan_torch.ops.segments import SegmentSpec, cond_loss
 from fed_tgan_torch.runtime.precision import (
@@ -564,21 +565,23 @@ class StackedAdam:
     @torch.no_grad()
     def step(self, grad: torch.Tensor, active: torch.Tensor) -> None:
         """One update of the ``active`` (N,) bool clients by ``grad``."""
-        cfg = self.cfg
-        idx = torch.clamp(self.count, max=self._table.shape[0] - 1)
-        tab = self._table[idx]
-        neg_step, bc2_sqrt = tab[:, :1], tab[:, 1:]
-        g = (grad.add(self.params, alpha=self.weight_decay)
-             if self.weight_decay else grad)
-        m = self.exp_avg.lerp(g, 1 - cfg.beta1)
-        v = self.exp_avg_sq.mul(cfg.beta2).addcmul_(g, g, value=1 - cfg.beta2)
-        denom = (v.sqrt() / bc2_sqrt).add_(1e-8)
-        keep = active[:, None]
-        self.params.add_(torch.where(keep, neg_step * m / denom, 0.0))
-        torch.where(keep, m, self.exp_avg, out=self.exp_avg)
-        torch.where(keep, v, self.exp_avg_sq, out=self.exp_avg_sq)
-        torch.where(keep, grad, self.grad, out=self.grad)
-        self.count.add_(active)
+        with _span("train.adam"):
+            cfg = self.cfg
+            idx = torch.clamp(self.count, max=self._table.shape[0] - 1)
+            tab = self._table[idx]
+            neg_step, bc2_sqrt = tab[:, :1], tab[:, 1:]
+            g = (grad.add(self.params, alpha=self.weight_decay)
+                 if self.weight_decay else grad)
+            m = self.exp_avg.lerp(g, 1 - cfg.beta1)
+            v = self.exp_avg_sq.mul(cfg.beta2).addcmul_(g, g,
+                                                        value=1 - cfg.beta2)
+            denom = (v.sqrt() / bc2_sqrt).add_(1e-8)
+            keep = active[:, None]
+            self.params.add_(torch.where(keep, neg_step * m / denom, 0.0))
+            torch.where(keep, m, self.exp_avg, out=self.exp_avg)
+            torch.where(keep, v, self.exp_avg_sq, out=self.exp_avg_sq)
+            torch.where(keep, grad, self.grad, out=self.grad)
+            self.count.add_(active)
 
     @torch.no_grad()
     def load(self, counts, exp_avg, exp_avg_sq) -> None:
@@ -729,23 +732,24 @@ def stacked_train_step(stack: StackedModels, data: torch.Tensor,
     ``fed_tgan_tpu/train/federated.py:254-266``).  Returns the (N, 3)
     metrics ``loss_d``, ``pen``, ``loss_g``: this step's for the active
     clients, ``last`` (default zeros) for the others."""
-    cfg = stack.cfg
-    if len(draws.d) != cfg.d_steps:
-        raise ValueError(f"{len(draws.d)} critic draw blocks for d_steps="
-                         f"{cfg.d_steps}")
-    G = stack.generator
-    bn_before = G.bn_state.clone()
-    for d in draws.d:
-        loss_d, pen = _stacked_d_update(stack, data, cond, rows, d, active)
-    loss_g = _stacked_g_update(stack, cond, draws.g, active)
-    with torch.no_grad():
-        torch.where(active[G.bn_client], G.bn_state, bn_before,
-                    out=G.bn_state)
-        G.num_batches.add_(active, alpha=cfg.d_steps + 1)
-        met = torch.stack([loss_d, pen, loss_g], dim=1)
-        if last is None:
-            last = torch.zeros_like(met)
-        return torch.where(active[:, None], met, last)
+    with _span("train.step"):
+        cfg = stack.cfg
+        if len(draws.d) != cfg.d_steps:
+            raise ValueError(f"{len(draws.d)} critic draw blocks for d_steps="
+                             f"{cfg.d_steps}")
+        G = stack.generator
+        bn_before = G.bn_state.clone()
+        for d in draws.d:
+            loss_d, pen = _stacked_d_update(stack, data, cond, rows, d, active)
+        loss_g = _stacked_g_update(stack, cond, draws.g, active)
+        with torch.no_grad():
+            torch.where(active[G.bn_client], G.bn_state, bn_before,
+                        out=G.bn_state)
+            G.num_batches.add_(active, alpha=cfg.d_steps + 1)
+            met = torch.stack([loss_d, pen, loss_g], dim=1)
+            if last is None:
+                last = torch.zeros_like(met)
+            return torch.where(active[:, None], met, last)
 
 
 def _stacked_d_update(stack: StackedModels, data: torch.Tensor,
@@ -753,51 +757,53 @@ def _stacked_d_update(stack: StackedModels, data: torch.Tensor,
                       d: DDraws, active: torch.Tensor):
     """Every client's critic update (:func:`d_update`); returns its
     ``(loss_d, pen)`` (N,) each."""
-    spec, cfg, n = stack.spec, stack.cfg, stack.n
-    pol = resolve_precision(cfg.precision)
-    G, D = stack.generator, stack.discriminator
-    B = cfg.batch_size
-    z = d.z.reshape(n * B, -1)
-    if spec.n_discrete:
-        c1, _, col, opt = cond.train_from_draws(d.col, d.r)
-        row_idx = rows.sample_rows(col.gather(1, d.perm),
-                                   opt.gather(1, d.perm), d.row_u)
-        gen_in = torch.cat([z, c1], dim=1)
-    else:
-        row_idx = rows.sample_uniform(d.row_u)
-        gen_in = z
-    real = data[row_idx]
-    with torch.no_grad():  # train-mode BN: the running statistics move
-        raw = G(pol.cast(gen_in).view(n, B, -1)).reshape(n * B, -1)
-        fake = fused_apply_activate(raw, spec, d.u.reshape(n * B, -1))
-    if spec.n_discrete:
-        c1_perm = c1.view(n, B, -1).gather(
-            1, d.perm[:, :, None].expand(-1, -1, c1.shape[1]))
-        fake_cat = torch.cat([fake, pol.cast(c1)], dim=1)
-        real_cat = pol.cast(torch.cat([real, c1_perm.reshape(n * B, -1)],
-                                      dim=1))
-    else:
-        fake_cat, real_cat = fake, pol.cast(real)
-    y_fake = D(fake_cat, keep=d.keep_fake)
-    y_real = D(real_cat, keep=d.keep_real)
-    loss_d = (f32_island(y_fake).mean(dim=(1, 2))
-              - f32_island(y_real).mean(dim=(1, 2)))
-    pen = gradient_penalty(lambda x: D(x, keep=d.keep_gp), real_cat,
-                           fake_cat, d.alpha.reshape(n * B, 1), pac=cfg.pac,
-                           clients=n)
-    (grad,) = _grads([D.params], loss_d.sum(), pen.sum())
-    stack.opt_d.step(grad, active)
-    return loss_d.detach(), pen.detach()
+    with _span("train.step.critic"):
+        spec, cfg, n = stack.spec, stack.cfg, stack.n
+        pol = resolve_precision(cfg.precision)
+        G, D = stack.generator, stack.discriminator
+        B = cfg.batch_size
+        z = d.z.reshape(n * B, -1)
+        if spec.n_discrete:
+            c1, _, col, opt = cond.train_from_draws(d.col, d.r)
+            row_idx = rows.sample_rows(col.gather(1, d.perm),
+                                       opt.gather(1, d.perm), d.row_u)
+            gen_in = torch.cat([z, c1], dim=1)
+        else:
+            row_idx = rows.sample_uniform(d.row_u)
+            gen_in = z
+        real = data[row_idx]
+        with torch.no_grad():  # train-mode BN: the running statistics move
+            raw = G(pol.cast(gen_in).view(n, B, -1)).reshape(n * B, -1)
+            fake = fused_apply_activate(raw, spec, d.u.reshape(n * B, -1))
+        if spec.n_discrete:
+            c1_perm = c1.view(n, B, -1).gather(
+                1, d.perm[:, :, None].expand(-1, -1, c1.shape[1]))
+            fake_cat = torch.cat([fake, pol.cast(c1)], dim=1)
+            real_cat = pol.cast(torch.cat([real, c1_perm.reshape(n * B, -1)],
+                                          dim=1))
+        else:
+            fake_cat, real_cat = fake, pol.cast(real)
+        y_fake = D(fake_cat, keep=d.keep_fake)
+        y_real = D(real_cat, keep=d.keep_real)
+        loss_d = (f32_island(y_fake).mean(dim=(1, 2))
+                  - f32_island(y_real).mean(dim=(1, 2)))
+        pen = gradient_penalty(lambda x: D(x, keep=d.keep_gp), real_cat,
+                               fake_cat, d.alpha.reshape(n * B, 1),
+                               pac=cfg.pac, clients=n)
+        (grad,) = _grads([D.params], loss_d.sum(), pen.sum())
+        stack.opt_d.step(grad, active)
+        return loss_d.detach(), pen.detach()
 
 
 def _stacked_g_update(stack: StackedModels, cond: StackedCondSampler,
                       g: GDraws, active: torch.Tensor) -> torch.Tensor:
     """Every client's generator update (:func:`g_update`); returns its
     ``loss_g`` (N,)."""
-    loss_g = stacked_g_loss(stack, cond, g)
-    (grad,) = _grads([stack.generator.params], loss_g.sum())
-    stack.opt_g.step(grad, active)
-    return loss_g.detach()
+    with _span("train.step.generator"):
+        loss_g = stacked_g_loss(stack, cond, g)
+        (grad,) = _grads([stack.generator.params], loss_g.sum())
+        stack.opt_g.step(grad, active)
+        return loss_g.detach()
 
 
 def stacked_g_loss(stack: StackedModels, cond: StackedCondSampler,

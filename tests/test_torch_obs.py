@@ -178,12 +178,10 @@ def test_span_nesting_depth_and_chrome_json():
     with tr.span("outer", phase="a"):
         with tr.span("inner"):
             pass
-    tr.instant("marker", note=1)
     by_name = {e["name"]: e for e in tr.events()}
     assert by_name["inner"]["args"]["depth"] == 1
     assert by_name["outer"]["args"] == {"depth": 0, "phase": "a"}
     assert by_name["inner"]["dur"] <= by_name["outer"]["dur"]
-    assert by_name["marker"]["ph"] == "i"
     chrome = json.loads(json.dumps(tr.to_chrome()))
     assert chrome["displayTimeUnit"] == "ms"
     assert chrome["traceEvents"][0]["ph"] == "M"

@@ -65,7 +65,8 @@ def test_summarize_extracts_device_and_host_totals(tmp_path):
     # both instantiations of K1 add up under one name
     assert out["device_modules_ms"] == {
         "activate_fwd_kernel": {"total": 4.0, "count": 2}}
-    assert out["device_busy_ms"] == {"cuda:0 stream 7": 5.0}
+    assert out["device_busy_ms"] == 5.0
+    assert out["device_stream_ms"] == {"cuda:0 stream 7": 5.0}
     hot = out["host_hotspots_ms"]
     assert hot["train.aggregate.sync"] == {"total": 40.0, "count": 1}
     assert hot["cudaStreamSynchronize"] == {"total": 0.5, "count": 1}
@@ -106,6 +107,55 @@ def test_hand_written_kernels_are_always_listed(tmp_path):
     assert "gemm_9" in mods and "gemm_1" not in mods
 
 
+def test_busy_is_the_union_over_streams(tmp_path):
+    """Two streams at once count once in ``device_busy_ms``; the
+    per-stream sums stay in ``device_stream_ms``."""
+    def dev(ts, dur, stream):
+        return {"ph": "X", "cat": "kernel", "name": "void gemm<4>(int)",
+                "pid": 0, "tid": stream, "ts": ts, "dur": dur,
+                "args": {"device": 0, "stream": stream}}
+
+    _write_trace(str(tmp_path), 6, [dev(0, 3000, 7), dev(1000, 3000, 8),
+                                    dev(6000, 1000, 7)])
+    out = attribution.summarize(str(tmp_path))
+    assert out["device_busy_ms"] == 5.0
+    assert out["device_stream_ms"] == {"cuda:0 stream 7": 4.0,
+                                       "cuda:0 stream 8": 3.0}
+
+
+def test_device_time_by_the_span_that_launched_it(tmp_path):
+    """Each device event goes, through its correlation, to the innermost
+    span open on the training thread at its launch, also when autograd's
+    thread (no span) or the driver launched it."""
+    def span(name, ts, dur, tid=3):
+        return {"ph": "X", "cat": "user_annotation", "name": name,
+                "pid": 3, "tid": tid, "ts": ts, "dur": dur}
+
+    def launch(corr, ts, tid=3, cat="cuda_runtime"):
+        return {"ph": "X", "cat": cat, "name": "cudaLaunchKernel", "pid": 3,
+                "tid": tid, "ts": ts, "dur": 1,
+                "args": {"correlation": corr}}
+
+    def dev(corr, dur):
+        return {"ph": "X", "cat": "kernel", "name": f"void k{corr}(int)",
+                "pid": 0, "tid": 7, "ts": 5000 + corr, "dur": dur,
+                "args": {"device": 0, "stream": 7, "correlation": corr}}
+
+    _write_trace(str(tmp_path), 8, [
+        span("train.local_steps", 0, 1000), span("train.step", 0, 900),
+        span("train.step.critic", 100, 300), span("train.adam", 300, 50),
+        span("train.snapshot.write", 0, 5000, tid=9),
+        launch(1, 50), launch(2, 150, tid=4), launch(3, 310,
+                                                    cat="cuda_driver"),
+        launch(4, 950), launch(5, 2000),
+        dev(1, 1000), dev(2, 4000), dev(3, 2000), dev(4, 500), dev(5, 250),
+        dev(6, 125)])
+    out = attribution.summarize(str(tmp_path))
+    assert out["device_by_span_ms"] == {
+        "train.step.critic": 4.0, "train.adam": 2.0, "train.step": 1.0,
+        "train.local_steps": 0.5, "no span": 0.375}
+
+
 def test_real_cpu_trace_of_a_stacked_round(tmp_path):
     """``device_trace`` around one stacked round on the CPU: the host
     spans the round opens (local steps, the aggregation, the chunk's host
@@ -130,7 +180,8 @@ def test_real_cpu_trace_of_a_stacked_round(tmp_path):
     out = json.loads(proc.stdout)[str(tmp_path)]
     assert out["trace"] == os.path.join(str(tmp_path),
                                         f"trace_{os.getpid()}.json")
-    assert out["device_busy_ms"] == {} and out["device_modules_ms"] == {}
+    assert out["device_busy_ms"] == 0.0 and out["device_modules_ms"] == {}
+    assert out["device_stream_ms"] == {} and out["device_by_span_ms"] == {}
     hot = out["host_hotspots_ms"]
     assert hot["train.local_steps"]["count"] == 2
     assert hot["train.aggregate.sync"]["count"] == 2
